@@ -1,0 +1,80 @@
+"""The port stands alone: it imports with JAX and the JAX package blocked,
+none of its files (nor ``chip_smoke.py``) names either, and ``chip_smoke.py``
+refuses to run without a card."""
+import ast
+import os
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(REPO, "src", "repro_torch")
+BLOCKED = ("jax", "jaxlib", "repro")
+
+
+def _run(args, cwd, **env):
+    full = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"), **env)
+    return subprocess.run([sys.executable, *args], cwd=cwd, env=full, capture_output=True,
+                          text=True, timeout=120)
+
+
+def test_port_imports_with_jax_and_repro_blocked():
+    code = (
+        "import sys\n"
+        f"for m in {BLOCKED!r}: sys.modules[m] = None\n"
+        "import importlib, pkgutil, repro_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.')]\n"
+        "for n in names: importlib.import_module(n)\n"
+        "print(' '.join(sorted(names)))\n"
+    )
+    res = _run(["-c", code], cwd=REPO)
+    assert res.returncode == 0, res.stderr
+    names = set(res.stdout.split())
+    assert {
+        "repro_torch.core.dataset", "repro_torch.core.sampling", "repro_torch.core.callbacks",
+        "repro_torch.data.csr_store", "repro_torch.data.synth", "repro_torch.data.iostats",
+        "repro_torch.data.readplan", "repro_torch.kernels.ops", "repro_torch.kernels.ref",
+        "repro_torch.kernels.csr_to_dense", "repro_torch.kernels._build",
+        "repro_torch.distributed.dataio", "repro_torch.train.probe", "repro_torch.convert",
+    } <= names
+
+
+def _port_files():
+    for dirpath, _, files in os.walk(PORT):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(dirpath, f)
+    yield os.path.join(REPO, "chip_smoke.py")
+
+
+def test_no_port_file_imports_jax_or_repro():
+    offenders = []
+    for path in _port_files():
+        with open(path) as f:
+            tree = ast.parse(f.read(), filename=path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                mods = [node.module or ""]
+            else:
+                continue
+            offenders += [(path, m) for m in mods if m.split(".")[0] in BLOCKED]
+    assert offenders == []
+
+
+def test_chip_smoke_refuses_without_card_or_repo(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("on a machine with a card chip_smoke.py runs for real")
+    res = _run(["chip_smoke.py"], cwd=REPO)
+    assert res.returncode != 0
+    assert '"ok": true' not in res.stdout
+    alone = tmp_path / "chip_smoke.py"
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), alone)
+    res = subprocess.run([sys.executable, str(alone)], cwd=tmp_path, capture_output=True,
+                         text=True, timeout=120, env=dict(os.environ, PYTHONPATH=""))
+    assert res.returncode != 0
+    assert '"ok": true' not in res.stdout
