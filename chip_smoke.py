@@ -11,23 +11,26 @@ nothing of JAX or of the JAX package.  Phases, each printing one JSON line:
 2. build: every ``src/repro_torch/kernels/csrc/*.cu`` with ``nvcc`` for
    ``sm_90a``, all started together;
 3. data: a Tahoe-like dataset at Tahoe-100M's width, 62,710 genes (14
-   plates, 16,384 cells, 2,048 counts per cell, seed 0), generated under
-   ``build/chip_smoke_data`` in the checkout or reused when its manifest
-   matches;
+   plates, 65,536 cells = four fetches of 64 x 256, 2,048 counts per cell,
+   seed 0), generated under ``build/chip_smoke_data`` in the checkout or
+   reused when its manifest matches;
 4. kernel: ``ell_to_dense`` on the card against its plain PyTorch version:
    the JAX package's sweep with duplicate columns (atol 1e-6, the order in
    which duplicates add up differs) and a real batch of the path (bitwise:
    canonical CSR has no duplicates, so every output is one value or 0),
-   with CUDA-event times of the kernel, the plain version and one PyTorch
-   call of the same function; one train step on the card against the same
+   with CUDA-event times of the kernel (also at 132 and 264 rows), the
+   plain version and one PyTorch call of the same function, each over
+   back-to-back calls queued behind a sleep kernel so that the host's
+   time per call is hidden; one train step on the card against the same
    step on the CPU (loss within rtol 1e-4: float32 products summed in
    another order);
 5. main path: ``BlockShuffling(16)``, batch 64, ``fetch_factor=256``, the
-   two-deep device feed and one epoch of ``train_step`` (256 steps) through
+   two-deep device feed and one epoch of ``train_step`` (1,024 steps, four
+   fetches of 16,384 random 16-cell blocks) through
    ``train_probe``, with the kernel's launch count set to 0 just before and
    read just after;
 6. trace: 64 steps of the next epoch under ``torch.profiler``, for the
-   device's kernel time by name.
+   device's kernel time by name and ``ell_to_dense``'s own.
 
 Then the kernels line (one entry per kernel of the path), and as the last
 line ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before it.
@@ -46,13 +49,15 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
 
 N_GENES = 62_710  # Tahoe-100M's gene count: the probe's full width
-DATA = dict(n_cells=16_384, n_genes=N_GENES, n_plates=14, total_counts=2048, chunk=256, seed=0)
+DATA = dict(n_cells=65_536, n_genes=N_GENES, n_plates=14, total_counts=2048, chunk=256, seed=0)
 BATCH, FETCH_FACTOR, BLOCK = 64, 256, 16
 MIN_STEPS = 200
 # the JAX package's ELL sweep (tests/test_kernels.py): (rows, K, n_cols)
 SWEEP = [(16, 8, 64), (33, 5, 100), (8, 16, 512), (1, 1, 8)]
 SWEEP_ATOL = 1e-6
-TIMED_RUNS = 60
+TIMED_CALLS, TIMED_GROUPS = 100, 5
+SLEEP_CYCLES = 50_000_000  # ~30 ms of sleep kernel: time to queue TIMED_CALLS calls
+SWEEP_ROWS = (64, 132, 264)  # one row per block: the path's batch, one and two per SM
 TRACE_STEPS = 64
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -68,21 +73,27 @@ def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def event_ms(fn, runs: int = TIMED_RUNS, warmup: int = 5) -> float:
-    """Median over ``runs`` calls of ``fn``, each timed by CUDA events."""
+def event_ms(fn) -> float:
+    """Device ms per call of ``fn``: one CUDA-event pair around
+    ``TIMED_CALLS`` back-to-back calls, divided by their number; the median
+    of ``TIMED_GROUPS`` such groups.  A sleep kernel ahead of each group
+    holds the stream while the host queues the calls, so the host's time
+    per call does not count unless ``fn`` itself waits for the device."""
     import torch
 
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(runs):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        times.append((start, end))
+    fn()
     torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in times)
+    per_call = []
+    for _ in range(TIMED_GROUPS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start.record()
+        for _ in range(TIMED_CALLS):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        per_call.append(start.elapsed_time(end) / TIMED_CALLS)
+    return statistics.median(per_call)
 
 
 def main() -> None:
@@ -112,10 +123,8 @@ def main() -> None:
 
     # 2. build
     t0 = time.perf_counter()
-    logs = _build.build()
-    emit({"phase": "build", "seconds": time.perf_counter() - t0, "built": sorted(logs),
-          "ptxas": {k: [ln.strip() for ln in v.splitlines() if "registers" in ln or "spill" in ln]
-                    for k, v in logs.items()}})
+    built = _build.build()
+    emit({"phase": "build", "seconds": time.perf_counter() - t0, "built": built})
 
     # 3. data
     root = os.path.join(HERE, "build", "chip_smoke_data")
@@ -123,7 +132,8 @@ def main() -> None:
     generate_tahoe_like(root, **DATA)
     store = load_tahoe_like(root)
     emit({"phase": "data", "seconds": time.perf_counter() - t0, "cells": len(store),
-          "genes": store.n_var, "plates": len(store.shards)})
+          "genes": store.n_var, "plates": len(store.shards),
+          "fetches_per_epoch": math.ceil(len(store) / (BATCH * FETCH_FACTOR))})
 
     def dataset():
         return ScIterableDataset(store, BlockShuffling(BLOCK), batch_size=BATCH,
@@ -158,6 +168,11 @@ def main() -> None:
     lib_cols, lib_vals = cols[valid].long(), vals[valid]
     nnz = int(valid.sum())
     kernel_ms = event_ms(lambda: csr_to_dense.ell_to_dense(vals, cols, n_cols=N_GENES))
+    by_rows = {}  # the same rows repeated: does the time follow the bytes or the blocks?
+    for n in SWEEP_ROWS:
+        v_n = vals.repeat(-(-n // R), 1)[:n].contiguous()
+        c_n = cols.repeat(-(-n // R), 1)[:n].contiguous()
+        by_rows[n] = event_ms(lambda: csr_to_dense.ell_to_dense(v_n, c_n, n_cols=N_GENES))
     plain_ms = event_ms(lambda: ref.ell_to_dense_ref(vals, cols, N_GENES))
     library_ms = event_ms(lambda: torch.zeros((R, N_GENES), device=dev).index_put_(
         (lib_rows, lib_cols), lib_vals, accumulate=True))
@@ -169,9 +184,11 @@ def main() -> None:
               "shape": [R, K, N_GENES], "nnz": nnz,
               "max_abs_err": max(sweep_err, main_err), "sweep_max_abs_err": sweep_err,
               "path_batch_max_abs_err": main_err,
+              # "ms" and "kernel_ms" name one time: readers of the kernels line expect both
               "ms": kernel_ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
               "library_ms": library_ms, "bound_ms": max(bytes_ms, ops_ms),
-              "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "bytes": moved}
+              "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "bytes": moved,
+              "kernel_ms_by_rows": by_rows}
     emit({"phase": "kernel", **kernel})
 
     # the same train steps on the card and on the CPU, from the same heads
@@ -236,10 +253,17 @@ def main() -> None:
     on_card = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     kernel_us = sum(e.self_device_time_total for e in on_card)
     top = sorted(on_card, key=lambda e: -e.self_device_time_total)[:10]
+    mine = [e for e in on_card if "ell_to_dense" in e.key]
+    if not mine:
+        fail("the trace shows no ell_to_dense kernel on the card")
     emit({"phase": "trace", "steps": traced["steps"], "seconds": traced["seconds"],
           "loader_wait_s": traced["loader_wait_s"],
           "device_kernel_ms": kernel_us / 1e3 if on_card else None,
           "device_busy_share": kernel_us / 1e6 / traced["seconds"] if on_card else None,
+          "ell_to_dense": {"count": sum(e.count for e in mine),
+                           "device_ms": sum(e.self_device_time_total for e in mine) / 1e3,
+                           "ms_per_launch": sum(e.self_device_time_total for e in mine) / 1e3
+                           / sum(e.count for e in mine)},
           "top_kernels": [[e.key[:80], e.count, e.self_device_time_total / 1e3] for e in top]})
 
     kernel["launches"] = launches

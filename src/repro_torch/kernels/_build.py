@@ -22,7 +22,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-shared", "-Xcompiler", "-fPIC",
 )
 
 _loaded: dict[str, ctypes.CDLL] = {}  # the process's loaded libraries
@@ -41,11 +41,10 @@ def _target(name: str) -> Path:
     return BUILD_DIR / f"{name}-{digest}.so"
 
 
-def build(names: Optional[Iterable[str]] = None) -> dict[str, str]:
+def build(names: Optional[Iterable[str]] = None) -> list[str]:
     """Compile ``csrc/<name>.cu`` for each name (all sources by default)
     that is not built yet: one ``nvcc`` per source, all started together.
-    Returns each compiled source's ``nvcc`` output (ptxas's register and
-    memory report); raises if any compile fails."""
+    Returns the names compiled; raises with ``nvcc``'s output if any fails."""
     if names is None:
         names = sorted(p.stem for p in CSRC.glob("*.cu"))
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -58,16 +57,16 @@ def build(names: Optional[Iterable[str]] = None) -> dict[str, str]:
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         jobs[name] = (proc, tmp, so)
-    logs, failed = {}, []
+    failed = []
     for name, (proc, tmp, so) in jobs.items():
-        logs[name] = proc.communicate()[0]
+        log = proc.communicate()[0]
         if proc.returncode == 0:
             os.replace(tmp, so)  # atomic: a concurrent loader never sees half a file
         else:
-            failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{logs[name]}")
+            failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{log}")
     if failed:
         raise RuntimeError("CUDA build failed:\n" + "\n".join(failed))
-    return logs
+    return sorted(jobs)
 
 
 def load(name: str) -> ctypes.CDLL:
