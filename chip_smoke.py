@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's cell-training path on one CUDA card, check it,
-and time its kernel against its plain version.
+"""Drive the PyTorch port's paths on one CUDA card, check them, and time
+their kernels against their plain versions.
 
     python3 chip_smoke.py
 
@@ -10,8 +10,11 @@ nothing of JAX or of the JAX package.  Phases, each printing one JSON line:
 1. device: the card's name, count and power limit;
 2. build: every ``src/repro_torch/kernels/csrc/*.cu`` with ``nvcc`` for
    ``sm_90a``, all started together;
+
+The cell-training path (slice 1):
+
 3. data: a Tahoe-like dataset at Tahoe-100M's width, 62,710 genes (14
-   plates, 65,536 cells = four fetches of 64 x 256, 2,048 counts per cell,
+   plates, 32,768 cells = two fetches of 64 x 256, 2,048 counts per cell,
    seed 0), generated under ``build/chip_smoke_data`` in the checkout or
    reused when its manifest matches;
 4. kernel: ``ell_to_dense`` on the card against its plain PyTorch version:
@@ -25,18 +28,46 @@ nothing of JAX or of the JAX package.  Phases, each printing one JSON line:
    step on the CPU (loss within rtol 1e-4: float32 products summed in
    another order);
 5. main path: ``BlockShuffling(16)``, batch 64, ``fetch_factor=256``, the
-   two-deep device feed and one epoch of ``train_step`` (1,024 steps, four
+   two-deep device feed and one epoch of ``train_step`` (512 steps, two
    fetches of 16,384 random 16-cell blocks) through
    ``train_probe``, with the kernel's launch count set to 0 just before and
    read just after;
 6. trace: 64 steps of the next epoch under ``torch.profiler``, for the
    device's kernel time by name and ``ell_to_dense``'s own.
 
-Then the kernels line (one entry per kernel of the path), and as the last
-line ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before it.
+LM serving (slice 2), smollm-360m at its full width and depth (32 layers,
+d_model 960, 15 query heads over 5 kv heads of 64, vocab 49,152):
+
+7. flash_kernel: ``flash_attention`` on the card against its plain
+   version: the JAX package's sweep (four shapes x causal / window 48 /
+   non-causal) in bf16 (atol 3e-2: outputs are means of N(0, 1) values,
+   under 4 in magnitude, where a bf16 ulp is 2**-6 and the P.V sums round
+   in another order) and float32 (atol 3e-5, TF32 off: summation order), the ``q_offset=200`` decode tile, and
+   the prefill's shape, q (8, 15, 512, 64) and k/v (8, 5, 512, 64) bf16 as
+   the strided (B, S, H, D) views the model passes; event times of the
+   kernel, the plain version and ``scaled_dot_product_attention`` there;
+8. lm_vs_cpu: float32 weights drawn once from a seeded generator and
+   copied to the card; a 64-token prefill and 8 decode steps on the card
+   and on the CPU: logits within rtol 1e-3 / atol 1e-3 (float32 sums in
+   another order over 32 layers), greedy tokens equal except across ties;
+9. serve (the main path): ``serve_batch`` in bf16, batch 8, 512-token
+   prompts, 64 generated tokens, with the kernel's launch count set to 0
+   just before and read just after (32 per prefill); time to first token,
+   decode ms per step, tokens/s, peak memory; then one prefill under
+   ``torch.profiler`` for the kernel's own device time per launch;
+10. batching: ``SlotBatcher`` in float32, 16 requests over 4 slots (prompts
+   of 64-512 tokens, 16-64 new tokens, numpy seed 0, max_len 1024); every
+   request's tokens equal a standalone batch-1 serve of its prompt except
+   across ties.
+
+Then the kernels line (one entry per kernel), the card's name and power
+limit, and as the last line ``{"ok": true, "device": {...}}``.  Any failure
+exits non-zero before it.
 """
 from __future__ import annotations
 
+import copy
+import dataclasses
 import json
 import math
 import os
@@ -49,7 +80,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
 
 N_GENES = 62_710  # Tahoe-100M's gene count: the probe's full width
-DATA = dict(n_cells=65_536, n_genes=N_GENES, n_plates=14, total_counts=2048, chunk=256, seed=0)
+DATA = dict(n_cells=32_768, n_genes=N_GENES, n_plates=14, total_counts=2048, chunk=256, seed=0)
 BATCH, FETCH_FACTOR, BLOCK = 64, 256, 16
 MIN_STEPS = 200
 # the JAX package's ELL sweep (tests/test_kernels.py): (rows, K, n_cols)
@@ -62,6 +93,21 @@ TRACE_STEPS = 64
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
+# LM serving
+ARCH = "smollm-360m"
+FA_SWEEP = [(1, 2, 2, 64, 64, 16), (2, 4, 2, 128, 128, 32), (1, 8, 1, 96, 160, 64),
+            (2, 2, 1, 64, 128, 32)]  # the JAX package's (B, H, Hkv, S, T, D)
+FA_MASKS = [(True, None), (True, 48), (False, None)]
+FA_ATOL = {"float32": 3e-5, "bfloat16": 3e-2}
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 8, 512, 64
+CPU_PROMPT, CPU_DECODE, CPU_RTOL, CPU_ATOL = 64, 8, 1e-3, 1e-3
+# greedy tokens may differ only where two logits of a step lie this close:
+# float32 sums in another order (batch of 4 vs 1, card vs CPU)
+TIE_F32 = 1e-3
+BATCH_SLOTS, BATCH_REQUESTS, BATCH_MAX_LEN = 4, 16, 1024
+BATCH_PROMPT_LENS, BATCH_NEW = (64, 512), (16, 64)  # inclusive ranges drawn from
+FULL_WIDTH = (32, 960, 15, 5, 64)  # layers, d_model, heads, kv heads, head_dim
 
 
 def fail(msg: str) -> None:
@@ -125,6 +171,9 @@ def main() -> None:
     t0 = time.perf_counter()
     built = _build.build()
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "built": built})
+
+    lm_kernel = lm_phases(dev)
+    torch.cuda.empty_cache()
 
     # 3. data
     root = os.path.join(HERE, "build", "chip_smoke_data")
@@ -232,7 +281,8 @@ def main() -> None:
         fail(f"loss did not fall: first 20 steps {first}, last 20 {last}")
     stream_ms = sorted(run["step_stream_ms"])
     emit({"phase": "main_path", "steps": steps, "batch": BATCH, "fetch_factor": FETCH_FACTOR,
-          "block_size": BLOCK, "genes": N_GENES, "cells": len(store), "cut": None,
+          "block_size": BLOCK, "genes": N_GENES, "cells": len(store),
+          "cut": "32,768 cells (two fetches per epoch), not 65,536, to leave time for LM serving",
           "ell_to_dense_launches": launches, "seconds": run["seconds"],
           "samples_per_s": steps * BATCH / run["seconds"],
           "step_ms_mean": run["seconds"] / steps * 1e3,
@@ -267,11 +317,238 @@ def main() -> None:
           "top_kernels": [[e.key[:80], e.count, e.self_device_time_total / 1e3] for e in top]})
 
     kernel["launches"] = launches
-    emit({"kernels": [{k: kernel[k] for k in (
-        "name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-        "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")}]})
+    emit({"kernels": [{k: kernel[k] for k in KERNEL_KEYS}, lm_kernel]})
+    print(smi)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
+
+
+KERNEL_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+               "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
+
+
+def _greedy_standalone(model, lm, prompt, max_new: int, max_len: int, dev):
+    """Greedy continuation of one prompt at batch 1, and each step's logits."""
+    import torch
+
+    cache = model.init_cache(1, max_len, device=dev)
+    tokens = torch.as_tensor(prompt[None], dtype=torch.int64, device=dev)
+    logits, cache = model.prefill(lm, {"tokens": tokens}, cache)
+    toks, lgs = [int(logits[0].argmax())], [logits[0].float().cpu()]
+    while len(toks) < max_new:
+        logits, cache = model.decode(lm, torch.tensor([toks[-1]], device=dev), cache,
+                                     len(prompt) + len(toks) - 1)
+        toks.append(int(logits[0].argmax()))
+        lgs.append(logits[0].float().cpu())
+    return toks, lgs
+
+
+def _tie_diverged(got, want, lgs, tie: float):
+    """None if ``got`` equals ``want``; else the first step where they
+    differ, with the gap between the two tokens' logits there, which must
+    be under ``tie`` (after an exact tie the rest is not compared)."""
+    for j, (g, w) in enumerate(zip(got, want)):
+        if g != w:
+            gap = abs(float(lgs[j][g]) - float(lgs[j][w]))
+            if not gap < tie:
+                fail(f"greedy tokens differ at step {j} ({g} vs {w}) with a logit gap {gap} >= {tie}")
+            return {"step": j, "gap": gap}
+    if len(got) != len(want):
+        fail(f"sequences of {len(got)} and {len(want)} tokens")
+    return None
+
+
+def lm_phases(dev) -> dict:
+    """Phases 7-10, LM serving at smollm-360m's full width; returns the
+    kernels-line entry of ``flash_attention``."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.models import Model
+    from repro_torch.serve.scheduler import SlotBatcher
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 checks in full float32
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config(ARCH)
+    if (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+            cfg.resolved_head_dim) != FULL_WIDTH:
+        fail(f"{ARCH} is not at its published width: {cfg}")
+
+    # 7. the kernel against its plain version
+    gen = torch.Generator().manual_seed(0)
+    errs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        worst = 0.0
+        for B, H, Hkv, S, T, D in FA_SWEEP:
+            q = torch.randn((B, H, S, D), generator=gen).to(dev, dtype)
+            k = torch.randn((B, Hkv, T, D), generator=gen).to(dev, dtype)
+            v = torch.randn((B, Hkv, T, D), generator=gen).to(dev, dtype)
+            for causal, window in FA_MASKS:
+                got = fa.flash_attention(q, k, v, causal=causal, window=window)
+                want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+                worst = max(worst, (got.float() - want.float()).abs().max().item())
+        q = torch.randn((1, 2, 8, 32), generator=gen).to(dev, dtype)
+        k = torch.randn((1, 2, 256, 32), generator=gen).to(dev, dtype)
+        v = torch.randn((1, 2, 256, 32), generator=gen).to(dev, dtype)
+        got = fa.flash_attention(q, k, v, causal=True, q_offset=200)
+        want = ref.flash_attention_ref(q, k, v, causal=True, q_offset=200)
+        worst = max(worst, (got.float() - want.float()).abs().max().item())
+        name = str(dtype).removeprefix("torch.")
+        errs[name] = worst
+        if not worst <= FA_ATOL[name]:
+            fail(f"flash_attention disagrees with its plain version in {name}: {worst} > {FA_ATOL[name]}")
+
+    # the prefill's shape, as the strided (B, S, H, D) views the model passes
+    B, S, H, Hkv, D = SERVE_BATCH, SERVE_PROMPT, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    qs = torch.randn((B, S, H, D), generator=gen).to(dev, torch.bfloat16)
+    ks = torch.randn((B, S, Hkv, D), generator=gen).to(dev, torch.bfloat16)
+    vs = torch.randn((B, S, Hkv, D), generator=gen).to(dev, torch.bfloat16)
+    q, k, v = qs.transpose(1, 2), ks.transpose(1, 2), vs.transpose(1, 2)
+    got = fa.flash_attention(q, k, v, causal=True)
+    want = ref.flash_attention_ref(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    path_err = (got.float() - want.float()).abs().max().item()
+    if not path_err <= FA_ATOL["bfloat16"]:
+        fail(f"flash_attention disagrees with its plain version at the prefill shape: {path_err}")
+    kernel_ms = event_ms(lambda: fa.flash_attention(q, k, v, causal=True))
+    plain_ms = event_ms(lambda: ref.flash_attention_ref(q, k, v, causal=True))
+    library_ms = event_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                                   enable_gqa=True))
+    pairs = S * (S + 1) // 2  # (query, key) pairs the causal mask keeps, per head
+    moved = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()  # q, k, v read; o written
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = 4 * B * H * D * pairs / BF16_FLOP_PER_S * 1e3
+    kernel = {"name": "flash_attention", "route": "cuda",
+              "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+              "replaces": "src/repro/kernels/flash_attention.py:86",
+              "shape": [B, H, Hkv, S, S, D], "dtype": "bfloat16",
+              "max_abs_err": max(path_err, *errs.values()), "sweep_max_abs_err": errs,
+              "path_shape_max_abs_err": path_err,
+              "ms": kernel_ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+              "library_ms": library_ms, "library": "scaled_dot_product_attention",
+              "bound_ms": max(bytes_ms, ops_ms),
+              "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+              "bytes": moved, "flop": 4 * B * H * D * pairs}
+    emit({"phase": "flash_kernel", **kernel})
+    del q, k, v, qs, ks, vs, got, want
+
+    # 8. the card against the CPU at full width in float32
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
+    model32 = Model(cfg32)
+    lm_cpu = model32.init(generator=torch.Generator().manual_seed(1), device="cpu")
+    lm32 = copy.deepcopy(lm_cpu).to(dev)
+    rng = np.random.default_rng(0)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, CPU_PROMPT)))
+    max_len = CPU_PROMPT + CPU_DECODE
+    caches = {"cpu": model32.init_cache(1, max_len, device="cpu"),
+              "card": model32.init_cache(1, max_len, device=dev)}
+    want, _ = model32.prefill(lm_cpu, {"tokens": prompt}, caches["cpu"])
+    got, _ = model32.prefill(lm32, {"tokens": prompt.to(dev)}, caches["card"])
+    steps = [(got.cpu(), want)]
+    tok = want.argmax(-1)  # both sides decode the CPU's greedy tokens
+    for i in range(CPU_DECODE):
+        want, _ = model32.decode(lm_cpu, tok, caches["cpu"], CPU_PROMPT + i)
+        got, _ = model32.decode(lm32, tok.to(dev), caches["card"], CPU_PROMPT + i)
+        steps.append((got.cpu(), want))
+        tok = want.argmax(-1)
+    cpu_err, ties = 0.0, 0
+    for g, w in steps:
+        if not bool(torch.isfinite(g).all()):
+            fail("non-finite logits on the card")
+        if not torch.allclose(g, w, rtol=CPU_RTOL, atol=CPU_ATOL):
+            fail(f"card and CPU logits disagree: max err {(g - w).abs().max().item()}")
+        cpu_err = max(cpu_err, (g - w).abs().max().item())
+        gt, wt = int(g[0].argmax()), int(w[0].argmax())
+        if gt != wt:
+            if not abs(float(w[0, gt]) - float(w[0, wt])) < TIE_F32:
+                fail(f"greedy tokens differ off a tie: card {gt}, CPU {wt}")
+            ties += 1
+    emit({"phase": "lm_vs_cpu", "arch": ARCH, "layers": cfg.num_layers, "dtype": "float32",
+          "prompt": CPU_PROMPT, "decode_steps": CPU_DECODE, "max_abs_err": cpu_err,
+          "max_abs_logit": max(w.abs().max().item() for _, w in steps),
+          "rtol": CPU_RTOL, "atol": CPU_ATOL, "greedy_ties": ties})
+    del lm_cpu, caches
+
+    # 9. the main path: serve_batch at full width in bf16
+    model = Model(cfg)
+    params = model.init(generator=torch.Generator().manual_seed(0), device=dev)
+    prompts = rng.integers(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT)).astype(np.int32)
+    # a warm-up serve at the same shapes: the caching allocator's first
+    # cudaMallocs and cuBLAS's first choice of algorithms stay out of the times
+    serve_batch(model, prompts, SERVE_GEN, params=params, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    timings = {}
+    fa.flash_attention.launches = 0
+    toks = serve_batch(model, prompts, SERVE_GEN, params=params, device=dev, timings=timings)
+    launches = fa.flash_attention.launches
+    if launches != cfg.num_layers:
+        fail(f"flash_attention launched {launches} times in one prefill of {cfg.num_layers} layers")
+    if toks.shape != (SERVE_BATCH, SERVE_GEN) or not ((toks >= 0) & (toks < cfg.vocab_size)).all():
+        fail(f"serve_batch gave tokens of shape {toks.shape} outside the vocabulary")
+    peak = torch.cuda.max_memory_allocated(dev)
+    decode_ms = timings["decode_s"] / timings["decode_steps"] * 1e3
+
+    cache = model.init_cache(SERVE_BATCH, SERVE_PROMPT + SERVE_GEN, device=dev)
+    batch = {"tokens": torch.from_numpy(prompts.astype(np.int64)).to(dev)}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        model.prefill(params, batch, cache)
+        torch.cuda.synchronize()
+    on_card = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    mine = [e for e in on_card if "flash_fwd" in e.key]
+    if not mine:
+        fail("the trace shows no flash_attention kernel on the card")
+    prefill_kernel_ms = sum(e.self_device_time_total for e in on_card) / 1e3
+    fa_ms = sum(e.self_device_time_total for e in mine) / 1e3
+    fa_n = sum(e.count for e in mine)
+    top = sorted(on_card, key=lambda e: -e.self_device_time_total)[:8]
+    emit({"phase": "serve", "arch": ARCH, "layers": cfg.num_layers, "d_model": cfg.d_model,
+          "dtype": cfg.compute_dtype, "batch": SERVE_BATCH, "prompt": SERVE_PROMPT,
+          "gen": SERVE_GEN, "prefill_ms": timings["prefill_s"] * 1e3,
+          "decode_ms_per_step": decode_ms,
+          "decode_tokens_per_s": SERVE_BATCH * timings["decode_steps"] / timings["decode_s"],
+          "peak_device_mem_gb": peak / 1e9, "flash_attention_launches": launches,
+          "prefills": 1, "traced_prefill_device_kernel_ms": prefill_kernel_ms,
+          "flash_attention_trace": {"count": fa_n, "device_ms": fa_ms, "ms_per_launch": fa_ms / fa_n,
+                                    "share_of_prefill_kernel_time": fa_ms / prefill_kernel_ms},
+          "top_kernels": [[e.key[:80], e.count, e.self_device_time_total / 1e3] for e in top]})
+    kernel["launches"] = launches
+    kernel["trace_ms_per_launch"] = fa_ms / fa_n
+    del params, cache
+
+    # 10. continuous batching at full width in float32
+    brng = np.random.default_rng(0)
+    lens = brng.integers(BATCH_PROMPT_LENS[0], BATCH_PROMPT_LENS[1] + 1, BATCH_REQUESTS)
+    max_new = brng.integers(BATCH_NEW[0], BATCH_NEW[1] + 1, BATCH_REQUESTS)
+    prompts = [brng.integers(0, cfg.vocab_size, int(n)).astype(np.int32) for n in lens]
+    batcher = SlotBatcher(model32, lm32, batch_slots=BATCH_SLOTS, max_len=BATCH_MAX_LEN)
+    for p, m in zip(prompts, max_new):
+        batcher.submit(p, int(m))
+    t0 = time.perf_counter()
+    done = batcher.run()
+    batch_s = time.perf_counter() - t0
+    if [r.rid for r in done] != list(range(BATCH_REQUESTS)) or not all(r.done for r in done):
+        fail(f"the batcher completed {[r.rid for r in done]}")
+    diverged = []
+    for req, p, m in zip(done, prompts, max_new):
+        want, lgs = _greedy_standalone(model32, lm32, p, int(m), BATCH_MAX_LEN, dev)
+        tie = _tie_diverged(req.out, want, lgs, TIE_F32)
+        if tie is not None:
+            diverged.append({"rid": req.rid, **tie})
+    emit({"phase": "batching", "dtype": "float32", "slots": BATCH_SLOTS,
+          "requests": BATCH_REQUESTS, "max_len": BATCH_MAX_LEN,
+          "prompt_lens": lens.tolist(), "max_new": max_new.tolist(),
+          "tokens": int(sum(len(r.out) for r in done)), "cursor_end": batcher.pos,
+          "seconds": batch_s, "ties": diverged})
+    del lm32, batcher
+    return {k: kernel[k] for k in (*KERNEL_KEYS, "dtype", "library", "trace_ms_per_launch")}
 
 
 if __name__ == "__main__":

@@ -1,0 +1,38 @@
+"""Architecture registry of the port: ``get_config(name)`` gives the full
+published config, ``smoke_config(name)`` a reduced same-family config for
+CPU tests.  ``ARCHS`` lists the ids the port serves; an id of the JAX
+package's registry that is not ported yet raises ``KeyError`` naming the
+``ROADMAP.md`` item that ports its family.
+"""
+from __future__ import annotations
+
+import importlib
+
+__all__ = ["ARCHS", "get_config", "smoke_config"]
+
+ARCHS = ["smollm-360m"]
+
+_MODULES = {"smollm-360m": "smollm_360m"}
+
+# the JAX package's other ids: their families are not ported yet
+_NOT_PORTED = (
+    "internvl2-26b", "jamba-1.5-large-398b", "falcon-mamba-7b", "mixtral-8x7b",
+    "phi3.5-moe-42b-a6.6b", "gemma-7b", "phi3-medium-14b", "h2o-danube-3-4b",
+    "whisper-large-v3",
+)
+
+
+def _mod(name: str):
+    if name in _NOT_PORTED:
+        raise KeyError(f"arch {name!r} is not ported yet (ROADMAP.md queue A #10)")
+    if name not in _MODULES:
+        raise KeyError(f"unknown arch {name!r}; choose from {ARCHS}")
+    return importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
+
+
+def get_config(name: str):
+    return _mod(name).config()
+
+
+def smoke_config(name: str):
+    return _mod(name).smoke_config()

@@ -1,5 +1,9 @@
 """Parameters and optimizer state of the JAX package, as the port's.
 
+The LM: ``repro``'s params tree (numpy leaves, blocks stacked on a leading
+layer axis) becomes the port's :class:`~repro_torch.models.transformer.LM`,
+one block per layer, each weight in its own layout (:func:`lm_from_jax`).
+
 The JAX probe keeps its heads as ``{task: {"w": (n_genes, classes), "b":
 (classes,)}}`` and Adam's state as ``{"m": heads-tree, "v": heads-tree,
 "count": int}``.  Passed as numpy arrays, they become a
@@ -14,13 +18,22 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from .models.config import ModelConfig
+from .models.transformer import LM, Block, check_family
 from .train.probe import TASKS, AdamState, LinearHead, ProbeHeads
 
-__all__ = ["heads_from_jax", "adam_from_jax"]
+__all__ = ["heads_from_jax", "adam_from_jax", "lm_from_jax"]
 
 
-def _f32(a, device) -> torch.Tensor:
-    return torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
+def _tensor(a, dtype: torch.dtype, device) -> torch.Tensor:
+    """A numpy leaf (float32, or ``ml_dtypes`` bfloat16 as JAX gives it)
+    as a tensor of ``dtype`` on ``device``."""
+    a = np.ascontiguousarray(a)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a, dtype=np.float32))
+    return t.to(device=device, dtype=dtype)
 
 
 def _check_tree(tree: Mapping, what: str) -> None:
@@ -36,7 +49,8 @@ def heads_from_jax(heads_np: Mapping, *, device="cuda") -> ProbeHeads:
     """``{task: {"w", "b"}}`` numpy arrays -> :class:`ProbeHeads` on ``device``."""
     _check_tree(heads_np, "heads")
     return ProbeHeads({
-        t: LinearHead(_f32(heads_np[t]["w"], device), _f32(heads_np[t]["b"], device))
+        t: LinearHead(_tensor(heads_np[t]["w"], torch.float32, device),
+                      _tensor(heads_np[t]["b"], torch.float32, device))
         for t in TASKS
     })
 
@@ -48,6 +62,63 @@ def adam_from_jax(opt_np: Mapping, *, device="cuda") -> AdamState:
     for key in ("m", "v"):
         _check_tree(opt_np[key], key)
         moments[key] = {
-            f"heads.{t}.{p}": _f32(opt_np[key][t][p], device) for t in TASKS for p in ("w", "b")
+            f"heads.{t}.{p}": _tensor(opt_np[key][t][p], torch.float32, device)
+            for t in TASKS for p in ("w", "b")
         }
     return AdamState(m=moments["m"], v=moments["v"], count=int(opt_np["count"]))
+
+
+def _expect(tree: Mapping, shapes: dict, where: str) -> None:
+    if not isinstance(tree, Mapping) or set(tree) != set(shapes):
+        got = sorted(tree) if isinstance(tree, Mapping) else type(tree).__name__
+        raise ValueError(f"{where}: need keys {sorted(shapes)}, got {got}")
+    for k, shape in shapes.items():
+        if isinstance(shape, dict):
+            _expect(tree[k], shape, f"{where}/{k}")
+        elif tuple(np.shape(tree[k])) != shape:
+            raise ValueError(f"{where}/{k}: need shape {shape}, got {tuple(np.shape(tree[k]))}")
+
+
+def lm_from_jax(params_np: Mapping, cfg: ModelConfig, *, device="cuda") -> LM:
+    """``repro``'s dense-LM params tree as numpy arrays -> the port's LM.
+
+    The tree is ``embed`` (vocab, d), ``lm_head`` (d, vocab) unless the
+    embeddings are tied, ``final_norm``, and ``blocks/sub_0`` with
+    ``norm1``, ``attn`` {wq, wk, wv, wo}, ``norm2`` and ``mlp`` {w_in,
+    w_gate, w_out}, each stacked (layers, ...).  Each layer becomes one
+    block; each weight keeps its layout (``wq`` stays (d, heads,
+    head_dim)) and takes ``cfg.param_dtype``, the norms float32.  Raises
+    ``ValueError`` on a missing or extra key or a wrong shape.
+    """
+    check_family(cfg)
+    L, d, hq, hkv, hd = (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                         cfg.resolved_head_dim)
+    norm = {"scale": (d,)} if cfg.norm == "rmsnorm" else {"scale": (d,), "bias": (d,)}
+    stacked_norm = {k: (L, *s) for k, s in norm.items()}
+    mlp = {"w_in": (L, d, cfg.d_ff), "w_out": (L, cfg.d_ff, d)}
+    if cfg.act in ("swiglu", "geglu"):
+        mlp["w_gate"] = (L, d, cfg.d_ff)
+    shapes = {
+        "embed": (cfg.vocab_size, d),
+        "final_norm": norm,
+        "blocks": {"sub_0": {
+            "norm1": stacked_norm, "norm2": stacked_norm, "mlp": mlp,
+            "attn": {"wq": (L, d, hq, hd), "wk": (L, d, hkv, hd), "wv": (L, d, hkv, hd),
+                     "wo": (L, hq, hd, d)},
+        }},
+    }
+    if not cfg.tie_embeddings:
+        shapes["lm_head"] = (d, cfg.vocab_size)
+    _expect(params_np, shapes, "params")
+
+    wdt = getattr(torch, cfg.param_dtype)
+    sub = params_np["blocks"]["sub_0"]
+
+    def layer(group: str, i: int, dtype: torch.dtype) -> dict:
+        return {k: _tensor(np.asarray(a)[i], dtype, device) for k, a in sub[group].items()}
+
+    blocks = [Block(layer("norm1", i, torch.float32), layer("attn", i, wdt),
+                    layer("norm2", i, torch.float32), layer("mlp", i, wdt)) for i in range(L)]
+    final_norm = {k: _tensor(a, torch.float32, device) for k, a in params_np["final_norm"].items()}
+    lm_head = None if cfg.tie_embeddings else _tensor(params_np["lm_head"], wdt, device)
+    return LM(cfg, _tensor(params_np["embed"], wdt, device), final_norm, blocks, lm_head)

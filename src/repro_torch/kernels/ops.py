@@ -3,12 +3,15 @@ Hopper kernel, a CPU tensor to the plain PyTorch version.  Nothing falls
 back: a failed launch raises."""
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from . import ref
 from .csr_to_dense import ell_to_dense as _ell_to_dense_kernel
+from .flash_attention import flash_attention as _flash_attention_kernel
 
-__all__ = ["ell_to_dense"]
+__all__ = ["ell_to_dense", "flash_attention"]
 
 
 def ell_to_dense(vals: torch.Tensor, cols: torch.Tensor, *, n_cols: int) -> torch.Tensor:
@@ -18,3 +21,14 @@ def ell_to_dense(vals: torch.Tensor, cols: torch.Tensor, *, n_cols: int) -> torc
     if vals.device.type == "cpu":
         return ref.ell_to_dense_ref(vals, cols, n_cols)
     raise ValueError(f"no ell_to_dense for tensors on {vals.device}")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
+                    window: Optional[int] = None, q_offset: int = 0) -> torch.Tensor:
+    """(B, H, S, D) attention over (B, Hkv, T, D) keys and values; see
+    :func:`.ref.flash_attention_ref`."""
+    if q.device.type == "cuda":
+        return _flash_attention_kernel(q, k, v, causal=causal, window=window, q_offset=q_offset)
+    if q.device.type == "cpu":
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window, q_offset=q_offset)
+    raise ValueError(f"no flash_attention for tensors on {q.device}")

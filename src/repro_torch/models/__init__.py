@@ -1,0 +1,12 @@
+"""The port's model zoo: the dense decoder-only LM so far."""
+from .api import Model
+from .config import ModelConfig, MoEConfig, SSMConfig, active_param_count, param_count
+
+__all__ = [
+    "Model",
+    "ModelConfig",
+    "MoEConfig",
+    "SSMConfig",
+    "param_count",
+    "active_param_count",
+]

@@ -1,0 +1,151 @@
+"""Shared neural building blocks: the port of ``repro.models.layers``.
+
+Plain PyTorch with the JAX package's float32 upcasts (norms, RoPE and
+softmax in float32, results cast back to the input type) and its weight
+layouts (``wq`` (d, heads, head_dim), ``w_in`` (d, d_ff), ...).
+Attention goes through :func:`repro_torch.kernels.ops.flash_attention`:
+on the card the Hopper kernel, on the CPU its plain version.  The logical
+sharding annotations of the reference (``constrain_act``, axes trees) have
+no counterpart here: the port runs on one device.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels import ops
+
+__all__ = [
+    "rmsnorm",
+    "layernorm",
+    "apply_norm",
+    "rope_freqs",
+    "rope_tables",
+    "apply_rope",
+    "apply_rope_tables",
+    "attention",
+    "mlp_apply",
+    "silu",
+    "gelu",
+    "einsum",
+]
+
+
+def einsum(eq: str, *xs: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum`` after promoting the operands to one type, as
+    ``jnp.einsum`` does (torch refuses mixed types)."""
+    dt = xs[0].dtype
+    for x in xs[1:]:
+        dt = torch.promote_types(dt, x.dtype)
+    return torch.einsum(eq, *(x.to(dt) for x in xs))
+
+
+# ----------------------------------------------------------------- norms
+def rmsnorm(x: torch.Tensor, p: dict, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * p["scale"].float()).to(x.dtype)
+
+
+def layernorm(x: torch.Tensor, p: dict, eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, unbiased=False)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    y = y * p["scale"].float() + p["bias"].float()
+    return y.to(x.dtype)
+
+
+def apply_norm(x: torch.Tensor, p: dict, kind: str) -> torch.Tensor:
+    return rmsnorm(x, p) if kind == "rmsnorm" else layernorm(x, p)
+
+
+# ----------------------------------------------------------------- activations
+def silu(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(x)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x, approximate="tanh")
+
+
+_ACTS = {"swiglu": silu, "geglu": gelu}
+
+
+# ----------------------------------------------------------------- RoPE
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (float(theta) ** exps)  # float32 pow on the device: no host copy
+
+
+def rope_tables(positions: torch.Tensor, head_dim: int, theta: float):
+    """(sin, cos), each (..., S, 1, D/2) in float32, for positions (..., S):
+    computed once and shared by every layer's q and k."""
+    inv = rope_freqs(head_dim, theta, device=positions.device)  # (D/2,)
+    ang = positions[..., None].float() * inv  # (..., S, D/2)
+    return torch.sin(ang)[..., None, :], torch.cos(ang)[..., None, :]  # broadcast over heads
+
+
+def apply_rope_tables(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor) -> torch.Tensor:
+    x1, x2 = x.float().chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., S, H, D); positions: broadcastable to (..., S)."""
+    return apply_rope_tables(x, *rope_tables(positions, x.shape[-1], theta))
+
+
+# ----------------------------------------------------------------- attention
+def _expand_kv(k: torch.Tensor, num_q_heads: int) -> torch.Tensor:
+    """(B,T,Hkv,D) -> (B,T,Hq,D) by repeating each kv head G times."""
+    hkv = k.shape[2]
+    if hkv == num_q_heads:
+        return k
+    head_map = torch.arange(num_q_heads, device=k.device) // (num_q_heads // hkv)
+    return k.index_select(2, head_map)
+
+
+def attention(
+    q: torch.Tensor,  # (B, S, Hq, D)
+    k: torch.Tensor,  # (B, T, Hkv, D)
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    q_offset: int = 0,
+) -> torch.Tensor:
+    """Full-softmax attention (float32 softmax, GQA), (B, S, Hq, D) out.
+
+    It stands in for all three of the reference's prefill branches
+    (``attention``, ``local_attention`` for a window under S/2 and
+    ``chunked_attention`` past 4,096 tokens), which compute one function:
+    the kernel skips the tiles a window leaves empty and streams long S
+    itself.  The (B, H, S, D) views it passes are strided, not copies.
+    """
+    o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                            causal=causal, window=window, q_offset=q_offset)
+    return o.transpose(1, 2)
+
+
+# ----------------------------------------------------------------- MLP
+def mlp_apply(p: dict, x: torch.Tensor, act: str) -> torch.Tensor:
+    if "w_gate" in p:
+        h = einsum("...d,df->...f", x, p["w_in"])
+        g = _ACTS[act](einsum("...d,df->...f", x, p["w_gate"]))
+        return einsum("...f,fd->...d", h * g, p["w_out"])
+    h = gelu(einsum("...d,df->...f", x, p["w_in"]))
+    return einsum("...f,fd->...d", h, p["w_out"])
+
+
+def dense_init(shape: tuple, dtype: torch.dtype, generator: torch.Generator, device,
+               scale: Optional[float] = None) -> torch.Tensor:
+    """Weight of ``shape``: N(0, 1) drawn in float32 on the generator's
+    device, times ``scale`` (default 1/sqrt(shape[0]), the fan-in)."""
+    s = scale if scale is not None else 1.0 / math.sqrt(shape[0])
+    w = torch.randn(shape, generator=generator, dtype=torch.float32, device=generator.device)
+    return (w * s).to(device=device, dtype=dtype)

@@ -1,0 +1,314 @@
+"""Decoder-only LM, dense family: the port of ``repro.models.transformer``.
+
+The model is an ``nn.Module`` with one submodule per layer (the reference
+stacks the layers and scans them); the weights keep the reference's
+layouts and initial scales.  Three entry points, as in the reference:
+
+  forward_lm  -- full-sequence causal logits (no loss or backward here)
+  prefill_lm  -- fill a KV cache from a prompt, last-position logits
+  decode_lm   -- one token against the cache
+
+Prefill attention runs through :func:`.layers.attention`, so on the card
+it is the Hopper flash-attention kernel.  Decode attention is plain tensor
+code (float32 scores and softmax), as it is plain jnp in the reference:
+the kernel has no per-slot ``start`` mask.  The cache is updated in place.
+
+Dropped from the reference: the sharding annotations (``constrain_act``),
+the one-hot embedding under a sharding context (a gather always), remat,
+and every family but ``dense``: ``moe``, ``ssm``, ``hybrid`` and ``vlm``
+raise ``NotImplementedError`` (ROADMAP.md queue A #10).
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .config import ModelConfig
+from .layers import (
+    _expand_kv,
+    apply_norm,
+    apply_rope_tables,
+    attention,
+    dense_init,
+    einsum,
+    mlp_apply,
+    rope_tables,
+)
+
+__all__ = [
+    "LM",
+    "Block",
+    "init_lm",
+    "forward_lm",
+    "init_cache",
+    "prefill_lm",
+    "decode_lm",
+    "check_family",
+]
+
+
+def check_family(cfg: ModelConfig) -> None:
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family!r} family is not ported yet (ROADMAP.md queue A #10)"
+        )
+
+
+def _param(t: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=False)  # serving only: no autograd
+
+
+def _dtype(name: str) -> torch.dtype:
+    return getattr(torch, name)
+
+
+class _Params(nn.Module):
+    """A module whose parameters are read as a dict, as the reference's
+    functions take them."""
+
+    def __init__(self, **tensors: torch.Tensor):
+        super().__init__()
+        for name, t in tensors.items():
+            setattr(self, name, _param(t))
+
+    @property
+    def p(self) -> dict:
+        return dict(self.named_parameters())
+
+
+class Block(nn.Module):
+    """One layer: ``norm1``, ``attn`` (wq wk wv wo), ``norm2``, ``mlp``."""
+
+    def __init__(self, norm1: dict, attn: dict, norm2: dict, mlp: dict):
+        super().__init__()
+        self.norm1 = _Params(**norm1)
+        self.attn = _Params(**attn)
+        self.norm2 = _Params(**norm2)
+        self.mlp = _Params(**mlp)
+
+
+class LM(nn.Module):
+    """``embed`` (vocab, d), ``lm_head`` (d, vocab) unless tied,
+    ``final_norm`` and ``blocks``, one :class:`Block` per layer."""
+
+    def __init__(self, cfg: ModelConfig, embed: torch.Tensor, final_norm: dict,
+                 blocks: list[Block], lm_head: Optional[torch.Tensor] = None):
+        super().__init__()
+        check_family(cfg)
+        if len(blocks) != cfg.num_layers:
+            raise ValueError(f"{cfg.name}: {cfg.num_layers} layers, got {len(blocks)} blocks")
+        if (lm_head is None) != cfg.tie_embeddings:
+            raise ValueError(f"{cfg.name}: lm_head must be given iff embeddings are not tied")
+        self.cfg = cfg
+        self.embed = _param(embed)
+        self.lm_head = None if lm_head is None else _param(lm_head)
+        self.final_norm = _Params(**final_norm)
+        self.blocks = nn.ModuleList(blocks)
+
+
+# ===================================================================== init
+def _norm_init(d: int, kind: str, device) -> dict:
+    p = {"scale": torch.ones(d, dtype=torch.float32, device=device)}
+    if kind != "rmsnorm":
+        p["bias"] = torch.zeros(d, dtype=torch.float32, device=device)
+    return p
+
+
+def init_lm(cfg: ModelConfig, *, generator: Optional[torch.Generator] = None,
+            device="cuda") -> LM:
+    """Random weights with the reference's scales: N(0, 1) times 0.02 for
+    the embedding, 1/sqrt(heads x head_dim) for ``wo`` and 1/sqrt(fan-in)
+    for every other matrix; norms at one.  Drawn in float32 from
+    ``generator`` (a CPU generator seeded 0 by default) on its device, in
+    a fixed order, then cast to ``param_dtype`` on ``device``."""
+    cfg.validate()
+    check_family(cfg)
+    gen = generator if generator is not None else torch.Generator().manual_seed(0)
+    d, hq, hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    dt = _dtype(cfg.param_dtype)
+
+    def w(shape, scale=None):
+        return dense_init(shape, dt, gen, device, scale)
+
+    embed = w((cfg.vocab_size, d), 0.02)
+    lm_head = None if cfg.tie_embeddings else w((d, cfg.vocab_size))
+    blocks = []
+    for _ in range(cfg.num_layers):
+        attn = {"wq": w((d, hq, hd)), "wk": w((d, hkv, hd)), "wv": w((d, hkv, hd)),
+                "wo": w((hq, hd, d), 1.0 / math.sqrt(hq * hd))}
+        if cfg.act in ("swiglu", "geglu"):
+            mlp = {"w_in": w((d, cfg.d_ff)), "w_gate": w((d, cfg.d_ff)),
+                   "w_out": w((cfg.d_ff, d))}
+        else:
+            mlp = {"w_in": w((d, cfg.d_ff)), "w_out": w((cfg.d_ff, d))}
+        blocks.append(Block(_norm_init(d, cfg.norm, device), attn,
+                            _norm_init(d, cfg.norm, device), mlp))
+    return LM(cfg, embed, _norm_init(d, cfg.norm, device), blocks, lm_head)
+
+
+# ===================================================================== apply
+def _rope(cfg: ModelConfig, positions: torch.Tensor):
+    """RoPE's (sin, cos) at ``positions``, shared by every layer; None
+    without RoPE."""
+    return rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta) if cfg.use_rope else None
+
+
+def _attn_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, rope):
+    """Prefill self-attention over a full (B,S,d) sequence.  ``rope`` places
+    the rows at their absolute positions (``q_offset + arange(S)``); the
+    mask is relative (the kernel is called with ``q_offset`` 0), as in the
+    reference."""
+    q = einsum("bsd,dhk->bshk", x, p["wq"])
+    k = einsum("bsd,dhk->bshk", x, p["wk"])
+    v = einsum("bsd,dhk->bshk", x, p["wv"])
+    if rope is not None:
+        q = apply_rope_tables(q, *rope)
+        k = apply_rope_tables(k, *rope)
+    o = attention(q, k, v, causal=True, window=cfg.sliding_window)
+    return einsum("bshk,hkd->bsd", o, p["wo"]), (k, v)
+
+
+def _embed(lm: LM, tokens: torch.Tensor) -> torch.Tensor:
+    cfg = lm.cfg
+    cd = _dtype(cfg.compute_dtype)
+    h = lm.embed[tokens.long()].to(cd)
+    if cfg.embed_scale:
+        h = h * torch.full((), math.sqrt(cfg.d_model), dtype=cd, device=h.device)
+    return h
+
+
+def _logits(lm: LM, h: torch.Tensor) -> torch.Tensor:
+    cfg = lm.cfg
+    h = apply_norm(h, lm.final_norm.p, cfg.norm)
+    if cfg.tie_embeddings:
+        logits = einsum("bsd,vd->bsv", h, lm.embed.to(_dtype(cfg.compute_dtype)))
+    else:
+        logits = einsum("bsd,dv->bsv", h, lm.lm_head)
+    return logits.to(_dtype(cfg.logit_dtype))
+
+
+def _ffn(blk: Block, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
+    return h + mlp_apply(blk.mlp.p, apply_norm(h, blk.norm2.p, cfg.norm), cfg.act)
+
+
+def forward_lm(lm: LM, tokens: torch.Tensor) -> torch.Tensor:
+    """Full-sequence logits (B, S, vocab) in ``logit_dtype``."""
+    cfg = lm.cfg
+    h = _embed(lm, tokens)
+    rope = _rope(cfg, torch.arange(h.shape[1], device=h.device))
+    for blk in lm.blocks:
+        o, _ = _attn_apply(blk.attn.p, cfg, apply_norm(h, blk.norm1.p, cfg.norm), rope)
+        h = _ffn(blk, cfg, h + o)
+    return _logits(lm, h)
+
+
+# ===================================================================== cache
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device="cuda") -> dict:
+    """Decode cache ``{"sub_0": {"k", "v"}}``, each (layers, batch, W,
+    kv_heads, head_dim) in ``compute_dtype`` with
+    ``W = min(max_len, sliding_window or max_len)``: linear buffers, or
+    rings for a sliding window.  Layer i's buffers are ``[i]`` views."""
+    check_family(cfg)
+    W = max_len if cfg.sliding_window is None else min(max_len, cfg.sliding_window)
+    shape = (cfg.num_layers, batch, W, cfg.num_kv_heads, cfg.resolved_head_dim)
+    cd = _dtype(cfg.compute_dtype)
+    return {"sub_0": {"k": torch.zeros(shape, dtype=cd, device=device),
+                      "v": torch.zeros(shape, dtype=cd, device=device)}}
+
+
+def _decode_mask(cfg: ModelConfig, W: int, pos: int, start: Optional[torch.Tensor], device):
+    """(1 or B, W) bool: the ring slots the token at ``pos`` may attend.
+
+    ``start`` (B,) optional: first absolute position owned by each batch
+    slot (continuous batching: a slot joined mid-stream must not attend to
+    the previous occupant's stale entries).
+    """
+    # absolute position held by each ring slot i: pos - ((pos - i) mod W)
+    slots = torch.arange(W, device=device)
+    abs_pos = pos - torch.remainder(pos - slots, W)
+    valid = abs_pos >= 0
+    if cfg.sliding_window is not None:
+        valid &= pos - abs_pos < cfg.sliding_window
+    valid = valid[None, :]  # (1, W)
+    if start is not None:
+        valid = valid & (abs_pos[None, :] >= start[:, None])  # (B, W)
+    return valid
+
+
+def _attn_decode(p: dict, cfg: ModelConfig, x: torch.Tensor, k_cache: torch.Tensor,
+                 v_cache: torch.Tensor, slot: int, rope, valid: torch.Tensor):
+    """x (B,1,d); k_cache, v_cache (B,W,hkv,hd), written in place at ring
+    slot ``slot``; ``rope`` and ``valid`` (:func:`_decode_mask`) are the
+    new token's, shared by every layer."""
+    q = einsum("bsd,dhk->bshk", x, p["wq"])
+    k = einsum("bsd,dhk->bshk", x, p["wk"])
+    v = einsum("bsd,dhk->bshk", x, p["wv"])
+    if rope is not None:
+        q = apply_rope_tables(q, *rope)
+        k = apply_rope_tables(k, *rope)
+    k_cache[:, slot] = k[:, 0]
+    v_cache[:, slot] = v[:, 0]
+    D = q.shape[-1]
+    ke = _expand_kv(k_cache, q.shape[2])
+    ve = _expand_kv(v_cache, q.shape[2])
+    s = torch.einsum("bshd,bthd->bhst", q.float(), ke.float()) * (1.0 / math.sqrt(D))
+    s = s.masked_fill(~valid[:, None, None, :], -1e30)
+    pr = torch.softmax(s, dim=-1).to(q.dtype)
+    o = einsum("bhst,bthd->bshd", pr, ve)
+    return einsum("bshk,hkd->bsd", o, p["wo"])
+
+
+def decode_lm(lm: LM, token: torch.Tensor, cache: dict, pos: int,
+              start: Optional[torch.Tensor] = None) -> tuple[torch.Tensor, dict]:
+    """One serving step: token (B,) at absolute position ``pos`` ->
+    next-token logits (B, vocab); the cache is updated in place.
+    ``start`` (B,): each batch slot's first owned position (see
+    :func:`_decode_mask`)."""
+    cfg = lm.cfg
+    h = _embed(lm, token[:, None])
+    kc, vc = cache["sub_0"]["k"], cache["sub_0"]["v"]
+    W = kc.shape[2]
+    rope = _rope(cfg, torch.full((1,), pos, device=h.device))  # a fill, not a host copy
+    valid = _decode_mask(cfg, W, pos, start, h.device)
+    for i, blk in enumerate(lm.blocks):
+        x = apply_norm(h, blk.norm1.p, cfg.norm)
+        o = _attn_decode(blk.attn.p, cfg, x, kc[i], vc[i], pos % W, rope, valid)
+        h = _ffn(blk, cfg, h + o)
+    return _logits(lm, h)[:, 0], cache
+
+
+def prefill_lm(lm: LM, tokens: torch.Tensor, cache: dict,
+               pos_offset: int = 0) -> tuple[torch.Tensor, dict]:
+    """Run the prompt (B, S) through the model, filling the cache in place.
+
+    Returns (last-position logits (B, vocab), cache).  ``pos_offset``
+    places the prompt at absolute positions [offset, offset+S): RoPE and
+    ring slots follow, so a continuous-batching scheduler can align a
+    joining request with the shared decode position.  A cache shorter
+    than the prompt (a sliding-window ring) keeps its last W tokens.
+    """
+    cfg = lm.cfg
+    h = _embed(lm, tokens)
+    S = h.shape[1]
+    kc, vc = cache["sub_0"]["k"], cache["sub_0"]["v"]
+    W = kc.shape[2]
+    rope = _rope(cfg, pos_offset + torch.arange(S, device=h.device))
+    for i, blk in enumerate(lm.blocks):
+        x = apply_norm(h, blk.norm1.p, cfg.norm)
+        o, (k, v) = _attn_apply(blk.attn.p, cfg, x, rope)
+        if S >= W:
+            # last W tokens; ring slot of token t is (offset+t) % W
+            shift = (pos_offset + S - W) % W
+            kw, vw = k[:, -W:].roll(shift, dims=1), v[:, -W:].roll(shift, dims=1)
+        else:
+            pad = (0, 0, 0, 0, 0, W - S)
+            kw = F.pad(k, pad).roll(pos_offset % W, dims=1)
+            vw = F.pad(v, pad).roll(pos_offset % W, dims=1)
+        kc[i].copy_(kw)
+        vc[i].copy_(vw)
+        h = _ffn(blk, cfg, h + o)
+    return _logits(lm, h[:, -1:, :])[:, 0], cache

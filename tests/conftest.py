@@ -23,6 +23,10 @@ if _REPO not in sys.path:
 from tools.analyze.runtime import LockOrderWitness, static_lock_graph  # noqa: E402
 
 
+def pytest_configure(config):
+    config.addinivalue_line("markers", "cuda: needs a CUDA card; skips where there is none")
+
+
 @functools.lru_cache(maxsize=1)
 def _static_graph():
     # one AST pass per pytest session, shared by every witness fixture

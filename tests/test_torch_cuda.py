@@ -1,4 +1,5 @@
-"""The port's Hopper kernels against their plain PyTorch versions on a card.
+"""The port's Hopper kernels against their plain PyTorch versions on a card,
+and the serving path's prefill on the card against the same on the CPU.
 
 Marked ``cuda``; each test skips where ``torch.cuda.is_available()`` is
 false.  Imports no JAX, so it runs on a machine that has only PyTorch:
@@ -9,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import csr_to_dense, ops, ref
+from repro_torch.kernels import csr_to_dense, flash_attention, ops, ref
 
 # (rows, K, n_cols): the JAX package's ELL sweep, a batch at Tahoe's width
 # and a row narrower than one 16-byte store
@@ -47,3 +48,130 @@ def test_ell_to_dense_kernel_bitwise_without_duplicates():
     vals = rng.integers(1, 50, (R, K)).astype(np.float32)
     v, c = torch.tensor(vals, device=dev), torch.tensor(cols, device=dev)
     assert torch.equal(ops.ell_to_dense(v, c, n_cols=G), ref.ell_to_dense_ref(v, c, G))
+
+
+# ------------------------------------------------------------ flash attention
+# the JAX package's sweep (tests/test_kernels.py), D = 20 (the smoke
+# config) and the serving path's heads (GQA 15:5, D = 64)
+FA_SHAPES = [(1, 2, 2, 64, 64, 16), (2, 4, 2, 128, 128, 32), (1, 8, 1, 96, 160, 64),
+             (2, 2, 1, 64, 128, 32), (2, 3, 1, 37, 37, 20), (1, 15, 5, 200, 200, 64),
+             (1, 4, 2, 70, 70, 128)]
+FA_MASKS = [(True, None), (True, 48), (False, None)]
+# float32: the kernel sums in another order than cuBLAS (TF32 off on both)
+FA_F32_ATOL = 3e-5
+# bf16: P is rounded to bf16 at the same place; the P.V sums round in
+# another order, and the bf16 outputs (under 4 in magnitude: means of
+# N(0, 1) values) differ by up to one bf16 ulp there (2**-6)
+FA_BF16_ATOL = 3e-2
+
+
+def _fa_inputs(B, H, Hkv, S, T, D, dtype, dev, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn((B, H, S, D), generator=g).to(dev, dtype)
+    k = torch.randn((B, Hkv, T, D), generator=g).to(dev, dtype)
+    v = torch.randn((B, Hkv, T, D), generator=g).to(dev, dtype)
+    return q, k, v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("causal,window", FA_MASKS)
+@pytest.mark.parametrize("B,H,Hkv,S,T,D", FA_SHAPES)
+def test_flash_attention_kernel_matches_plain_version(B, H, Hkv, S, T, D, causal, window, dtype):
+    dev = _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = _fa_inputs(B, H, Hkv, S, T, D, dtype, dev)
+    before = flash_attention.flash_attention.launches
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    atol = FA_F32_ATOL if dtype == torch.float32 else FA_BF16_ATOL
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernel_q_offset_decode_tile():
+    dev = _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = _fa_inputs(1, 2, 2, 8, 256, 32, torch.float32, dev, seed=1)
+    got = ops.flash_attention(q, k, v, causal=True, q_offset=200)
+    want = ref.flash_attention_ref(q, k, v, causal=True, q_offset=200)
+    torch.testing.assert_close(got, want, atol=FA_F32_ATOL, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_attention_kernel_takes_strided_bshd_views(dtype):
+    """The model's (B, S, H, D) projections, viewed as (B, H, S, D): no copy
+    in, and the output keeps q's memory layout."""
+    dev = _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(2)
+    q = torch.randn((2, 100, 15, 64), generator=g).to(dev, dtype)
+    kv = torch.randn((2, 100, 10, 64), generator=g).to(dev, dtype)
+    k, v = kv[:, :, :5], kv[:, :, 5:]  # strided in the head axis too
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    got = ops.flash_attention(qt, kt, vt, causal=True)
+    assert got.stride() == qt.stride()
+    want = ref.flash_attention_ref(qt.contiguous(), kt.contiguous(), vt.contiguous())
+    atol = FA_F32_ATOL if dtype == torch.float32 else FA_BF16_ATOL
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernel_rows_without_keys_are_zero():
+    """Rows at negative absolute positions see no key under the causal
+    mask: the kernel gives zeros there (its oracle the mean of V)."""
+    dev = _card()
+    q, k, v = _fa_inputs(1, 2, 1, 80, 64, 32, torch.float32, dev, seed=3)
+    got = ops.flash_attention(q, k, v, causal=True, q_offset=-10)
+    assert not got[:, :, :10].any()
+    want = ref.flash_attention_ref(q, k, v, causal=True, q_offset=-10)
+    torch.testing.assert_close(got[:, :, 10:], want[:, :, 10:], atol=FA_F32_ATOL, rtol=0)
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernel_refuses_what_it_does_not_take():
+    dev = _card()
+    q, k, v = _fa_inputs(1, 2, 2, 16, 16, 32, torch.float32, dev)
+    with pytest.raises(TypeError):
+        ops.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError):
+        ops.flash_attention(*_fa_inputs(1, 2, 2, 16, 16, 160, torch.float32, dev))
+    with pytest.raises(ValueError):
+        ops.flash_attention(q[..., ::2], k[..., ::2], v[..., ::2])
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, k.cpu(), v)
+
+
+@pytest.mark.cuda
+def test_prefill_and_decode_on_the_card_match_the_cpu():
+    """smollm-360m's widths at 2 layers in float32: the same weights on the
+    card and on the CPU, a prefill and 4 decode steps."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+
+    dev = _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("smollm-360m"), num_layers=2,
+                              param_dtype="float32", compute_dtype="float32")
+    model = Model(cfg)
+    lm_cpu = model.init(generator=torch.Generator().manual_seed(0), device="cpu")
+    lm_gpu = model.init(generator=torch.Generator().manual_seed(0), device=dev)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 40), generator=torch.Generator().manual_seed(1))
+    caches = [model.init_cache(2, 48, device=d) for d in ("cpu", dev)]
+    before = flash_attention.flash_attention.launches
+    want, _ = model.prefill(lm_cpu, {"tokens": tokens}, caches[0])
+    got, _ = model.prefill(lm_gpu, {"tokens": tokens.to(dev)}, caches[1])
+    assert flash_attention.flash_attention.launches == before + cfg.num_layers
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    tok = want.argmax(-1)
+    for i in range(4):
+        want, _ = model.decode(lm_cpu, tok, caches[0], 40 + i)
+        got, _ = model.decode(lm_gpu, tok.to(dev), caches[1], 40 + i)
+        torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+        tok = want.argmax(-1)

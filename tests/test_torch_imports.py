@@ -39,6 +39,10 @@ def test_port_imports_with_jax_and_repro_blocked():
         "repro_torch.data.readplan", "repro_torch.kernels.ops", "repro_torch.kernels.ref",
         "repro_torch.kernels.csr_to_dense", "repro_torch.kernels._build",
         "repro_torch.distributed.dataio", "repro_torch.train.probe", "repro_torch.convert",
+        "repro_torch.kernels.flash_attention", "repro_torch.models", "repro_torch.models.config",
+        "repro_torch.models.layers", "repro_torch.models.transformer", "repro_torch.models.api",
+        "repro_torch.configs", "repro_torch.configs.smollm_360m", "repro_torch.train.step",
+        "repro_torch.serve.scheduler", "repro_torch.launch.serve",
     } <= names
 
 
