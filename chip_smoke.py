@@ -60,6 +60,42 @@ d_model 960, 15 query heads over 5 kv heads of 64, vocab 49,152):
    request's tokens equal a standalone batch-1 serve of its prompt except
    across ties.
 
+LM training (slice 3), smollm-360m at its full width:
+
+11. train_kernels: the forward with lse, dq and dk/dv kernels on the card
+   against their plain versions: the JAX package's backward sweep
+   (tests/test_kernels_bwd.py: GQA, MQA, uneven tiles x causal / window 32 /
+   non-causal) in float32 (atol = rtol = 2e-4, the JAX package's own
+   tolerance; TF32 off) and bf16 (|err| <= 3e-2 + 2e-2 |want|: P and dS are
+   rounded to bf16 as operands, outputs to bf16), and the training shape,
+   q (4, 15, 2048, 64) and k/v (4, 5, 2048, 64) bf16 causal as the strided
+   (B, S, H, D) views the model passes, each tensor there within
+   0.1 rms(want) + 2**-6 |want| (its values are too small for the sweep's
+   atol; rms(want) is printed beside each error); event times of each kernel, of the
+   plain versions, and of ``scaled_dot_product_attention``'s forward and
+   forward plus backward there;
+12. train_vs_cpu: one train step at full width in float32 with 2 layers on
+   the card and on the CPU from the same weights and batch: loss within
+   rtol 1e-5, grad norm within rtol 1e-4 (float32 sums in another order),
+   and the updated parameters: at least 99.9% of each tensor within 1e-6,
+   every element within 2 lr + 1e-6 (Adam's first step moves each weight
+   by lr times the sign of its gradient, which float32 noise flips where a
+   gradient is within noise of zero);
+13. train (the main path): ``build_loader`` over a 2,000,000-token corpus
+   under ``build/`` (vocabulary 1,024, as ``main`` sizes it), batch 4 x
+   2,048 tokens (SmolLM's context length), ``train_loop`` in bf16 with
+   ``remat="full"`` at 32 layers for 5 warm-up and 25 timed steps, the
+   kernels' launch counts set to 0 just before and read just after
+   (64 / 32 / 32 per step required); step time, tokens/s over the median
+   step and over the timed steps' wall (loader included), the loader's
+   share of that wall, loss, peak
+   memory; then one step under ``torch.profiler`` for each kernel's device
+   time per launch and their share of the step's device time;
+14. resume: at full width with 4 layers, 6 steps with a checkpoint every 3
+   and a crash injected after step 4, restarted by ``run_with_restarts``
+   from step 3: the final parameters and moments equal an uninterrupted
+   run's bitwise.
+
 Then the kernels line (one entry per kernel), the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.  Any failure
 exits non-zero before it.
@@ -71,6 +107,7 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -108,6 +145,23 @@ TIE_F32 = 1e-3
 BATCH_SLOTS, BATCH_REQUESTS, BATCH_MAX_LEN = 4, 16, 1024
 BATCH_PROMPT_LENS, BATCH_NEW = (64, 512), (16, 64)  # inclusive ranges drawn from
 FULL_WIDTH = (32, 960, 15, 5, 64)  # layers, d_model, heads, kv heads, head_dim
+# LM training
+BWD_SWEEP = [(1, 2, 2, 64, 64, 16), (2, 4, 2, 64, 64, 32), (1, 2, 1, 96, 96, 16)]
+BWD_MASKS = [(True, None), (True, 32), (False, None)]
+BWD_TOL = {"float32": (2e-4, 2e-4), "bfloat16": (3e-2, 2e-2)}  # (atol, rtol)
+# At the training shape the values are small (dq, dk and dv of a 2,048-key
+# softmax: rms about 0.1), so BWD_TOL's atol would be as large as what it
+# checks.  There each tensor is held to |got - want| <= TRAIN_TOL_RMS *
+# rms(want) + TRAIN_TOL_REL * |want|: the relative term is two bf16 ulps of
+# the value (both sides round their float32 result to bf16, one ulp being at
+# most 2**-7 of it), the rms term takes the kernels' rounding of P and dS to
+# bf16 as operands, whose errors are spread over the tensor.
+TRAIN_TOL_RMS, TRAIN_TOL_REL = 0.1, 2**-6
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_WARMUP, TRAIN_STEPS = 4, 2048, 5, 25
+TRAIN_CORPUS_TOKENS = 2_000_000
+CPU_STEP_LAYERS, CPU_STEP_BATCH, CPU_STEP_SEQ, CPU_STEP_LR = 2, 2, 128, 3e-4
+CPU_LOSS_RTOL, CPU_GNORM_RTOL, CPU_PARAM_TOL, CPU_PARAM_SHARE = 1e-5, 1e-4, 1e-6, 0.999
+RESUME_LAYERS, RESUME_STEPS, RESUME_EVERY, RESUME_CRASH = 4, 6, 3, 4
 
 
 def fail(msg: str) -> None:
@@ -173,6 +227,8 @@ def main() -> None:
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "built": built})
 
     lm_kernel = lm_phases(dev)
+    torch.cuda.empty_cache()
+    train_kernels = train_phases(dev)
     torch.cuda.empty_cache()
 
     # 3. data
@@ -317,7 +373,7 @@ def main() -> None:
           "top_kernels": [[e.key[:80], e.count, e.self_device_time_total / 1e3] for e in top]})
 
     kernel["launches"] = launches
-    emit({"kernels": [{k: kernel[k] for k in KERNEL_KEYS}, lm_kernel]})
+    emit({"kernels": [{k: kernel[k] for k in KERNEL_KEYS}, lm_kernel, *train_kernels]})
     print(smi)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
@@ -549,6 +605,327 @@ def lm_phases(dev) -> dict:
           "seconds": batch_s, "ties": diverged})
     del lm32, batcher
     return {k: kernel[k] for k in (*KERNEL_KEYS, "dtype", "library", "trace_ms_per_launch")}
+
+
+def _scaled_err(got, want, atol: float, rtol: float) -> tuple[float, float]:
+    """(max |got - want|, max |got - want| / (atol + rtol |want|)): the
+    second is at most 1 within the tolerance."""
+    d = (got.float() - want.float()).abs()
+    return d.max().item(), (d / (atol + rtol * want.float().abs())).max().item()
+
+
+def _rms_err(got, want) -> tuple[float, float, float]:
+    """(max |got - want|, the same over the training shape's tolerance,
+    rms(want)); the second is at most 1 within the tolerance."""
+    want = want.float()
+    rms = want.square().mean().sqrt().item()
+    return _scaled_err(got, want, TRAIN_TOL_RMS * rms, TRAIN_TOL_REL) + (rms,)
+
+
+def attention_errors(q, k, v, dout, causal, window, err):
+    """The training attention kernels (forward with lse, dq, dk/dv) against
+    their plain versions on these inputs: ``err(got, want)`` of the forward's
+    out, dq and the worse of dk and dv (the one with the larger second
+    item), and (max, max / 1e-4) of lse.  Returns ``(errors, outputs)``."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fab
+    from repro_torch.kernels import ref
+
+    out, lse = fa.flash_attention_fwd_lse(q, k, v, causal=causal, window=window)
+    delta = (dout.float() * out.float()).sum(-1).contiguous()
+    dq = fab.flash_attention_bwd_dq(q, k, v, dout, lse, delta, causal=causal, window=window)
+    dk, dv = fab.flash_attention_bwd_dkv(q, k, v, dout, lse, delta, causal=causal, window=window)
+    w_out, w_lse = ref.flash_attention_fwd_lse_ref(q, k, v, causal=causal, window=window)
+    wq, wk, wv = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=causal,
+                                             window=window)
+    torch.cuda.synchronize()
+    errs = {"fwd": err(out, w_out), "lse": _scaled_err(lse, w_lse, 1e-4, 0.0),
+            "dq": err(dq, wq), "dkv": max(err(dk, wk), err(dv, wv), key=lambda e: e[1])}
+    return errs, (out, lse, delta)
+
+
+def train_phases(dev) -> list:
+    """Phases 11-14, LM training at smollm-360m's full width; returns the
+    kernels-line entries of the forward with lse, dq and dk/dv."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.fault import run_with_restarts
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fab
+    from repro_torch.kernels import ref
+    from repro_torch.launch.train import build_loader, train_loop
+    from repro_torch.models import Model
+    from repro_torch.train.optimizer import AdamWConfig, constant_lr
+    from repro_torch.train.step import make_train_state, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config(ARCH)
+
+    # 11. the three kernels against their plain versions
+    gen = torch.Generator().manual_seed(3)
+    worst = {}  # (kernel, dtype) -> (abs, scaled)
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).removeprefix("torch.")
+        for B, H, Hkv, S, T, D in BWD_SWEEP:
+            q = torch.randn((B, H, S, D), generator=gen).to(dev, dtype)
+            k = torch.randn((B, Hkv, T, D), generator=gen).to(dev, dtype)
+            v = torch.randn((B, Hkv, T, D), generator=gen).to(dev, dtype)
+            dout = torch.randn((B, H, S, D), generator=gen).to(dev, dtype)
+            for causal, window in BWD_MASKS:
+                errs, _ = attention_errors(q, k, v, dout, causal, window,
+                                           lambda g, w: _scaled_err(g, w, *BWD_TOL[name]))
+                for kern, e in errs.items():
+                    old = worst.get((kern, name), (0.0, 0.0))
+                    worst[(kern, name)] = (max(old[0], e[0]), max(old[1], e[1]))
+    bad = {f"{k}/{n}": e for (k, n), e in worst.items() if not e[1] <= 1.0}
+    if bad:
+        fail(f"training attention kernels disagree with their plain versions on the sweep: {bad}")
+
+    B, S, H, Hkv, D = TRAIN_BATCH, TRAIN_SEQ, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    bf = torch.bfloat16
+    qs = torch.randn((B, S, H, D), generator=gen).to(dev, bf)
+    ks = torch.randn((B, S, Hkv, D), generator=gen).to(dev, bf)
+    vs = torch.randn((B, S, Hkv, D), generator=gen).to(dev, bf)
+    q, k, v = qs.transpose(1, 2), ks.transpose(1, 2), vs.transpose(1, 2)
+    dout = torch.randn((B, H, S, D), generator=gen).to(dev, bf)
+    path, (out, lse, delta) = attention_errors(q, k, v, dout, True, None, _rms_err)
+    if not all(e[1] <= 1.0 for e in path.values()):
+        fail(f"training attention kernels disagree with their plain versions at the training shape: {path}")
+    times = {
+        "fwd": event_ms(lambda: fa.flash_attention_fwd_lse(q, k, v, causal=True)),
+        "dq": event_ms(lambda: fab.flash_attention_bwd_dq(q, k, v, dout, lse, delta)),
+        "dkv": event_ms(lambda: fab.flash_attention_bwd_dkv(q, k, v, dout, lse, delta)),
+    }
+    plain = {
+        "fwd": event_ms(lambda: ref.flash_attention_fwd_lse_ref(q, k, v, causal=True)),
+        "bwd": event_ms(lambda: ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=True)),
+    }
+    qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+
+    def sdpa_fwd_bwd():
+        o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True, enable_gqa=True)
+        torch.autograd.grad(o, (qg, kg, vg), dout)
+
+    with torch.no_grad():
+        sdpa_fwd_ms = event_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                                      enable_gqa=True))
+    sdpa_fwd_bwd_ms = event_ms(sdpa_fwd_bwd)
+    del qg, kg, vg
+
+    pairs = S * (S + 1) // 2
+    qb, kb = q.numel() * 2, k.numel() * 2  # bf16 bytes of q (= dO, o, dq) and of k (= v, dk, dv)
+    rows = B * H * S * 4  # float32 bytes of lse (= delta)
+    work = {  # (bytes, flop): inputs read once, outputs written once
+        "fwd": (qb + 2 * kb + qb + rows, 4 * B * H * D * pairs),
+        "dq": (qb + 2 * kb + qb + 2 * rows + qb, 6 * B * H * D * pairs),
+        "dkv": (qb + 2 * kb + qb + 2 * rows + 2 * kb, 8 * B * H * D * pairs),
+    }
+    src = "src/repro_torch/kernels/csrc/"
+    meta = {
+        "fwd": ("flash_attention_fwd_lse", src + "flash_attention.cu",
+                "src/repro/kernels/flash_attention_bwd.py:164", plain["fwd"], sdpa_fwd_ms,
+                "scaled_dot_product_attention forward"),
+        "dq": ("flash_attention_bwd_dq", src + "flash_attention_bwd.cu",
+               "src/repro/kernels/flash_attention_bwd.py:81", plain["bwd"], None, None),
+        "dkv": ("flash_attention_bwd_dkv", src + "flash_attention_bwd.cu",
+                "src/repro/kernels/flash_attention_bwd.py:115", plain["bwd"], None, None),
+    }
+    kernels = {}
+    for key, (name, source, replaces, plain_ms, lib_ms, lib) in meta.items():
+        nbytes, flop = work[key]
+        bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flop / BF16_FLOP_PER_S * 1e3
+        err = max(worst[(key, "float32")][0], worst[(key, "bfloat16")][0], path[key][0])
+        if key == "fwd":
+            err = max(err, worst[("lse", "float32")][0], worst[("lse", "bfloat16")][0], path["lse"][0])
+        kernels[key] = {
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "shape": [B, H, Hkv, S, S, D], "dtype": "bfloat16", "max_abs_err": err,
+            "ms": times[key], "kernel_ms": times[key], "plain_ms": plain_ms,
+            "plain": "flash_attention_bwd_ref (dq, dk and dv in one call)" if key != "fwd"
+            else "flash_attention_fwd_lse_ref",
+            "library_ms": lib_ms, "library": lib, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "bytes": nbytes,
+            "flop": flop, "want_rms": path[key][2]}
+    emit({"phase": "train_kernels", "sweep_errors": {f"{k}/{n}": e for (k, n), e in worst.items()},
+          "training_shape_errors": path, "tolerance": BWD_TOL,
+          "training_shape_tolerance": {"rms": TRAIN_TOL_RMS, "rel": TRAIN_TOL_REL},
+          "kernels_sum_ms": sum(times.values()), "sdpa_fwd_bwd_ms": sdpa_fwd_bwd_ms,
+          "sdpa_fwd_ms": sdpa_fwd_ms,
+          **{f"{k}_ms": t for k, t in times.items()},
+          **{f"{k}_bound_ms": kernels[k]["bound_ms"] for k in kernels},
+          **{f"plain_{k}_ms": t for k, t in plain.items()}})
+    del q, k, v, qs, ks, vs, dout, out, lse, delta
+
+    # 12. one float32 train step at full width on the card and on the CPU
+    cfg32 = dataclasses.replace(cfg, num_layers=CPU_STEP_LAYERS, param_dtype="float32",
+                                compute_dtype="float32")
+    model32 = Model(cfg32)
+    opt_cfg = AdamWConfig(lr=constant_lr(CPU_STEP_LR), weight_decay=0.01)
+    lm_cpu = model32.init(generator=torch.Generator().manual_seed(2), device="cpu")
+    lm_gpu = copy.deepcopy(lm_cpu).to(dev)
+    seq = np.random.default_rng(1).integers(0, cfg.vocab_size, (CPU_STEP_BATCH, CPU_STEP_SEQ + 1))
+    batch = {"tokens": torch.from_numpy(seq[:, :-1]), "labels": torch.from_numpy(seq[:, 1:])}
+    states = {"cpu": make_train_state(model32, opt_cfg, params=lm_cpu),
+              "card": make_train_state(model32, opt_cfg, params=lm_gpu)}
+    before = {n: p.detach().clone() for n, p in lm_cpu.named_parameters()}
+    step_fn = make_train_step(model32, opt_cfg)
+    _, m_cpu = step_fn(states["cpu"], batch)
+    _, m_gpu = step_fn(states["card"], {k: t.to(dev) for k, t in batch.items()})
+    loss_rel = abs(float(m_gpu["loss"]) / float(m_cpu["loss"]) - 1)
+    gnorm_rel = abs(float(m_gpu["grad_norm"]) / float(m_cpu["grad_norm"]) - 1)
+    if not (loss_rel <= CPU_LOSS_RTOL and gnorm_rel <= CPU_GNORM_RTOL):
+        fail(f"a train step on the card and on the CPU disagree: loss {float(m_gpu['loss'])} vs "
+             f"{float(m_cpu['loss'])}, grad norm {float(m_gpu['grad_norm'])} vs {float(m_cpu['grad_norm'])}")
+    gpu_params = dict(lm_gpu.named_parameters())
+    share, worst_p, moved = 1.0, 0.0, 0.0
+    for n, p in lm_cpu.named_parameters():
+        d = (gpu_params[n].detach().cpu() - p.detach()).abs()
+        share = min(share, float((d <= CPU_PARAM_TOL).float().mean()))
+        worst_p = max(worst_p, float(d.max()))
+        moved = max(moved, float((p.detach() - before[n]).abs().max()))
+    if not (share >= CPU_PARAM_SHARE and worst_p <= 2 * CPU_STEP_LR + CPU_PARAM_TOL):
+        fail(f"updated parameters on the card and the CPU disagree: {share} of a tensor within "
+             f"{CPU_PARAM_TOL}, max err {worst_p}")
+    emit({"phase": "train_vs_cpu", "layers": CPU_STEP_LAYERS, "dtype": "float32",
+          "batch": [CPU_STEP_BATCH, CPU_STEP_SEQ], "loss_card": float(m_gpu["loss"]),
+          "loss_cpu": float(m_cpu["loss"]), "loss_rel_err": loss_rel,
+          "grad_norm_card": float(m_gpu["grad_norm"]), "grad_norm_cpu": float(m_cpu["grad_norm"]),
+          "grad_norm_rel_err": gnorm_rel, "param_min_share_within_tol": share,
+          "param_max_abs_err": worst_p, "param_max_update": moved})
+    del lm_cpu, lm_gpu, states, gpu_params, before
+
+    # 13. the main path: main's build_loader and train_loop at full width and depth
+    model = Model(cfg)
+    corpus = os.path.join(HERE, "build", "chip_smoke_corpus")
+    t0 = time.perf_counter()
+    loader = build_loader(corpus, TRAIN_SEQ, TRAIN_BATCH, n_tokens=TRAIN_CORPUS_TOKENS,
+                          vocab_size=min(cfg.vocab_size, 1024))
+    corpus_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    timings = {}
+    fa.flash_attention_fwd_lse.launches = 0
+    fab.flash_attention_bwd_dq.launches = 0
+    fab.flash_attention_bwd_dkv.launches = 0
+    total = TRAIN_WARMUP + TRAIN_STEPS
+    t0 = time.perf_counter()
+    run = train_loop(model, loader, steps=total, log_every=1, device=dev, timings=timings)
+    wall = time.perf_counter() - t0
+    launches = {"fwd": fa.flash_attention_fwd_lse.launches,
+                "dq": fab.flash_attention_bwd_dq.launches,
+                "dkv": fab.flash_attention_bwd_dkv.launches}
+    per_step = {"fwd": 2 * cfg.num_layers, "dq": cfg.num_layers, "dkv": cfg.num_layers}
+    if launches != {k: n * total for k, n in per_step.items()}:
+        fail(f"the training kernels launched {launches} times in {total} steps; "
+             f"need {per_step} per step")
+    losses = [m["loss"] for m in run["metrics"]]
+    if len(losses) != total or not all(math.isfinite(x) for x in losses):
+        fail(f"non-finite or missing losses: {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"loss did not fall: {losses[0]} at the first step, {losses[-1]} at the last")
+    step_s = timings["step_s"]
+    timed = sorted(step_s[TRAIN_WARMUP:])
+    med = statistics.median(timed)
+    # the timed steps' wall, loader included: end of the last warm-up step
+    # to the end of the last step
+    timed_wall = timings["end"][-1] - timings["end"][TRAIN_WARMUP - 1]
+    fetch_share = sum(timings["fetch_s"][TRAIN_WARMUP:]) / timed_wall
+    peak = torch.cuda.max_memory_allocated(dev)
+
+    # one more step under the profiler (the counts were read above)
+    step_fn = make_train_step(model, AdamWConfig(lr=constant_lr(3e-4), weight_decay=0.01))
+    tb = {k: torch.from_numpy(np.asarray(next(iter(loader))[k])).to(dev) for k in ("tokens", "labels")}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step_fn(run["final_state"], tb)
+        torch.cuda.synchronize()
+    traced_s = time.perf_counter() - t0
+    on_card = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    step_kernel_ms = sum(e.self_device_time_total for e in on_card) / 1e3
+    trace = {}
+    for key, pat in (("fwd", "flash_fwd"), ("dq", "dq_bf16"), ("dkv", "dkv_bf16")):
+        mine = [e for e in on_card if pat in e.key]
+        n = sum(e.count for e in mine)
+        if n != per_step[key]:
+            fail(f"the traced step shows {n} launches of {pat}, not {per_step[key]}")
+        ms = sum(e.self_device_time_total for e in mine) / 1e3
+        trace[key] = {"count": n, "device_ms": ms, "ms_per_launch": ms / n}
+        kernels[key]["launches"] = launches[key]  # in the main path's run of `total` steps
+        kernels[key]["launches_per_step"] = launches[key] // total
+        kernels[key]["trace_ms_per_launch"] = ms / n
+    top = sorted(on_card, key=lambda e: -e.self_device_time_total)[:10]
+    emit({"phase": "train", "arch": ARCH, "layers": cfg.num_layers, "d_model": cfg.d_model,
+          "dtype": cfg.compute_dtype, "remat": cfg.remat, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+          "corpus_tokens": TRAIN_CORPUS_TOKENS, "corpus_vocab": min(cfg.vocab_size, 1024),
+          "corpus_s": corpus_s, "warmup_steps": TRAIN_WARMUP, "timed_steps": TRAIN_STEPS,
+          "step_ms_median": med * 1e3, "step_ms_p90": timed[int(0.9 * (len(timed) - 1))] * 1e3,
+          "step_ms_first": step_s[0] * 1e3, "wall_s": wall,
+          "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / med, "timed_wall_s": timed_wall,
+          "wall_tokens_per_s": TRAIN_BATCH * TRAIN_SEQ * TRAIN_STEPS / timed_wall,
+          "loader_share_of_wall": fetch_share,
+          "fetch_ms_median": statistics.median(timings["fetch_s"][TRAIN_WARMUP:]) * 1e3,
+          "loss_first": losses[0],
+          "loss_last": losses[-1], "peak_device_mem_gb": peak / 1e9,
+          "launches_per_step": {k: v // total for k, v in launches.items()},
+          "traced_step_s": traced_s, "traced_step_device_kernel_ms": step_kernel_ms,
+          "traced_step_device_busy_share": step_kernel_ms / 1e3 / traced_s,
+          "attention_kernels_share_of_device_ms":
+              sum(t["device_ms"] for t in trace.values()) / step_kernel_ms,
+          "trace": trace,
+          "top_kernels": [[e.key[:80], e.count, e.self_device_time_total / 1e3] for e in top]})
+    del run, loader, step_fn, tb
+    torch.cuda.empty_cache()
+
+    # 14. crash and resume at full width with 4 layers: bitwise
+    cfg4 = dataclasses.replace(cfg, num_layers=RESUME_LAYERS)
+    model4 = Model(cfg4)
+    ck_root = os.path.join(HERE, "build", "chip_smoke_ckpt")
+    shutil.rmtree(ck_root, ignore_errors=True)
+
+    def loader4():
+        return build_loader(corpus, TRAIN_SEQ, TRAIN_BATCH, n_tokens=TRAIN_CORPUS_TOKENS,
+                            vocab_size=min(cfg.vocab_size, 1024))
+
+    t0 = time.perf_counter()
+    want = train_loop(model4, loader4(), steps=RESUME_STEPS, ckpt_dir=os.path.join(ck_root, "ref"),
+                      ckpt_every=RESUME_EVERY, log_every=100, device=dev)["final_state"]
+    restarts = []
+
+    def work(resume: bool):
+        return train_loop(model4, loader4(), steps=RESUME_STEPS,
+                          ckpt_dir=os.path.join(ck_root, "crashy"), ckpt_every=RESUME_EVERY,
+                          log_every=100, resume=resume,
+                          crash_after=None if resume else RESUME_CRASH, device=dev)
+
+    got = run_with_restarts(work, max_restarts=1, on_restart=lambda n, e: restarts.append(str(e)))
+    got = got["final_state"]
+    resume_s = time.perf_counter() - t0
+    if len(restarts) != 1 or "injected crash" not in restarts[0]:
+        fail(f"the resume phase restarted {restarts}")
+    wp, gp = dict(want["params"].named_parameters()), dict(got["params"].named_parameters())
+    differ = [n for n in wp if not torch.equal(wp[n], gp[n])]
+    differ += [f"m/{n}" for n in wp if not torch.equal(want["opt"].m[n], got["opt"].m[n])]
+    differ += [f"v/{n}" for n in wp if not torch.equal(want["opt"].v[n], got["opt"].v[n])]
+    if differ or got["step"] != want["step"]:
+        fail(f"the resumed run differs from the uninterrupted one in {differ[:8]}")
+    emit({"phase": "resume", "layers": RESUME_LAYERS, "steps": RESUME_STEPS,
+          "ckpt_every": RESUME_EVERY, "crash_after": RESUME_CRASH, "restarts": restarts,
+          "resumed_from": RESUME_EVERY * (RESUME_CRASH // RESUME_EVERY), "bitwise_equal": True,
+          "tensors_compared": 3 * len(wp), "seconds": resume_s})
+    shutil.rmtree(ck_root, ignore_errors=True)
+    del want, got, wp, gp
+    return [{k: kernels[key][k] for k in (*KERNEL_KEYS, "dtype", "library", "plain",
+                                             "trace_ms_per_launch", "launches_per_step", "bytes",
+                                             "flop", "want_rms")}
+            for key in ("fwd", "dq", "dkv")]
 
 
 if __name__ == "__main__":

@@ -5,7 +5,7 @@ keeps ``repro``'s module names, imports nothing of it (nor of JAX), and is
 held against it by the tests ``tests/test_torch_*.py``.  Its entry points
 run on the CUDA card unless the caller passes ``device="cpu"``.
 
-Ported so far, the paper's cell-training path:
+Ported so far, three slices.  The paper's cell-training path:
 
 - ``core``: sampling strategies, callbacks, ``ScIterableDataset`` (a
   ``torch.utils.data.IterableDataset``) and ``LoaderState``;
@@ -16,4 +16,11 @@ Ported so far, the paper's cell-training path:
 - ``distributed.dataio``: the two-deep host-to-device feed;
 - ``train.probe``: the four linear heads and their Adam step;
 - ``convert``: JAX heads and Adam state as the port's.
+
+LM serving at smollm-360m's width (``models``, ``configs``,
+``serve.scheduler``, ``launch.serve``) with the ``flash_attention`` Hopper
+kernel, and LM training (``launch.train``: the ``tokens://`` ``pipeline``
+over ``data.tokens``, ``train.loss``, ``train.optimizer``, ``train.step``,
+``checkpoint``, ``distributed.fault``) with the forward-with-lse, dq and
+dk/dv Hopper kernels under ``kernels.flash_attention_bwd``.
 """

@@ -2,7 +2,9 @@
 
 The LM: ``repro``'s params tree (numpy leaves, blocks stacked on a leading
 layer axis) becomes the port's :class:`~repro_torch.models.transformer.LM`,
-one block per layer, each weight in its own layout (:func:`lm_from_jax`).
+one block per layer, each weight in its own layout (:func:`lm_from_jax`);
+``repro``'s LM train state (params, AdamW moments, count and step) becomes
+the port's (:func:`train_state_from_jax`).
 
 The JAX probe keeps its heads as ``{task: {"w": (n_genes, classes), "b":
 (classes,)}}`` and Adam's state as ``{"m": heads-tree, "v": heads-tree,
@@ -13,6 +15,7 @@ packages can start from the same point.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Mapping
 
 import numpy as np
@@ -20,9 +23,10 @@ import torch
 
 from .models.config import ModelConfig
 from .models.transformer import LM, Block, check_family
+from .train.optimizer import AdamWState
 from .train.probe import TASKS, AdamState, LinearHead, ProbeHeads
 
-__all__ = ["heads_from_jax", "adam_from_jax", "lm_from_jax"]
+__all__ = ["heads_from_jax", "adam_from_jax", "lm_from_jax", "train_state_from_jax"]
 
 
 def _tensor(a, dtype: torch.dtype, device) -> torch.Tensor:
@@ -122,3 +126,35 @@ def lm_from_jax(params_np: Mapping, cfg: ModelConfig, *, device="cuda") -> LM:
     final_norm = {k: _tensor(a, torch.float32, device) for k, a in params_np["final_norm"].items()}
     lm_head = None if cfg.tie_embeddings else _tensor(params_np["lm_head"], wdt, device)
     return LM(cfg, _tensor(params_np["embed"], wdt, device), final_norm, blocks, lm_head)
+
+
+def train_state_from_jax(state_np: Mapping, cfg: ModelConfig, *, device="cuda") -> dict:
+    """``repro``'s ``make_train_state`` tree as numpy arrays -> the port's
+    train state ``{"params": LM, "opt": AdamWState, "step": int}``.
+
+    ``params`` goes through :func:`lm_from_jax`; the moments ``opt.m`` and
+    ``opt.v`` have the params' tree and shapes, keep their type (float32,
+    or bf16 under ``moment_dtype="bfloat16"``) and are keyed like
+    ``LM.named_parameters()``.  Raises ``ValueError`` on a missing or extra
+    key or a wrong shape.
+    """
+    for where, tree, keys in (("state", state_np, {"params", "opt", "step"}),
+                              ("state/opt", state_np.get("opt") if isinstance(state_np, Mapping)
+                               else None, {"m", "v", "count"})):
+        if not isinstance(tree, Mapping) or set(tree) != keys:
+            got = sorted(tree) if isinstance(tree, Mapping) else type(tree).__name__
+            raise ValueError(f"{where}: need keys {sorted(keys)}, got {got}")
+    for where, x in (("state/step", state_np["step"]), ("state/opt/count", state_np["opt"]["count"])):
+        if np.shape(x) != ():
+            raise ValueError(f"{where}: need a scalar, got shape {np.shape(x)}")
+    lm = lm_from_jax(state_np["params"], cfg, device=device)
+    moments = {}
+    for key in ("m", "v"):
+        tree = state_np["opt"][key]
+        embed = tree.get("embed") if isinstance(tree, Mapping) else None
+        dtype = "float32" if embed is None else np.asarray(embed).dtype.name
+        as_lm = lm_from_jax(tree, dataclasses.replace(cfg, param_dtype=dtype), device=device)
+        moments[key] = {name: t.detach().to(getattr(torch, dtype))
+                        for name, t in as_lm.named_parameters()}
+    opt = AdamWState(m=moments["m"], v=moments["v"], count=int(state_np["opt"]["count"]))
+    return {"params": lm, "opt": opt, "step": int(state_np["step"])}

@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own
 into ``build/repro_torch_kernels/<name>-<hash>.so`` in the checkout, where
-the hash covers the source and the flags, so an edited source builds anew.
+the hash covers the source, the shared headers ``csrc/*.cuh`` and the
+flags, so an edited source or header builds anew.
 Nothing includes PyTorch's headers: ``nvcc`` takes seconds per source.
 Only the machine with the card can build: there is no fallback.
 """
@@ -37,6 +38,7 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 

@@ -1,8 +1,15 @@
 // Flash attention, forward, on Hopper (sm_90a): one thread block per
 // (64-row query tile, batch x query head).
 //
-// Replaces the TPU kernel flash_attention / _kernel of
-// src/repro/kernels/flash_attention.py and computes what it computes:
+// Replaces two TPU kernels and computes what they compute:
+//   - flash_attention / _kernel of src/repro/kernels/flash_attention.py
+//     (serving), and
+//   - flash_attention_fwd_lse / _fwd_kernel of
+//     src/repro/kernels/flash_attention_bwd.py (training: it also writes
+//     each row's logsumexp, the one residual the backward kernels of
+//     flash_attention_bwd.cu keep).
+// Both go through the one entry point flash_attention_fwd; lse is written
+// where its pointer is not null.
 //   o[b,h,s] = softmax_t(q[b,h,s] . k[b,h//g,t] / sqrt(D), masked) @ v[b,h//g]
 // with GQA through the head index (K and V are never expanded), the masks
 // t < T, causal t <= q_offset + s and window q_offset + s - t < window,
@@ -14,50 +21,56 @@
 // KV tiles in a loop and keeps them in registers.  Tiles that the masks
 // leave empty for every row of the block are not visited (the TPU kernel
 // runs them masked; the result is the same).  Two kernels:
-//   - bfloat16 (the serving path): 4 warps, each owns 16 query rows and
-//     runs mma.sync.m16n8k16 on the tensor cores: S = Q.K^T from Q held in
-//     registers and K in shared memory, the online softmax on the
-//     accumulator fragments, then P (rounded to bf16, in registers: the
-//     accumulator layout of S is the A layout of P.V) times V from shared
-//     memory.  head_dim is padded with zeros to 32, 64 or 128 in shared
-//     memory, so a ragged D (the smoke config's 20) costs only the padding.
+//   - bfloat16 (the serving and training paths): 4 warps, each owns 16
+//     query rows and runs mma.sync.m16n8k16 on the tensor cores: S = Q.K^T
+//     from Q held in registers and K in shared memory, the online softmax
+//     on the accumulator fragments, then P (rounded to bf16, in registers:
+//     the accumulator layout of S is the A layout of P.V) times V from
+//     shared memory.  head_dim is padded with zeros to 32, 64 or 128 in
+//     shared memory, so a ragged D (the smoke config's 20) costs only the
+//     padding.
 //   - float32 (tests and the card-against-CPU checks): the same tiling on
 //     CUDA cores, each thread owning 4 rows x 8 key columns of S and
 //     4 rows x D/8 columns of the output, in full float32 (no TF32).
 // No TMA, wgmma, cp.async or double buffering yet: each tile is loaded
-// with plain loads (16 bytes a thread on the serving path) and one barrier.
+// with plain loads (16 bytes a thread on the model's paths) and one barrier.
 //
-// A row with no valid key (never on the serving path) returns zeros: its
-// running denominator stays 0 and masked scores add nothing.  The TPU
-// kernel returns the mean of V over the keys of the tiles it ran there,
-// and its oracle the mean of V over all keys.
+// lse[b*H + h, s] = m + log(l), the row's max scaled score plus the log of
+// its softmax denominator, in float32, written once per row after the KV
+// loop; deterministic, so a recomputation under activation checkpointing
+// gives the same bits.  A row with no valid key (never on the model's
+// paths: causal rows see themselves) returns zeros and lse = -inf: its
+// running denominator stays 0 and masked scores add nothing.  The backward
+// kernels give such a row zero gradients (every pair it has is masked).
+// The TPU kernels return the mean of V over the keys of the tiles they ran
+// there, and their oracle the mean of V over all keys.
 //
 // Bound at the serving path's prefill shape, q (8, 15, 512, 64) and k/v
 // (8, 5, 512, 64) bf16, causal: it must read q, k, v and write o once,
 // 20.97 MB, which takes 6.26 us at 3.35 TB/s; the 131,328 causal pairs per
 // head cost 4 * 8 * 15 * 64 * 131,328 = 4.03 GFLOP, 4.08 us at 989 TFLOP/s
 // of bf16 tensor cores (H100 SXM data sheet, 700 W).  So bytes bound it.
+// At the training shape, q (4, 15, 2048, 64) and k/v (4, 5, 2048, 64)
+// bf16, causal, the 2,098,176 pairs per head cost 32.2 GFLOP (32.6 us)
+// against 42.4 MB of bytes (12.7 us): operations bound it there.
 //
-// Plain C entry point, loaded with ctypes: each launch returns
+// Plain C entry points, loaded with ctypes: each launch returns
 // cudaGetLastError() so that a refused launch surfaces in the caller.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cstdint>
 #include <math_constants.h>
+
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int kBlockQ = 64;
-constexpr int kBlockK = 64;
-constexpr int kThreads = 128;
+using namespace flash;
 
 struct Params {
   const void* q;
   const void* k;
   const void* v;
   void* o;
+  float* lse;  // (B*H, S) float32, or null (serving)
   int B, H, Hkv, S, T, D;
   int64_t q_sb, q_sh, q_ss, k_sb, k_sh, k_st, v_sb, v_sh, v_st, o_sb, o_sh, o_ss;
   int causal;
@@ -86,54 +99,12 @@ __device__ __forceinline__ bool visible(const Params& p, int64_t qpos, int kpos)
   return ok;
 }
 
+// lse of one row: -inf where the row saw no key (l == 0)
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return l > 0.f ? m + logf(l) : -CUDART_INF_F;
+}
+
 // ----------------------------------------------------------------- bf16
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_raw(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  __nv_bfloat162 v;
-  v.x = lo;
-  v.y = hi;
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Copy rows [r0, r0 + 64) of one (rows, D) head into a zero-padded
-// (64, kD + 8) bf16 tile of shared memory: with 16-byte loads (8 values a
-// thread, neighbouring threads on neighbouring bytes) where D fills the
-// tile and every row starts 16-byte aligned, as on the serving path; else
-// one value a thread.
-template <int kD>
-__device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* tile, const __nv_bfloat16* src,
-                                               int64_t row_stride, int r0, int rows, int D) {
-  constexpr int kLd = kD + 8;
-  if (D == kD && row_stride % 8 == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
-    constexpr int kChunks = kD / 8;
-    for (int i = threadIdx.x; i < 64 * kChunks; i += kThreads) {
-      const int r = i / kChunks, c = (i % kChunks) * 8;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (r0 + r < rows) val = *reinterpret_cast<const uint4*>(src + (r0 + r) * row_stride + c);
-      *reinterpret_cast<uint4*>(tile + r * kLd + c) = val;
-    }
-    return;
-  }
-  const __nv_bfloat16 zero = __float2bfloat16(0.f);
-  for (int i = threadIdx.x; i < 64 * kD; i += kThreads) {
-    const int r = i / kD, d = i % kD;
-    tile[r * kLd + d] = (r0 + r < rows && d < D) ? src[(r0 + r) * row_stride + d] : zero;
-  }
-}
-
 template <int kD>
 __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(const Params p) {
   constexpr int kLd = kD + 8;  // +16 bytes a row: the fragment loads hit distinct banks
@@ -158,14 +129,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(const Params p) {
   __syncthreads();
   uint32_t qa[kD / 16][4];
 #pragma unroll
-  for (int kk = 0; kk < kD / 16; ++kk) {
-    const __nv_bfloat16* r_lo = Qs + row0 * kLd + kk * 16 + 2 * t;
-    const __nv_bfloat16* r_hi = r_lo + 8 * kLd;
-    qa[kk][0] = *reinterpret_cast<const uint32_t*>(r_lo);
-    qa[kk][1] = *reinterpret_cast<const uint32_t*>(r_hi);
-    qa[kk][2] = *reinterpret_cast<const uint32_t*>(r_lo + 8);
-    qa[kk][3] = *reinterpret_cast<const uint32_t*>(r_hi + 8);
-  }
+  for (int kk = 0; kk < kD / 16; ++kk) load_a_frag(qa[kk], Qs, kLd, warp * 16, kk * 16, g, t);
 
   float oacc[kD / 8][4];
 #pragma unroll
@@ -184,15 +148,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(const Params p) {
     // S = Q K^T: 8 blocks of 8 keys
     float s[kBlockK / 8][4];
 #pragma unroll
-    for (int nb = 0; nb < kBlockK / 8; ++nb) {
-      s[nb][0] = s[nb][1] = s[nb][2] = s[nb][3] = 0.f;
-      const __nv_bfloat16* kr = Ks + (nb * 8 + g) * kLd + 2 * t;
-#pragma unroll
-      for (int kk = 0; kk < kD / 16; ++kk) {
-        mma_bf16(s[nb], qa[kk], *reinterpret_cast<const uint32_t*>(kr + kk * 16),
-                 *reinterpret_cast<const uint32_t*>(kr + kk * 16 + 8));
-      }
-    }
+    for (int nb = 0; nb < kBlockK / 8; ++nb) s[nb][0] = s[nb][1] = s[nb][2] = s[nb][3] = 0.f;
+    mma_rows<kD>(s, qa, Ks, g, t);
 
     // scale, mask, online softmax; each row's 64 scores live in 4 lanes
     float alpha[2];
@@ -238,23 +195,10 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(const Params p) {
     }
 
     // O += P V: P in bf16 from the S fragments, 4 slices of 16 keys
-#pragma unroll
-    for (int kk = 0; kk < kBlockK / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      const __nv_bfloat16* vr = Vs + (kk * 16 + 2 * t) * kLd + g;
-#pragma unroll
-      for (int nd = 0; nd < kD / 8; ++nd) {
-        const __nv_bfloat16* c = vr + nd * 8;
-        mma_bf16(oacc[nd], pa, pack_raw(c[0], c[kLd]), pack_raw(c[8 * kLd], c[9 * kLd]));
-      }
-    }
+    mma_cols<kD>(oacc, s, Vs, g, t);
   }
 
-  // o = acc / l, in bf16
+  // o = acc / l, in bf16; lse from lane t == 0 of each row's quad
 #pragma unroll
   for (int ri = 0; ri < 2; ++ri) {
     const int r = q0 + row0 + 8 * ri;
@@ -269,20 +213,11 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(const Params p) {
         if (d < p.D) orow[d] = __float2bfloat16(oacc[nd][2 * ri + e] * inv);
       }
     }
+    if (p.lse != nullptr && t == 0) p.lse[int64_t(blockIdx.y) * p.S + r] = row_lse(m[ri], l[ri]);
   }
 }
 
 // ----------------------------------------------------------------- f32
-template <int kD>
-__device__ __forceinline__ void load_tile_f32(float* tile, const float* src, int64_t row_stride,
-                                              int r0, int rows, int D) {
-  constexpr int kLd = kD + 1;
-  for (int i = threadIdx.x; i < 64 * kD; i += kThreads) {
-    const int r = i / kD, d = i % kD;
-    tile[r * kLd + d] = (r0 + r < rows && d < D) ? src[(r0 + r) * row_stride + d] : 0.f;
-  }
-}
-
 template <int kD>
 __global__ void __launch_bounds__(kThreads) flash_fwd_f32(const Params p) {
   constexpr int kLd = kD + 1;  // odd stride: a column walk hits distinct banks
@@ -394,50 +329,30 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32(const Params p) {
       const int d = tx + 8 * j;
       if (d < p.D) o[r * p.o_ss + d] = acc[i][j] * inv;
     }
+    if (p.lse != nullptr && tx == 0) p.lse[int64_t(blockIdx.y) * p.S + r] = row_lse(m[i], l[i]);
   }
-}
-
-template <typename Kernel>
-int launch(Kernel kernel, size_t smem, const Params& p, cudaStream_t stream) {
-  if (smem > 48 * 1024) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const dim3 grid((p.S + kBlockQ - 1) / kBlockQ, p.B * p.H);
-  void* args[] = {const_cast<Params*>(&p)};
-  const cudaError_t err = cudaLaunchKernel(reinterpret_cast<const void*>(kernel), grid,
-                                           dim3(kThreads), args, smem, stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
 }
 
 template <int kD>
 int launch_dtype(int dtype, const Params& p, cudaStream_t stream) {
+  const dim3 grid((p.S + kBlockQ - 1) / kBlockQ, p.B * p.H);
   if (dtype == 1) {
-    return launch(flash_fwd_bf16<kD>, sizeof(__nv_bfloat16) * (kBlockQ + 2 * kBlockK) * (kD + 8),
-                  p, stream);
+    return launch(flash_fwd_bf16<kD>, grid,
+                  sizeof(__nv_bfloat16) * (kBlockQ + 2 * kBlockK) * (kD + 8), p, stream);
   }
-  return launch(flash_fwd_f32<kD>,
+  return launch(flash_fwd_f32<kD>, grid,
                 sizeof(float) * ((kBlockQ + 2 * kBlockK) * (kD + 1) + kBlockQ * 65), p, stream);
 }
 
-}  // namespace
-
-// dtype: 0 float32, 1 bfloat16.  dims: B, H, Hkv, S, T, D.  strides (in
-// elements; the last axis is contiguous): q b,h,s; k b,h,t; v b,h,t; o b,h,s.
-// Returns a cudaError_t: 0 when the launch was taken; 1
-// (cudaErrorInvalidValue) for a D above 128 or an unknown dtype.
-extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                   int dtype, const int64_t* dims, const int64_t* strides,
-                                   int causal, int has_window, int64_t window, int64_t q_offset,
-                                   float scale, void* stream) {
+int forward(const void* q, const void* k, const void* v, void* o, float* lse, int dtype,
+            const int64_t* dims, const int64_t* strides, int causal, int has_window,
+            int64_t window, int64_t q_offset, float scale, void* stream) {
   Params p;
   p.q = q;
   p.k = k;
   p.v = v;
   p.o = o;
+  p.lse = lse;
   p.B = static_cast<int>(dims[0]);
   p.H = static_cast<int>(dims[1]);
   p.Hkv = static_cast<int>(dims[2]);
@@ -459,6 +374,21 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   if (p.D <= 64) return launch_dtype<64>(dtype, p, s);
   if (p.D <= 128) return launch_dtype<128>(dtype, p, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace
+
+// dtype: 0 float32, 1 bfloat16.  dims: B, H, Hkv, S, T, D.  strides (in
+// elements; the last axis is contiguous): q b,h,s; k b,h,t; v b,h,t; o b,h,s.
+// lse: (B*H, S) float32, contiguous, or null (serving: not written).
+// Returns a cudaError_t: 0 when the launch was taken; 1
+// (cudaErrorInvalidValue) for a D above 128 or an unknown dtype.
+extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
+                                   float* lse, int dtype, const int64_t* dims,
+                                   const int64_t* strides, int causal, int has_window,
+                                   int64_t window, int64_t q_offset, float scale, void* stream) {
+  return forward(q, k, v, o, lse, dtype, dims, strides, causal, has_window, window, q_offset,
+                 scale, stream);
 }
 
 extern "C" const char* cuda_error_string(int err) {

@@ -1,6 +1,8 @@
 """Kernel entry points with device dispatch: a CUDA tensor goes to the
 Hopper kernel, a CPU tensor to the plain PyTorch version.  Nothing falls
-back: a failed launch raises."""
+back: a failed launch raises.  Attention that needs a gradient goes
+through :func:`.flash_attention_bwd.flash_attention_vjp`, whose forward
+and backward dispatch the same way."""
 from __future__ import annotations
 
 from typing import Optional
@@ -10,6 +12,7 @@ import torch
 from . import ref
 from .csr_to_dense import ell_to_dense as _ell_to_dense_kernel
 from .flash_attention import flash_attention as _flash_attention_kernel
+from .flash_attention_bwd import flash_attention_vjp
 
 __all__ = ["ell_to_dense", "flash_attention"]
 
@@ -26,7 +29,13 @@ def ell_to_dense(vals: torch.Tensor, cols: torch.Tensor, *, n_cols: int) -> torc
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
                     window: Optional[int] = None, q_offset: int = 0) -> torch.Tensor:
     """(B, H, S, D) attention over (B, Hkv, T, D) keys and values; see
-    :func:`.ref.flash_attention_ref`."""
+    :func:`.ref.flash_attention_ref`.  With grad enabled and any of q, k,
+    v requiring it, the differentiable :func:`flash_attention_vjp`
+    (training: ``q_offset`` must be 0)."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        if q_offset != 0:
+            raise ValueError(f"the differentiable attention has no q_offset, got {q_offset}")
+        return flash_attention_vjp(q, k, v, causal, window)
     if q.device.type == "cuda":
         return _flash_attention_kernel(q, k, v, causal=causal, window=window, q_offset=q_offset)
     if q.device.type == "cpu":

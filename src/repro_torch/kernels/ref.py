@@ -8,7 +8,12 @@ from typing import Optional
 
 import torch
 
-__all__ = ["ell_to_dense_ref", "flash_attention_ref"]
+__all__ = [
+    "ell_to_dense_ref",
+    "flash_attention_ref",
+    "flash_attention_fwd_lse_ref",
+    "flash_attention_bwd_ref",
+]
 
 
 def ell_to_dense_ref(vals: torch.Tensor, cols: torch.Tensor, n_cols: int) -> torch.Tensor:
@@ -62,3 +67,88 @@ def flash_attention_ref(
     s = s.masked_fill(~mask, -1e30)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhst,bhtd->bhsd", p.to(v.dtype), vv)
+
+
+def _train_mask(S: int, T: int, causal: bool, window: Optional[int], device) -> torch.Tensor:
+    """(S, T) bool, True where query ``s`` may see key ``t`` (q_offset 0)."""
+    qpos = torch.arange(S, device=device)[:, None]
+    kpos = torch.arange(T, device=device)[None, :]
+    mask = torch.ones((S, T), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= qpos - kpos < window
+    return mask
+
+
+def _expand(x: torch.Tensor, g: int) -> torch.Tensor:
+    return x.repeat_interleave(g, dim=1) if g > 1 else x
+
+
+def flash_attention_fwd_lse_ref(
+    q: torch.Tensor,  # (B, H, S, D)
+    k: torch.Tensor,  # (B, Hkv, T, D)
+    v: torch.Tensor,  # (B, Hkv, T, D)
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The training forward: ``(out, lse)``.
+
+    ``lse`` (B, H, S) float32 is each row's logsumexp of its visible scaled
+    scores, the one residual the backward keeps; ``out`` = exp(S - lse)
+    over the visible keys, cast to ``v.dtype``, times V, summed in float32
+    and cast to ``v.dtype``.  A row with no visible key (never in
+    training: causal rows see themselves) gives zeros and ``lse = -inf``,
+    as the kernel does.
+    """
+    B, H, S, D = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
+    g = H // Hkv
+    s = torch.einsum("bhsd,bhtd->bhst", q.float(), _expand(k, g).float()) / math.sqrt(D)
+    mask = _train_mask(S, T, causal, window, q.device)
+    s = s.masked_fill(~mask, -math.inf)
+    lse = torch.logsumexp(s, dim=-1)
+    p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
+    out = torch.einsum("bhst,bhtd->bhsd", p.to(v.dtype).float(), _expand(v, g).float())
+    return out.to(v.dtype), lse
+
+
+def flash_attention_bwd_ref(
+    q: torch.Tensor,  # (B, H, S, D)
+    k: torch.Tensor,  # (B, Hkv, T, D)
+    v: torch.Tensor,  # (B, Hkv, T, D)
+    out: torch.Tensor,  # (B, H, S, D)
+    lse: torch.Tensor,  # (B, H, S) float32
+    dout: torch.Tensor,  # (B, H, S, D)
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dq, dk, dv)`` of the training forward, written out from the
+    formulas of ``repro.kernels.flash_attention_bwd``::
+
+        p  = exp(q.k^T * scale - lse)   (0 where the mask hides the pair)
+        dv = p^T . dO;  dp = dO . v^T;  ds = p * (dp - delta)
+        dq = ds . k * scale;  dk = ds^T . q * scale;  delta = rowsum(dO * O)
+
+    with K and V repeated over the GQA group and dk, dv summed back over
+    it.  Every sum in float32; results in the inputs' types.
+    """
+    B, H, S, D = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
+    g = H // Hkv
+    scale = 1.0 / math.sqrt(D)
+    qf, kf, vf, dof = q.float(), _expand(k, g).float(), _expand(v, g).float(), dout.float()
+    mask = _train_mask(S, T, causal, window, q.device)
+    s = torch.einsum("bhsd,bhtd->bhst", qf, kf) * scale
+    p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
+    delta = (dof * out.float()).sum(dim=-1)
+    dv = torch.einsum("bhst,bhsd->bhtd", p, dof)
+    dp = torch.einsum("bhsd,bhtd->bhst", dof, vf)
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bhst,bhtd->bhsd", ds, kf) * scale
+    dk = torch.einsum("bhst,bhsd->bhtd", ds, qf) * scale
+    dk = dk.reshape(B, Hkv, g, T, D).sum(dim=2)
+    dv = dv.reshape(B, Hkv, g, T, D).sum(dim=2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

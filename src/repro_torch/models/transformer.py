@@ -2,21 +2,31 @@
 
 The model is an ``nn.Module`` with one submodule per layer (the reference
 stacks the layers and scans them); the weights keep the reference's
-layouts and initial scales.  Three entry points, as in the reference:
+layouts and initial scales, and every parameter is trainable.  Three entry
+points, as in the reference:
 
-  forward_lm  -- full-sequence causal logits (no loss or backward here)
+  forward_lm  -- full-sequence causal logits, differentiable (training)
   prefill_lm  -- fill a KV cache from a prompt, last-position logits
   decode_lm   -- one token against the cache
 
-Prefill attention runs through :func:`.layers.attention`, so on the card
-it is the Hopper flash-attention kernel.  Decode attention is plain tensor
-code (float32 scores and softmax), as it is plain jnp in the reference:
-the kernel has no per-slot ``start`` mask.  The cache is updated in place.
+The two serving entry points run under ``torch.no_grad()``: serving builds
+no graph.  ``forward_lm`` honours ``cfg.remat``: ``"none"`` keeps every
+activation, ``"full"`` checkpoints each block
+(``torch.utils.checkpoint``, recomputed in the backward, as the
+reference's ``jax.checkpoint`` of each layer); ``"dots"`` raises
+``NotImplementedError`` (ROADMAP.md queue A #6).
+
+Attention over a full sequence runs through :func:`.layers.attention`, so
+on the card it is the Hopper flash-attention kernel: the forward in
+serving, the forward with lse, dq and dk/dv kernels under autograd in
+training.  Decode attention is plain tensor code (float32 scores and
+softmax), as it is plain jnp in the reference: the kernel has no per-slot
+``start`` mask.  The cache is updated in place.
 
 Dropped from the reference: the sharding annotations (``constrain_act``),
-the one-hot embedding under a sharding context (a gather always), remat,
-and every family but ``dense``: ``moe``, ``ssm``, ``hybrid`` and ``vlm``
-raise ``NotImplementedError`` (ROADMAP.md queue A #10).
+the one-hot embedding under a sharding context (a gather always), the MoE
+aux losses, and every family but ``dense``: ``moe``, ``ssm``, ``hybrid``
+and ``vlm`` raise ``NotImplementedError`` (ROADMAP.md queue A #10).
 """
 from __future__ import annotations
 
@@ -26,6 +36,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .config import ModelConfig
 from .layers import (
@@ -59,7 +70,7 @@ def check_family(cfg: ModelConfig) -> None:
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
-    return nn.Parameter(t, requires_grad=False)  # serving only: no autograd
+    return nn.Parameter(t)
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -195,14 +206,30 @@ def _ffn(blk: Block, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
     return h + mlp_apply(blk.mlp.p, apply_norm(h, blk.norm2.p, cfg.norm), cfg.act)
 
 
+def _block(blk: Block, cfg: ModelConfig, h: torch.Tensor, rope) -> torch.Tensor:
+    o, _ = _attn_apply(blk.attn.p, cfg, apply_norm(h, blk.norm1.p, cfg.norm), rope)
+    return _ffn(blk, cfg, h + o)
+
+
 def forward_lm(lm: LM, tokens: torch.Tensor) -> torch.Tensor:
-    """Full-sequence logits (B, S, vocab) in ``logit_dtype``."""
+    """Full-sequence logits (B, S, vocab) in ``logit_dtype``; under
+    autograd with ``cfg.remat == "full"`` each block's activations are
+    recomputed in the backward instead of kept."""
     cfg = lm.cfg
+    if cfg.remat not in ("none", "full"):
+        raise NotImplementedError(
+            f"remat={cfg.remat!r} is not ported yet (ROADMAP.md queue A #6); use 'none' or 'full'"
+        )
     h = _embed(lm, tokens)
     rope = _rope(cfg, torch.arange(h.shape[1], device=h.device))
+    remat = cfg.remat == "full" and torch.is_grad_enabled()
     for blk in lm.blocks:
-        o, _ = _attn_apply(blk.attn.p, cfg, apply_norm(h, blk.norm1.p, cfg.norm), rope)
-        h = _ffn(blk, cfg, h + o)
+        if remat:
+            # no dropout or other draws inside: no RNG state to stash
+            h = checkpoint(_block, blk, cfg, h, rope, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            h = _block(blk, cfg, h, rope)
     return _logits(lm, h)
 
 
@@ -262,6 +289,7 @@ def _attn_decode(p: dict, cfg: ModelConfig, x: torch.Tensor, k_cache: torch.Tens
     return einsum("bshk,hkd->bsd", o, p["wo"])
 
 
+@torch.no_grad()
 def decode_lm(lm: LM, token: torch.Tensor, cache: dict, pos: int,
               start: Optional[torch.Tensor] = None) -> tuple[torch.Tensor, dict]:
     """One serving step: token (B,) at absolute position ``pos`` ->
@@ -281,6 +309,7 @@ def decode_lm(lm: LM, token: torch.Tensor, cache: dict, pos: int,
     return _logits(lm, h)[:, 0], cache
 
 
+@torch.no_grad()
 def prefill_lm(lm: LM, tokens: torch.Tensor, cache: dict,
                pos_offset: int = 0) -> tuple[torch.Tensor, dict]:
     """Run the prompt (B, S) through the model, filling the cache in place.

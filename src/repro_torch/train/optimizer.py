@@ -1,0 +1,133 @@
+"""AdamW by hand: the port of ``repro.train.optimizer``.
+
+Decoupled weight decay folded into the step before lr scales it,
+global-norm clipping, bias correction, lr read at the 1-based count, and
+warmup+cosine / constant schedules.  The update is computed in float32 and
+cast back to each parameter's type; the moments keep ``moment_dtype``.
+
+The JAX package's update is pure; here parameters and moments are
+updated in place (one float32 temporary per tensor at a time), which
+keeps the optimizer's memory at the parameters plus two moments.  The
+schedules compute in float32 on the host with numpy, as the reference
+computes them in float32 on the device.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, Mapping, Optional
+
+import numpy as np
+import torch
+
+__all__ = [
+    "AdamWConfig",
+    "AdamWState",
+    "adamw_init",
+    "adamw_update",
+    "clip_by_global_norm",
+    "warmup_cosine",
+    "constant_lr",
+    "global_norm",
+]
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    lr: Callable[[int], float] | float = 1e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.0
+    clip_norm: Optional[float] = 1.0
+    moment_dtype: str = "float32"  # "bfloat16" halves optimizer memory
+
+    def lr_at(self, count: int) -> np.float32:
+        if callable(self.lr):
+            return np.float32(self.lr(count))
+        return np.float32(self.lr)
+
+
+def warmup_cosine(peak: float, warmup: int, total: int, floor: float = 0.1):
+    """lr(count): linear warmup to ``peak`` over ``warmup`` counts, then a
+    cosine to ``floor * peak`` at ``total``; float32 arithmetic."""
+    f32 = np.float32
+
+    def f(step) -> np.float32:
+        s = f32(step)
+        if s < warmup:
+            return f32(peak) * s / f32(max(1, warmup))
+        prog = min(max((s - f32(warmup)) / f32(max(1, total - warmup)), f32(0)), f32(1))
+        cos = f32(1) + np.cos(f32(math.pi) * prog)
+        return f32(peak) * (f32(floor) + f32((1 - floor) * 0.5) * cos)
+
+    return f
+
+
+def constant_lr(v: float):
+    return lambda step: np.float32(v)
+
+
+def global_norm(tensors: Mapping[str, torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum of squares of every tensor, in float32 (a 0-d tensor
+    on the tensors' device)."""
+    total = None
+    for t in tensors.values():
+        sq = torch.sum(torch.square(t.float()))
+        total = sq if total is None else total + sq
+    return torch.sqrt(total)
+
+
+def clip_by_global_norm(tensors: Mapping[str, torch.Tensor], max_norm: float):
+    """(clipped, norm): each tensor times min(1, max_norm / norm), computed
+    in float32 and cast back to the tensor's type."""
+    g = global_norm(tensors)
+    scale = torch.clamp(max_norm / torch.clamp(g, min=1e-9), max=1.0)
+    return {k: (t.float() * scale).to(t.dtype) for k, t in tensors.items()}, g
+
+
+@dataclasses.dataclass
+class AdamWState:
+    """First and second moments keyed like the parameters, and the number
+    of updates taken."""
+
+    m: dict
+    v: dict
+    count: int = 0
+
+
+def adamw_init(params: Mapping[str, torch.Tensor], cfg: AdamWConfig) -> AdamWState:
+    md = getattr(torch, cfg.moment_dtype)
+    return AdamWState(m={k: torch.zeros(p.shape, dtype=md, device=p.device) for k, p in params.items()},
+                      v={k: torch.zeros(p.shape, dtype=md, device=p.device) for k, p in params.items()},
+                      count=0)
+
+
+@torch.no_grad()
+def adamw_update(grads: Mapping[str, torch.Tensor], state: AdamWState,
+                 params: Mapping[str, torch.Tensor], cfg: AdamWConfig) -> dict:
+    """One AdamW step, in place on ``params`` and ``state``.  Returns the
+    metrics ``grad_norm`` (before clipping, float32 0-d tensor) and ``lr``."""
+    if set(grads) != set(params) or set(state.m) != set(params):
+        raise ValueError("grads, moments and params must have the same keys")
+    count = state.count + 1
+    grad_norm = global_norm(grads)
+    if cfg.clip_norm is not None:
+        grads, _ = clip_by_global_norm(grads, cfg.clip_norm)
+    b1, b2 = cfg.b1, cfg.b2
+    c1 = float(np.float32(1.0) - np.float32(b1) ** np.float32(count))
+    c2 = float(np.float32(1.0) - np.float32(b2) ** np.float32(count))
+    lr = cfg.lr_at(count)
+    for k, p in params.items():
+        m, v = state.m[k], state.v[k]
+        gf = grads[k].float()
+        mf = m.float() * b1 + gf * (1 - b1)
+        vf = v.float() * b2 + gf * gf * (1 - b2)
+        step = (mf / c1) / (torch.sqrt(vf / c2) + cfg.eps)
+        if cfg.weight_decay:
+            step = step + cfg.weight_decay * p.float()
+        p.copy_(p.float() - float(lr) * step)
+        m.copy_(mf)
+        v.copy_(vf)
+    state.count = count
+    return {"grad_norm": grad_norm, "lr": torch.tensor(lr, dtype=torch.float32)}

@@ -1,15 +1,130 @@
-"""Serve-step factories: the port of ``repro.train.step.make_serve_steps``.
-The train step (loss, AdamW, microbatching) is not ported yet
-(ROADMAP.md queue A)."""
+"""Train-state, train-step and serve-step factories: the port of
+``repro.train.step`` for the dense family.
+
+``make_train_step`` builds ``(state, batch) -> (state, metrics)`` with:
+
+- optional microbatching (gradient accumulation over the leading axis in
+  float32, as the reference's ``lax.scan``; memory ∝ 1/n_micro),
+- the loss and backward (attention through the Hopper kernels on the card),
+- the AdamW update (in place),
+- metrics as float32 0-d tensors on the device: ``loss``, ``ce_loss``,
+  ``z_loss``, ``ppl_proxy``, ``tokens``, ``grad_norm`` and ``lr``.
+
+The state is ``{"params": LM, "opt": AdamWState, "step": int}``; the
+reference's is the same tree of arrays.  The MoE aux losses and the
+ZeRO-2 gradient shardings have no counterpart here (one device, dense).
+"""
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from ..models import Model
+from .loss import lm_loss
+from .optimizer import AdamWConfig, adamw_init, adamw_update
 
-__all__ = ["make_serve_steps"]
+__all__ = [
+    "TrainState",
+    "make_train_state",
+    "make_train_step",
+    "make_serve_steps",
+    "train_state_tree",
+    "load_train_state_tree",
+]
+
+TrainState = dict  # {"params": LM, "opt": AdamWState, "step": int}
+
+
+def make_train_state(model: Model, opt_cfg: AdamWConfig, *,
+                     generator: Optional[torch.Generator] = None, device="cuda",
+                     params=None) -> TrainState:
+    """Fresh state: ``params`` (an LM module) or weights drawn by
+    ``model.init(generator)``, zero moments, step 0."""
+    if params is None:
+        params = model.init(generator=generator, device=device)
+    return {"params": params, "opt": adamw_init(dict(params.named_parameters()), opt_cfg),
+            "step": 0}
+
+
+def train_state_tree(state: TrainState) -> dict:
+    """The state as the checkpoint manager stores it: ``params`` and the
+    moments ``opt/m``, ``opt/v`` keyed by parameter name, ``opt/count`` and
+    ``step`` as int32, as the reference keeps them."""
+    opt = state["opt"]
+    return {"params": dict(state["params"].named_parameters()),
+            "opt": {"m": dict(opt.m), "v": dict(opt.v), "count": np.int32(opt.count)},
+            "step": np.int32(state["step"])}
+
+
+@torch.no_grad()
+def load_train_state_tree(state: TrainState, tree: dict) -> None:
+    """Copy a restored :func:`train_state_tree` into ``state`` in place."""
+    params = dict(state["params"].named_parameters())
+    for name, p in params.items():
+        p.copy_(tree["params"][name])
+    opt = state["opt"]
+    for name in params:
+        opt.m[name].copy_(tree["opt"]["m"][name])
+        opt.v[name].copy_(tree["opt"]["v"][name])
+    opt.count = int(np.asarray(tree["opt"]["count"]).item())
+    state["step"] = int(np.asarray(tree["step"]).item())
+
+
+def make_train_step(
+    model: Model,
+    opt_cfg: AdamWConfig,
+    *,
+    num_microbatches: int = 1,
+    z_loss_weight: float = 1e-4,
+) -> Callable[[TrainState, dict], tuple[TrainState, dict]]:
+    """``batch`` holds ``tokens`` and ``labels`` (B, S) and optionally
+    ``mask`` (B, S), on the params' device; B divisible by
+    ``num_microbatches``."""
+
+    def loss_fn(lm, batch: dict):
+        logits = model.forward(lm, batch)
+        total, metrics = lm_loss(logits, batch["labels"], batch.get("mask"),
+                                 z_loss_weight=z_loss_weight)
+        metrics["loss"] = total
+        return total, metrics
+
+    def single(lm, params: dict, batch: dict):
+        with torch.enable_grad():
+            total, metrics = loss_fn(lm, batch)
+            grads = torch.autograd.grad(total, list(params.values()))
+        return dict(zip(params, grads)), {k: v.detach() for k, v in metrics.items()}
+
+    def accumulated(lm, params: dict, batch: dict):
+        n = num_microbatches
+        B = batch["tokens"].shape[0]
+        if B % n:
+            raise ValueError(f"batch {B} not divisible by microbatches {n}")
+        g_acc = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                 for k, p in params.items()}
+        m_acc: dict = {}
+        for i in range(n):
+            mb = {k: v[i * (B // n):(i + 1) * (B // n)] for k, v in batch.items()}
+            g, m = single(lm, params, mb)
+            for k in g_acc:
+                g_acc[k] += g[k].float()
+            for k, v in m.items():
+                m_acc[k] = m_acc.get(k, 0.0) + v.float()
+        return ({k: v / n for k, v in g_acc.items()}, {k: v / n for k, v in m_acc.items()})
+
+    def train_step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
+        lm = state["params"]
+        params = dict(lm.named_parameters())
+        if num_microbatches > 1:
+            grads, metrics = accumulated(lm, params, batch)
+        else:
+            grads, metrics = single(lm, params, batch)
+        metrics.update(adamw_update(grads, state["opt"], params, opt_cfg))
+        state["step"] += 1
+        return state, metrics
+
+    return train_step
 
 
 def make_serve_steps(model: Model) -> tuple[Callable, Callable]:

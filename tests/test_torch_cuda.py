@@ -175,3 +175,176 @@ def test_prefill_and_decode_on_the_card_match_the_cpu():
         got, _ = model.decode(lm_gpu, tok.to(dev), caches[1], 40 + i)
         torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
         tok = want.argmax(-1)
+
+
+# ------------------------------------------------- flash attention, training
+# the JAX package's backward sweep (tests/test_kernels_bwd.py: GQA, MQA and
+# uneven tiles), D = 20 (the smoke config), the training path's heads (GQA
+# 15:5, D = 64), a key axis longer than the query axis, and D = 128
+BWD_SHAPES = [(1, 2, 2, 64, 64, 16), (2, 4, 2, 64, 64, 32), (1, 2, 1, 96, 96, 16),
+              (2, 3, 1, 37, 37, 20), (1, 15, 5, 200, 200, 64), (2, 2, 1, 64, 128, 32),
+              (1, 4, 2, 70, 70, 128)]
+BWD_MASKS = [(True, None), (True, 32), (False, None)]
+# float32: the JAX package's own tolerance for its backward kernel against
+# autodiff of the oracle (tests/test_kernels_bwd.py); sums in another order
+BWD_F32_TOL = 2e-4
+LSE_F32_ATOL = 1e-5  # a logsumexp of at most a few hundred float32 terms
+# bf16: |got - want| <= atol + rtol * |want|.  The kernels round P and dS to
+# bf16 as the operands of their second products, and both sides round their
+# float32 results to bf16 at the end, where one ulp is 2**-7 of the value
+BWD_BF16_ATOL, BWD_BF16_RTOL = 3e-2, 2e-2
+LSE_BF16_ATOL = 1e-4  # bf16 products are exact in float32; only the order of sums differs
+
+
+def _close_bf16(got, want):
+    torch.testing.assert_close(got.float(), want.float(), atol=BWD_BF16_ATOL, rtol=BWD_BF16_RTOL)
+
+
+def _train_inputs(B, H, Hkv, S, T, D, dtype, dev, seed=0):
+    q, k, v = _fa_inputs(B, H, Hkv, S, T, D, dtype, dev, seed)
+    dout = torch.randn((B, H, S, D), generator=torch.Generator().manual_seed(seed + 1)).to(dev, dtype)
+    return q, k, v, dout
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("causal,window", BWD_MASKS)
+@pytest.mark.parametrize("B,H,Hkv,S,T,D", BWD_SHAPES)
+def test_training_kernels_match_plain_versions(B, H, Hkv, S, T, D, causal, window, dtype):
+    """The forward with lse, dq and dk/dv, each once, against the plain
+    versions on the same inputs."""
+    from repro_torch.kernels import flash_attention_bwd as fab
+
+    dev = _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, dout = _train_inputs(B, H, Hkv, S, T, D, dtype, dev)
+    n = (flash_attention.flash_attention_fwd_lse.launches, fab.flash_attention_bwd_dq.launches,
+         fab.flash_attention_bwd_dkv.launches)
+    out, lse = flash_attention.flash_attention_fwd_lse(q, k, v, causal=causal, window=window)
+    want_out, want_lse = ref.flash_attention_fwd_lse_ref(q, k, v, causal=causal, window=window)
+    delta = (dout.float() * out.float()).sum(-1).contiguous()
+    dq = fab.flash_attention_bwd_dq(q, k, v, dout, lse, delta, causal=causal, window=window)
+    dk, dv = fab.flash_attention_bwd_dkv(q, k, v, dout, lse, delta, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert (flash_attention.flash_attention_fwd_lse.launches, fab.flash_attention_bwd_dq.launches,
+            fab.flash_attention_bwd_dkv.launches) == tuple(c + 1 for c in n)
+    # the backward from the kernel's own residuals, so each kernel is held alone
+    wq, wk, wv = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=causal, window=window)
+    assert lse.shape == (B, H, S) and lse.dtype == torch.float32
+    assert (dq.dtype, dk.dtype, dv.dtype) == (dtype,) * 3
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, want_out, atol=FA_F32_ATOL, rtol=0)
+        torch.testing.assert_close(lse, want_lse, atol=LSE_F32_ATOL, rtol=0)
+        for got, want in ((dq, wq), (dk, wk), (dv, wv)):
+            torch.testing.assert_close(got, want, atol=BWD_F32_TOL, rtol=BWD_F32_TOL)
+    else:
+        torch.testing.assert_close(out.float(), want_out.float(), atol=FA_BF16_ATOL, rtol=0)
+        torch.testing.assert_close(lse, want_lse, atol=LSE_BF16_ATOL, rtol=0)
+        for got, want in ((dq, wq), (dk, wk), (dv, wv)):
+            _close_bf16(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_training_kernels_take_strided_bshd_views_and_are_deterministic(dtype):
+    """The model's (B, S, H, D) projections viewed as (B, H, S, D), a
+    cotangent in either layout; two backward passes agree bitwise."""
+    from repro_torch.kernels import flash_attention_bwd as fab
+
+    dev = _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(4)
+    q = torch.randn((2, 130, 15, 64), generator=g).to(dev, dtype).transpose(1, 2)
+    kv = torch.randn((2, 130, 10, 64), generator=g).to(dev, dtype)
+    k, v = kv[:, :, :5].transpose(1, 2), kv[:, :, 5:].transpose(1, 2)
+    for dout in (torch.randn((2, 15, 130, 64), generator=g).to(dev, dtype),
+                 torch.randn((2, 130, 15, 64), generator=g).to(dev, dtype).transpose(1, 2)):
+        out, lse = flash_attention.flash_attention_fwd_lse(q, k, v, causal=True)
+        assert out.stride() == q.stride()
+        delta = (dout.float() * out.float()).sum(-1).contiguous()
+        grads = [fab.flash_attention_bwd_dq(q, k, v, dout, lse, delta),
+                 *fab.flash_attention_bwd_dkv(q, k, v, dout, lse, delta)]
+        again = [fab.flash_attention_bwd_dq(q, k, v, dout, lse, delta),
+                 *fab.flash_attention_bwd_dkv(q, k, v, dout, lse, delta)]
+        assert all(torch.equal(a, b) for a, b in zip(grads, again))
+        wants = ref.flash_attention_bwd_ref(*(t.contiguous() for t in (q, k, v, out)), lse,
+                                            dout.contiguous())
+        for got, want in zip(grads, wants):
+            if dtype == torch.float32:
+                torch.testing.assert_close(got, want, atol=BWD_F32_TOL, rtol=BWD_F32_TOL)
+            else:
+                _close_bf16(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal,window", BWD_MASKS)
+def test_gradients_through_ops_match_autograd_of_the_plain_version(causal, window):
+    """``ops.flash_attention`` on tensors that need a gradient goes through
+    the three kernels; its gradients equal autograd of ``flash_attention_ref``
+    with the JAX package's cotangent sum(o * cos(o))."""
+    from repro_torch.kernels import flash_attention_bwd as fab
+
+    dev = _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = (t.requires_grad_() for t in _fa_inputs(2, 4, 2, 96, 96, 32, torch.float32, dev))
+    n = (flash_attention.flash_attention_fwd_lse.launches, fab.flash_attention_bwd_dq.launches,
+         fab.flash_attention_bwd_dkv.launches, flash_attention.flash_attention.launches)
+    o = ops.flash_attention(q, k, v, causal=causal, window=window)
+    got = torch.autograd.grad((o * torch.cos(o)).sum(), (q, k, v))
+    torch.cuda.synchronize()
+    assert (flash_attention.flash_attention_fwd_lse.launches, fab.flash_attention_bwd_dq.launches,
+            fab.flash_attention_bwd_dkv.launches, flash_attention.flash_attention.launches) == (
+        n[0] + 1, n[1] + 1, n[2] + 1, n[3])
+    o_ref = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    want = torch.autograd.grad((o_ref * torch.cos(o_ref)).sum(), (q, k, v))
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=BWD_F32_TOL, rtol=BWD_F32_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_training_kernels_rows_without_keys(dtype):
+    """Rows past T + window - 1 of a short key axis see no key: output 0,
+    lse -inf, no gradient, as the plain versions give."""
+    from repro_torch.kernels import flash_attention_bwd as fab
+
+    dev = _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, dout = _train_inputs(1, 2, 1, 100, 8, 32, dtype, dev, seed=5)
+    out, lse = flash_attention.flash_attention_fwd_lse(q, k, v, causal=False, window=4)
+    assert not out[:, :, 11:].any() and bool(torch.isneginf(lse[:, :, 11:]).all())
+    delta = (dout.float() * out.float()).sum(-1).contiguous()
+    dq = fab.flash_attention_bwd_dq(q, k, v, dout, lse, delta, causal=False, window=4)
+    dk, dv = fab.flash_attention_bwd_dkv(q, k, v, dout, lse, delta, causal=False, window=4)
+    assert not dq[:, :, 11:].any()
+    wq, wk, wv = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=False, window=4)
+    for got, want in ((dq, wq), (dk, wk), (dv, wv)):
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, want, atol=BWD_F32_TOL, rtol=BWD_F32_TOL)
+        else:
+            _close_bf16(got, want)
+
+
+@pytest.mark.cuda
+def test_training_kernels_refuse_what_they_do_not_take():
+    from repro_torch.kernels import flash_attention_bwd as fab
+
+    dev = _card()
+    q, k, v, dout = _train_inputs(1, 2, 2, 16, 16, 32, torch.float32, dev)
+    out, lse = flash_attention.flash_attention_fwd_lse(q, k, v)
+    delta = (dout * out).sum(-1).contiguous()
+    with pytest.raises(TypeError):
+        flash_attention.flash_attention_fwd_lse(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError):
+        flash_attention.flash_attention_fwd_lse(*_fa_inputs(1, 2, 2, 16, 16, 160, torch.float32, dev))
+    with pytest.raises(ValueError):
+        fab.flash_attention_bwd_dq(q, k, v, torch.randn((1, 2, 16, 64), device=dev)[..., ::2],
+                                   lse, delta)
+    with pytest.raises(ValueError):
+        fab.flash_attention_bwd_dq(q, k, v, dout, lse[:, :, :8], delta)
+    with pytest.raises(ValueError):
+        fab.flash_attention_bwd_dkv(q, k, v, dout, lse, delta.double())
+    with pytest.raises(ValueError):
+        fab.flash_attention_bwd_dkv(q, k.cpu(), v, dout, lse, delta)
+    with pytest.raises(ValueError):  # the training kernels have no q_offset
+        ops.flash_attention(q.requires_grad_(), k, v, q_offset=3)

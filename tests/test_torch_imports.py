@@ -43,6 +43,11 @@ def test_port_imports_with_jax_and_repro_blocked():
         "repro_torch.models.layers", "repro_torch.models.transformer", "repro_torch.models.api",
         "repro_torch.configs", "repro_torch.configs.smollm_360m", "repro_torch.train.step",
         "repro_torch.serve.scheduler", "repro_torch.launch.serve",
+        "repro_torch.kernels.flash_attention_bwd", "repro_torch.train.loss",
+        "repro_torch.train.optimizer", "repro_torch.data.tokens", "repro_torch.pipeline",
+        "repro_torch.pipeline.spec", "repro_torch.pipeline.builder", "repro_torch.checkpoint",
+        "repro_torch.checkpoint.manager", "repro_torch.distributed.fault",
+        "repro_torch.launch.train",
     } <= names
 
 

@@ -169,7 +169,8 @@ def test_forward_matches_reference(pair):
     cfg, jmodel, jparams, model, lm, _, _ = pair
     tokens = np.random.default_rng(5).integers(0, cfg.vocab_size, (2, 24)).astype(np.int32)
     want, _ = jmodel.forward(jparams, {"tokens": jnp.asarray(tokens)})
-    got = model.forward(lm, {"tokens": torch.from_numpy(tokens)})
+    with torch.no_grad():  # the parameters are trainable: no graph for a comparison
+        got = model.forward(lm, {"tokens": torch.from_numpy(tokens)})
     assert got.shape == (2, 24, cfg.vocab_size) and got.dtype == torch.float32
     _close(got, want, "forward logits")
 
