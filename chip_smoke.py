@@ -96,6 +96,37 @@ LM training (slice 3), smollm-360m at its full width:
    from step 3: the final parameters and moments equal an uninterrupted
    run's bitwise.
 
+Mamba serving (slice 4), falcon-mamba-7b at its full width (d_model
+4,096, d_inner 8,192, d_state 16, d_conv 4, vocab 65,024):
+
+15. ssm_kernel: ``ssm_scan`` on the card against its plain version: a
+   sweep (S = 1, 37, 300; N = 4, 16 and 5; h0 present or absent; float32 and
+   bf16; x, B and C as the strided views the model passes) and the
+   prefill's shape, x (8, 1024, 8192) bf16 with N = 16, each tensor
+   within the rule SSM_RULE scaled to rms(want) (max error, rms(want) and
+   error over the rule printed for y and h_final); the mutation check:
+   three edited copies of ``csrc/ssm_scan.cu`` (one drops D x, one resets
+   h at each chunk boundary, one skips the last step), built under
+   ``build/`` and run on the same inputs, must each fail the rule at least
+   SSM_MUTANT_MIN times over; event times of the kernel and the plain
+   version, and the bound with its parts (bytes; exponentials on the
+   special-function units; the FMA pipe);
+16. ssm_vs_cpu: 2 layers at full width in float32 on the card and on the
+   CPU from the same weights: a 300-token prefill (not a multiple of the
+   reference's 256-step chunk) at batch 2 and 8 decode steps: logits
+   within rtol / atol 1e-3, greedy tokens equal except across ties, the
+   convolution and scan states within SSM_STATE_ATOL / SSM_STATE_RTOL;
+17. ssm_serve (the main path): ``serve_batch`` at full width and depth (64
+   layers, 7.27 B parameters drawn on the card from a seed) in bf16, batch
+   8, 1,024-token prompts, 32 new tokens, after a warm-up at the same
+   shapes, with ``ssm_scan``'s launch count set to 0 just before and read
+   just after (64 in the prefill, none in the 31 decode steps); time to
+   first token, decode ms per step, tokens/s, peak memory; then one
+   prefill and one decode step under ``torch.profiler``;
+18. ssm_batching: ``SlotBatcher`` over SSM caches at full width with 4
+   layers in float32, 10 requests of 16-512 prompt tokens over 4 slots;
+   every request equals its standalone serve except across ties.
+
 Then the kernels line (one entry per kernel), the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.  Any failure
 exits non-zero before it.
@@ -162,6 +193,45 @@ TRAIN_CORPUS_TOKENS = 2_000_000
 CPU_STEP_LAYERS, CPU_STEP_BATCH, CPU_STEP_SEQ, CPU_STEP_LR = 2, 2, 128, 3e-4
 CPU_LOSS_RTOL, CPU_GNORM_RTOL, CPU_PARAM_TOL, CPU_PARAM_SHARE = 1e-5, 1e-4, 1e-6, 0.999
 RESUME_LAYERS, RESUME_STEPS, RESUME_EVERY, RESUME_CRASH = 4, 6, 3, 4
+# Mamba serving
+SSM_ARCH = "falcon-mamba-7b"
+SSM_FULL = (64, 4096, 8192, 16, 4)  # layers, d_model, d_inner, d_state, d_conv
+# (B, S, D, N): S = 1, S under one 16-step chunk and past several; N = 4
+# (the smoke config) and 16, the kernel's only state sizes; D not a multiple
+# of the kernel's 128 channels
+SSM_SWEEP = [(2, 1, 64, 4), (2, 37, 200, 4), (1, 300, 160, 16), (2, 37, 96, 16),
+             (1, 1, 128, 16), (2, 300, 256, 4)]
+SSM_PATH = (8, 1024, 8192, 16)  # the prefill's scan: batch 8, 1,024-token prompts
+# The scan's rule, written before the first run: |got - want| <= a rms(want)
+# + r |want|, per tensor; (a, r) by the type of what is compared.  float32
+# (y and h_final, and h_final in bf16, which stays float32): a recurrence of
+# up to 1,024 steps that rounds the state once per step (2**-24) and takes
+# its exponentials on the special-function unit (about 2**-22); the errors
+# add along the decay's memory, up to about 1,000 steps: about 2**-14 of the
+# scale, and four times that.  bf16 y: each side rounds its float32 y once;
+# where float32 noise moves a value across a rounding boundary the two
+# differ by one bf16 ulp, at most 2**-7 of the value, which is half of r;
+# a covers values near zero.  So the shipped kernel's error sits under half
+# the rule, and a mutant must fail it SSM_MUTANT_MIN times over.
+SSM_RULE = {"float32": (2**-12, 2**-12), "bfloat16": (2**-8, 2**-6)}
+SSM_MUTANT_MIN = 3.0
+# the mutation check: edited copies of csrc/ssm_scan.cu, built under build/
+SSM_MUTANTS = {
+    "drops_D_x": ("const float yv = acc + Dd * xs[t];", "const float yv = acc;"),
+    "resets_h_at_chunk": ("    if (!active) continue;\n",
+                          "    if (t0 > 0) {\n#pragma unroll\n"
+                          "      for (int n = 0; n < kN; ++n) h[n] = 0.f;\n    }\n"
+                          "    if (!active) continue;\n"),
+    "skips_last_step": ("const int64_t left = p.S - t0;", "const int64_t left = p.S - 1 - t0;"),
+}
+SFU_EXP2_PER_CLOCK_PER_SM = 16  # CUDA C++ Programming Guide, compute capability 9.0
+SSM_SERVE_BATCH, SSM_SERVE_PROMPT, SSM_SERVE_GEN = 8, 1024, 32
+SSM_CPU_LAYERS, SSM_CPU_BATCH, SSM_CPU_PROMPT, SSM_CPU_DECODE = 2, 2, 300, 8
+# the card's float32 state against the CPU's: 300 recurrence steps and two
+# layers of float32 sums in another order
+SSM_STATE_ATOL, SSM_STATE_RTOL = 1e-4, 1e-3
+SSM_BATCH_LAYERS, SSM_BATCH_REQUESTS, SSM_BATCH_MAX_LEN = 4, 10, 1024
+SSM_BATCH_PROMPT_LENS, SSM_BATCH_NEW = (16, 512), (8, 32)  # inclusive ranges drawn from
 
 
 def fail(msg: str) -> None:
@@ -173,26 +243,26 @@ def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def event_ms(fn) -> float:
-    """Device ms per call of ``fn``: one CUDA-event pair around
-    ``TIMED_CALLS`` back-to-back calls, divided by their number; the median
-    of ``TIMED_GROUPS`` such groups.  A sleep kernel ahead of each group
-    holds the stream while the host queues the calls, so the host's time
-    per call does not count unless ``fn`` itself waits for the device."""
+def event_ms(fn, calls: int = TIMED_CALLS, groups: int = TIMED_GROUPS) -> float:
+    """Device ms per call of ``fn``: one CUDA-event pair around ``calls``
+    back-to-back calls, divided by their number; the median of ``groups``
+    such groups.  A sleep kernel ahead of each group holds the stream
+    while the host queues the calls, so the host's time per call does not
+    count unless ``fn`` itself waits for the device."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     per_call = []
-    for _ in range(TIMED_GROUPS):
+    for _ in range(groups):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(SLEEP_CYCLES)
         start.record()
-        for _ in range(TIMED_CALLS):
+        for _ in range(calls):
             fn()
         end.record()
         torch.cuda.synchronize()
-        per_call.append(start.elapsed_time(end) / TIMED_CALLS)
+        per_call.append(start.elapsed_time(end) / calls)
     return statistics.median(per_call)
 
 
@@ -209,6 +279,12 @@ def main() -> None:
 
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
+    # Float32 products in full float32 for the whole script, not TF32: the
+    # phases that hold the card against the CPU in float32 (step_vs_cpu,
+    # lm_vs_cpu, batching, train_vs_cpu, ssm_vs_cpu, ssm_batching) and the
+    # scan's float32 dt product in every Mamba phase depend on it.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     # 1. device
     smi = subprocess.run(
@@ -216,10 +292,14 @@ def main() -> None:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     print(smi)
+    max_sm_mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
     kind = torch.cuda.get_device_name(0)
     emit({"phase": "device", "kind": kind, "count": torch.cuda.device_count(),
-          "nvidia_smi": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
-          "capability": list(torch.cuda.get_device_capability(0))})
+          "nvidia_smi": smi, "max_sm_clock_mhz": float(max_sm_mhz), "torch": torch.__version__,
+          "cuda": torch.version.cuda, "capability": list(torch.cuda.get_device_capability(0))})
 
     # 2. build
     t0 = time.perf_counter()
@@ -229,6 +309,8 @@ def main() -> None:
     lm_kernel = lm_phases(dev)
     torch.cuda.empty_cache()
     train_kernels = train_phases(dev)
+    torch.cuda.empty_cache()
+    ssm_kernel = ssm_phases(dev, float(max_sm_mhz) * 1e6)
     torch.cuda.empty_cache()
 
     # 3. data
@@ -373,7 +455,8 @@ def main() -> None:
           "top_kernels": [[e.key[:80], e.count, e.self_device_time_total / 1e3] for e in top]})
 
     kernel["launches"] = launches
-    emit({"kernels": [{k: kernel[k] for k in KERNEL_KEYS}, lm_kernel, *train_kernels]})
+    emit({"kernels": [{k: kernel[k] for k in KERNEL_KEYS}, lm_kernel, *train_kernels,
+                      ssm_kernel]})
     print(smi)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
@@ -429,8 +512,6 @@ def lm_phases(dev) -> dict:
     from repro_torch.models import Model
     from repro_torch.serve.scheduler import SlotBatcher
 
-    torch.backends.cuda.matmul.allow_tf32 = False  # float32 checks in full float32
-    torch.backends.cudnn.allow_tf32 = False
     cfg = get_config(ARCH)
     if (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
             cfg.resolved_head_dim) != FULL_WIDTH:
@@ -664,8 +745,6 @@ def train_phases(dev) -> list:
     from repro_torch.train.optimizer import AdamWConfig, constant_lr
     from repro_torch.train.step import make_train_state, make_train_step
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     cfg = get_config(ARCH)
 
     # 11. the three kernels against their plain versions
@@ -926,6 +1005,340 @@ def train_phases(dev) -> list:
                                              "trace_ms_per_launch", "launches_per_step", "bytes",
                                              "flop", "want_rms")}
             for key in ("fwd", "dq", "dkv")]
+
+
+def _ssm_inputs(B, S, Dm, N, dtype, dev, gen):
+    """The scan's inputs with the model's distributions and layouts: x one
+    half of a wider projection, dt log-uniform in [1e-3, 1e-1] (mamba's dt
+    init), A near -(1..N), B and C column slices of a float32 x_proj output
+    (after dt_rank = 256 columns), D near 1, h0 ~ N(0, 0.3)."""
+    import torch
+
+    xz = torch.randn((B, S, 2 * Dm), generator=gen, device=dev).to(dtype)
+    dt = torch.exp(torch.empty((B, S, Dm), device=dev).uniform_(math.log(1e-3), math.log(1e-1),
+                                                               generator=gen))
+    A = -torch.exp(torch.log(torch.arange(1, N + 1, device=dev).float())[None]
+                   + 0.1 * torch.randn((Dm, N), generator=gen, device=dev))
+    xdb = torch.randn((B, S, 256 + 2 * N), generator=gen, device=dev)
+    D = 1 + 0.1 * torch.randn((Dm,), generator=gen, device=dev)
+    h0 = 0.3 * torch.randn((B, Dm, N), generator=gen, device=dev)
+    return xz[..., :Dm], dt, A, xdb[..., 256:256 + N], xdb[..., 256 + N:], D, h0
+
+
+def _rule_err(got, want, dtype_name: str) -> tuple[float, float, float]:
+    """(max |got - want|, the same over SSM_RULE[dtype_name], rms(want));
+    the second is at most 1 within the rule."""
+    want = want.float()
+    a, r = SSM_RULE[dtype_name]
+    rms = want.square().mean().sqrt().item()
+    return _scaled_err(got, want, a * rms, r) + (rms,)
+
+
+def _ssm_mutants(dev, inputs) -> dict:
+    """Build each of SSM_MUTANTS (an edited copy of csrc/ssm_scan.cu) under
+    build/, run it on ``inputs`` into zero-filled outputs, and return its
+    (y, h_final) errors against the plain version over the rule; also the
+    unedited source built the same way, as ``shipped``."""
+    import ctypes
+
+    import torch
+
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels import ssm_scan as ssm
+
+    src = (_build.CSRC / "ssm_scan.cu").read_text()
+    out_dir = os.path.join(HERE, "build", "ssm_scan_mutants")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    edits = {"shipped": None, **SSM_MUTANTS}
+    jobs = {}
+    for name, edit in edits.items():
+        text = src
+        if edit is not None:
+            if src.count(edit[0]) != 1:
+                fail(f"mutant {name}: its line occurs {src.count(edit[0])} times in ssm_scan.cu")
+            text = src.replace(edit[0], edit[1])
+        cu = os.path.join(out_dir, f"{name}.cu")
+        with open(cu, "w") as f:
+            f.write(text)
+        so = os.path.join(out_dir, f"{name}.so")
+        jobs[name] = (subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-o", so, cu],
+                                       stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                       text=True), so)
+    libs = {}
+    for name, (proc, so) in jobs.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            fail(f"mutant {name} did not build:\n{log}")
+        libs[name] = ssm.bind(ctypes.CDLL(so))
+    x, dt, A, Bc, Cc, D, h0 = inputs
+    want_y, want_h = ref.ssm_scan_ref(*inputs)
+    result = {}
+    for name, lib in libs.items():
+        y = torch.zeros(x.shape, dtype=x.dtype, device=dev)
+        h = torch.zeros(h0.shape, dtype=torch.float32, device=dev)
+        ssm.launch(lib, x, dt, A, Bc, Cc, D, h0, y, h)
+        torch.cuda.synchronize()
+        result[name] = {"y": _rule_err(y, want_y, str(x.dtype).removeprefix("torch.")),
+                        "h_final": _rule_err(h, want_h, "float32")}
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return result
+
+
+def ssm_phases(dev, sm_clock_hz: float) -> dict:
+    """Phases 15-18, Mamba serving at falcon-mamba-7b's full width; returns
+    the kernels-line entry of ``ssm_scan``."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssm_scan as ssm
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.models import Model
+    from repro_torch.serve.scheduler import SlotBatcher
+
+    cfg = get_config(SSM_ARCH)
+    s = cfg.ssm
+    if (cfg.num_layers, cfg.d_model, s.expand * cfg.d_model, s.d_state, s.d_conv) != SSM_FULL:
+        fail(f"{SSM_ARCH} is not at its published width: {cfg}")
+
+    # 15. the kernel against its plain version
+    gen = torch.Generator(device=dev).manual_seed(15)
+    sweep = {}  # "dtype/y" or "dtype/h_final" -> the worst (abs, over the rule, rms)
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).removeprefix("torch.")
+        for B, S, Dm, N in SSM_SWEEP:
+            for with_h0 in (False, True):
+                x, dt, A, Bc, Cc, D, h0 = _ssm_inputs(B, S, Dm, N, dtype, dev, gen)
+                h0 = h0 if with_h0 else None
+                y, h = ssm.ssm_scan(x, dt, A, Bc, Cc, D, h0)
+                want_y, want_h = ref.ssm_scan_ref(x, dt, A, Bc, Cc, D, h0)
+                for key, e in ((f"{name}/y", _rule_err(y, want_y, name)),
+                               (f"{name}/h_final", _rule_err(h, want_h, "float32"))):
+                    sweep[key] = max(sweep.get(key, e), e, key=lambda t: t[1])
+    if not all(e[1] <= 1.0 for e in sweep.values()):
+        fail(f"ssm_scan disagrees with its plain version on the sweep: {sweep}")
+
+    B, S, Dm, N = SSM_PATH
+    inputs = _ssm_inputs(B, S, Dm, N, torch.bfloat16, dev, gen)
+    x, dt, A, Bc, Cc, D, h0 = inputs
+    y, h = ssm.ssm_scan(*inputs)
+    want_y, want_h = ref.ssm_scan_ref(*inputs)
+    torch.cuda.synchronize()
+    path = {"y": _rule_err(y, want_y, "bfloat16"), "h_final": _rule_err(h, want_h, "float32")}
+    if not all(e[1] <= 1.0 for e in path.values()):
+        fail(f"ssm_scan disagrees with its plain version at the path shape: {path}")
+    del y, h, want_y, want_h
+    mutants = _ssm_mutants(dev, inputs)
+    weak = {k: v for k, v in mutants.items()
+            if k != "shipped" and max(v["y"][1], v["h_final"][1]) < SSM_MUTANT_MIN}
+    if weak:
+        fail(f"mutants of ssm_scan pass the rule with less than {SSM_MUTANT_MIN}x: {weak}")
+    if max(mutants["shipped"]["y"][1], mutants["shipped"]["h_final"][1]) > 1.0:
+        fail(f"the unedited ssm_scan built as a mutant fails the rule: {mutants['shipped']}")
+    kernel_ms = event_ms(lambda: ssm.ssm_scan(*inputs))
+    plain_ms = event_ms(lambda: ref.ssm_scan_ref(*inputs), calls=1, groups=3)
+    # each input read once, each output written once
+    moved = sum(t.numel() * t.element_size() for t in inputs) + x.numel() * x.element_size() \
+        + h0.numel() * 4
+    exps = B * S * Dm * N
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    exp_ms = exps / (SFU_EXP2_PER_CLOCK_PER_SM * sms * sm_clock_hz) * 1e3
+    fp32_ms = 6 * exps / FP32_FLOP_PER_S * 1e3  # per state and step: 2 FMAs and 2 products
+    kernel = {"name": "ssm_scan", "route": "cuda",
+              "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
+              "replaces": "src/repro/kernels/ssm_scan.py:68",
+              "shape": list(SSM_PATH), "dtype": "bfloat16",
+              "max_abs_err": max(e[0] for e in (*sweep.values(), *path.values())),
+              "ms": kernel_ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+              "plain": "ssm_scan_ref, 3 calls", "library_ms": None,
+              "library": "none: no single PyTorch call computes a selective scan",
+              "bound_ms": max(bytes_ms, exp_ms),
+              "bound_by": "bytes" if bytes_ms >= exp_ms else "operations",
+              "bound_parts_ms": {"bytes": bytes_ms, "exponentials": exp_ms,
+                                 "fp32_pipe": fp32_ms},
+              "bytes": moved, "exponentials": exps, "sm_clock_hz": sm_clock_hz, "sms": sms}
+    emit({"phase": "ssm_kernel", **kernel, "rule": SSM_RULE,
+          "sweep_errors": sweep,
+          "path_shape_errors": path,  # [max abs err, err / rule, rms(want)]
+          "path_shape_y_err_of_rule": path["y"][1],
+          "path_shape_h_final_err_of_rule": path["h_final"][1],
+          "mutants": mutants, "mutant_min_err_of_rule": SSM_MUTANT_MIN})
+    del inputs, x, dt, A, Bc, Cc, D, h0
+    torch.cuda.empty_cache()
+
+    # 16. the card against the CPU at full width with 2 layers in float32
+    cfg32 = dataclasses.replace(cfg, num_layers=SSM_CPU_LAYERS, param_dtype="float32",
+                                compute_dtype="float32")
+    model32 = Model(cfg32)
+    lm32 = model32.init(generator=torch.Generator(device=dev).manual_seed(16), device=dev)
+    lm_cpu = model32.init(generator=torch.Generator(device=dev).manual_seed(16), device="cpu")
+    rng = np.random.default_rng(16)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (SSM_CPU_BATCH, SSM_CPU_PROMPT)))
+    max_len = SSM_CPU_PROMPT + SSM_CPU_DECODE
+    caches = {"cpu": model32.init_cache(SSM_CPU_BATCH, max_len, device="cpu"),
+              "card": model32.init_cache(SSM_CPU_BATCH, max_len, device=dev)}
+
+    def state_err() -> dict:
+        out = {}
+        for k in ("conv", "h"):
+            g, w = caches["card"]["sub_0"][k].cpu(), caches["cpu"]["sub_0"][k]
+            if not torch.allclose(g, w, rtol=SSM_STATE_RTOL, atol=SSM_STATE_ATOL):
+                fail(f"card and CPU {k} states disagree: max err {(g - w).abs().max().item()}")
+            out[k] = (g - w).abs().max().item()
+        return out
+
+    ssm.ssm_scan.launches = 0
+    want, _ = model32.prefill(lm_cpu, {"tokens": prompt}, caches["cpu"])
+    got, _ = model32.prefill(lm32, {"tokens": prompt.to(dev)}, caches["card"])
+    if ssm.ssm_scan.launches != SSM_CPU_LAYERS:
+        fail(f"the card's prefill launched ssm_scan {ssm.ssm_scan.launches} times")
+    prefill_state = state_err()
+    steps = [(got.cpu(), want)]
+    tok = want.argmax(-1)
+    for i in range(SSM_CPU_DECODE):
+        want, _ = model32.decode(lm_cpu, tok, caches["cpu"], SSM_CPU_PROMPT + i)
+        got, _ = model32.decode(lm32, tok.to(dev), caches["card"], SSM_CPU_PROMPT + i)
+        steps.append((got.cpu(), want))
+        tok = want.argmax(-1)
+    cpu_err, ties = 0.0, 0
+    for g, w in steps:
+        if not bool(torch.isfinite(g).all()):
+            fail("non-finite logits on the card")
+        if not torch.allclose(g, w, rtol=CPU_RTOL, atol=CPU_ATOL):
+            fail(f"card and CPU logits disagree: max err {(g - w).abs().max().item()}")
+        cpu_err = max(cpu_err, (g - w).abs().max().item())
+        for b in range(SSM_CPU_BATCH):
+            gt, wt = int(g[b].argmax()), int(w[b].argmax())
+            if gt != wt:
+                if not abs(float(w[b, gt]) - float(w[b, wt])) < TIE_F32:
+                    fail(f"greedy tokens differ off a tie: card {gt}, CPU {wt}")
+                ties += 1
+    emit({"phase": "ssm_vs_cpu", "arch": SSM_ARCH, "layers": SSM_CPU_LAYERS, "dtype": "float32",
+          "batch": SSM_CPU_BATCH, "prompt": SSM_CPU_PROMPT, "decode_steps": SSM_CPU_DECODE,
+          "max_abs_err": cpu_err, "max_abs_logit": max(w.abs().max().item() for _, w in steps),
+          "rtol": CPU_RTOL, "atol": CPU_ATOL, "greedy_ties": ties,
+          "state_max_abs_err_after_prefill": prefill_state,
+          "state_max_abs_err_after_decode": state_err(),
+          "state_rtol": SSM_STATE_RTOL, "state_atol": SSM_STATE_ATOL})
+    del lm32, lm_cpu, caches
+    torch.cuda.empty_cache()
+
+    # 17. the main path: serve_batch at full width and depth in bf16
+    model = Model(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = model.init(generator=torch.Generator(device=dev).manual_seed(17), device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    prompts = rng.integers(0, cfg.vocab_size, (SSM_SERVE_BATCH, SSM_SERVE_PROMPT)).astype(np.int32)
+    serve_batch(model, prompts, SSM_SERVE_GEN, params=params, device=dev)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    timings = {}
+    ssm.ssm_scan.launches = 0
+    toks = serve_batch(model, prompts, SSM_SERVE_GEN, params=params, device=dev, timings=timings)
+    launches = ssm.ssm_scan.launches
+    # one prefill and SSM_SERVE_GEN - 1 decode steps: the prefill's 64, none in decode
+    per_decode_step = (launches - cfg.num_layers) / timings["decode_steps"]
+    if launches != cfg.num_layers:
+        fail(f"ssm_scan launched {launches} times in one prefill of {cfg.num_layers} layers "
+             f"and {timings['decode_steps']} decode steps")
+    if toks.shape != (SSM_SERVE_BATCH, SSM_SERVE_GEN) or not (
+            (toks >= 0) & (toks < cfg.vocab_size)).all():
+        fail(f"serve_batch gave tokens of shape {toks.shape} outside the vocabulary")
+    peak = torch.cuda.max_memory_allocated(dev)
+    decode_ms = timings["decode_s"] / timings["decode_steps"] * 1e3
+
+    def traced(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        on_card = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        return on_card, sum(e.self_device_time_total for e in on_card) / 1e3, wall
+
+    cache = model.init_cache(SSM_SERVE_BATCH, SSM_SERVE_PROMPT + SSM_SERVE_GEN, device=dev)
+    batch = {"tokens": torch.from_numpy(prompts.astype(np.int64)).to(dev)}
+    on_card, prefill_kernel_ms, prefill_wall = traced(lambda: model.prefill(params, batch, cache))
+    mine = [e for e in on_card if "ssm_scan" in e.key]
+    if not mine:
+        fail("the trace shows no ssm_scan kernel on the card")
+    scan_ms = sum(e.self_device_time_total for e in mine) / 1e3
+    scan_n = sum(e.count for e in mine)
+    top = sorted(on_card, key=lambda e: -e.self_device_time_total)[:8]
+    tok = torch.from_numpy(toks[:, -1].astype(np.int64)).to(dev)
+    dec_card, decode_kernel_ms, decode_wall = traced(
+        lambda: model.decode(params, tok, cache, SSM_SERVE_PROMPT))
+    if any("ssm_scan" in e.key for e in dec_card):
+        fail("a traced decode step launched ssm_scan")
+    dec_top = sorted(dec_card, key=lambda e: -e.self_device_time_total)[:5]
+    emit({"phase": "ssm_serve", "arch": SSM_ARCH, "layers": cfg.num_layers,
+          "d_model": cfg.d_model, "d_inner": s.expand * cfg.d_model, "params": n_params,
+          "dtype": cfg.compute_dtype, "batch": SSM_SERVE_BATCH, "prompt": SSM_SERVE_PROMPT,
+          "gen": SSM_SERVE_GEN, "init_on_card_s": init_s,
+          "prefill_ms": timings["prefill_s"] * 1e3, "decode_ms_per_step": decode_ms,
+          "decode_tokens_per_s": SSM_SERVE_BATCH * timings["decode_steps"] / timings["decode_s"],
+          "peak_device_mem_gb": peak / 1e9, "ssm_scan_launches": launches, "prefills": 1,
+          "decode_steps": timings["decode_steps"],
+          "ssm_scan_launches_per_decode_step": per_decode_step,
+          "traced_prefill_device_kernel_ms": prefill_kernel_ms,
+          "traced_prefill_wall_ms": prefill_wall * 1e3,
+          "ssm_scan_trace": {"count": scan_n, "device_ms": scan_ms,
+                             "ms_per_launch": scan_ms / scan_n,
+                             "share_of_prefill_kernel_time": scan_ms / prefill_kernel_ms},
+          "top_kernels": [[e.key[:80], e.count, e.self_device_time_total / 1e3] for e in top],
+          "traced_decode_step_device_kernel_ms": decode_kernel_ms,
+          "traced_decode_step_wall_ms": decode_wall * 1e3,
+          "traced_decode_step_kernel_launches": sum(e.count for e in dec_card),
+          "decode_top_kernels": [[e.key[:80], e.count, e.self_device_time_total / 1e3]
+                                 for e in dec_top]})
+    kernel["launches"] = launches
+    kernel["trace_ms_per_launch"] = scan_ms / scan_n
+    del params, cache, batch
+    torch.cuda.empty_cache()
+
+    # 18. continuous batching over SSM caches at full width in float32
+    cfg_b = dataclasses.replace(cfg, num_layers=SSM_BATCH_LAYERS, param_dtype="float32",
+                                compute_dtype="float32")
+    model_b = Model(cfg_b)
+    lm_b = model_b.init(generator=torch.Generator(device=dev).manual_seed(18), device=dev)
+    brng = np.random.default_rng(18)
+    lens = brng.integers(SSM_BATCH_PROMPT_LENS[0], SSM_BATCH_PROMPT_LENS[1] + 1,
+                         SSM_BATCH_REQUESTS)
+    max_new = brng.integers(SSM_BATCH_NEW[0], SSM_BATCH_NEW[1] + 1, SSM_BATCH_REQUESTS)
+    prompts = [brng.integers(0, cfg.vocab_size, int(n)).astype(np.int32) for n in lens]
+    batcher = SlotBatcher(model_b, lm_b, batch_slots=BATCH_SLOTS, max_len=SSM_BATCH_MAX_LEN)
+    for p, m in zip(prompts, max_new):
+        batcher.submit(p, int(m))
+    t0 = time.perf_counter()
+    done = batcher.run()
+    batch_s = time.perf_counter() - t0
+    if [r.rid for r in done] != list(range(SSM_BATCH_REQUESTS)) or not all(r.done for r in done):
+        fail(f"the batcher completed {[r.rid for r in done]}")
+    diverged = []
+    for req, p, m in zip(done, prompts, max_new):
+        want, lgs = _greedy_standalone(model_b, lm_b, p, int(m), SSM_BATCH_MAX_LEN, dev)
+        tie = _tie_diverged(req.out, want, lgs, TIE_F32)
+        if tie is not None:
+            diverged.append({"rid": req.rid, **tie})
+    emit({"phase": "ssm_batching", "arch": SSM_ARCH, "layers": SSM_BATCH_LAYERS,
+          "dtype": "float32", "slots": BATCH_SLOTS, "requests": SSM_BATCH_REQUESTS,
+          "max_len": SSM_BATCH_MAX_LEN, "prompt_lens": lens.tolist(),
+          "max_new": max_new.tolist(), "tokens": int(sum(len(r.out) for r in done)),
+          "cursor_end": batcher.pos, "seconds": batch_s, "ties": diverged})
+    del lm_b, batcher
+    torch.cuda.empty_cache()
+    return {k: kernel[k] for k in (*KERNEL_KEYS, "dtype", "library", "plain",
+                                     "trace_ms_per_launch", "bound_parts_ms", "bytes",
+                                     "exponentials", "sm_clock_hz", "sms")}
 
 
 if __name__ == "__main__":

@@ -10,13 +10,13 @@ import importlib
 
 __all__ = ["ARCHS", "get_config", "smoke_config"]
 
-ARCHS = ["smollm-360m"]
+ARCHS = ["falcon-mamba-7b", "smollm-360m"]
 
-_MODULES = {"smollm-360m": "smollm_360m"}
+_MODULES = {"falcon-mamba-7b": "falcon_mamba_7b", "smollm-360m": "smollm_360m"}
 
 # the JAX package's other ids: their families are not ported yet
 _NOT_PORTED = (
-    "internvl2-26b", "jamba-1.5-large-398b", "falcon-mamba-7b", "mixtral-8x7b",
+    "internvl2-26b", "jamba-1.5-large-398b", "mixtral-8x7b",
     "phi3.5-moe-42b-a6.6b", "gemma-7b", "phi3-medium-14b", "h2o-danube-3-4b",
     "whisper-large-v3",
 )

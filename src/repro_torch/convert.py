@@ -83,34 +83,52 @@ def _expect(tree: Mapping, shapes: dict, where: str) -> None:
             raise ValueError(f"{where}/{k}: need shape {shape}, got {tuple(np.shape(tree[k]))}")
 
 
+# the ssm mixer's weights that the reference keeps in float32 whatever
+# param_dtype (repro/models/ssm.py: dt_bias, A_log, D)
+_SSM_FLOAT32 = ("dt_bias", "A_log", "D")
+
+
+def _ssm_shapes(cfg: ModelConfig) -> dict:
+    s, L, d = cfg.ssm, cfg.num_layers, cfg.d_model
+    d_in, dtr, n = s.expand * d, s.resolved_dt_rank(d), s.d_state
+    return {"w_in": (L, d, 2 * d_in), "w_conv": (L, s.d_conv, d_in),
+            "w_x": (L, d_in, dtr + 2 * n), "w_dt": (L, dtr, d_in), "dt_bias": (L, d_in),
+            "A_log": (L, d_in, n), "D": (L, d_in), "w_out": (L, d_in, d)}
+
+
 def lm_from_jax(params_np: Mapping, cfg: ModelConfig, *, device="cuda") -> LM:
-    """``repro``'s dense-LM params tree as numpy arrays -> the port's LM.
+    """``repro``'s LM params tree (dense or ssm family) as numpy arrays ->
+    the port's LM.
 
     The tree is ``embed`` (vocab, d), ``lm_head`` (d, vocab) unless the
-    embeddings are tied, ``final_norm``, and ``blocks/sub_0`` with
-    ``norm1``, ``attn`` {wq, wk, wv, wo}, ``norm2`` and ``mlp`` {w_in,
-    w_gate, w_out}, each stacked (layers, ...).  Each layer becomes one
-    block; each weight keeps its layout (``wq`` stays (d, heads,
-    head_dim)) and takes ``cfg.param_dtype``, the norms float32.  Raises
-    ``ValueError`` on a missing or extra key or a wrong shape.
+    embeddings are tied, ``final_norm``, and ``blocks/sub_0``, each leaf
+    stacked (layers, ...): dense ``norm1``, ``attn`` {wq, wk, wv, wo},
+    ``norm2`` and ``mlp`` {w_in, w_gate, w_out}; ssm ``norm1`` and ``ssm``
+    {w_in, w_conv, w_x, w_dt, dt_bias, A_log, D, w_out}.  Each layer
+    becomes one block; each weight keeps its layout (``wq`` stays (d,
+    heads, head_dim)) and takes ``cfg.param_dtype``, the norms and the
+    ssm's ``dt_bias``, ``A_log`` and ``D`` float32, as in the reference.
+    Raises ``ValueError`` on a missing or extra key or a wrong shape.
     """
     check_family(cfg)
     L, d, hq, hkv, hd = (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                          cfg.resolved_head_dim)
     norm = {"scale": (d,)} if cfg.norm == "rmsnorm" else {"scale": (d,), "bias": (d,)}
     stacked_norm = {k: (L, *s) for k, s in norm.items()}
-    mlp = {"w_in": (L, d, cfg.d_ff), "w_out": (L, cfg.d_ff, d)}
-    if cfg.act in ("swiglu", "geglu"):
-        mlp["w_gate"] = (L, d, cfg.d_ff)
-    shapes = {
-        "embed": (cfg.vocab_size, d),
-        "final_norm": norm,
-        "blocks": {"sub_0": {
-            "norm1": stacked_norm, "norm2": stacked_norm, "mlp": mlp,
+    if cfg.family == "ssm":
+        layer_shapes = {"norm1": stacked_norm, "ssm": _ssm_shapes(cfg)}
+    else:
+        mlp = {"w_in": (L, d, cfg.d_ff), "w_out": (L, cfg.d_ff, d)}
+        if cfg.act in ("swiglu", "geglu"):
+            mlp["w_gate"] = (L, d, cfg.d_ff)
+        layer_shapes = {
+            "norm1": stacked_norm,
             "attn": {"wq": (L, d, hq, hd), "wk": (L, d, hkv, hd), "wv": (L, d, hkv, hd),
                      "wo": (L, hq, hd, d)},
-        }},
-    }
+            "norm2": stacked_norm, "mlp": mlp,
+        }
+    shapes = {"embed": (cfg.vocab_size, d), "final_norm": norm,
+              "blocks": {"sub_0": layer_shapes}}
     if not cfg.tie_embeddings:
         shapes["lm_head"] = (d, cfg.vocab_size)
     _expect(params_np, shapes, "params")
@@ -118,11 +136,15 @@ def lm_from_jax(params_np: Mapping, cfg: ModelConfig, *, device="cuda") -> LM:
     wdt = getattr(torch, cfg.param_dtype)
     sub = params_np["blocks"]["sub_0"]
 
-    def layer(group: str, i: int, dtype: torch.dtype) -> dict:
-        return {k: _tensor(np.asarray(a)[i], dtype, device) for k, a in sub[group].items()}
+    def layer(group: str, i: int) -> dict:
+        def dtype(k: str) -> torch.dtype:
+            if group.startswith("norm") or (group == "ssm" and k in _SSM_FLOAT32):
+                return torch.float32
+            return wdt
 
-    blocks = [Block(layer("norm1", i, torch.float32), layer("attn", i, wdt),
-                    layer("norm2", i, torch.float32), layer("mlp", i, wdt)) for i in range(L)]
+        return {k: _tensor(np.asarray(a)[i], dtype(k), device) for k, a in sub[group].items()}
+
+    blocks = [Block(**{g: layer(g, i) for g in layer_shapes}) for i in range(L)]
     final_norm = {k: _tensor(a, torch.float32, device) for k, a in params_np["final_norm"].items()}
     lm_head = None if cfg.tie_embeddings else _tensor(params_np["lm_head"], wdt, device)
     return LM(cfg, _tensor(params_np["embed"], wdt, device), final_norm, blocks, lm_head)

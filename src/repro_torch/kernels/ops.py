@@ -2,7 +2,8 @@
 Hopper kernel, a CPU tensor to the plain PyTorch version.  Nothing falls
 back: a failed launch raises.  Attention that needs a gradient goes
 through :func:`.flash_attention_bwd.flash_attention_vjp`, whose forward
-and backward dispatch the same way."""
+and backward dispatch the same way; the selective scan has no backward
+and raises where one would be needed."""
 from __future__ import annotations
 
 from typing import Optional
@@ -13,8 +14,9 @@ from . import ref
 from .csr_to_dense import ell_to_dense as _ell_to_dense_kernel
 from .flash_attention import flash_attention as _flash_attention_kernel
 from .flash_attention_bwd import flash_attention_vjp
+from .ssm_scan import ssm_scan as _ssm_scan_kernel
 
-__all__ = ["ell_to_dense", "flash_attention"]
+__all__ = ["ell_to_dense", "flash_attention", "ssm_scan"]
 
 
 def ell_to_dense(vals: torch.Tensor, cols: torch.Tensor, *, n_cols: int) -> torch.Tensor:
@@ -41,3 +43,24 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window, q_offset=q_offset)
     raise ValueError(f"no flash_attention for tensors on {q.device}")
+
+
+def ssm_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bc: torch.Tensor,
+             Cc: torch.Tensor, D: torch.Tensor,
+             h0: Optional[torch.Tensor] = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The selective scan: (y (B, S, D) in ``x.dtype``, h_final (B, D, N)
+    float32); see :func:`.ref.ssm_scan_ref`.  Neither version has a
+    backward: with grad enabled and an input that requires it, raises
+    ``NotImplementedError`` (training the ssm family is ROADMAP.md queue A
+    #7)."""
+    inputs = (x, dt, A, Bc, Cc, D, h0)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in inputs):
+        raise NotImplementedError(
+            "the selective scan has no backward yet: training the ssm family is not ported "
+            "(ROADMAP.md queue A #7)"
+        )
+    if x.device.type == "cuda":
+        return _ssm_scan_kernel(x, dt, A, Bc, Cc, D, h0)
+    if x.device.type == "cpu":
+        return ref.ssm_scan_ref(x, dt, A, Bc, Cc, D, h0)
+    raise ValueError(f"no ssm_scan for tensors on {x.device}")

@@ -13,6 +13,7 @@ __all__ = [
     "flash_attention_ref",
     "flash_attention_fwd_lse_ref",
     "flash_attention_bwd_ref",
+    "ssm_scan_ref",
 ]
 
 
@@ -152,3 +153,41 @@ def flash_attention_bwd_ref(
     dk = dk.reshape(B, Hkv, g, T, D).sum(dim=2)
     dv = dv.reshape(B, Hkv, g, T, D).sum(dim=2)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def ssm_scan_ref(
+    x: torch.Tensor,  # (B, S, D)
+    dt: torch.Tensor,  # (B, S, D) float32
+    A: torch.Tensor,  # (D, N) float32 (negative)
+    Bc: torch.Tensor,  # (B, S, N) float32
+    Cc: torch.Tensor,  # (B, S, N) float32
+    D: torch.Tensor,  # (D,)
+    h0: Optional[torch.Tensor] = None,  # (B, D, N) float32
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The Mamba-1 selective scan as a sequential recurrence, state in float32::
+
+        h_t = exp(dt_t * A) * h_{t-1} + dt_t * B_t * x_t
+        y_t = C_t . h_t + D * x_t
+
+    as the TPU kernel ``repro.kernels.ssm_scan`` computes it: ``D * x`` is
+    added to ``C . h`` in float32 and y is rounded to ``x.dtype`` once.
+    (The JAX package's own oracle rounds ``C . h`` to ``x.dtype`` first and
+    adds ``x * D`` in ``x.dtype``; in float32 the two agree.)  Zeros stand
+    in for an absent ``h0``.  Returns (y (B, S, D) in ``x.dtype``, h_final
+    (B, D, N) float32).  Any strides.
+    """
+    Bsz, S, Dm = x.shape
+    N = A.shape[1]
+    A, dt, Bc, Cc, xf = A.float(), dt.float(), Bc.float(), Cc.float(), x.float()
+    if h0 is None:
+        h = torch.zeros((Bsz, Dm, N), dtype=torch.float32, device=x.device)
+    else:
+        h = h0.float()
+    y = torch.empty((Bsz, S, Dm), dtype=torch.float32, device=x.device)
+    for t in range(S):
+        dA = torch.exp(dt[:, t, :, None] * A)  # (B, D, N)
+        dBx = (dt[:, t] * xf[:, t])[:, :, None] * Bc[:, t, None, :]
+        h = dA * h + dBx
+        y[:, t] = torch.einsum("bdn,bn->bd", h, Cc[:, t])
+    y = y + xf * D.float()
+    return y.to(x.dtype), h

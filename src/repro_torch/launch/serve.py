@@ -3,9 +3,13 @@ device, the port of ``repro.launch.serve``::
 
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
       --batch 4 --prompt-len 64 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b \
+      --smoke --device cpu
 
 One prefill for the whole batch, then shared decode steps.  On the card
-the prefill's attention is the Hopper flash-attention kernel.
+the prefill's attention (smollm-360m) is the Hopper flash-attention
+kernel, and its selective scan (falcon-mamba-7b) the Hopper scan kernel;
+decode runs no kernel of the port's own.
 """
 from __future__ import annotations
 

@@ -1,4 +1,5 @@
-"""The model API: the port of ``repro.models.api`` for the dense family.
+"""The model API: the port of ``repro.models.api`` for the dense and ssm
+families.
 
 ``Model`` wraps a :class:`ModelConfig` with the entry points the server
 uses:
@@ -10,7 +11,11 @@ uses:
   decode(params, token, cache, pos, start)  -> (logits (B, vocab), cache)
 
 Batch contract: ``{"tokens": (B, S) int64 or int32 tensor}`` on the
-params' device.  Families other than dense raise ``NotImplementedError``.
+params' device.  The ssm family (falcon-mamba) takes the same calls: its
+cache holds convolution windows and scan states instead of keys and
+values, ``pos_offset``, ``pos`` and ``start`` do not apply to it, and its
+``forward`` runs only without a gradient.  Other families raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 

@@ -1,4 +1,5 @@
-"""Decoder-only LM, dense family: the port of ``repro.models.transformer``.
+"""Decoder-only LM, dense and ssm families: the port of
+``repro.models.transformer``.
 
 The model is an ``nn.Module`` with one submodule per layer (the reference
 stacks the layers and scans them); the weights keep the reference's
@@ -6,7 +7,7 @@ layouts and initial scales, and every parameter is trainable.  Three entry
 points, as in the reference:
 
   forward_lm  -- full-sequence causal logits, differentiable (training)
-  prefill_lm  -- fill a KV cache from a prompt, last-position logits
+  prefill_lm  -- fill a KV or SSM cache from a prompt, last-position logits
   decode_lm   -- one token against the cache
 
 The two serving entry points run under ``torch.no_grad()``: serving builds
@@ -16,17 +17,26 @@ activation, ``"full"`` checkpoints each block
 reference's ``jax.checkpoint`` of each layer); ``"dots"`` raises
 ``NotImplementedError`` (ROADMAP.md queue A #6).
 
-Attention over a full sequence runs through :func:`.layers.attention`, so
-on the card it is the Hopper flash-attention kernel: the forward in
-serving, the forward with lse, dq and dk/dv kernels under autograd in
-training.  Decode attention is plain tensor code (float32 scores and
-softmax), as it is plain jnp in the reference: the kernel has no per-slot
-``start`` mask.  The cache is updated in place.
+Dense family: attention over a full sequence runs through
+:func:`.layers.attention`, so on the card it is the Hopper flash-attention
+kernel: the forward in serving, the forward with lse, dq and dk/dv
+kernels under autograd in training.  Decode attention is plain tensor
+code (float32 scores and softmax), as it is plain jnp in the reference:
+the kernel has no per-slot ``start`` mask.  The cache is updated in place.
+
+Ssm family (falcon-mamba): each layer is ``norm1`` and the Mamba mixer
+(:mod:`.ssm`), with no ``norm2`` or MLP, as in the reference.  A full
+sequence runs the selective scan through the Hopper kernel on the card;
+decode is one recurrence step per layer in plain tensor code.  The cache
+holds each layer's convolution window and scan state, overwritten in
+place; positions, ``pos_offset`` and ``start`` do not apply.  Only the
+forward without a gradient is ported: ``forward_lm`` with a gradient
+raises ``NotImplementedError`` (ROADMAP.md queue A #7).
 
 Dropped from the reference: the sharding annotations (``constrain_act``),
 the one-hot embedding under a sharding context (a gather always), the MoE
-aux losses, and every family but ``dense``: ``moe``, ``ssm``, ``hybrid``
-and ``vlm`` raise ``NotImplementedError`` (ROADMAP.md queue A #10).
+aux losses, and the families ``moe``, ``hybrid``, ``encdec`` and ``vlm``,
+which raise ``NotImplementedError`` (ROADMAP.md queue A #10).
 """
 from __future__ import annotations
 
@@ -49,6 +59,7 @@ from .layers import (
     mlp_apply,
     rope_tables,
 )
+from .ssm import ssm_apply, ssm_decode_step, ssm_init, ssm_state_init
 
 __all__ = [
     "LM",
@@ -62,8 +73,11 @@ __all__ = [
 ]
 
 
+_FAMILIES = ("dense", "ssm")
+
+
 def check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+    if cfg.family not in _FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported yet (ROADMAP.md queue A #10)"
         )
@@ -92,14 +106,14 @@ class _Params(nn.Module):
 
 
 class Block(nn.Module):
-    """One layer: ``norm1``, ``attn`` (wq wk wv wo), ``norm2``, ``mlp``."""
+    """One layer, a :class:`_Params` per group of weights: ``norm1``,
+    ``attn`` (wq wk wv wo), ``norm2`` and ``mlp`` in the dense family;
+    ``norm1`` and ``ssm`` in the ssm family."""
 
-    def __init__(self, norm1: dict, attn: dict, norm2: dict, mlp: dict):
+    def __init__(self, **groups: dict):
         super().__init__()
-        self.norm1 = _Params(**norm1)
-        self.attn = _Params(**attn)
-        self.norm2 = _Params(**norm2)
-        self.mlp = _Params(**mlp)
+        for name, tensors in groups.items():
+            setattr(self, name, _Params(**tensors))
 
 
 class LM(nn.Module):
@@ -133,9 +147,11 @@ def init_lm(cfg: ModelConfig, *, generator: Optional[torch.Generator] = None,
             device="cuda") -> LM:
     """Random weights with the reference's scales: N(0, 1) times 0.02 for
     the embedding, 1/sqrt(heads x head_dim) for ``wo`` and 1/sqrt(fan-in)
-    for every other matrix; norms at one.  Drawn in float32 from
-    ``generator`` (a CPU generator seeded 0 by default) on its device, in
-    a fixed order, then cast to ``param_dtype`` on ``device``."""
+    for every other matrix (the ssm mixer's as :func:`.ssm.ssm_init`);
+    norms at one.  Drawn in float32 from ``generator`` (a CPU generator
+    seeded 0 by default) on its device, in a fixed order, then cast to
+    ``param_dtype`` on ``device``; a generator on the card draws a
+    full-size model there."""
     cfg.validate()
     check_family(cfg)
     gen = generator if generator is not None else torch.Generator().manual_seed(0)
@@ -149,6 +165,10 @@ def init_lm(cfg: ModelConfig, *, generator: Optional[torch.Generator] = None,
     lm_head = None if cfg.tie_embeddings else w((d, cfg.vocab_size))
     blocks = []
     for _ in range(cfg.num_layers):
+        if cfg.family == "ssm":
+            blocks.append(Block(norm1=_norm_init(d, cfg.norm, device),
+                                ssm=ssm_init(cfg, gen, device)))
+            continue
         attn = {"wq": w((d, hq, hd)), "wk": w((d, hkv, hd)), "wv": w((d, hkv, hd)),
                 "wo": w((hq, hd, d), 1.0 / math.sqrt(hq * hd))}
         if cfg.act in ("swiglu", "geglu"):
@@ -156,8 +176,8 @@ def init_lm(cfg: ModelConfig, *, generator: Optional[torch.Generator] = None,
                    "w_out": w((cfg.d_ff, d))}
         else:
             mlp = {"w_in": w((d, cfg.d_ff)), "w_out": w((cfg.d_ff, d))}
-        blocks.append(Block(_norm_init(d, cfg.norm, device), attn,
-                            _norm_init(d, cfg.norm, device), mlp))
+        blocks.append(Block(norm1=_norm_init(d, cfg.norm, device), attn=attn,
+                            norm2=_norm_init(d, cfg.norm, device), mlp=mlp))
     return LM(cfg, embed, _norm_init(d, cfg.norm, device), blocks, lm_head)
 
 
@@ -216,6 +236,8 @@ def forward_lm(lm: LM, tokens: torch.Tensor) -> torch.Tensor:
     autograd with ``cfg.remat == "full"`` each block's activations are
     recomputed in the backward instead of kept."""
     cfg = lm.cfg
+    if cfg.family == "ssm":
+        return _forward_ssm(lm, tokens)
     if cfg.remat not in ("none", "full"):
         raise NotImplementedError(
             f"remat={cfg.remat!r} is not ported yet (ROADMAP.md queue A #6); use 'none' or 'full'"
@@ -233,16 +255,41 @@ def forward_lm(lm: LM, tokens: torch.Tensor) -> torch.Tensor:
     return _logits(lm, h)
 
 
+def _forward_ssm(lm: LM, tokens: torch.Tensor) -> torch.Tensor:
+    """The ssm family's full-sequence logits, without a gradient: the scan
+    kernel has no backward, and the plain scan must not stand in for it on
+    the card."""
+    if torch.is_grad_enabled() and any(p.requires_grad for p in lm.parameters()):
+        raise NotImplementedError(
+            f"{lm.cfg.name}: training the ssm family is not ported yet (ROADMAP.md queue A #7); "
+            "run forward_lm under torch.no_grad()"
+        )
+    cfg = lm.cfg
+    h = _embed(lm, tokens)
+    for blk in lm.blocks:
+        o, _ = ssm_apply(blk.ssm.p, cfg, apply_norm(h, blk.norm1.p, cfg.norm))
+        h = h + o
+    return _logits(lm, h)
+
+
 # ===================================================================== cache
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device="cuda") -> dict:
-    """Decode cache ``{"sub_0": {"k", "v"}}``, each (layers, batch, W,
-    kv_heads, head_dim) in ``compute_dtype`` with
+    """Decode cache.  Dense: ``{"sub_0": {"k", "v"}}``, each (layers,
+    batch, W, kv_heads, head_dim) in ``compute_dtype`` with
     ``W = min(max_len, sliding_window or max_len)``: linear buffers, or
-    rings for a sliding window.  Layer i's buffers are ``[i]`` views."""
+    rings for a sliding window.  Ssm: ``{"sub_0": {"conv", "h"}}``, the
+    convolution windows (layers, batch, d_conv - 1, d_inner) in
+    ``compute_dtype`` and the scan states (layers, batch, d_inner,
+    d_state) in float32, whatever ``max_len``.  Every buffer has the batch
+    axis at position 1; layer i's buffers are ``[i]`` views."""
     check_family(cfg)
+    if cfg.family == "ssm":  # one layer's state (shapes only), stacked over the layers
+        layer = ssm_state_init(cfg, batch, device="meta")
+        return {"sub_0": {k: torch.zeros((cfg.num_layers, *t.shape), dtype=t.dtype, device=device)
+                          for k, t in layer.items()}}
+    cd = _dtype(cfg.compute_dtype)
     W = max_len if cfg.sliding_window is None else min(max_len, cfg.sliding_window)
     shape = (cfg.num_layers, batch, W, cfg.num_kv_heads, cfg.resolved_head_dim)
-    cd = _dtype(cfg.compute_dtype)
     return {"sub_0": {"k": torch.zeros(shape, dtype=cd, device=device),
                       "v": torch.zeros(shape, dtype=cd, device=device)}}
 
@@ -289,15 +336,33 @@ def _attn_decode(p: dict, cfg: ModelConfig, x: torch.Tensor, k_cache: torch.Tens
     return einsum("bshk,hkd->bsd", o, p["wo"])
 
 
+def _ssm_layers(lm: LM, h: torch.Tensor, cache: dict, mixer) -> torch.Tensor:
+    """Run ``h`` through the ssm layers, each ``h + mixer(p, cfg, norm1(h),
+    state)``, where ``mixer`` returns (out, new state); each layer's new
+    state is copied into the cache in place."""
+    cfg = lm.cfg
+    conv, hs = cache["sub_0"]["conv"], cache["sub_0"]["h"]
+    for i, blk in enumerate(lm.blocks):
+        x = apply_norm(h, blk.norm1.p, cfg.norm)
+        o, state = mixer(blk.ssm.p, cfg, x, {"conv": conv[i], "h": hs[i]})
+        conv[i].copy_(state["conv"])
+        hs[i].copy_(state["h"])
+        h = h + o
+    return h
+
+
 @torch.no_grad()
 def decode_lm(lm: LM, token: torch.Tensor, cache: dict, pos: int,
               start: Optional[torch.Tensor] = None) -> tuple[torch.Tensor, dict]:
     """One serving step: token (B,) at absolute position ``pos`` ->
     next-token logits (B, vocab); the cache is updated in place.
     ``start`` (B,): each batch slot's first owned position (see
-    :func:`_decode_mask`)."""
+    :func:`_decode_mask`).  The ssm family has no positions: ``pos`` and
+    ``start`` do not apply there."""
     cfg = lm.cfg
     h = _embed(lm, token[:, None])
+    if cfg.family == "ssm":
+        return _logits(lm, _ssm_layers(lm, h, cache, ssm_decode_step))[:, 0], cache
     kc, vc = cache["sub_0"]["k"], cache["sub_0"]["v"]
     W = kc.shape[2]
     rope = _rope(cfg, torch.full((1,), pos, device=h.device))  # a fill, not a host copy
@@ -318,10 +383,16 @@ def prefill_lm(lm: LM, tokens: torch.Tensor, cache: dict,
     places the prompt at absolute positions [offset, offset+S): RoPE and
     ring slots follow, so a continuous-batching scheduler can align a
     joining request with the shared decode position.  A cache shorter
-    than the prompt (a sliding-window ring) keeps its last W tokens.
+    than the prompt (a sliding-window ring) keeps its last W tokens.  The
+    ssm family continues each layer's convolution window and scan state
+    from the cache (zeros in a fresh one) and has no positions: there
+    ``pos_offset`` does not apply.
     """
     cfg = lm.cfg
     h = _embed(lm, tokens)
+    if cfg.family == "ssm":
+        h = _ssm_layers(lm, h, cache, ssm_apply)
+        return _logits(lm, h[:, -1:, :])[:, 0], cache
     S = h.shape[1]
     kc, vc = cache["sub_0"]["k"], cache["sub_0"]["v"]
     W = kc.shape[2]

@@ -14,7 +14,10 @@ the P positions behind the cursor):
 - the prompt's KV lands in ring slots [(pos-P) % W ..], where decode
   expects them;
 - a per-slot ``start`` mask stops the request from attending the previous
-  occupant's stale cache entries.
+  occupant's stale cache entries;
+- SSM caches (falcon-mamba) hold no positions: the request's convolution
+  window and scan state overwrite the slot's wholesale at admission, and
+  ``pos_offset`` and ``start`` do not apply to them.
 
 Every request's greedy continuation equals the standalone batch-1 serve
 of the same prompt (``tests/test_torch_serve.py``).  The batcher is named
@@ -47,8 +50,8 @@ class Request:
 
 def _write_slot(batched: dict, single: dict, slot: int) -> None:
     """Copy a batch-1 cache into slot ``slot`` of the batched cache, in
-    place.  Every cache tensor has the batch axis at position 1, after the
-    layer axis."""
+    place.  Every cache tensor, KV or SSM, has the batch axis at position
+    1, after the layer axis."""
     for sub, bufs in single.items():
         for name, t in bufs.items():
             batched[sub][name][:, slot] = t[:, 0]

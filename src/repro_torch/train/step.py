@@ -128,8 +128,9 @@ def make_train_step(
 
 
 def make_serve_steps(model: Model) -> tuple[Callable, Callable]:
-    """Returns (prefill_step, decode_step).  ``decode_step`` gives the
-    greedy next token (int32), the logits and the cache."""
+    """Returns (prefill_step, decode_step) for any ported family (dense or
+    ssm).  ``decode_step`` gives the greedy next token (int32), the logits
+    and the cache."""
 
     def prefill_step(params, batch: dict, cache):
         return model.prefill(params, batch, cache)

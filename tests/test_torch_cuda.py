@@ -1,5 +1,6 @@
 """The port's Hopper kernels against their plain PyTorch versions on a card,
-and the serving path's prefill on the card against the same on the CPU.
+and the serving paths' prefill and decode (smollm-360m's and falcon-mamba's
+widths) on the card against the same on the CPU.
 
 Marked ``cuda``; each test skips where ``torch.cuda.is_available()`` is
 false.  Imports no JAX, so it runs on a machine that has only PyTorch:
@@ -348,3 +349,140 @@ def test_training_kernels_refuse_what_they_do_not_take():
         fab.flash_attention_bwd_dkv(q, k.cpu(), v, dout, lse, delta)
     with pytest.raises(ValueError):  # the training kernels have no q_offset
         ops.flash_attention(q.requires_grad_(), k, v, q_offset=3)
+
+
+# ------------------------------------------------------------ selective scan
+# (B, S, D, N): S = 1, S under one 16-step chunk, S past several; N = 4
+# (the smoke config) and 16 (falcon-mamba-7b), the kernel's only state
+# sizes; D not a multiple of the 128-channel block; the last case at the
+# serving path's width
+SSM_SHAPES = [(2, 1, 64, 4), (2, 37, 200, 4), (1, 300, 160, 16), (2, 37, 96, 16),
+              (1, 1, 128, 16), (2, 300, 256, 4), (1, 64, 8192, 16)]
+# |got - want| <= a rms(want) + r |want|.  float32 (y and h_final, and
+# h_final in bf16): a recurrence of up to 1,024 steps that rounds the state
+# once per step (2**-24) and takes its exponentials on the special-function
+# unit (ex2.approx, about 2**-22); the errors add along the decay's memory,
+# up to about 1,000 steps: about 2**-14 of the scale, and 4x that.  bf16 y:
+# one rounding of the float32 y on each side; where float32 noise moves a
+# value across a rounding boundary they differ by one bf16 ulp, at most
+# 2**-7 of the value, half of r; a covers values near zero.
+SSM_RULE = {"float32": (2**-12, 2**-12), "bfloat16": (2**-8, 2**-6)}
+
+
+def _ssm_inputs(B, S, Dm, N, dtype, dev, seed=0):
+    """The model's distributions and layouts: x one half of a wider
+    projection, B and C column slices of x_proj's float32 output."""
+    g = torch.Generator().manual_seed(seed)
+    xz = torch.randn((B, S, 2 * Dm), generator=g).to(dev, dtype)
+    x = xz[..., :Dm]
+    dt = torch.exp(torch.empty((B, S, Dm)).uniform_(-6.9078, -2.3026, generator=g)).to(dev)
+    A = -torch.exp(torch.log(torch.arange(1, N + 1).float())[None]
+                   + 0.1 * torch.randn((Dm, N), generator=g)).to(dev)
+    xdb = torch.randn((B, S, 3 + 2 * N), generator=g).to(dev)
+    Bc, Cc = xdb[..., 3:3 + N], xdb[..., 3 + N:]
+    D = (1 + 0.1 * torch.randn((Dm,), generator=g)).to(dev)
+    h0 = (0.3 * torch.randn((B, Dm, N), generator=g)).to(dev)
+    return x, dt, A, Bc, Cc, D, h0
+
+
+def _within_rule(got, want, a, r):
+    want = want.float()
+    rms = want.square().mean().sqrt()
+    assert bool(((got.float() - want).abs() <= a * rms + r * want.abs()).all()), (
+        (got.float() - want).abs().max().item(), rms.item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("with_h0", [False, True], ids=["zeros", "h0"])
+@pytest.mark.parametrize("B,S,Dm,N", SSM_SHAPES)
+def test_ssm_scan_kernel_matches_plain_version(B, S, Dm, N, with_h0, dtype):
+    from repro_torch.kernels import ssm_scan
+
+    dev = _card()
+    x, dt, A, Bc, Cc, D, h0 = _ssm_inputs(B, S, Dm, N, dtype, dev, seed=S + Dm)
+    h0 = h0 if with_h0 else None
+    before = ssm_scan.ssm_scan.launches
+    y, h = ops.ssm_scan(x, dt, A, Bc, Cc, D, h0)
+    torch.cuda.synchronize()
+    assert ssm_scan.ssm_scan.launches == before + 1
+    assert (y.dtype, y.shape, h.dtype, h.shape) == (dtype, (B, S, Dm), torch.float32, (B, Dm, N))
+    want_y, want_h = ref.ssm_scan_ref(x, dt, A, Bc, Cc, D, h0)
+    _within_rule(y, want_y, *SSM_RULE[str(dtype).removeprefix("torch.")])
+    _within_rule(h, want_h, *SSM_RULE["float32"])
+
+
+@pytest.mark.cuda
+def test_ssm_scan_kernel_takes_any_strides_and_an_empty_sequence():
+    """Views with a non-unit last stride give what contiguous copies give,
+    bitwise; S = 0 gives an empty y and h_final = h0."""
+    from repro_torch.kernels import ssm_scan
+
+    dev = _card()
+    x, dt, A, Bc, Cc, D, h0 = _ssm_inputs(2, 40, 96, 16, torch.float32, dev, seed=7)
+    xs = torch.stack([x, x], dim=-1)[..., 0]  # last stride 2
+    got = ssm_scan.ssm_scan(xs, dt.transpose(0, 1).contiguous().transpose(0, 1), A, Bc, Cc, D, h0)
+    want = ssm_scan.ssm_scan(*(t.contiguous() for t in (x, dt, A, Bc, Cc, D, h0)))
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    y, h = ssm_scan.ssm_scan(x[:, :0], dt[:, :0], A, Bc[:, :0], Cc[:, :0], D, h0)
+    torch.cuda.synchronize()
+    assert y.shape == (2, 0, 96) and torch.equal(h, h0)
+
+
+@pytest.mark.cuda
+def test_ssm_scan_kernel_refuses_what_it_does_not_take():
+    from repro_torch.kernels import ssm_scan
+
+    dev = _card()
+    x, dt, A, Bc, Cc, D, h0 = _ssm_inputs(1, 8, 32, 4, torch.float32, dev)
+    with pytest.raises(TypeError):
+        ssm_scan.ssm_scan(x.half(), dt, A, Bc, Cc, D)
+    with pytest.raises(TypeError):
+        ssm_scan.ssm_scan(x, dt.double(), A, Bc, Cc, D)
+    for n in (1, 5, 17):  # state sizes the kernel is not compiled for
+        with pytest.raises(ValueError):
+            ssm_scan.ssm_scan(*_ssm_inputs(1, 8, 32, n, torch.float32, dev)[:6])
+    with pytest.raises(ValueError):
+        ssm_scan.ssm_scan(x, dt, A.t().contiguous().t(), Bc, Cc, D)
+    with pytest.raises(ValueError):
+        ssm_scan.ssm_scan(x, dt, A, Bc, Cc, D.cpu())
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ops.ssm_scan(x.clone().requires_grad_(), dt, A, Bc, Cc, D)
+
+
+@pytest.mark.cuda
+def test_mamba_prefill_and_decode_on_the_card_match_the_cpu(monkeypatch):
+    """falcon-mamba-7b's mixer width at 2 layers with a small vocabulary in
+    float32: the same weights on the card and on the CPU, a 300-token
+    prefill (not a multiple of the reference's 256-step chunk) and 4
+    decode steps, logits and states."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ssm_scan
+    from repro_torch.models import Model
+
+    dev = _card()
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = dataclasses.replace(get_config("falcon-mamba-7b"), num_layers=2, vocab_size=1024,
+                              param_dtype="float32", compute_dtype="float32")
+    model = Model(cfg)
+    lm_gpu = model.init(generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+    lm_cpu = model.init(generator=torch.Generator(device=dev).manual_seed(0), device="cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 300), generator=torch.Generator().manual_seed(1))
+    caches = [model.init_cache(2, 304, device=d) for d in ("cpu", dev)]
+    before = ssm_scan.ssm_scan.launches
+    want, _ = model.prefill(lm_cpu, {"tokens": tokens}, caches[0])
+    got, _ = model.prefill(lm_gpu, {"tokens": tokens.to(dev)}, caches[1])
+    assert ssm_scan.ssm_scan.launches == before + cfg.num_layers
+    torch.testing.assert_close(got.cpu(), want, atol=1e-3, rtol=1e-3)
+    tok = want.argmax(-1)
+    for i in range(4):
+        want, _ = model.decode(lm_cpu, tok, caches[0], 300 + i)
+        got, _ = model.decode(lm_gpu, tok.to(dev), caches[1], 300 + i)
+        torch.testing.assert_close(got.cpu(), want, atol=1e-3, rtol=1e-3)
+        tok = want.argmax(-1)
+    assert ssm_scan.ssm_scan.launches == before + cfg.num_layers  # decode launches none
+    for k in ("conv", "h"):
+        torch.testing.assert_close(caches[1]["sub_0"][k].cpu(), caches[0]["sub_0"][k],
+                                   atol=1e-4, rtol=1e-3)

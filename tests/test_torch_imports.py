@@ -47,7 +47,8 @@ def test_port_imports_with_jax_and_repro_blocked():
         "repro_torch.train.optimizer", "repro_torch.data.tokens", "repro_torch.pipeline",
         "repro_torch.pipeline.spec", "repro_torch.pipeline.builder", "repro_torch.checkpoint",
         "repro_torch.checkpoint.manager", "repro_torch.distributed.fault",
-        "repro_torch.launch.train",
+        "repro_torch.launch.train", "repro_torch.kernels.ssm_scan", "repro_torch.models.ssm",
+        "repro_torch.configs.falcon_mamba_7b",
     } <= names
 
 
