@@ -9,7 +9,9 @@ nothing of JAX or of the JAX package.  Phases, each printing one JSON line:
 
 1. device: the card's name, count and power limit;
 2. build: every ``src/repro_torch/kernels/csrc/*.cu`` with ``nvcc`` for
-   ``sm_90a``, all started together;
+   ``sm_90a``, all started together; the registers and spill bytes of the
+   Hopper flash-attention kernel (``flash_fwd_hopper``, head_dim 64 and
+   128) from ``ptxas -v``;
 
 The cell-training path (slice 1):
 
@@ -44,15 +46,21 @@ d_model 960, 15 query heads over 5 kv heads of 64, vocab 49,152):
    under 4 in magnitude, where a bf16 ulp is 2**-6 and the P.V sums round
    in another order) and float32 (atol 3e-5, TF32 off: summation order), the ``q_offset=200`` decode tile, and
    the prefill's shape, q (8, 15, 512, 64) and k/v (8, 5, 512, 64) bf16 as
-   the strided (B, S, H, D) views the model passes; event times of the
-   kernel, the plain version and ``scaled_dot_product_attention`` there;
+   the strided (B, S, H, D) views the model passes, which must take the
+   Hopper kernel (``hopper_launches`` + 1); event times of the kernel, of
+   the ``mma.sync`` kernel it replaced on that route (launched by
+   ``previous_kernel``, held to the same atol), of the plain version and of
+   ``scaled_dot_product_attention`` there; the host's microseconds per
+   call of the wrapper and of ``previous_kernel`` (the wrapper's host work
+   before the Hopper route);
 8. lm_vs_cpu: float32 weights drawn once from a seeded generator and
    copied to the card; a 64-token prefill and 8 decode steps on the card
    and on the CPU: logits within rtol 1e-3 / atol 1e-3 (float32 sums in
    another order over 32 layers), greedy tokens equal except across ties;
 9. serve (the main path): ``serve_batch`` in bf16, batch 8, 512-token
-   prompts, 64 generated tokens, with the kernel's launch count set to 0
-   just before and read just after (32 per prefill); time to first token,
+   prompts, 64 generated tokens, with the kernel's launch counts set to 0
+   just before and read just after (32 per prefill, all 32 through the
+   Hopper kernel); time to first token,
    decode ms per step, tokens/s, peak memory; then one prefill under
    ``torch.profiler`` for the kernel's own device time per launch;
 10. batching: ``SlotBatcher`` in float32, 16 requests over 4 slots (prompts
@@ -71,9 +79,17 @@ LM training (slice 3), smollm-360m at its full width:
    q (4, 15, 2048, 64) and k/v (4, 5, 2048, 64) bf16 causal as the strided
    (B, S, H, D) views the model passes, each tensor there within
    0.1 rms(want) + 2**-6 |want| (its values are too small for the sweep's
-   atol; rms(want) is printed beside each error); event times of each kernel, of the
-   plain versions, and of ``scaled_dot_product_attention``'s forward and
-   forward plus backward there;
+   atol; rms(want) is printed beside each error), the forward there
+   through the Hopper kernel; the mutation check of that kernel: three
+   edited copies of ``csrc/flash_attention.cu`` (one drops the rescale of O
+   by alpha, one skips each block's last KV tile, one lets the causal mask
+   of a diagonal tile see one key too many), built under ``build/`` and
+   run on the training shape's inputs, must each fail that rule (or lse's
+   1e-4) at least FLASH_MUTANT_MIN times over; event times of each kernel,
+   of the forward's earlier ``mma.sync`` kernel, of the plain versions, and
+   of ``scaled_dot_product_attention``'s forward and forward plus backward
+   there (their difference: SDPA's backward alone); the host's microseconds
+   per call of the forward's wrapper and of ``previous_kernel``;
 12. train_vs_cpu: one train step at full width in float32 with 2 layers on
    the card and on the CPU from the same weights and batch: loss within
    rtol 1e-5, grad norm within rtol 1e-4 (float32 sums in another order),
@@ -86,7 +102,8 @@ LM training (slice 3), smollm-360m at its full width:
    2,048 tokens (SmolLM's context length), ``train_loop`` in bf16 with
    ``remat="full"`` at 32 layers for 5 warm-up and 25 timed steps, the
    kernels' launch counts set to 0 just before and read just after
-   (64 / 32 / 32 per step required); step time, tokens/s over the median
+   (64 / 32 / 32 per step required, and all 64 forwards through the
+   Hopper kernel); step time, tokens/s over the median
    step and over the timed steps' wall (loader included), the loader's
    share of that wall, loss, peak
    memory; then one step under ``torch.profiler`` for each kernel's device
@@ -176,6 +193,15 @@ TIE_F32 = 1e-3
 BATCH_SLOTS, BATCH_REQUESTS, BATCH_MAX_LEN = 4, 16, 1024
 BATCH_PROMPT_LENS, BATCH_NEW = (64, 512), (16, 64)  # inclusive ranges drawn from
 FULL_WIDTH = (32, 960, 15, 5, 64)  # layers, d_model, heads, kv heads, head_dim
+# the mutation check of the Hopper forward: edited copies of
+# csrc/flash_attention.cu, built under build/; each must fail the training
+# shape's rule FLASH_MUTANT_MIN times over
+FLASH_MUTANTS = {
+    "drops_alpha_rescale": ("o[i2] *= alpha[(i2 / 2) % 2];", "(void)alpha;"),
+    "skips_last_kv_tile": ("(k_end - wk.kt0 + kBlockN - 1) / kBlockN", "(k_end - wk.kt0 - 1) / kBlockN"),
+    "diagonal_off_by_one": ("p.causal ? clamp_col(d) : kBlockN", "p.causal ? clamp_col(d + 1) : kBlockN"),
+}
+FLASH_MUTANT_MIN = 3.0
 # LM training
 BWD_SWEEP = [(1, 2, 2, 64, 64, 16), (2, 4, 2, 64, 64, 32), (1, 2, 1, 96, 96, 16)]
 BWD_MASKS = [(True, None), (True, 32), (False, None)]
@@ -266,6 +292,58 @@ def event_ms(fn, calls: int = TIMED_CALLS, groups: int = TIMED_GROUPS) -> float:
     return statistics.median(per_call)
 
 
+def host_us(fns: dict, calls: int = TIMED_CALLS, groups: int = 2 * TIMED_GROUPS + 1) -> dict:
+    """Host microseconds per call of each function of ``fns``: the wall
+    time to issue ``calls`` calls while a sleep kernel holds the stream (so
+    that no call waits for the device), divided by their number; the
+    median of ``groups`` such groups, the functions taking turns group by
+    group so that a drift of the host's speed falls on each alike."""
+    import torch
+
+    per_call = {name: [] for name in fns}
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(groups):
+        for name, fn in fns.items():
+            torch.cuda._sleep(SLEEP_CYCLES)
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            per_call[name].append((time.perf_counter() - t0) / calls * 1e6)
+            torch.cuda.synchronize()
+    return {name: statistics.median(t) for name, t in per_call.items()}
+
+
+def previous_kernel(q, k, v, with_lse: bool):
+    """Causal attention through the ``mma.sync`` kernel (``flash_fwd_bf16``)
+    that the Hopper route replaced, launched from the package's library with
+    the host work its wrapper did before that route: the checks, the
+    outputs and the C call.  For its device and host times beside the
+    Hopper kernel's; counts nothing.  Returns ``(out, lse or None)``."""
+    import ctypes
+
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    fa.check_inputs(q, k, v, None)
+    B, H, S, D = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
+    out = fa.empty_like_rows(q)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device) if with_lse else None
+    dims = (ctypes.c_int64 * 6)(B, H, Hkv, S, T, D)
+    strides = (ctypes.c_int64 * 12)(*(s for t in (q, k, v, out) for s in t.stride()[:3]))
+    lib = fa._library()
+    with torch.cuda.device(q.device):
+        err = lib.flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), 1, dims, strides, 1, 0, 0, 0,
+            1.0 / math.sqrt(D), torch.cuda.current_stream().cuda_stream)
+    fa.raise_on_error(lib, err, "flash_fwd_bf16")
+    return out, lse
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -304,11 +382,15 @@ def main() -> None:
     # 2. build
     t0 = time.perf_counter()
     built = _build.build()
-    emit({"phase": "build", "seconds": time.perf_counter() - t0, "built": built})
+    seconds = time.perf_counter() - t0
+    hopper = {k: v for k, v in _build.ptxas_report("flash_attention").items() if "flash_fwd_hopper" in k}
+    if len(hopper) != 2:
+        fail(f"ptxas reports {len(hopper)} flash_fwd_hopper kernels, not 2 (head_dim 64 and 128)")
+    emit({"phase": "build", "seconds": seconds, "built": built, "flash_fwd_hopper_ptxas": hopper})
 
-    lm_kernel = lm_phases(dev)
+    lm_kernel = lm_phases(dev, float(max_sm_mhz) * 1e6)
     torch.cuda.empty_cache()
-    train_kernels = train_phases(dev)
+    train_kernels = train_phases(dev, float(max_sm_mhz) * 1e6)
     torch.cuda.empty_cache()
     ssm_kernel = ssm_phases(dev, float(max_sm_mhz) * 1e6)
     torch.cuda.empty_cache()
@@ -497,7 +579,7 @@ def _tie_diverged(got, want, lgs, tie: float):
     return None
 
 
-def lm_phases(dev) -> dict:
+def lm_phases(dev, sm_clock_hz: float) -> dict:
     """Phases 7-10, LM serving at smollm-360m's full width; returns the
     kernels-line entry of ``flash_attention``."""
     import numpy as np
@@ -547,13 +629,23 @@ def lm_phases(dev) -> dict:
     ks = torch.randn((B, S, Hkv, D), generator=gen).to(dev, torch.bfloat16)
     vs = torch.randn((B, S, Hkv, D), generator=gen).to(dev, torch.bfloat16)
     q, k, v = qs.transpose(1, 2), ks.transpose(1, 2), vs.transpose(1, 2)
+    hopper_before = fa.hopper_launches
     got = fa.flash_attention(q, k, v, causal=True)
     want = ref.flash_attention_ref(q, k, v, causal=True)
     torch.cuda.synchronize()
+    if fa.hopper_launches != hopper_before + 1:
+        fail(f"the prefill shape took the {fa.route(q, k, v)} kernel, not the Hopper one")
     path_err = (got.float() - want.float()).abs().max().item()
     if not path_err <= FA_ATOL["bfloat16"]:
         fail(f"flash_attention disagrees with its plain version at the prefill shape: {path_err}")
     kernel_ms = event_ms(lambda: fa.flash_attention(q, k, v, causal=True))
+    previous_out, _ = previous_kernel(q, k, v, False)
+    previous_err = (previous_out.float() - want.float()).abs().max().item()
+    if not previous_err <= FA_ATOL["bfloat16"]:
+        fail(f"the mma.sync forward disagrees with its plain version at the prefill shape: {previous_err}")
+    mma_sync_ms = event_ms(lambda: previous_kernel(q, k, v, False))
+    host = host_us({"hopper_wrapper": lambda: fa.flash_attention(q, k, v, causal=True),
+                    "previous_wrapper": lambda: previous_kernel(q, k, v, False)})
     plain_ms = event_ms(lambda: ref.flash_attention_ref(q, k, v, causal=True))
     library_ms = event_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
                                                                    enable_gqa=True))
@@ -561,9 +653,13 @@ def lm_phases(dev) -> dict:
     moved = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()  # q, k, v read; o written
     bytes_ms = moved / HBM_BYTES_PER_S * 1e3
     ops_ms = 4 * B * H * D * pairs / BF16_FLOP_PER_S * 1e3
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    exp_ms = B * H * pairs / (SFU_EXP2_PER_CLOCK_PER_SM * sms * sm_clock_hz) * 1e3  # one per pair
     kernel = {"name": "flash_attention", "route": "cuda",
               "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
               "replaces": "src/repro/kernels/flash_attention.py:86",
+              "kernel": "flash_fwd_hopper", "previous_kernel": "flash_fwd_bf16 (mma.sync)",
+              "previous_kernel_ms": mma_sync_ms, "host_us_per_call": host,
               "shape": [B, H, Hkv, S, S, D], "dtype": "bfloat16",
               "max_abs_err": max(path_err, *errs.values()), "sweep_max_abs_err": errs,
               "path_shape_max_abs_err": path_err,
@@ -571,9 +667,10 @@ def lm_phases(dev) -> dict:
               "library_ms": library_ms, "library": "scaled_dot_product_attention",
               "bound_ms": max(bytes_ms, ops_ms),
               "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+              "bound_parts_ms": {"bytes": bytes_ms, "tensor_cores": ops_ms, "exponentials": exp_ms},
               "bytes": moved, "flop": 4 * B * H * D * pairs}
     emit({"phase": "flash_kernel", **kernel})
-    del q, k, v, qs, ks, vs, got, want
+    del q, k, v, qs, ks, vs, got, want, previous_out
 
     # 8. the card against the CPU at full width in float32
     cfg32 = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
@@ -623,10 +720,13 @@ def lm_phases(dev) -> dict:
     torch.cuda.reset_peak_memory_stats(dev)
     timings = {}
     fa.flash_attention.launches = 0
+    fa.hopper_launches = 0
     toks = serve_batch(model, prompts, SERVE_GEN, params=params, device=dev, timings=timings)
-    launches = fa.flash_attention.launches
+    launches, hopper = fa.flash_attention.launches, fa.hopper_launches
     if launches != cfg.num_layers:
         fail(f"flash_attention launched {launches} times in one prefill of {cfg.num_layers} layers")
+    if hopper != launches:
+        fail(f"{hopper} of the prefill's {launches} attention launches took the Hopper kernel")
     if toks.shape != (SERVE_BATCH, SERVE_GEN) or not ((toks >= 0) & (toks < cfg.vocab_size)).all():
         fail(f"serve_batch gave tokens of shape {toks.shape} outside the vocabulary")
     peak = torch.cuda.max_memory_allocated(dev)
@@ -652,11 +752,13 @@ def lm_phases(dev) -> dict:
           "decode_ms_per_step": decode_ms,
           "decode_tokens_per_s": SERVE_BATCH * timings["decode_steps"] / timings["decode_s"],
           "peak_device_mem_gb": peak / 1e9, "flash_attention_launches": launches,
+          "hopper_launches": hopper,
           "prefills": 1, "traced_prefill_device_kernel_ms": prefill_kernel_ms,
           "flash_attention_trace": {"count": fa_n, "device_ms": fa_ms, "ms_per_launch": fa_ms / fa_n,
                                     "share_of_prefill_kernel_time": fa_ms / prefill_kernel_ms},
           "top_kernels": [[e.key[:80], e.count, e.self_device_time_total / 1e3] for e in top]})
     kernel["launches"] = launches
+    kernel["hopper_launches"] = hopper
     kernel["trace_ms_per_launch"] = fa_ms / fa_n
     del params, cache
 
@@ -685,7 +787,9 @@ def lm_phases(dev) -> dict:
           "tokens": int(sum(len(r.out) for r in done)), "cursor_end": batcher.pos,
           "seconds": batch_s, "ties": diverged})
     del lm32, batcher
-    return {k: kernel[k] for k in (*KERNEL_KEYS, "dtype", "library", "trace_ms_per_launch")}
+    return {k: kernel[k] for k in (*KERNEL_KEYS, "dtype", "library", "trace_ms_per_launch",
+                                     "kernel", "hopper_launches", "previous_kernel",
+                                     "previous_kernel_ms", "host_us_per_call", "bound_parts_ms")}
 
 
 def _scaled_err(got, want, atol: float, rtol: float) -> tuple[float, float]:
@@ -727,7 +831,7 @@ def attention_errors(q, k, v, dout, causal, window, err):
     return errs, (out, lse, delta)
 
 
-def train_phases(dev) -> list:
+def train_phases(dev, sm_clock_hz: float) -> list:
     """Phases 11-14, LM training at smollm-360m's full width; returns the
     kernels-line entries of the forward with lse, dq and dk/dv."""
     import numpy as np
@@ -774,14 +878,27 @@ def train_phases(dev) -> list:
     vs = torch.randn((B, S, Hkv, D), generator=gen).to(dev, bf)
     q, k, v = qs.transpose(1, 2), ks.transpose(1, 2), vs.transpose(1, 2)
     dout = torch.randn((B, H, S, D), generator=gen).to(dev, bf)
+    hopper_before = fa.hopper_launches
     path, (out, lse, delta) = attention_errors(q, k, v, dout, True, None, _rms_err)
+    if fa.hopper_launches != hopper_before + 1:
+        fail(f"the training shape's forward took the {fa.route(q, k, v)} kernel, not the Hopper one")
     if not all(e[1] <= 1.0 for e in path.values()):
         fail(f"training attention kernels disagree with their plain versions at the training shape: {path}")
+    mutants = _flash_mutants(q, k, v, *ref.flash_attention_fwd_lse_ref(q, k, v, causal=True))
+    failing = {n: max(e["out"][1], e["lse"][1]) for n, e in mutants.items()}
+    weak = {n: r for n, r in failing.items() if n != "shipped" and r < FLASH_MUTANT_MIN}
+    if weak:
+        fail(f"mutants of the Hopper forward pass the rule with less than {FLASH_MUTANT_MIN}x: {weak}")
+    if failing["shipped"] > 1.0:
+        fail(f"the unedited Hopper forward built as a mutant fails the rule: {mutants['shipped']}")
     times = {
         "fwd": event_ms(lambda: fa.flash_attention_fwd_lse(q, k, v, causal=True)),
         "dq": event_ms(lambda: fab.flash_attention_bwd_dq(q, k, v, dout, lse, delta)),
         "dkv": event_ms(lambda: fab.flash_attention_bwd_dkv(q, k, v, dout, lse, delta)),
     }
+    mma_sync_ms = event_ms(lambda: previous_kernel(q, k, v, True))
+    host = host_us({"hopper_wrapper": lambda: fa.flash_attention_fwd_lse(q, k, v, causal=True),
+                    "previous_wrapper": lambda: previous_kernel(q, k, v, True)})
     plain = {
         "fwd": event_ms(lambda: ref.flash_attention_fwd_lse_ref(q, k, v, causal=True)),
         "bwd": event_ms(lambda: ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=True)),
@@ -832,11 +949,24 @@ def train_phases(dev) -> list:
             "library_ms": lib_ms, "library": lib, "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "bytes": nbytes,
             "flop": flop, "want_rms": path[key][2]}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    fwd = kernels["fwd"]
+    fwd.update({"kernel": "flash_fwd_hopper", "previous_kernel": "flash_fwd_bf16 (mma.sync)",
+                "previous_kernel_ms": mma_sync_ms, "host_us_per_call": host,
+                "mutant_err_of_rule": failing,
+                "bound_parts_ms": {  # one exponential per visible pair
+                    "bytes": fwd["bytes"] / HBM_BYTES_PER_S * 1e3,
+                    "tensor_cores": fwd["flop"] / BF16_FLOP_PER_S * 1e3,
+                    "exponentials": B * H * pairs / (SFU_EXP2_PER_CLOCK_PER_SM * sms * sm_clock_hz) * 1e3}})
+    for key in ("dq", "dkv"):  # SDPA's backward alone, beside the backward kernels
+        kernels[key]["sdpa_backward_ms"] = sdpa_fwd_bwd_ms - sdpa_fwd_ms
     emit({"phase": "train_kernels", "sweep_errors": {f"{k}/{n}": e for (k, n), e in worst.items()},
           "training_shape_errors": path, "tolerance": BWD_TOL,
           "training_shape_tolerance": {"rms": TRAIN_TOL_RMS, "rel": TRAIN_TOL_REL},
           "kernels_sum_ms": sum(times.values()), "sdpa_fwd_bwd_ms": sdpa_fwd_bwd_ms,
-          "sdpa_fwd_ms": sdpa_fwd_ms,
+          "sdpa_fwd_ms": sdpa_fwd_ms, "sdpa_bwd_ms": sdpa_fwd_bwd_ms - sdpa_fwd_ms,
+          "fwd_previous_kernel_ms": mma_sync_ms,
+          "mutants": mutants, "mutant_min_err_of_rule": FLASH_MUTANT_MIN,
           **{f"{k}_ms": t for k, t in times.items()},
           **{f"{k}_bound_ms": kernels[k]["bound_ms"] for k in kernels},
           **{f"plain_{k}_ms": t for k, t in plain.items()}})
@@ -893,6 +1023,7 @@ def train_phases(dev) -> list:
     fa.flash_attention_fwd_lse.launches = 0
     fab.flash_attention_bwd_dq.launches = 0
     fab.flash_attention_bwd_dkv.launches = 0
+    fa.hopper_launches = 0
     total = TRAIN_WARMUP + TRAIN_STEPS
     t0 = time.perf_counter()
     run = train_loop(model, loader, steps=total, log_every=1, device=dev, timings=timings)
@@ -904,6 +1035,9 @@ def train_phases(dev) -> list:
     if launches != {k: n * total for k, n in per_step.items()}:
         fail(f"the training kernels launched {launches} times in {total} steps; "
              f"need {per_step} per step")
+    hopper = fa.hopper_launches
+    if hopper != launches["fwd"]:
+        fail(f"{hopper} of the {launches['fwd']} training forwards took the Hopper kernel")
     losses = [m["loss"] for m in run["metrics"]]
     if len(losses) != total or not all(math.isfinite(x) for x in losses):
         fail(f"non-finite or missing losses: {losses}")
@@ -940,6 +1074,7 @@ def train_phases(dev) -> list:
         kernels[key]["launches"] = launches[key]  # in the main path's run of `total` steps
         kernels[key]["launches_per_step"] = launches[key] // total
         kernels[key]["trace_ms_per_launch"] = ms / n
+    kernels["fwd"]["hopper_launches"] = hopper
     top = sorted(on_card, key=lambda e: -e.self_device_time_total)[:10]
     emit({"phase": "train", "arch": ARCH, "layers": cfg.num_layers, "d_model": cfg.d_model,
           "dtype": cfg.compute_dtype, "remat": cfg.remat, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
@@ -954,6 +1089,7 @@ def train_phases(dev) -> list:
           "loss_first": losses[0],
           "loss_last": losses[-1], "peak_device_mem_gb": peak / 1e9,
           "launches_per_step": {k: v // total for k, v in launches.items()},
+          "hopper_launches_per_step": hopper // total,
           "traced_step_s": traced_s, "traced_step_device_kernel_ms": step_kernel_ms,
           "traced_step_device_busy_share": step_kernel_ms / 1e3 / traced_s,
           "attention_kernels_share_of_device_ms":
@@ -1001,9 +1137,12 @@ def train_phases(dev) -> list:
           "tensors_compared": 3 * len(wp), "seconds": resume_s})
     shutil.rmtree(ck_root, ignore_errors=True)
     del want, got, wp, gp
+    extra = {"fwd": ("kernel", "hopper_launches", "previous_kernel", "previous_kernel_ms",
+                     "host_us_per_call", "mutant_err_of_rule", "bound_parts_ms"),
+             "dq": ("sdpa_backward_ms",), "dkv": ("sdpa_backward_ms",)}
     return [{k: kernels[key][k] for k in (*KERNEL_KEYS, "dtype", "library", "plain",
                                              "trace_ms_per_launch", "launches_per_step", "bytes",
-                                             "flop", "want_rms")}
+                                             "flop", "want_rms", *extra[key])}
             for key in ("fwd", "dq", "dkv")]
 
 
@@ -1034,43 +1173,53 @@ def _rule_err(got, want, dtype_name: str) -> tuple[float, float, float]:
     return _scaled_err(got, want, a * rms, r) + (rms,)
 
 
-def _ssm_mutants(dev, inputs) -> dict:
-    """Build each of SSM_MUTANTS (an edited copy of csrc/ssm_scan.cu) under
-    build/, run it on ``inputs`` into zero-filled outputs, and return its
-    (y, h_final) errors against the plain version over the rule; also the
-    unedited source built the same way, as ``shipped``."""
+def _build_mutants(source: str, edits: dict, bind) -> tuple[dict, str]:
+    """Build ``csrc/<source>.cu`` unedited (as ``shipped``) and once per
+    (old, new) edit of ``edits``, each line occurring once in the source,
+    all under ``build/<source>_mutants`` with the port's flags and its
+    headers; returns ({name: the library bound by ``bind``}, that
+    directory, which the caller removes)."""
     import ctypes
 
-    import torch
+    from repro_torch.kernels import _build
 
-    from repro_torch.kernels import _build, ref
-    from repro_torch.kernels import ssm_scan as ssm
-
-    src = (_build.CSRC / "ssm_scan.cu").read_text()
-    out_dir = os.path.join(HERE, "build", "ssm_scan_mutants")
+    src = (_build.CSRC / f"{source}.cu").read_text()
+    out_dir = os.path.join(HERE, "build", f"{source}_mutants")
     shutil.rmtree(out_dir, ignore_errors=True)
     os.makedirs(out_dir)
-    edits = {"shipped": None, **SSM_MUTANTS}
     jobs = {}
-    for name, edit in edits.items():
+    for name, edit in {"shipped": None, **edits}.items():
         text = src
         if edit is not None:
             if src.count(edit[0]) != 1:
-                fail(f"mutant {name}: its line occurs {src.count(edit[0])} times in ssm_scan.cu")
+                fail(f"mutant {name}: its line occurs {src.count(edit[0])} times in {source}.cu")
             text = src.replace(edit[0], edit[1])
         cu = os.path.join(out_dir, f"{name}.cu")
         with open(cu, "w") as f:
             f.write(text)
         so = os.path.join(out_dir, f"{name}.so")
-        jobs[name] = (subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-o", so, cu],
-                                       stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o", so, cu]
+        jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                        text=True), so)
     libs = {}
     for name, (proc, so) in jobs.items():
         log = proc.communicate()[0]
         if proc.returncode != 0:
-            fail(f"mutant {name} did not build:\n{log}")
-        libs[name] = ssm.bind(ctypes.CDLL(so))
+            fail(f"mutant {name} of {source}.cu did not build:\n{log}")
+        libs[name] = bind(ctypes.CDLL(so))
+    return libs, out_dir
+
+
+def _ssm_mutants(dev, inputs) -> dict:
+    """Run the unedited ssm_scan and each of SSM_MUTANTS, built by
+    :func:`_build_mutants`, on ``inputs`` into zero-filled outputs; return
+    each one's (y, h_final) errors against the plain version over the rule."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssm_scan as ssm
+
+    libs, out_dir = _build_mutants("ssm_scan", SSM_MUTANTS, ssm.bind)
     x, dt, A, Bc, Cc, D, h0 = inputs
     want_y, want_h = ref.ssm_scan_ref(*inputs)
     result = {}
@@ -1081,6 +1230,30 @@ def _ssm_mutants(dev, inputs) -> dict:
         torch.cuda.synchronize()
         result[name] = {"y": _rule_err(y, want_y, str(x.dtype).removeprefix("torch.")),
                         "h_final": _rule_err(h, want_h, "float32")}
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return result
+
+
+def _flash_mutants(q, k, v, want_out, want_lse) -> dict:
+    """Run the unedited Hopper forward and each of FLASH_MUTANTS, built by
+    :func:`_build_mutants`, on the training shape's causal inputs; return
+    each one's out error over the training rule and lse's over 1e-4, as
+    (max abs, over the rule[, rms(want)]).  An lse of -inf (a row left
+    without keys) counts as -1e30, so that every error stays a finite
+    number in the JSON lines."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    libs, out_dir = _build_mutants("flash_attention", FLASH_MUTANTS, fa.bind)
+    result = {}
+    for name, lib in libs.items():
+        out, lse, kernel = fa.launch(lib, q, k, v, True, None, 0, True)
+        torch.cuda.synchronize()
+        if kernel != "hopper":
+            fail(f"the mutation check ran the {kernel} kernel, not the Hopper one")
+        result[name] = {"out": _rms_err(out, want_out),
+                        "lse": _scaled_err(lse.nan_to_num(neginf=-1e30), want_lse, 1e-4, 0.0)}
     shutil.rmtree(out_dir, ignore_errors=True)
     return result
 

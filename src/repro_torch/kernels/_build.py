@@ -3,7 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own
 into ``build/repro_torch_kernels/<name>-<hash>.so`` in the checkout, where
 the hash covers the source, the shared headers ``csrc/*.cuh`` and the
-flags, so an edited source or header builds anew.
+flags, so an edited source or header builds anew.  ``ptxas -v``'s report
+(each kernel's registers, shared memory and spills) is kept beside it as
+``<name>-<hash>.log``: :func:`ptxas_report` reads it.
 Nothing includes PyTorch's headers: ``nvcc`` takes seconds per source.
 Only the machine with the card can build: there is no fallback.
 """
@@ -12,18 +14,19 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
 from typing import Iterable, Optional
 
-__all__ = ["BUILD_DIR", "NVCC_FLAGS", "build", "load"]
+__all__ = ["BUILD_DIR", "NVCC_FLAGS", "build", "load", "ptxas_report"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _loaded: dict[str, ctypes.CDLL] = {}  # the process's loaded libraries
@@ -63,6 +66,7 @@ def build(names: Optional[Iterable[str]] = None) -> list[str]:
     for name, (proc, tmp, so) in jobs.items():
         log = proc.communicate()[0]
         if proc.returncode == 0:
+            so.with_suffix(".log").write_text(log)
             os.replace(tmp, so)  # atomic: a concurrent loader never sees half a file
         else:
             failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{log}")
@@ -80,3 +84,25 @@ def load(name: str) -> ctypes.CDLL:
             build([name])
         lib = _loaded[name] = ctypes.CDLL(str(so))
     return lib
+
+
+def ptxas_report(name: str) -> dict[str, dict[str, int]]:
+    """Registers and spill bytes of each kernel in the built
+    ``csrc/<name>.cu``, by mangled name, from its ``ptxas -v`` log."""
+    report, kernel = {}, None
+    for line in _target(name).with_suffix(".log").read_text().splitlines():
+        found = re.search(r"Compiling entry function '(\w+)'", line)
+        if found:
+            kernel = found.group(1)
+            report[kernel] = {}
+            continue
+        if kernel is None:
+            continue
+        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spills:
+            report[kernel]["spill_store_bytes"] = int(spills.group(1))
+            report[kernel]["spill_load_bytes"] = int(spills.group(2))
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs:
+            report[kernel]["registers"] = int(regs.group(1))
+    return report

@@ -351,6 +351,137 @@ def test_training_kernels_refuse_what_they_do_not_take():
         ops.flash_attention(q.requires_grad_(), k, v, q_offset=3)
 
 
+# ------------------------------------------ flash attention, the Hopper route
+# bf16 with head_dim 64 or 128 and strides TMA takes goes to the TMA +
+# wgmma kernel: S and T off its 128-row tiles (200, 1,000), T > S with
+# q_offset, window 48, non-causal, GQA 15:5 and MQA, each at head_dim 64
+# and 128; the last case's rows past T + 47 see no key.  (B, H, Hkv, S,
+# T, causal, window, q_offset)
+HOPPER_CASES = [
+    (1, 15, 5, 200, 200, True, None, 0),
+    (1, 6, 2, 1000, 1000, True, None, 0),
+    (2, 6, 1, 200, 1000, True, None, 800),
+    (1, 4, 4, 200, 1000, True, 48, 800),
+    (1, 15, 5, 1000, 1000, False, None, 0),
+    (2, 6, 1, 200, 200, True, 48, 0),
+    (1, 4, 2, 1000, 200, False, 48, 0),
+]
+
+
+# The Hopper cases' outputs are also held to |got - want| <= a rms(want) +
+# r |want|, chip_smoke.py's rule for the path shapes: at T = 1,000 an
+# output's rms is about 0.05, so FA_BF16_ATOL alone would let a kernel drop
+# a key tile.  r is two bf16 ulps of the value (both sides round to bf16);
+# a takes the rounding of P to bf16 as an operand.
+HOPPER_RMS_RULE = (0.1, 2**-6)
+
+
+def _assert_hopper_close(got, want):
+    """``got`` within FA_BF16_ATOL of ``want`` and within HOPPER_RMS_RULE."""
+    got, want = got.float(), want.float()
+    torch.testing.assert_close(got, want, atol=FA_BF16_ATOL, rtol=0)
+    a, r = HOPPER_RMS_RULE
+    torch.testing.assert_close(got, want, atol=a * want.square().mean().sqrt().item(), rtol=r)
+
+
+def _rows_with_keys(S, T, causal, window, q_offset, device):
+    """(S,) bool: the query rows that see at least one key."""
+    qpos = q_offset + torch.arange(S, device=device)[:, None]
+    kpos = torch.arange(T, device=device)[None, :]
+    mask = torch.ones((S, T), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= qpos - kpos < window
+    return mask.any(1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("B,H,Hkv,S,T,causal,window,q_offset", HOPPER_CASES)
+def test_hopper_kernel_matches_plain_version(B, H, Hkv, S, T, causal, window, q_offset, D):
+    """Both entry points (the training one where q_offset is 0) through the
+    Hopper kernel, one launch each, against the plain versions; a row that
+    sees no key gives zeros (the serving oracle: the mean of V)."""
+    dev = _card()
+    q, k, v = _fa_inputs(B, H, Hkv, S, T, D, torch.bfloat16, dev, seed=S + T + D)
+    assert flash_attention.route(q, k, v) == "hopper"
+    n = flash_attention.hopper_launches
+    got = ops.flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window, q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert flash_attention.hopper_launches == n + 1
+    seen = _rows_with_keys(S, T, causal, window, q_offset, dev)
+    assert not got[:, :, ~seen].any()
+    _assert_hopper_close(got[:, :, seen], want[:, :, seen])
+    if q_offset == 0:
+        out, lse = flash_attention.flash_attention_fwd_lse(q, k, v, causal=causal, window=window)
+        want_out, want_lse = ref.flash_attention_fwd_lse_ref(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        assert flash_attention.hopper_launches == n + 2
+        _assert_hopper_close(out, want_out)
+        torch.testing.assert_close(lse, want_lse, atol=LSE_BF16_ATOL, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+def test_hopper_kernel_takes_strided_bshd_views(D):
+    """The model's (B, S, H, D) projections, k and v sliced from one tensor
+    (strided in the head axis too), through the Hopper kernel; the outputs
+    keep q's memory layout."""
+    dev = _card()
+    g = torch.Generator().manual_seed(6)
+    q = torch.randn((2, 100, 15, D), generator=g).to(dev, torch.bfloat16).transpose(1, 2)
+    kv = torch.randn((2, 100, 10, D), generator=g).to(dev, torch.bfloat16)
+    k, v = kv[:, :, :5].transpose(1, 2), kv[:, :, 5:].transpose(1, 2)
+    assert flash_attention.route(q, k, v) == "hopper"
+    n = flash_attention.hopper_launches
+    got = ops.flash_attention(q, k, v, causal=True)
+    out, lse = flash_attention.flash_attention_fwd_lse(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert flash_attention.hopper_launches == n + 2
+    assert got.stride() == q.stride() and out.stride() == q.stride()
+    want_out, want_lse = ref.flash_attention_fwd_lse_ref(*(t.contiguous() for t in (q, k, v)))
+    _assert_hopper_close(got, want_out)
+    _assert_hopper_close(out, want_out)
+    torch.testing.assert_close(lse, want_lse, atol=LSE_BF16_ATOL, rtol=0)
+
+
+@pytest.mark.cuda
+def test_other_bf16_inputs_keep_the_mma_sync_kernel():
+    """head_dim 20 (the smoke config) and a 136-byte row stride launch the
+    earlier kernel: the entry point counts them, the Hopper counter does
+    not."""
+    dev = _card()
+    q, k, v = _fa_inputs(2, 3, 1, 37, 37, 20, torch.bfloat16, dev)
+    x = torch.randn((1, 3, 40, 68), device=dev).to(torch.bfloat16)[..., :64]
+    for args in ((q, k, v), (x, x[:, :1], x[:, :1])):
+        assert flash_attention.route(*args) == "bf16"
+        n = (flash_attention.hopper_launches, flash_attention.flash_attention.launches)
+        got = ops.flash_attention(*args, causal=True)
+        torch.cuda.synchronize()
+        assert (flash_attention.hopper_launches, flash_attention.flash_attention.launches) == (
+            n[0], n[1] + 1)
+        want = ref.flash_attention_ref(*(t.contiguous() for t in args), causal=True)
+        torch.testing.assert_close(got.float(), want.float(), atol=FA_BF16_ATOL, rtol=0)
+
+
+@pytest.mark.cuda
+def test_hopper_kernel_is_bitwise_repeatable_at_the_training_shape():
+    """q (4, 15, 2048, 64) and k, v (4, 5, 2048, 64) as the model's views:
+    two calls give the same bits (recomputation under remat and bitwise
+    resume rely on it)."""
+    dev = _card()
+    g = torch.Generator().manual_seed(7)
+    q = torch.randn((4, 2048, 15, 64), generator=g).to(dev, torch.bfloat16).transpose(1, 2)
+    k, v = (torch.randn((4, 2048, 5, 64), generator=g).to(dev, torch.bfloat16).transpose(1, 2)
+            for _ in range(2))
+    assert flash_attention.route(q, k, v) == "hopper"
+    first = flash_attention.flash_attention_fwd_lse(q, k, v, causal=True)
+    second = flash_attention.flash_attention_fwd_lse(q, k, v, causal=True)
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+
+
 # ------------------------------------------------------------ selective scan
 # (B, S, D, N): S = 1, S under one 16-step chunk, S past several; N = 4
 # (the smoke config) and 16 (falcon-mamba-7b), the kernel's only state
