@@ -10,7 +10,8 @@ nothing of JAX or of the JAX package.  Phases, each printing one JSON line:
 1. device: the card's name, count and power limit;
 2. build: every ``src/repro_torch/kernels/csrc/*.cu`` with ``nvcc`` for
    ``sm_90a``, all started together; the registers and spill bytes of the
-   Hopper flash-attention kernel (``flash_fwd_hopper``, head_dim 64 and
+   Hopper flash-attention kernels (``flash_fwd_hopper``,
+   ``flash_bwd_dq_hopper`` and ``flash_bwd_dkv_hopper``, head_dim 64 and
    128) from ``ptxas -v``;
 
 The cell-training path (slice 1):
@@ -79,17 +80,23 @@ LM training (slice 3), smollm-360m at its full width:
    q (4, 15, 2048, 64) and k/v (4, 5, 2048, 64) bf16 causal as the strided
    (B, S, H, D) views the model passes, each tensor there within
    0.1 rms(want) + 2**-6 |want| (its values are too small for the sweep's
-   atol; rms(want) is printed beside each error), the forward there
-   through the Hopper kernel; the mutation check of that kernel: three
-   edited copies of ``csrc/flash_attention.cu`` (one drops the rescale of O
-   by alpha, one skips each block's last KV tile, one lets the causal mask
-   of a diagonal tile see one key too many), built under ``build/`` and
-   run on the training shape's inputs, must each fail that rule (or lse's
-   1e-4) at least FLASH_MUTANT_MIN times over; event times of each kernel,
-   of the forward's earlier ``mma.sync`` kernel, of the plain versions, and
-   of ``scaled_dot_product_attention``'s forward and forward plus backward
-   there (their difference: SDPA's backward alone); the host's microseconds
-   per call of the forward's wrapper and of ``previous_kernel``;
+   atol; rms(want) is printed beside each error), all three there through
+   the Hopper kernels; the mutation checks: three edited copies of
+   ``csrc/flash_attention.cu`` (one drops the rescale of O by alpha, one
+   skips each block's last KV tile, one lets the causal mask of a diagonal
+   tile see one key too many) and three of ``csrc/flash_attention_bwd.cu``
+   (dk/dv without the delta of dS, dk/dv skipping each item's first query
+   tile, dq's diagonal tile seeing one key too many), built under
+   ``build/`` and run on the training shape's inputs, must each fail that
+   rule (or lse's 1e-4) at least FLASH_MUTANT_MIN times over; the
+   ``mma.sync`` kernels the Hopper routes replaced (``previous_kernel``,
+   ``previous_bwd``), held to the same rule; event times of each kernel,
+   of those ``mma.sync`` kernels, of the plain versions, of
+   ``scaled_dot_product_attention``'s forward, and of its backward alone
+   (``autograd.grad`` over one saved forward; the names of its kernels
+   from the profiler, taken in ``main`` before any of the port's kernels
+   runs); the host's microseconds per call of each wrapper
+   and of its ``mma.sync`` counterpart, the two taking turns;
 12. train_vs_cpu: one train step at full width in float32 with 2 layers on
    the card and on the CPU from the same weights and batch: loss within
    rtol 1e-5, grad norm within rtol 1e-4 (float32 sums in another order),
@@ -102,8 +109,9 @@ LM training (slice 3), smollm-360m at its full width:
    2,048 tokens (SmolLM's context length), ``train_loop`` in bf16 with
    ``remat="full"`` at 32 layers for 5 warm-up and 25 timed steps, the
    kernels' launch counts set to 0 just before and read just after
-   (64 / 32 / 32 per step required, and all 64 forwards through the
-   Hopper kernel); step time, tokens/s over the median
+   (64 / 32 / 32 per step required, all through the Hopper kernels:
+   ``flash_attention.hopper_launches`` and the ``hopper_launches`` of
+   ``flash_attention_bwd_dq`` and ``flash_attention_bwd_dkv``); step time, tokens/s over the median
    step and over the timed steps' wall (loader included), the loader's
    share of that wall, loss, peak
    memory; then one step under ``torch.profiler`` for each kernel's device
@@ -199,9 +207,23 @@ FULL_WIDTH = (32, 960, 15, 5, 64)  # layers, d_model, heads, kv heads, head_dim
 FLASH_MUTANTS = {
     "drops_alpha_rescale": ("o[i2] *= alpha[(i2 / 2) % 2];", "(void)alpha;"),
     "skips_last_kv_tile": ("(k_end - wk.kt0 + kBlockN - 1) / kBlockN", "(k_end - wk.kt0 - 1) / kBlockN"),
-    "diagonal_off_by_one": ("p.causal ? clamp_col(d) : kBlockN", "p.causal ? clamp_col(d + 1) : kBlockN"),
+    "diagonal_off_by_one": ("p.causal ? clamp_col<kBlockN>(d) : kBlockN",
+                            "p.causal ? clamp_col<kBlockN>(d + 1) : kBlockN"),
 }
 FLASH_MUTANT_MIN = 3.0
+# the mutation check of the Hopper backward: edited copies of
+# csrc/flash_attention_bwd.cu, built under build/; each must fail the training
+# shape's rule (on dq, dk or dv) FLASH_MUTANT_MIN times over.  The dk/dv one
+# skips each item's first query tile, the one on the causal diagonal: under
+# the causal mask a key's largest probabilities come from the queries just
+# after it, while its last query tile adds about 1/2,048 of a softmax row each.
+BWD_MUTANTS = {
+    "dkv_drops_delta": ("dp[i] = pr * (dp[i] - (x % 2 ? dl.y : dl.x));", "dp[i] = pr * dp[i];"),
+    "dkv_skips_first_query_tile": ("wk.qt0 = static_cast<int>(lo / kTileQ) * kTileQ;",
+                                   "wk.qt0 = static_cast<int>(lo / kTileQ) * kTileQ + kTileQ;"),
+    "dq_diagonal_off_by_one": ("p.causal ? hopper::clamp_col<kN>(d) : kN",
+                               "p.causal ? hopper::clamp_col<kN>(d + 1) : kN"),
+}
 # LM training
 BWD_SWEEP = [(1, 2, 2, 64, 64, 16), (2, 4, 2, 64, 64, 32), (1, 2, 1, 96, 96, 16)]
 BWD_MASKS = [(True, None), (True, 32), (False, None)]
@@ -327,7 +349,8 @@ def previous_kernel(q, k, v, with_lse: bool):
 
     from repro_torch.kernels import flash_attention as fa
 
-    fa.check_inputs(q, k, v, None)
+    fa.check_layout(q, k, v, None)
+    fa.check_device(q, k, v)
     B, H, S, D = q.shape
     Hkv, T = k.shape[1], k.shape[2]
     out = fa.empty_like_rows(q)
@@ -342,6 +365,72 @@ def previous_kernel(q, k, v, with_lse: bool):
             1.0 / math.sqrt(D), torch.cuda.current_stream().cuda_stream)
     fa.raise_on_error(lib, err, "flash_fwd_bf16")
     return out, lse
+
+
+def previous_bwd(q, k, v, dout, lse, delta, dkv: bool) -> tuple:
+    """dq, or (dk, dv), through the ``mma.sync`` kernels (``dq_bf16``,
+    ``dkv_bf16``) that the Hopper route replaced, launched from the
+    package's library with the host work their wrapper did before that
+    route: the checks, the outputs and the C call under a device guard with
+    the current ``Stream`` object.  For their device and host times beside
+    the Hopper kernels'; counts nothing.  Returns the outputs."""
+    import ctypes
+
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fab
+
+    fa.check_layout(q, k, v, None)
+    fa.check_device(q, k, v)
+    B, H, S, D = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
+    if dout.shape != q.shape or dout.dtype != q.dtype or dout.device != q.device:
+        raise ValueError("dout does not fit q")
+    if dout.stride(3) != 1:
+        raise ValueError("dout needs a contiguous last axis")
+    for t in (lse, delta):
+        if t.shape != (B, H, S) or t.dtype != torch.float32 or t.device != q.device:
+            raise ValueError("lse and delta must be (B, H, S) float32 on q's device")
+        if not t.is_contiguous():
+            raise ValueError("lse and delta must be contiguous")
+    outs = (fa.empty_like_rows(k), fa.empty_like_rows(v)) if dkv else (fa.empty_like_rows(q),)
+    tensors = (q, k, v, dout, *outs)
+    strides = (ctypes.c_int64 * (3 * len(tensors)))(*(s for t in tensors for s in t.stride()[:3]))
+    lib = fab._library()
+    fn = lib.flash_attention_bwd_dkv if dkv else lib.flash_attention_bwd_dq
+    with torch.cuda.device(q.device):
+        err = fn(*(t.data_ptr() for t in (q, k, v, dout, lse, delta, *outs)), 1,
+                 (ctypes.c_int64 * 6)(B, H, Hkv, S, T, D), strides, 1, 0, 0, 1.0 / math.sqrt(D),
+                 torch.cuda.current_stream().cuda_stream)
+    fa.raise_on_error(lib, err, "dkv_bf16" if dkv else "dq_bf16")
+    return outs
+
+
+def sdpa_backward_kernels(dev, shape) -> list:
+    """The names of the kernels that ``scaled_dot_product_attention``'s
+    backward launches at the training shape ``(B, S, H, Hkv, D)``, bf16,
+    causal, from one profiled ``autograd.grad`` over a saved forward.
+    Called before any of the port's kernels runs: once they have, the
+    profiler lists only some of cuDNN's kernels."""
+    import torch
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    B, S, H, Hkv, D = shape
+    q = torch.randn((B, S, H, D), device=dev, dtype=torch.bfloat16).transpose(1, 2)
+    k, v = (torch.randn((B, S, Hkv, D), device=dev, dtype=torch.bfloat16).transpose(1, 2)
+            for _ in range(2))
+    dout = torch.randn((B, H, S, D), device=dev, dtype=torch.bfloat16)
+    qg, kg, vg = (t.requires_grad_() for t in (q, k, v))
+    o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True, enable_gqa=True)
+    torch.autograd.grad(o, (qg, kg, vg), dout, retain_graph=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.autograd.grad(o, (qg, kg, vg), dout)
+        torch.cuda.synchronize()
+    return sorted({e.key[:120] for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA})
 
 
 def main() -> None:
@@ -386,11 +475,19 @@ def main() -> None:
     hopper = {k: v for k, v in _build.ptxas_report("flash_attention").items() if "flash_fwd_hopper" in k}
     if len(hopper) != 2:
         fail(f"ptxas reports {len(hopper)} flash_fwd_hopper kernels, not 2 (head_dim 64 and 128)")
-    emit({"phase": "build", "seconds": seconds, "built": built, "flash_fwd_hopper_ptxas": hopper})
+    bwd_hopper = {k: v for k, v in _build.ptxas_report("flash_attention_bwd").items()
+                  if "flash_bwd_dq_hopper" in k or "flash_bwd_dkv_hopper" in k}
+    if len(bwd_hopper) != 4:
+        fail(f"ptxas reports {len(bwd_hopper)} Hopper backward kernels, not 4 (dq and dk/dv at "
+             f"head_dim 64 and 128)")
+    emit({"phase": "build", "seconds": seconds, "built": built, "flash_fwd_hopper_ptxas": hopper,
+          "flash_bwd_hopper_ptxas": bwd_hopper})
 
+    # before any of the port's kernels runs (see sdpa_backward_kernels)
+    sdpa_bwd_kernels = sdpa_backward_kernels(dev, (TRAIN_BATCH, TRAIN_SEQ, *FULL_WIDTH[2:]))
     lm_kernel = lm_phases(dev, float(max_sm_mhz) * 1e6)
     torch.cuda.empty_cache()
-    train_kernels = train_phases(dev, float(max_sm_mhz) * 1e6)
+    train_kernels = train_phases(dev, float(max_sm_mhz) * 1e6, sdpa_bwd_kernels)
     torch.cuda.empty_cache()
     ssm_kernel = ssm_phases(dev, float(max_sm_mhz) * 1e6)
     torch.cuda.empty_cache()
@@ -831,9 +928,11 @@ def attention_errors(q, k, v, dout, causal, window, err):
     return errs, (out, lse, delta)
 
 
-def train_phases(dev, sm_clock_hz: float) -> list:
+def train_phases(dev, sm_clock_hz: float, sdpa_bwd_kernels: list) -> list:
     """Phases 11-14, LM training at smollm-360m's full width; returns the
-    kernels-line entries of the forward with lse, dq and dk/dv."""
+    kernels-line entries of the forward with lse, dq and dk/dv.
+    ``sdpa_bwd_kernels``: the names :func:`sdpa_backward_kernels` found,
+    printed in phase 11."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -878,12 +977,20 @@ def train_phases(dev, sm_clock_hz: float) -> list:
     vs = torch.randn((B, S, Hkv, D), generator=gen).to(dev, bf)
     q, k, v = qs.transpose(1, 2), ks.transpose(1, 2), vs.transpose(1, 2)
     dout = torch.randn((B, H, S, D), generator=gen).to(dev, bf)
-    hopper_before = fa.hopper_launches
+    hopper_before = (fa.hopper_launches, fab.hopper_launches)
     path, (out, lse, delta) = attention_errors(q, k, v, dout, True, None, _rms_err)
-    if fa.hopper_launches != hopper_before + 1:
+    if fa.hopper_launches != hopper_before[0] + 1:
         fail(f"the training shape's forward took the {fa.route(q, k, v)} kernel, not the Hopper one")
+    if fab.hopper_launches != hopper_before[1] + 2:
+        fail(f"the training shape's backward took the {fab.route(q, k, v, dout)} kernels, not the "
+             f"Hopper ones")
     if not all(e[1] <= 1.0 for e in path.values()):
         fail(f"training attention kernels disagree with their plain versions at the training shape: {path}")
+    path_sweep_tol, _ = attention_errors(q, k, v, dout, True, None,
+                                         lambda g, w: _scaled_err(g, w, *BWD_TOL["bfloat16"]))
+    if not all(e[1] <= 1.0 for e in path_sweep_tol.values()):
+        fail(f"training attention kernels exceed the sweep's bf16 tolerance at the training shape: "
+             f"{path_sweep_tol}")
     mutants = _flash_mutants(q, k, v, *ref.flash_attention_fwd_lse_ref(q, k, v, causal=True))
     failing = {n: max(e["out"][1], e["lse"][1]) for n, e in mutants.items()}
     weak = {n: r for n, r in failing.items() if n != "shipped" and r < FLASH_MUTANT_MIN}
@@ -891,29 +998,54 @@ def train_phases(dev, sm_clock_hz: float) -> list:
         fail(f"mutants of the Hopper forward pass the rule with less than {FLASH_MUTANT_MIN}x: {weak}")
     if failing["shipped"] > 1.0:
         fail(f"the unedited Hopper forward built as a mutant fails the rule: {mutants['shipped']}")
+    wants = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=True)
+    bwd_mutants = _bwd_mutants(q, k, v, dout, lse, delta, wants)
+    bwd_failing = {n: max(e[1] for e in errs.values()) for n, errs in bwd_mutants.items()}
+    weak = {n: r for n, r in bwd_failing.items() if n != "shipped" and not r >= FLASH_MUTANT_MIN}
+    if weak:
+        fail(f"mutants of the Hopper backward pass the rule with less than {FLASH_MUTANT_MIN}x: {weak}")
+    if not bwd_failing["shipped"] <= 1.0:
+        fail(f"the unedited Hopper backward built as a mutant fails the rule: {bwd_mutants['shipped']}")
+    # the mma.sync backward kernels the Hopper route replaced, held to the same rule
+    (prev_dq,), (prev_dk, prev_dv) = (previous_bwd(q, k, v, dout, lse, delta, d) for d in (False, True))
+    torch.cuda.synchronize()
+    prev_err = {n: _rms_err(g, w) for n, g, w in zip(("dq", "dk", "dv"), (prev_dq, prev_dk, prev_dv),
+                                                     wants)}
+    if not all(e[1] <= 1.0 for e in prev_err.values()):
+        fail(f"the mma.sync backward kernels disagree with their plain version: {prev_err}")
+    del wants, prev_dq, prev_dk, prev_dv
     times = {
         "fwd": event_ms(lambda: fa.flash_attention_fwd_lse(q, k, v, causal=True)),
         "dq": event_ms(lambda: fab.flash_attention_bwd_dq(q, k, v, dout, lse, delta)),
         "dkv": event_ms(lambda: fab.flash_attention_bwd_dkv(q, k, v, dout, lse, delta)),
     }
-    mma_sync_ms = event_ms(lambda: previous_kernel(q, k, v, True))
-    host = host_us({"hopper_wrapper": lambda: fa.flash_attention_fwd_lse(q, k, v, causal=True),
-                    "previous_wrapper": lambda: previous_kernel(q, k, v, True)})
+    previous_ms = {
+        "fwd": event_ms(lambda: previous_kernel(q, k, v, True)),
+        "dq": event_ms(lambda: previous_bwd(q, k, v, dout, lse, delta, False)),
+        "dkv": event_ms(lambda: previous_bwd(q, k, v, dout, lse, delta, True)),
+    }
+    host = host_us({"fwd/hopper_wrapper": lambda: fa.flash_attention_fwd_lse(q, k, v, causal=True),
+                    "fwd/previous_wrapper": lambda: previous_kernel(q, k, v, True),
+                    "dq/hopper_wrapper": lambda: fab.flash_attention_bwd_dq(q, k, v, dout, lse, delta),
+                    "dq/previous_wrapper": lambda: previous_bwd(q, k, v, dout, lse, delta, False),
+                    "dkv/hopper_wrapper": lambda: fab.flash_attention_bwd_dkv(q, k, v, dout, lse, delta),
+                    "dkv/previous_wrapper": lambda: previous_bwd(q, k, v, dout, lse, delta, True)})
     plain = {
         "fwd": event_ms(lambda: ref.flash_attention_fwd_lse_ref(q, k, v, causal=True)),
         "bwd": event_ms(lambda: ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=True)),
     }
-    qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
-
-    def sdpa_fwd_bwd():
-        o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True, enable_gqa=True)
-        torch.autograd.grad(o, (qg, kg, vg), dout)
-
     with torch.no_grad():
         sdpa_fwd_ms = event_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
                                                                       enable_gqa=True))
-    sdpa_fwd_bwd_ms = event_ms(sdpa_fwd_bwd)
-    del qg, kg, vg
+    # SDPA's backward alone: autograd.grad over one saved forward, its graph kept
+    qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    o_sdpa = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True, enable_gqa=True)
+
+    def sdpa_bwd():
+        torch.autograd.grad(o_sdpa, (qg, kg, vg), dout, retain_graph=True)
+
+    sdpa_bwd_ms = event_ms(sdpa_bwd)
+    del qg, kg, vg, o_sdpa
 
     pairs = S * (S + 1) // 2
     qb, kb = q.numel() * 2, k.numel() * 2  # bf16 bytes of q (= dO, o, dq) and of k (= v, dk, dv)
@@ -924,15 +1056,23 @@ def train_phases(dev, sm_clock_hz: float) -> list:
         "dkv": (qb + 2 * kb + qb + 2 * rows + 2 * kb, 8 * B * H * D * pairs),
     }
     src = "src/repro_torch/kernels/csrc/"
+    sdpa_bwd_name = "scaled_dot_product_attention backward alone (dq, dk and dv in one call)"
     meta = {
         "fwd": ("flash_attention_fwd_lse", src + "flash_attention.cu",
                 "src/repro/kernels/flash_attention_bwd.py:164", plain["fwd"], sdpa_fwd_ms,
                 "scaled_dot_product_attention forward"),
         "dq": ("flash_attention_bwd_dq", src + "flash_attention_bwd.cu",
-               "src/repro/kernels/flash_attention_bwd.py:81", plain["bwd"], None, None),
+               "src/repro/kernels/flash_attention_bwd.py:81", plain["bwd"], sdpa_bwd_ms,
+               sdpa_bwd_name),
         "dkv": ("flash_attention_bwd_dkv", src + "flash_attention_bwd.cu",
-                "src/repro/kernels/flash_attention_bwd.py:115", plain["bwd"], None, None),
+                "src/repro/kernels/flash_attention_bwd.py:115", plain["bwd"], sdpa_bwd_ms,
+                sdpa_bwd_name),
     }
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    exp_ms = B * H * pairs / (SFU_EXP2_PER_CLOCK_PER_SM * sms * sm_clock_hz) * 1e3  # one per visible pair
+    hopper_kernel = {"fwd": ("flash_fwd_hopper", "flash_fwd_bf16 (mma.sync)", failing),
+                     "dq": ("flash_bwd_dq_hopper", "dq_bf16 (mma.sync)", bwd_failing),
+                     "dkv": ("flash_bwd_dkv_hopper", "dkv_bf16 (mma.sync)", bwd_failing)}
     kernels = {}
     for key, (name, source, replaces, plain_ms, lib_ms, lib) in meta.items():
         nbytes, flop = work[key]
@@ -946,27 +1086,27 @@ def train_phases(dev, sm_clock_hz: float) -> list:
             "ms": times[key], "kernel_ms": times[key], "plain_ms": plain_ms,
             "plain": "flash_attention_bwd_ref (dq, dk and dv in one call)" if key != "fwd"
             else "flash_attention_fwd_lse_ref",
-            "library_ms": lib_ms, "library": lib, "bound_ms": max(bytes_ms, ops_ms),
+            "library_ms": lib_ms, "library": lib,
+            "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "bytes": nbytes,
-            "flop": flop, "want_rms": path[key][2]}
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    fwd = kernels["fwd"]
-    fwd.update({"kernel": "flash_fwd_hopper", "previous_kernel": "flash_fwd_bf16 (mma.sync)",
-                "previous_kernel_ms": mma_sync_ms, "host_us_per_call": host,
-                "mutant_err_of_rule": failing,
-                "bound_parts_ms": {  # one exponential per visible pair
-                    "bytes": fwd["bytes"] / HBM_BYTES_PER_S * 1e3,
-                    "tensor_cores": fwd["flop"] / BF16_FLOP_PER_S * 1e3,
-                    "exponentials": B * H * pairs / (SFU_EXP2_PER_CLOCK_PER_SM * sms * sm_clock_hz) * 1e3}})
-    for key in ("dq", "dkv"):  # SDPA's backward alone, beside the backward kernels
-        kernels[key]["sdpa_backward_ms"] = sdpa_fwd_bwd_ms - sdpa_fwd_ms
+            "flop": flop, "want_rms": path[key][2],
+            "kernel": hopper_kernel[key][0], "previous_kernel": hopper_kernel[key][1],
+            "previous_kernel_ms": previous_ms[key],
+            "host_us_per_call": {w: host[f"{key}/{w}"] for w in ("hopper_wrapper", "previous_wrapper")},
+            "mutant_err_of_rule": hopper_kernel[key][2],
+            "bound_parts_ms": {"bytes": bytes_ms, "tensor_cores": ops_ms, "exponentials": exp_ms}}
+    kernels["dq"]["previous_kernel_err"] = prev_err["dq"]
+    kernels["dkv"]["previous_kernel_err"] = max(prev_err["dk"], prev_err["dv"], key=lambda e: e[1])
     emit({"phase": "train_kernels", "sweep_errors": {f"{k}/{n}": e for (k, n), e in worst.items()},
-          "training_shape_errors": path, "tolerance": BWD_TOL,
+          "training_shape_errors": path, "training_shape_errors_of_sweep_tol": path_sweep_tol,
+          "tolerance": BWD_TOL,
           "training_shape_tolerance": {"rms": TRAIN_TOL_RMS, "rel": TRAIN_TOL_REL},
-          "kernels_sum_ms": sum(times.values()), "sdpa_fwd_bwd_ms": sdpa_fwd_bwd_ms,
-          "sdpa_fwd_ms": sdpa_fwd_ms, "sdpa_bwd_ms": sdpa_fwd_bwd_ms - sdpa_fwd_ms,
-          "fwd_previous_kernel_ms": mma_sync_ms,
-          "mutants": mutants, "mutant_min_err_of_rule": FLASH_MUTANT_MIN,
+          "kernels_sum_ms": sum(times.values()), "bwd_pair_ms": times["dq"] + times["dkv"],
+          "sdpa_fwd_ms": sdpa_fwd_ms, "sdpa_bwd_ms": sdpa_bwd_ms,
+          "sdpa_bwd_kernels": sdpa_bwd_kernels,
+          "previous_kernel_ms": previous_ms, "previous_bwd_errors": prev_err,
+          "host_us_per_call": host,
+          "mutants": mutants, "bwd_mutants": bwd_mutants, "mutant_min_err_of_rule": FLASH_MUTANT_MIN,
           **{f"{k}_ms": t for k, t in times.items()},
           **{f"{k}_bound_ms": kernels[k]["bound_ms"] for k in kernels},
           **{f"plain_{k}_ms": t for k, t in plain.items()}})
@@ -1023,7 +1163,10 @@ def train_phases(dev, sm_clock_hz: float) -> list:
     fa.flash_attention_fwd_lse.launches = 0
     fab.flash_attention_bwd_dq.launches = 0
     fab.flash_attention_bwd_dkv.launches = 0
+    fab.flash_attention_bwd_dq.hopper_launches = 0
+    fab.flash_attention_bwd_dkv.hopper_launches = 0
     fa.hopper_launches = 0
+    fab.hopper_launches = 0
     total = TRAIN_WARMUP + TRAIN_STEPS
     t0 = time.perf_counter()
     run = train_loop(model, loader, steps=total, log_every=1, device=dev, timings=timings)
@@ -1038,6 +1181,15 @@ def train_phases(dev, sm_clock_hz: float) -> list:
     hopper = fa.hopper_launches
     if hopper != launches["fwd"]:
         fail(f"{hopper} of the {launches['fwd']} training forwards took the Hopper kernel")
+    hopper_bwd = {"dq": fab.flash_attention_bwd_dq.hopper_launches,
+                  "dkv": fab.flash_attention_bwd_dkv.hopper_launches}
+    for key, n in hopper_bwd.items():
+        if n != launches[key]:
+            fail(f"{n} of the {launches[key]} {key} launches took the Hopper kernel")
+    bwd_hopper = fab.hopper_launches
+    if bwd_hopper != sum(hopper_bwd.values()):
+        fail(f"the module counts {bwd_hopper} Hopper backward launches, its entry points "
+             f"{hopper_bwd}")
     losses = [m["loss"] for m in run["metrics"]]
     if len(losses) != total or not all(math.isfinite(x) for x in losses):
         fail(f"non-finite or missing losses: {losses}")
@@ -1064,7 +1216,8 @@ def train_phases(dev, sm_clock_hz: float) -> list:
     on_card = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     step_kernel_ms = sum(e.self_device_time_total for e in on_card) / 1e3
     trace = {}
-    for key, pat in (("fwd", "flash_fwd"), ("dq", "dq_bf16"), ("dkv", "dkv_bf16")):
+    for key, pat in (("fwd", "flash_fwd_hopper"), ("dq", "flash_bwd_dq_hopper"),
+                     ("dkv", "flash_bwd_dkv_hopper")):
         mine = [e for e in on_card if pat in e.key]
         n = sum(e.count for e in mine)
         if n != per_step[key]:
@@ -1075,6 +1228,8 @@ def train_phases(dev, sm_clock_hz: float) -> list:
         kernels[key]["launches_per_step"] = launches[key] // total
         kernels[key]["trace_ms_per_launch"] = ms / n
     kernels["fwd"]["hopper_launches"] = hopper
+    kernels["dq"]["hopper_launches"] = hopper_bwd["dq"]
+    kernels["dkv"]["hopper_launches"] = hopper_bwd["dkv"]
     top = sorted(on_card, key=lambda e: -e.self_device_time_total)[:10]
     emit({"phase": "train", "arch": ARCH, "layers": cfg.num_layers, "d_model": cfg.d_model,
           "dtype": cfg.compute_dtype, "remat": cfg.remat, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
@@ -1089,7 +1244,8 @@ def train_phases(dev, sm_clock_hz: float) -> list:
           "loss_first": losses[0],
           "loss_last": losses[-1], "peak_device_mem_gb": peak / 1e9,
           "launches_per_step": {k: v // total for k, v in launches.items()},
-          "hopper_launches_per_step": hopper // total,
+          "hopper_launches_per_step": {"fwd": hopper // total,
+                                       **{k: n // total for k, n in hopper_bwd.items()}},
           "traced_step_s": traced_s, "traced_step_device_kernel_ms": step_kernel_ms,
           "traced_step_device_busy_share": step_kernel_ms / 1e3 / traced_s,
           "attention_kernels_share_of_device_ms":
@@ -1137,12 +1293,11 @@ def train_phases(dev, sm_clock_hz: float) -> list:
           "tensors_compared": 3 * len(wp), "seconds": resume_s})
     shutil.rmtree(ck_root, ignore_errors=True)
     del want, got, wp, gp
-    extra = {"fwd": ("kernel", "hopper_launches", "previous_kernel", "previous_kernel_ms",
-                     "host_us_per_call", "mutant_err_of_rule", "bound_parts_ms"),
-             "dq": ("sdpa_backward_ms",), "dkv": ("sdpa_backward_ms",)}
+    extra = ("kernel", "hopper_launches", "previous_kernel", "previous_kernel_ms",
+             "host_us_per_call", "mutant_err_of_rule", "bound_parts_ms")
     return [{k: kernels[key][k] for k in (*KERNEL_KEYS, "dtype", "library", "plain",
                                              "trace_ms_per_launch", "launches_per_step", "bytes",
-                                             "flop", "want_rms", *extra[key])}
+                                             "flop", "want_rms", *extra)}
             for key in ("fwd", "dq", "dkv")]
 
 
@@ -1254,6 +1409,31 @@ def _flash_mutants(q, k, v, want_out, want_lse) -> dict:
             fail(f"the mutation check ran the {kernel} kernel, not the Hopper one")
         result[name] = {"out": _rms_err(out, want_out),
                         "lse": _scaled_err(lse.nan_to_num(neginf=-1e30), want_lse, 1e-4, 0.0)}
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return result
+
+
+def _bwd_mutants(q, k, v, dout, lse, delta, wants) -> dict:
+    """Run the unedited Hopper backward and each of BWD_MUTANTS, built by
+    :func:`_build_mutants`, on the training shape's causal inputs; return
+    each one's dq, dk and dv errors against ``wants`` (the plain version's)
+    over the training rule, as (max abs, over the rule, rms(want)).  A
+    non-finite error counts as 1e30, so that every error stays a finite
+    number in the JSON lines."""
+    import torch
+
+    from repro_torch.kernels import flash_attention_bwd as fab
+
+    libs, out_dir = _build_mutants("flash_attention_bwd", BWD_MUTANTS, fab.bind)
+    result = {}
+    for name, lib in libs.items():
+        (dq,), kq = fab.launch(lib, False, q, k, v, dout, lse, delta, True, None)
+        (dk, dv), kkv = fab.launch(lib, True, q, k, v, dout, lse, delta, True, None)
+        torch.cuda.synchronize()
+        if kq != "hopper" or kkv != "hopper":
+            fail(f"the mutation check ran the {kq} and {kkv} kernels, not the Hopper ones")
+        result[name] = {n: tuple(x if math.isfinite(x) else 1e30 for x in _rms_err(g, w))
+                        for n, g, w in zip(("dq", "dk", "dv"), (dq, dk, dv), wants)}
     shutil.rmtree(out_dir, ignore_errors=True)
     return result
 

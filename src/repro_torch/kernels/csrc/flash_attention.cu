@@ -79,8 +79,6 @@
 
 #include <math_constants.h>
 
-#include <algorithm>
-
 #include "flash_common.cuh"
 #include "hopper_common.cuh"
 
@@ -367,7 +365,6 @@ constexpr int kThreads = 384;  // warpgroup 0 produces, 1 and 2 consume
 constexpr int kRowBytes = 128; // one swizzled row: 64 bf16 values
 constexpr int kProducerRegs = 40, kConsumerRegs = 232;  // 128 x 40 + 256 x 232 <= 65,536
 constexpr float kLog2e = 1.4426950408889634f, kLn2 = 0.6931471805599453f;
-constexpr int kMaxDevices = 64;
 constexpr int64_t kMaxItems = int64_t(1) << 30;  // item indices stay in int
 
 // Shared memory: two Q buffers (each kD / 64 panels of 128 rows) | K
@@ -391,12 +388,6 @@ struct Layout {
   static constexpr int kSmem = kBar + 8 * kBars + 1024;  // + the base's alignment
   static_assert(kSmem > 116 * 1024 && kSmem <= 227 * 1024, "one block per SM");
 };
-
-// x clamped to [-1, kBlockN]: a key column's bound, with every comparison
-// against a column in [0, kBlockN) unchanged
-__device__ __forceinline__ int clamp_col(int64_t x) {
-  return static_cast<int>(x < -1 ? -1 : (x > kBlockN ? kBlockN : x));
-}
 
 template <int kD>
 __device__ __forceinline__ void pv(float (&o)[kD / 2], const uint32_t (&a)[4], uint64_t db);
@@ -432,12 +423,6 @@ __device__ __forceinline__ Work work_item(const Params& p, int w) {
   wk.kt0 = (k_begin / kBlockN) * kBlockN;
   wk.n_tiles = k_end > k_begin ? (k_end - wk.kt0 + kBlockN - 1) / kBlockN : 0;
   return wk;
-}
-
-// The items of this block: round r of gridDim.x items goes forward on even
-// rounds and backward on odd ones, which evens out the causal work.
-__device__ __forceinline__ int item_of_round(int r) {
-  return r * gridDim.x + ((r & 1) ? gridDim.x - 1 - blockIdx.x : blockIdx.x);
 }
 
 // Persistent: one block per SM walks its items; the producer loads the next
@@ -568,8 +553,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
         for (int ri = 0; ri < 2; ++ri) {
           const int64_t d = qa_lo + r_lo + 8 * ri - k0;
-          hi[ri] = min(p.causal ? clamp_col(d) : kBlockN, t_last) - 2 * t;
-          lo[ri] = (p.has_window ? clamp_col(d - p.window) : -1) - 2 * t;
+          hi[ri] = min(p.causal ? clamp_col<kBlockN>(d) : kBlockN, t_last) - 2 * t;
+          lo[ri] = (p.has_window ? clamp_col<kBlockN>(d - p.window) : -1) - 2 * t;
         }
 #pragma unroll
         for (int j = 0; j < 16; ++j) {
@@ -704,26 +689,10 @@ int launch_hopper(const Params& p, cudaStream_t stream) {
   if (err == 0) err = encode_bhsd(&tm_k, p.k, p.B, p.Hkv, p.T, kD, p.k_sb, p.k_sh, p.k_st, kBlockN);
   if (err == 0) err = encode_bhsd(&tm_v, p.v, p.B, p.Hkv, p.T, kD, p.v_sb, p.v_sh, p.v_st, kBlockN);
   if (err != 0) return err;
-  auto kernel = flash_fwd_hopper<kD>;
-  int device = 0;
-  cudaError_t e = cudaGetDevice(&device);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (device >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
-  static int sms[kMaxDevices] = {};  // per device, once: its SM count, the smem limit raised
-  if (sms[device] == 0) {
-    int n = 0;
-    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             Layout<kD>::kSmem);
-    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    sms[device] = n;
-  }
-  const dim3 grid(static_cast<unsigned>(std::min<int64_t>(work_items(p), sms[device])));
+  static int sms[hopper::kMaxDevices] = {};
   void* args[] = {&tm_q, &tm_k, &tm_v, const_cast<Params*>(&p)};
-  e = cudaLaunchKernel(reinterpret_cast<const void*>(kernel), grid, dim3(kThreads), args,
-                       Layout<kD>::kSmem, stream);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(cudaGetLastError());
+  return hopper::launch_persistent(flash_fwd_hopper<kD>, sms, work_items(p), kThreads,
+                                   Layout<kD>::kSmem, args, stream);
 }
 
 }  // namespace fwd_hopper

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks in PTX for the port's kernels: mbarriers,
 // TMA tile loads from a tensor map, wgmma shared-memory descriptors for the
-// 128-byte swizzle, the warpgroup products the flash-attention forward
-// uses, setmaxnreg, ex2.approx, and the host-side tensor-map encoding
+// 128-byte swizzle, the warpgroup products the flash-attention kernels
+// use, the persistent blocks' order of work items, setmaxnreg, ex2.approx,
+// and the host-side tensor-map encoding
 // (the driver's cuTensorMapEncodeTiled, reached through the runtime's
 // cudaGetDriverEntryPointByVersion so that nothing links libcuda).
 //
@@ -135,6 +136,17 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// The same for a 64 x 64 tile (the backward's 64-query score tiles).
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da, uint64_t db,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HOPPER_R32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : HOPPER_D32
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // d += A . B with A (64 x 16 bf16) from registers in the mma.sync A layout
 // per warp (a0 = A[g][2t..], a1 = A[g+8][2t..], a2 = A[g][2t+8..], a3 =
 // A[g+8][2t+8..]) and B (16 x N) MN-major in shared memory (transposed:
@@ -166,6 +178,20 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs_tb(float (&d)[64], const uin
 #undef HOPPER_R64
 
 // ------------------------------------------------------------- the rest
+// The work items of a persistent block: round r of gridDim.x items goes
+// forward on even rounds and backward on odd ones, which evens out work
+// items ordered longest first.
+__device__ __forceinline__ int item_of_round(int r) {
+  return r * gridDim.x + ((r & 1) ? gridDim.x - 1 - blockIdx.x : blockIdx.x);
+}
+
+// x clamped to [-1, n]: a column's bound in a mask, with every comparison
+// against a column in [0, n) unchanged
+template <int n>
+__device__ __forceinline__ int clamp_col(int64_t x) {
+  return static_cast<int>(x < -1 ? -1 : (x > n ? n : x));
+}
+
 // Hand registers from a warpgroup that needs few to one that needs many.
 template <int kRegs>
 __device__ __forceinline__ void regs_dealloc() {
@@ -230,6 +256,33 @@ inline int encode_bhsd(CUtensorMap* map, const void* base, int64_t B, int64_t he
                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+constexpr int kMaxDevices = 64;
+
+// Launch the persistent `kernel` on min(items, SMs) blocks of `threads`
+// with `smem` bytes of dynamic shared memory, its limit raised once per
+// device (`sms`, one array per kernel, caches each device's SM count).
+// Returns a cudaError_t.
+template <typename Kernel>
+int launch_persistent(Kernel kernel, int (&sms)[kMaxDevices], int64_t items, int threads,
+                      int smem, void** args, cudaStream_t stream) {
+  int device = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (device >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  if (sms[device] == 0) {
+    int n = 0;
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    sms[device] = n;
+  }
+  const dim3 grid(static_cast<unsigned>(items < sms[device] ? items : sms[device]));
+  e = cudaLaunchKernel(reinterpret_cast<const void*>(kernel), grid, dim3(threads), args, smem,
+                       stream);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace hopper

@@ -119,14 +119,6 @@ def check_device(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         )
 
 
-def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 window: Optional[int]) -> None:
-    """Raise on any input the kernels do not take (shared by the forward
-    and backward wrappers)."""
-    check_layout(q, k, v, window)
-    check_device(q, k, v)
-
-
 def _tma_ready(t: torch.Tensor) -> bool:
     """True where TMA can address the bfloat16 ``t``: a 16-byte-aligned
     base, and every stride of an axis longer than 1 a multiple of 8 values

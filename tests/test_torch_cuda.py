@@ -482,6 +482,160 @@ def test_hopper_kernel_is_bitwise_repeatable_at_the_training_shape():
     assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
 
 
+# --------------------------------- flash attention backward, the Hopper route
+# bf16 with head_dim 64 or 128 and q, k, v and dout at strides TMA takes goes
+# to the TMA + wgmma dq and dk/dv kernels: GQA 15:5 and MQA, S = T of 130 and
+# 300 (off the 128-row work items and the 64-row query tiles), S != T without
+# the causal mask, causal, window 32 and non-causal, each at head_dim 64 and
+# 128.  (B, H, Hkv, S, T, causal, window)
+HOPPER_BWD_CASES = [
+    (1, 15, 5, 130, 130, True, None),
+    (2, 6, 1, 300, 300, True, None),
+    (1, 15, 5, 300, 300, True, 32),
+    (2, 6, 1, 130, 130, True, 32),
+    (1, 15, 5, 300, 300, False, None),
+    (1, 4, 4, 130, 300, False, None),
+    (2, 6, 1, 300, 130, False, 32),
+]
+
+
+def _assert_hopper_bwd_close(got, want):
+    """``got`` within the bf16 backward tolerance of ``want`` and within
+    HOPPER_RMS_RULE (at S = 300 a gradient's rms is well under the
+    tolerance's atol, which alone would let a kernel drop a tile)."""
+    _close_bf16(got, want)
+    a, r = HOPPER_RMS_RULE
+    want = want.float()
+    torch.testing.assert_close(got.float(), want, atol=a * want.square().mean().sqrt().item(),
+                               rtol=r)
+
+
+def _backward(fab, q, k, v, dout, causal, window):
+    """The forward with lse on the card, then dq and dk/dv: (out, lse, dq, dk, dv)."""
+    out, lse = flash_attention.flash_attention_fwd_lse(q, k, v, causal=causal, window=window)
+    delta = (dout.float() * out.float()).sum(-1).contiguous()
+    dq = fab.flash_attention_bwd_dq(q, k, v, dout, lse, delta, causal=causal, window=window)
+    dk, dv = fab.flash_attention_bwd_dkv(q, k, v, dout, lse, delta, causal=causal, window=window)
+    torch.cuda.synchronize()
+    return out, lse, dq, dk, dv
+
+
+def _bwd_counts(fab):
+    """The backward's counts: the module's Hopper launches, each entry
+    point's launches, then each entry point's Hopper launches."""
+    dq, dkv = fab.flash_attention_bwd_dq, fab.flash_attention_bwd_dkv
+    return fab.hopper_launches, dq.launches, dkv.launches, dq.hopper_launches, dkv.hopper_launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("B,H,Hkv,S,T,causal,window", HOPPER_BWD_CASES)
+def test_hopper_backward_matches_plain_version(B, H, Hkv, S, T, causal, window, D):
+    """dq and dk/dv through the Hopper kernels, one launch each, against the
+    plain version from the same residuals."""
+    from repro_torch.kernels import flash_attention_bwd as fab
+
+    dev = _card()
+    q, k, v, dout = _train_inputs(B, H, Hkv, S, T, D, torch.bfloat16, dev, seed=S + T + D)
+    assert fab.route(q, k, v, dout, window) == "hopper"
+    n = _bwd_counts(fab)
+    out, lse, dq, dk, dv = _backward(fab, q, k, v, dout, causal, window)
+    assert _bwd_counts(fab) == (n[0] + 2, n[1] + 1, n[2] + 1, n[3] + 1, n[4] + 1)
+    wants = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=causal, window=window)
+    for got, want in zip((dq, dk, dv), wants):
+        assert got.dtype == torch.bfloat16
+        _assert_hopper_bwd_close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+def test_hopper_backward_takes_strided_bshd_views(D):
+    """The model's (B, S, H, D) projections, k and v sliced from one tensor
+    (strided in the head axis too), a cotangent in q's layout; the outputs
+    keep q's and k's memory order ((B, S, heads, D), dk and dv packed)."""
+    from repro_torch.kernels import flash_attention_bwd as fab
+
+    dev = _card()
+    g = torch.Generator().manual_seed(8)
+    q = torch.randn((2, 300, 15, D), generator=g).to(dev, torch.bfloat16).transpose(1, 2)
+    kv = torch.randn((2, 300, 10, D), generator=g).to(dev, torch.bfloat16)
+    k, v = kv[:, :, :5].transpose(1, 2), kv[:, :, 5:].transpose(1, 2)
+    dout = torch.randn((2, 300, 15, D), generator=g).to(dev, torch.bfloat16).transpose(1, 2)
+    assert fab.route(q, k, v, dout) == "hopper"
+    n = fab.hopper_launches
+    out, lse, dq, dk, dv = _backward(fab, q, k, v, dout, True, None)
+    assert fab.hopper_launches == n + 2
+    assert dq.stride() == q.stride()
+    assert dk.transpose(1, 2).is_contiguous() and dv.transpose(1, 2).is_contiguous()
+    wants = ref.flash_attention_bwd_ref(*(t.contiguous() for t in (q, k, v, out)), lse,
+                                        dout.contiguous())
+    for got, want in zip((dq, dk, dv), wants):
+        _assert_hopper_bwd_close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+def test_hopper_backward_rows_and_keys_without_pairs_are_zero(D):
+    """Rows past T + window - 1 of a short key axis see no key (lse -inf):
+    their dq is zero; keys past S under the causal mask are seen by no
+    query: their dk and dv are zero."""
+    from repro_torch.kernels import flash_attention_bwd as fab
+
+    dev = _card()
+    q, k, v, dout = _train_inputs(1, 2, 1, 300, 8, D, torch.bfloat16, dev, seed=5)
+    assert fab.route(q, k, v, dout, 4) == "hopper"
+    out, lse, dq, dk, dv = _backward(fab, q, k, v, dout, False, 4)
+    assert bool(torch.isneginf(lse[:, :, 11:]).all()) and not dq[:, :, 11:].any()
+    wants = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=False, window=4)
+    for got, want in zip((dq, dk, dv), wants):
+        _assert_hopper_bwd_close(got, want)
+    q, k, v, dout = _train_inputs(1, 4, 2, 130, 300, D, torch.bfloat16, dev, seed=6)
+    out, lse, dq, dk, dv = _backward(fab, q, k, v, dout, True, None)
+    assert not dk[:, :, 130:].any() and not dv[:, :, 130:].any()
+    wants = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=True)
+    for got, want in zip((dq, dk, dv), wants):
+        _assert_hopper_bwd_close(got, want)
+
+
+@pytest.mark.cuda
+def test_hopper_backward_is_bitwise_repeatable_at_the_training_shape():
+    """q (4, 15, 2048, 64) and k, v (4, 5, 2048, 64) as the model's views:
+    two backward passes give the same bits (bitwise resume relies on it)."""
+    from repro_torch.kernels import flash_attention_bwd as fab
+
+    dev = _card()
+    g = torch.Generator().manual_seed(9)
+    q = torch.randn((4, 2048, 15, 64), generator=g).to(dev, torch.bfloat16).transpose(1, 2)
+    k, v = (torch.randn((4, 2048, 5, 64), generator=g).to(dev, torch.bfloat16).transpose(1, 2)
+            for _ in range(2))
+    dout = torch.randn((4, 15, 2048, 64), generator=g).to(dev, torch.bfloat16)
+    assert fab.route(q, k, v, dout) == "hopper"
+    first = _backward(fab, q, k, v, dout, True, None)
+    second = _backward(fab, q, k, v, dout, True, None)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.cuda
+def test_other_bf16_inputs_keep_the_mma_sync_backward():
+    """head_dim 20 (the smoke config) and a 136-byte row stride launch the
+    earlier backward kernels: their entry points count them, the Hopper
+    counter does not."""
+    from repro_torch.kernels import flash_attention_bwd as fab
+
+    dev = _card()
+    q, k, v, dout = _train_inputs(2, 3, 1, 37, 37, 20, torch.bfloat16, dev)
+    x = torch.randn((1, 3, 40, 68), device=dev).to(torch.bfloat16)[..., :64]
+    for args in ((q, k, v, dout), (x, x[:, :1], x[:, :1], torch.randn_like(x))):
+        assert fab.route(*args) == "bf16"
+        n = _bwd_counts(fab)
+        out, lse, dq, dk, dv = _backward(fab, *args, True, None)
+        assert _bwd_counts(fab) == (n[0], n[1] + 1, n[2] + 1, n[3], n[4])
+        wants = ref.flash_attention_bwd_ref(*(t.contiguous() for t in (*args[:3], out)), lse,
+                                            args[3].contiguous(), causal=True)
+        for got, want in zip((dq, dk, dv), wants):
+            _close_bf16(got, want)
+
+
 # ------------------------------------------------------------ selective scan
 # (B, S, D, N): S = 1, S under one 16-step chunk, S past several; N = 4
 # (the smoke config) and 16 (falcon-mamba-7b), the kernel's only state

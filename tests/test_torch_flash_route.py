@@ -116,6 +116,7 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
 @pytest.mark.parametrize("source,name,edit", [
     *(("flash_attention", n, e) for n, e in chip_smoke.FLASH_MUTANTS.items()),
     *(("ssm_scan", n, e) for n, e in chip_smoke.SSM_MUTANTS.items()),
+    *(("flash_attention_bwd", n, e) for n, e in chip_smoke.BWD_MUTANTS.items()),
 ])
 def test_each_mutant_edits_one_line_of_its_source(source, name, edit):
     """chip_smoke.py's mutation checks edit a line that occurs exactly once
