@@ -125,17 +125,26 @@ Mamba serving (slice 4), falcon-mamba-7b at its full width (d_model
 4,096, d_inner 8,192, d_state 16, d_conv 4, vocab 65,024):
 
 15. ssm_kernel: ``ssm_scan`` on the card against its plain version: a
-   sweep (S = 1, 37, 300; N = 4, 16 and 5; h0 present or absent; float32 and
-   bf16; x, B and C as the strided views the model passes) and the
-   prefill's shape, x (8, 1024, 8192) bf16 with N = 16, each tensor
+   sweep (S = 1, 37, 300, 1,023; N = 4 and 16; h0 present or absent;
+   float32 and bf16; x, B and C as the strided views the model passes,
+   every call through ``ssm_scan_hopper``, counted by ``hopper_launches``)
+   and the prefill's shape, x (8, 1024, 8192) bf16 with N = 16, each tensor
    within the rule SSM_RULE scaled to rms(want) (max error, rms(want) and
-   error over the rule printed for y and h_final); the mutation check:
-   three edited copies of ``csrc/ssm_scan.cu`` (one drops D x, one resets
-   h at each chunk boundary, one skips the last step), built under
-   ``build/`` and run on the same inputs, must each fail the rule at least
-   SSM_MUTANT_MIN times over; event times of the kernel and the plain
-   version, and the bound with its parts (bytes; exponentials on the
-   special-function units; the FMA pipe);
+   error over the rule printed for y and h_final; y there within
+   SSM_PATH_Y_OF_RULE of it; two calls bitwise equal); the simt kernel
+   that the Hopper one replaced on those layouts (``previous_ssm_scan``,
+   the old wrapper's host work) held to the same rule on the same inputs;
+   the mutation check: three edited copies of ``csrc/ssm_scan.cu``'s
+   Hopper kernel (one drops D x, one resets h at a stage of the ring, one
+   skips the last step), built under ``build/`` and run on the same
+   inputs, must each fail the rule at least SSM_MUTANT_MIN times over (the
+   least ratio printed beside that threshold); event times of the Hopper
+   and the simt kernel in turns and of the plain version, the host's
+   microseconds per call of the two wrappers, the bound with its parts
+   (bytes; exponentials on the special-function units; the FMA pipe),
+   ``ptxas``'s registers and spills of every instantiation and, where the
+   toolkit has ``cuobjdump``, the instructions per exponential of both
+   kernels' inner loops (N = 16, bf16);
 16. ssm_vs_cpu: 2 layers at full width in float32 on the card and on the
    CPU from the same weights: a 300-token prefill (not a multiple of the
    reference's 256-step chunk) at batch 2 and 8 decode steps: logits
@@ -144,10 +153,12 @@ Mamba serving (slice 4), falcon-mamba-7b at its full width (d_model
 17. ssm_serve (the main path): ``serve_batch`` at full width and depth (64
    layers, 7.27 B parameters drawn on the card from a seed) in bf16, batch
    8, 1,024-token prompts, 32 new tokens, after a warm-up at the same
-   shapes, with ``ssm_scan``'s launch count set to 0 just before and read
-   just after (64 in the prefill, none in the 31 decode steps); time to
-   first token, decode ms per step, tokens/s, peak memory; then one
-   prefill and one decode step under ``torch.profiler``;
+   shapes, with ``ssm_scan``'s launch count and ``hopper_launches`` set to
+   0 just before and read just after (64 in the prefill, all through
+   ``ssm_scan_hopper``, none in the 31 decode steps); time to first token,
+   decode ms per step, tokens/s, peak memory; then one prefill (64
+   ``ssm_scan_hopper`` launches) and one decode step under
+   ``torch.profiler``;
 18. ssm_batching: ``SlotBatcher`` over SSM caches at full width with 4
    layers in float32, 10 requests of 16-512 prompt tokens over 4 slots;
    every request equals its standalone serve except across ties.
@@ -163,6 +174,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -244,11 +256,11 @@ RESUME_LAYERS, RESUME_STEPS, RESUME_EVERY, RESUME_CRASH = 4, 6, 3, 4
 # Mamba serving
 SSM_ARCH = "falcon-mamba-7b"
 SSM_FULL = (64, 4096, 8192, 16, 4)  # layers, d_model, d_inner, d_state, d_conv
-# (B, S, D, N): S = 1, S under one 16-step chunk and past several; N = 4
-# (the smoke config) and 16, the kernel's only state sizes; D not a multiple
-# of the kernel's 128 channels
+# (B, S, D, N): S = 1, S under one 16-step chunk and past several (1,023
+# too); N = 4 (the smoke config) and 16, the kernels' only state sizes; D
+# not a multiple of the kernels' 128 channels
 SSM_SWEEP = [(2, 1, 64, 4), (2, 37, 200, 4), (1, 300, 160, 16), (2, 37, 96, 16),
-             (1, 1, 128, 16), (2, 300, 256, 4)]
+             (1, 1, 128, 16), (2, 300, 256, 4), (2, 1023, 200, 16)]
 SSM_PATH = (8, 1024, 8192, 16)  # the prefill's scan: batch 8, 1,024-token prompts
 # The scan's rule, written before the first run: |got - want| <= a rms(want)
 # + r |want|, per tensor; (a, r) by the type of what is compared.  float32
@@ -263,16 +275,22 @@ SSM_PATH = (8, 1024, 8192, 16)  # the prefill's scan: batch 8, 1,024-token promp
 # the rule, and a mutant must fail it SSM_MUTANT_MIN times over.
 SSM_RULE = {"float32": (2**-12, 2**-12), "bfloat16": (2**-8, 2**-6)}
 SSM_MUTANT_MIN = 3.0
-# the mutation check: edited copies of csrc/ssm_scan.cu, built under build/
+SSM_PATH_Y_OF_RULE = 0.5  # the path shape's bf16 y stays within half the rule (see above)
+# the mutation check: edited copies of csrc/ssm_scan.cu, built under build/,
+# each an edit of ssm_scan_hopper (the kernel the model's layouts take).  No
+# edit of the ring itself (a stage read before its copy lands) is among
+# them: what such a kernel reads depends on when the copy lands, so it
+# would not fail the same way on every run.
 SSM_MUTANTS = {
-    "drops_D_x": ("const float yv = acc + Dd * xs[t];", "const float yv = acc;"),
-    "resets_h_at_chunk": ("    if (!active) continue;\n",
-                          "    if (t0 > 0) {\n#pragma unroll\n"
-                          "      for (int n = 0; n < kN; ++n) h[n] = 0.f;\n    }\n"
-                          "    if (!active) continue;\n"),
-    "skips_last_step": ("const int64_t left = p.S - t0;", "const int64_t left = p.S - 1 - t0;"),
+    "drops_D_x": ("const float yv = acc + dd * xv;", "const float yv = acc;"),
+    "resets_h_at_stage_boundary": (
+        "    const St& st = ring[stage];\n",
+        "    const St& st = ring[stage];\n    if (c > 0 && stage == 0) {\n#pragma unroll\n"
+        "      for (int n = 0; n < kN; ++n) h[n] = 0.f;\n    }\n"),
+    "skips_last_step": ("const int64_t rest = p.S - t0;", "const int64_t rest = p.S - 1 - t0;"),
 }
 SFU_EXP2_PER_CLOCK_PER_SM = 16  # CUDA C++ Programming Guide, compute capability 9.0
+SCHEDULERS_PER_SM = 4  # each issues one warp instruction a clock
 SSM_SERVE_BATCH, SSM_SERVE_PROMPT, SSM_SERVE_GEN = 8, 1024, 32
 SSM_CPU_LAYERS, SSM_CPU_BATCH, SSM_CPU_PROMPT, SSM_CPU_DECODE = 2, 2, 300, 8
 # the card's float32 state against the CPU's: 300 recurrence steps and two
@@ -405,6 +423,80 @@ def previous_bwd(q, k, v, dout, lse, delta, dkv: bool) -> tuple:
                  torch.cuda.current_stream().cuda_stream)
     fa.raise_on_error(lib, err, "dkv_bf16" if dkv else "dq_bf16")
     return outs
+
+
+def _previous_ssm_checks(x, dt, A, Bc, Cc, D, h0) -> None:
+    """The checks the scan's wrapper made before the Hopper route (its
+    ``_check_inputs`` then, copied here): types, shapes, one CUDA device,
+    contiguous A, D and h0; no route and no stride read."""
+    import torch
+
+    from repro_torch.kernels import ssm_scan as ssm
+
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    named = {"dt": dt, "A": A, "Bc": Bc, "Cc": Cc, "D": D}
+    if h0 is not None:
+        named["h0"] = h0
+    for name, t in named.items():
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if x.dim() != 3 or dt.shape != x.shape or A.dim() != 2 or A.shape[0] != x.shape[2]:
+        raise ValueError(f"need x, dt (B, S, D) and A (D, N), got {tuple(x.shape)}, "
+                         f"{tuple(dt.shape)}, {tuple(A.shape)}")
+    Bsz, S, Dm = x.shape
+    N = A.shape[1]
+    if N not in ssm.STATE_SIZES:
+        raise ValueError(f"the state size N must be one of {ssm.STATE_SIZES}, got {N}")
+    if Bc.shape != (Bsz, S, N) or Cc.shape != (Bsz, S, N):
+        raise ValueError(f"need B and C ({Bsz}, {S}, {N}), got {tuple(Bc.shape)}, "
+                         f"{tuple(Cc.shape)}")
+    if D.shape != (Dm,):
+        raise ValueError(f"need D ({Dm},), got {tuple(D.shape)}")
+    if h0 is not None and h0.shape != (Bsz, Dm, N):
+        raise ValueError(f"need h0 ({Bsz}, {Dm}, {N}), got {tuple(h0.shape)}")
+    tensors = [x, *named.values()]
+    if x.device.type != "cuda" or any(t.device != x.device for t in tensors):
+        raise ValueError(f"the kernel takes tensors on one CUDA device, got "
+                         f"{[str(t.device) for t in tensors]}")
+    for name in ("A", "D", "h0"):
+        if name in named and not named[name].is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if Bsz >= 2**16:
+        raise ValueError(f"at most 65,535 batch rows per launch, got {Bsz}")
+
+
+def previous_ssm_scan(x, dt, A, Bc, Cc, D, h0):
+    """The selective scan through the kernel that ``ssm_scan_hopper``
+    replaced on the model's layouts (``ssm_scan_kernel``, the simt route),
+    launched from the package's library with the host work its wrapper did
+    before: the checks (:func:`_previous_ssm_checks`, without the route),
+    the outputs and the C call under a device guard with the current
+    ``Stream`` object.  For its device and host times beside the Hopper
+    kernel's; counts nothing.  Returns (y, h_final)."""
+    import ctypes
+
+    import torch
+
+    from repro_torch.kernels import ssm_scan as ssm
+
+    _previous_ssm_checks(x, dt, A, Bc, Cc, D, h0)
+    Bsz, S, Dm = x.shape
+    N = A.shape[1]
+    y = torch.empty((Bsz, S, Dm), dtype=x.dtype, device=x.device)
+    h_final = torch.empty((Bsz, Dm, N), dtype=torch.float32, device=x.device)
+    dims = (ctypes.c_int64 * 4)(Bsz, S, Dm, N)
+    strides = (ctypes.c_int64 * 12)(*(s for t in (x, dt, Bc, Cc) for s in t.stride()))
+    lib = ssm._library()
+    with torch.cuda.device(x.device):
+        err = lib.ssm_scan_fwd(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bc.data_ptr(), Cc.data_ptr(),
+            D.data_ptr(), None if h0 is None else h0.data_ptr(), y.data_ptr(),
+            h_final.data_ptr(), 0 if x.dtype == torch.float32 else 1, dims, strides,
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ssm_scan_kernel launch failed: {lib.cuda_error_string(err).decode()}")
+    return y, h_final
 
 
 def sdpa_backward_kernels(dev, shape) -> list:
@@ -1106,7 +1198,11 @@ def train_phases(dev, sm_clock_hz: float, sdpa_bwd_kernels: list) -> list:
           "sdpa_bwd_kernels": sdpa_bwd_kernels,
           "previous_kernel_ms": previous_ms, "previous_bwd_errors": prev_err,
           "host_us_per_call": host,
-          "mutants": mutants, "bwd_mutants": bwd_mutants, "mutant_min_err_of_rule": FLASH_MUTANT_MIN,
+          "mutants": mutants, "bwd_mutants": bwd_mutants,
+          # the least error over the rule among the edited copies, and what each must reach
+          "mutant_min_err_of_rule": min(r for n, r in failing.items() if n != "shipped"),
+          "bwd_mutant_min_err_of_rule": min(r for n, r in bwd_failing.items() if n != "shipped"),
+          "mutant_min_required": FLASH_MUTANT_MIN,
           **{f"{k}_ms": t for k, t in times.items()},
           **{f"{k}_bound_ms": kernels[k]["bound_ms"] for k in kernels},
           **{f"plain_{k}_ms": t for k, t in plain.items()}})
@@ -1365,6 +1461,97 @@ def _build_mutants(source: str, edits: dict, bind) -> tuple[dict, str]:
     return libs, out_dir
 
 
+def _sass(so: str) -> str | None:
+    """``cuobjdump -sass`` of a built library, or None where the toolkit
+    has no ``cuobjdump``."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    return subprocess.run([tool, "-sass", so], capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+
+
+def _count_ops(ops: list) -> dict:
+    """Instructions, ``MUFU.EX2`` among them, their ratio and the opcodes."""
+    counts = {}
+    for o in ops:
+        counts[o] = counts.get(o, 0) + 1
+    mufu = counts.get("MUFU.EX2", 0)
+    return {"instructions": len(ops), "mufu_ex2": mufu,
+            "per_mufu": len(ops) / mufu if mufu else None,
+            "opcodes": dict(sorted(counts.items(), key=lambda kv: -kv[1]))}
+
+
+def sass_exp_loop(sass: str, *name_parts: str) -> dict:
+    """Where the exponentials are issued in the one function of ``sass``
+    (``cuobjdump -sass`` text) whose name holds every one of
+    ``name_parts``.  ``block``: the branch-free run of instructions that
+    holds the most ``MUFU.EX2`` (an unrolled chunk of steps).  ``loop``:
+    the loop (from a backward branch's target to the branch) that holds the
+    most ``MUFU.EX2`` outside the loops nested in it (waits, a ragged
+    chunk's steps), counted without them: each chunk's own work.  Each as
+    :func:`_count_ops`; NOP does not count."""
+    funcs = [f for f in re.split(r"\n\s*Function : ", sass)[1:]
+             if all(p in f.split("\n", 1)[0] for p in name_parts)]
+    if len(funcs) != 1:
+        raise ValueError(f"{len(funcs)} functions match {name_parts}")
+    code = []  # (address, opcode, text)
+    labels = {}
+    for line in funcs[0].splitlines():
+        label = re.match(r"\s*(\.L_x_\d+):", line)
+        if label:
+            labels[label.group(1)] = len(code)
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if m:
+            text = m.group(2)
+            op = re.sub(r"^@!?U?P\w+\s+", "", text).split()[0]
+            code.append((int(m.group(1), 16), op, text))
+    index = {addr: i for i, (addr, _, _) in enumerate(code)}
+    loops, targets = [], set()  # loops as (first, last) indices
+    for i, (_, op, text) in enumerate(code):
+        if not op.startswith("BRA"):
+            continue
+        target = re.search(r"(0x[0-9a-f]+|\.L_x_\d+)", text.split(op, 1)[1])
+        if target is None:
+            continue
+        t = target.group(1)
+        j = labels.get(t) if t.startswith(".L") else index.get(int(t, 16))
+        if j is None:
+            continue
+        targets.add(j)
+        if j <= i:
+            loops.append((j, i))
+    blocks, first = [], 0
+    for i, (_, op, _) in enumerate(code):
+        if i in targets and i > first:
+            blocks.append((first, i - 1))
+            first = i
+        if op.startswith("BRA") or op == "EXIT":
+            blocks.append((first, i))
+            first = i + 1
+
+    def ops(span, holes=()):
+        return [o for i, (_, o, _) in enumerate(code[span[0]:span[1] + 1], span[0])
+                if o != "NOP" and not any(a <= i <= b for a, b in holes)]
+
+    def mufu(span):
+        return sum(o == "MUFU.EX2" for o in ops(span))
+
+    def nested(loop):
+        return [lp for lp in loops if lp != loop and loop[0] <= lp[0] and lp[1] <= loop[1]]
+
+    def own(loop):
+        return sum(o == "MUFU.EX2" for o in ops(loop, nested(loop)))
+
+    if not blocks or max(map(mufu, blocks)) == 0:
+        raise ValueError(f"no MUFU.EX2 in {name_parts}")
+    loop = max(loops, key=own, default=None)
+    if loop is None or own(loop) == 0:
+        raise ValueError(f"no loop with MUFU.EX2 of its own in {name_parts}")
+    return {"block": _count_ops(ops(max(blocks, key=mufu))),
+            "loop": _count_ops(ops(loop, nested(loop)))}
+
+
 def _ssm_mutants(dev, inputs) -> dict:
     """Run the unedited ssm_scan and each of SSM_MUTANTS, built by
     :func:`_build_mutants`, on ``inputs`` into zero-filled outputs; return
@@ -1381,8 +1568,10 @@ def _ssm_mutants(dev, inputs) -> dict:
     for name, lib in libs.items():
         y = torch.zeros(x.shape, dtype=x.dtype, device=dev)
         h = torch.zeros(h0.shape, dtype=torch.float32, device=dev)
-        ssm.launch(lib, x, dt, A, Bc, Cc, D, h0, y, h)
+        _, _, kernel = ssm.launch(lib, x, dt, A, Bc, Cc, D, h0, out=(y, h))
         torch.cuda.synchronize()
+        if kernel != "hopper":
+            fail(f"the mutation check ran the {kernel} kernel, not ssm_scan_hopper")
         result[name] = {"y": _rule_err(y, want_y, str(x.dtype).removeprefix("torch.")),
                         "h_final": _rule_err(h, want_h, "float32")}
     shutil.rmtree(out_dir, ignore_errors=True)
@@ -1446,7 +1635,7 @@ def ssm_phases(dev, sm_clock_hz: float) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import _build, ref
     from repro_torch.kernels import ssm_scan as ssm
     from repro_torch.launch.serve import serve_batch
     from repro_torch.models import Model
@@ -1457,41 +1646,71 @@ def ssm_phases(dev, sm_clock_hz: float) -> dict:
     if (cfg.num_layers, cfg.d_model, s.expand * cfg.d_model, s.d_state, s.d_conv) != SSM_FULL:
         fail(f"{SSM_ARCH} is not at its published width: {cfg}")
 
-    # 15. the kernel against its plain version
+    # 15. the kernels against their plain version
     gen = torch.Generator(device=dev).manual_seed(15)
     sweep = {}  # "dtype/y" or "dtype/h_final" -> the worst (abs, over the rule, rms)
+    previous_sweep = {}  # the same for the simt kernel on the same inputs
+    hopper_before, calls = ssm.hopper_launches, 0
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).removeprefix("torch.")
         for B, S, Dm, N in SSM_SWEEP:
             for with_h0 in (False, True):
                 x, dt, A, Bc, Cc, D, h0 = _ssm_inputs(B, S, Dm, N, dtype, dev, gen)
                 h0 = h0 if with_h0 else None
+                if ssm.route(x, dt, Bc, Cc) != "hopper":
+                    fail(f"the sweep's inputs {(B, S, Dm, N, name)} do not take ssm_scan_hopper")
                 y, h = ssm.ssm_scan(x, dt, A, Bc, Cc, D, h0)
+                yp, hp = previous_ssm_scan(x, dt, A, Bc, Cc, D, h0)
+                calls += 1
                 want_y, want_h = ref.ssm_scan_ref(x, dt, A, Bc, Cc, D, h0)
-                for key, e in ((f"{name}/y", _rule_err(y, want_y, name)),
-                               (f"{name}/h_final", _rule_err(h, want_h, "float32"))):
-                    sweep[key] = max(sweep.get(key, e), e, key=lambda t: t[1])
-    if not all(e[1] <= 1.0 for e in sweep.values()):
-        fail(f"ssm_scan disagrees with its plain version on the sweep: {sweep}")
+                for errs, (gy, gh) in ((sweep, (y, h)), (previous_sweep, (yp, hp))):
+                    for key, e in ((f"{name}/y", _rule_err(gy, want_y, name)),
+                                   (f"{name}/h_final", _rule_err(gh, want_h, "float32"))):
+                        errs[key] = max(errs.get(key, e), e, key=lambda t: t[1])
+    if ssm.hopper_launches != hopper_before + calls:
+        fail(f"{ssm.hopper_launches - hopper_before} of the sweep's {calls} scans took ssm_scan_hopper")
+    if not all(e[1] <= 1.0 for e in (*sweep.values(), *previous_sweep.values())):
+        fail(f"ssm_scan disagrees with its plain version on the sweep: {sweep}, "
+             f"the simt kernel: {previous_sweep}")
 
     B, S, Dm, N = SSM_PATH
     inputs = _ssm_inputs(B, S, Dm, N, torch.bfloat16, dev, gen)
     x, dt, A, Bc, Cc, D, h0 = inputs
+    if ssm.route(x, dt, Bc, Cc) != "hopper":
+        fail("the path shape's inputs do not take ssm_scan_hopper")
     y, h = ssm.ssm_scan(*inputs)
+    y2, h2 = ssm.ssm_scan(*inputs)
+    yp, hp = previous_ssm_scan(*inputs)
     want_y, want_h = ref.ssm_scan_ref(*inputs)
     torch.cuda.synchronize()
     path = {"y": _rule_err(y, want_y, "bfloat16"), "h_final": _rule_err(h, want_h, "float32")}
-    if not all(e[1] <= 1.0 for e in path.values()):
-        fail(f"ssm_scan disagrees with its plain version at the path shape: {path}")
-    del y, h, want_y, want_h
+    previous_path = {"y": _rule_err(yp, want_y, "bfloat16"),
+                     "h_final": _rule_err(hp, want_h, "float32")}
+    repeatable = bool(torch.equal(y, y2) and torch.equal(h, h2))
+    same_as_previous = bool(torch.equal(y, yp) and torch.equal(h, hp))
+    if not all(e[1] <= 1.0 for e in (*path.values(), *previous_path.values())):
+        fail(f"ssm_scan disagrees with its plain version at the path shape: {path}, "
+             f"the simt kernel: {previous_path}")
+    if not path["y"][1] <= SSM_PATH_Y_OF_RULE:
+        fail(f"ssm_scan's y at the path shape is at {path['y'][1]} of the rule, above "
+             f"{SSM_PATH_Y_OF_RULE}")
+    if not repeatable:
+        fail("two calls of ssm_scan at the path shape differ")
+    del y, h, y2, h2, yp, hp, want_y, want_h
     mutants = _ssm_mutants(dev, inputs)
-    weak = {k: v for k, v in mutants.items()
-            if k != "shipped" and max(v["y"][1], v["h_final"][1]) < SSM_MUTANT_MIN}
+    failing = {k: max(v["y"][1], v["h_final"][1]) for k, v in mutants.items()}
+    weak = {k: r for k, r in failing.items() if k != "shipped" and not r >= SSM_MUTANT_MIN}
     if weak:
         fail(f"mutants of ssm_scan pass the rule with less than {SSM_MUTANT_MIN}x: {weak}")
-    if max(mutants["shipped"]["y"][1], mutants["shipped"]["h_final"][1]) > 1.0:
+    if not failing["shipped"] <= 1.0:
         fail(f"the unedited ssm_scan built as a mutant fails the rule: {mutants['shipped']}")
-    kernel_ms = event_ms(lambda: ssm.ssm_scan(*inputs))
+    # the Hopper kernel and the simt kernel it replaced, in turns
+    fns = {"hopper": lambda: ssm.ssm_scan(*inputs), "previous": lambda: previous_ssm_scan(*inputs)}
+    turns = {"hopper": [], "previous": []}
+    for key in ("hopper", "previous", "previous", "hopper"):
+        turns[key].append(event_ms(fns[key]))
+    kernel_ms, previous_ms = statistics.mean(turns["hopper"]), statistics.mean(turns["previous"])
+    host = host_us({"hopper_wrapper": fns["hopper"], "previous_wrapper": fns["previous"]})
     plain_ms = event_ms(lambda: ref.ssm_scan_ref(*inputs), calls=1, groups=3)
     # each input read once, each output written once
     moved = sum(t.numel() * t.element_size() for t in inputs) + x.numel() * x.element_size() \
@@ -1501,6 +1720,16 @@ def ssm_phases(dev, sm_clock_hz: float) -> dict:
     bytes_ms = moved / HBM_BYTES_PER_S * 1e3
     exp_ms = exps / (SFU_EXP2_PER_CLOCK_PER_SM * sms * sm_clock_hz) * 1e3
     fp32_ms = 6 * exps / FP32_FLOP_PER_S * 1e3  # per state and step: 2 FMAs and 2 products
+    ptxas = _build.ptxas_report("ssm_scan")
+    sass_text = _sass(str(_build._target("ssm_scan")))
+    sass = None
+    if sass_text is not None:  # the N = 16 bf16 kernels' inner loops
+        sass = {k: sass_exp_loop(sass_text, f, "__nv_bfloat16", "Li16E")
+                for k, f in (("hopper", "ssm_scan_hopper"), ("previous", "ssm_scan_kernel"))}
+        # a warp issues one instruction a clock on each of an SM's 4
+        # schedulers: the time to issue the chunk loop's instructions
+        sass["hopper_loop_issue_ms"] = (exps * sass["hopper"]["loop"]["per_mufu"] / 32
+                                        / (SCHEDULERS_PER_SM * sms * sm_clock_hz) * 1e3)
     kernel = {"name": "ssm_scan", "route": "cuda",
               "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
               "replaces": "src/repro/kernels/ssm_scan.py:68",
@@ -1513,13 +1742,26 @@ def ssm_phases(dev, sm_clock_hz: float) -> dict:
               "bound_by": "bytes" if bytes_ms >= exp_ms else "operations",
               "bound_parts_ms": {"bytes": bytes_ms, "exponentials": exp_ms,
                                  "fp32_pipe": fp32_ms},
+              "kernel": "ssm_scan_hopper",
+              "previous_kernel": "ssm_scan_kernel (simt: the kernel ssm_scan_hopper replaced "
+                                 "on the model's layouts)",
+              "previous_kernel_ms": previous_ms, "host_us_per_call": host,
               "bytes": moved, "exponentials": exps, "sm_clock_hz": sm_clock_hz, "sms": sms}
     emit({"phase": "ssm_kernel", **kernel, "rule": SSM_RULE,
-          "sweep_errors": sweep,
+          "kernel_ms_turns": turns["hopper"], "previous_kernel_ms_turns": turns["previous"],
+          "sweep_errors": sweep, "previous_kernel_sweep_errors": previous_sweep,
+          "sweep_hopper_launches": calls,
           "path_shape_errors": path,  # [max abs err, err / rule, rms(want)]
           "path_shape_y_err_of_rule": path["y"][1],
           "path_shape_h_final_err_of_rule": path["h_final"][1],
-          "mutants": mutants, "mutant_min_err_of_rule": SSM_MUTANT_MIN})
+          "path_shape_y_max_of_rule": SSM_PATH_Y_OF_RULE,
+          "previous_kernel_path_shape_errors": previous_path,
+          "bitwise_repeatable": repeatable, "bitwise_equal_to_previous_kernel": same_as_previous,
+          "mutants": mutants,
+          # the least error over the rule among the edited copies, and what each must reach
+          "mutant_min_err_of_rule": min(r for k, r in failing.items() if k != "shipped"),
+          "mutant_min_required": SSM_MUTANT_MIN,
+          "ptxas": ptxas, "sass_inner_loop": sass})
     del inputs, x, dt, A, Bc, Cc, D, h0
     torch.cuda.empty_cache()
 
@@ -1594,13 +1836,17 @@ def ssm_phases(dev, sm_clock_hz: float) -> dict:
     torch.cuda.reset_peak_memory_stats(dev)
     timings = {}
     ssm.ssm_scan.launches = 0
+    ssm.hopper_launches = 0
     toks = serve_batch(model, prompts, SSM_SERVE_GEN, params=params, device=dev, timings=timings)
     launches = ssm.ssm_scan.launches
+    hopper = ssm.hopper_launches
     # one prefill and SSM_SERVE_GEN - 1 decode steps: the prefill's 64, none in decode
     per_decode_step = (launches - cfg.num_layers) / timings["decode_steps"]
     if launches != cfg.num_layers:
         fail(f"ssm_scan launched {launches} times in one prefill of {cfg.num_layers} layers "
              f"and {timings['decode_steps']} decode steps")
+    if hopper != launches:
+        fail(f"{hopper} of the prefill's {launches} scans took ssm_scan_hopper")
     if toks.shape != (SSM_SERVE_BATCH, SSM_SERVE_GEN) or not (
             (toks >= 0) & (toks < cfg.vocab_size)).all():
         fail(f"serve_batch gave tokens of shape {toks.shape} outside the vocabulary")
@@ -1626,6 +1872,9 @@ def ssm_phases(dev, sm_clock_hz: float) -> dict:
         fail("the trace shows no ssm_scan kernel on the card")
     scan_ms = sum(e.self_device_time_total for e in mine) / 1e3
     scan_n = sum(e.count for e in mine)
+    traced_hopper = sum(e.count for e in mine if "ssm_scan_hopper" in e.key)
+    if traced_hopper != scan_n or scan_n != cfg.num_layers:
+        fail(f"the traced prefill shows {scan_n} scans, {traced_hopper} of them ssm_scan_hopper")
     top = sorted(on_card, key=lambda e: -e.self_device_time_total)[:8]
     tok = torch.from_numpy(toks[:, -1].astype(np.int64)).to(dev)
     dec_card, decode_kernel_ms, decode_wall = traced(
@@ -1639,7 +1888,8 @@ def ssm_phases(dev, sm_clock_hz: float) -> dict:
           "gen": SSM_SERVE_GEN, "init_on_card_s": init_s,
           "prefill_ms": timings["prefill_s"] * 1e3, "decode_ms_per_step": decode_ms,
           "decode_tokens_per_s": SSM_SERVE_BATCH * timings["decode_steps"] / timings["decode_s"],
-          "peak_device_mem_gb": peak / 1e9, "ssm_scan_launches": launches, "prefills": 1,
+          "peak_device_mem_gb": peak / 1e9, "ssm_scan_launches": launches,
+          "ssm_scan_hopper_launches": hopper, "prefills": 1,
           "decode_steps": timings["decode_steps"],
           "ssm_scan_launches_per_decode_step": per_decode_step,
           "traced_prefill_device_kernel_ms": prefill_kernel_ms,
@@ -1654,6 +1904,7 @@ def ssm_phases(dev, sm_clock_hz: float) -> dict:
           "decode_top_kernels": [[e.key[:80], e.count, e.self_device_time_total / 1e3]
                                  for e in dec_top]})
     kernel["launches"] = launches
+    kernel["hopper_launches"] = hopper
     kernel["trace_ms_per_launch"] = scan_ms / scan_n
     del params, cache, batch
     torch.cuda.empty_cache()
@@ -1690,8 +1941,10 @@ def ssm_phases(dev, sm_clock_hz: float) -> dict:
     del lm_b, batcher
     torch.cuda.empty_cache()
     return {k: kernel[k] for k in (*KERNEL_KEYS, "dtype", "library", "plain",
-                                     "trace_ms_per_launch", "bound_parts_ms", "bytes",
-                                     "exponentials", "sm_clock_hz", "sms")}
+                                     "trace_ms_per_launch", "kernel", "hopper_launches",
+                                     "previous_kernel", "previous_kernel_ms", "host_us_per_call",
+                                     "bound_parts_ms", "bytes", "exponentials", "sm_clock_hz",
+                                     "sms")}
 
 
 if __name__ == "__main__":

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks in PTX for the port's kernels: mbarriers,
-// TMA tile loads from a tensor map, wgmma shared-memory descriptors for the
-// 128-byte swizzle, the warpgroup products the flash-attention kernels
-// use, the persistent blocks' order of work items, setmaxnreg, ex2.approx,
-// and the host-side tensor-map encoding
+// TMA tile loads from a tensor map and stores to one (bulk groups), wgmma
+// shared-memory descriptors for the 128-byte swizzle, the warpgroup
+// products the flash-attention kernels use, the persistent blocks' order
+// of work items, setmaxnreg, ex2.approx, and the host-side tensor-map
+// encoding of swizzled rank-4 bf16 tiles and plain rank-3 boxes
 // (the driver's cuTensorMapEncodeTiled, reached through the runtime's
 // cudaGetDriverEntryPointByVersion so that nothing links libcuda).
 //
@@ -75,6 +76,47 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// The same for a rank-3 tensor map.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// A box of shared memory at `src` into a rank-3 tensor map's tensor at
+// the given coordinates, innermost first, as one bulk group of the calling
+// thread; the parts of the box past the tensor's end are not written.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, uint32_t src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n"
+      "cp.async.bulk.commit_group;\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// Wait until at most N of the calling thread's bulk groups still read
+// shared memory (their sources may then be written again).
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// Wait until at most N of the calling thread's bulk groups are incomplete.
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Makes this thread's writes to shared memory visible to TMA (the async
+// proxy) before a TMA store reads them.
+__device__ __forceinline__ void fence_proxy_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // ------------------------------------------------------------------- wgmma
@@ -255,6 +297,32 @@ inline int encode_bhsd(CUtensorMap* map, const void* base, int64_t B, int64_t he
                             dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// A rank-3 tensor map, without swizzle, of a (d2, d1, d0) view of 32-bit
+// (`fp32`) or bf16 values with element strides s1, s2 and a contiguous
+// innermost axis, read in boxes of box0 x box1 x 1.  An axis of length 1 is
+// never stepped along, so it is given a stride of its own: the packed one,
+// rounded up to the 16 bytes TMA asks of every stride (a row of d0 values
+// need not be a multiple of 16 bytes there).  Returns a cudaError_t.
+inline int encode_3d(CUtensorMap* map, bool fp32, const void* base, int64_t d0, int64_t d1,
+                     int64_t d2, int64_t s1, int64_t s2, uint32_t box0, uint32_t box1) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const int64_t size = fp32 ? 4 : 2;
+  const auto up16 = [](int64_t bytes) { return cuuint64_t((bytes + 15) / 16 * 16); };
+  const cuuint64_t stride1 = d1 > 1 ? size * s1 : up16(size * d0);
+  const cuuint64_t stride2 = d2 > 1 ? size * s2 : up16(stride1 * d1);
+  const cuuint64_t dims[3] = {cuuint64_t(d0), cuuint64_t(d1), cuuint64_t(d2)};
+  const cuuint64_t strides[2] = {stride1, stride2};
+  const cuuint32_t box[3] = {box0, box1, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  const CUresult r =
+      encode(map, fp32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+             const_cast<void*>(base), dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -8,51 +8,87 @@
 // with D * x added in float32 before the rounding, h0 optional (zeros in its
 // place) and h_final written in float32.
 //
-// Design.  The TPU kernel keeps a (block_d, N) state in VMEM scratch and
-// carries it across a sequential ("arbitrary") chunk axis of its grid.
-// Hopper's blocks run in no order, so here the time loop is inside the
-// thread: each thread owns one (batch, channel) pair and keeps its N
-// states and its row of A (pre-scaled by log2 e) in registers for the whole
-// sequence; nothing is carried between blocks.  A block covers kThreads
-// consecutive channels of one batch row (8 x 8,192 / 128 = 512 blocks at
-// the serving path's shape, all resident at once).  The sequence is walked
-// in chunks of kChunk steps:
-//   - B_t and C_t are the same for every channel of a batch row, so the
-//     block stages the chunk's (kChunk, N) slices of both in shared memory
-//     once, and every thread reads them as broadcasts;
-//   - each thread loads its own chunk of x and dt into registers first
-//     (kChunk independent loads in flight; neighbouring threads read
-//     neighbouring channels, so the loads coalesce), then runs the chunk's
-//     steps: per state one exp2 on the special-function unit and two FMAs,
-//     per step one store of y.
-// N is a template parameter, compiled for the state sizes of the ported
-// configs only (16 for falcon-mamba-7b, 4 for its smoke config): with N
-// known at compile time the loops over the states unroll into straight code
-// with no predicate on any state.  Any other N is refused.
-// Inputs are read through their strides: x may be a split of a wider
-// tensor, and B, C are column slices of the model's x_proj output.  A, D,
-// h0, y and h_final are contiguous.  Any S works, 0 and 1 included; a chunk
-// past the end runs only the steps that exist (the TPU kernel pads with
-// dt = 0, the identity step, which gives the same result).
+// The TPU kernel keeps a (block_d, N) state in VMEM scratch and carries it
+// across a sequential ("arbitrary") chunk axis of its grid.  Hopper's
+// blocks run in no order, so here the time loop is inside the thread: each
+// thread owns one (batch, channel) pair and keeps its N states and its row
+// of A (pre-scaled by log2 e) in registers for the whole sequence; nothing
+// is carried between blocks.  Per state and step: one exp2 on the
+// special-function unit (ex2.approx, one per state: A is a learned weight,
+// so no power of one exponential stands in for another), two products and
+// two FMAs.  N is a template parameter, compiled for the state sizes of the
+// ported configs only (16 for falcon-mamba-7b, 4 for its smoke config), so
+// the loops over the states unroll with no predicate; any other N is
+// refused.  Any S works, 0 and 1 included; a chunk past the end runs only
+// the steps that exist (the TPU kernel pads with dt = 0, the identity step,
+// which gives the same result).
 //
 // Bound at the serving path's prefill shape, x (8, 1024, 8192) bf16 with
 // N = 16 and h0 present: it must read x (134 MB), dt (268 MB), B and C
-// (1 MB), h0 (4.2 MB) and write y (134 MB) and h_final (4.2 MB), 546 MB, or
-// 0.163 ms at 3.35 TB/s; and it must take B*S*D*N = 1.07 G exponentials,
-// 0.257 ms at the special-function units' 16 per clock per SM (CUDA C++
-// Programming Guide, compute capability 9.0) on 132 SMs at 1.98 GHz.  So
-// the exponentials bound it, and the FMA pipe (about 4 instructions per
-// state and step, 0.13 ms) does not.  This first version keeps every
-// exponential (no reuse of powers of exp(dt)) and has no chunk-parallel
-// scan, no cp.async staging and no double buffering: that is later work.
+// (1 MB), h0 (4.2 MB) and write y (134 MB) and h_final (4.2 MB), 546.9 MB,
+// or 0.163 ms at 3.35 TB/s; and it must take B*S*D*N = 1.07 G
+// exponentials, 0.257 ms at the special-function units' 16 per clock per SM
+// (CUDA C++ Programming Guide, compute capability 9.0) on 132 SMs at 1.98
+// GHz.  So the exponentials bound it; the FMA pipe (four instructions per
+// state and step, about 0.13 ms) and the issue of about six instructions
+// per exponential (about 0.2 ms) stay under it.  The design's job is to
+// keep the special-function units busy: no thread may wait for memory,
+// and no instruction that the recurrence does not need may take an issue
+// slot.
 //
-// Plain C entry point, loaded with ctypes: each launch returns
+// Two kernels, chosen by the wrapper (kernels/ssm_scan.py, route):
+//
+// ssm_scan_hopper (the model's layouts: every tensor TMA can address, i.e.
+// a 16-byte-aligned base, a contiguous last axis and the other strides
+// multiples of 16 bytes).  A block of kChannels threads covers kChannels
+// consecutive channels of one batch row (512 blocks of 128 at the path's
+// shape, all resident at once: up to kMinBlocks per SM by registers and
+// shared memory, 16 warps, the most one thread per channel can give).  The
+// sequence is walked in chunks of kSteps steps through a ring of kStages
+// shared-memory stages, each holding a chunk's x and dt (kSteps x
+// kChannels) and its B and C (kSteps x N, shared by every channel of the
+// batch row).  Thread 0 fills the ring by TMA (cp.async.bulk.tensor, one
+// box per tensor; boxes past the end of S or D arrive as zeros), each
+// stage completing on a "full" mbarrier by its byte count; each warp
+// releases a stage on its "empty" mbarrier once its 32 channels have run
+// the chunk.  Thread 0 refills the stage of chunk c - 2 with chunk c + 1 at
+// the start of chunk c, so one chunk (16 steps, some microseconds) is in
+// flight while one runs, and it waits only on warps two chunks behind it.
+// No block-wide barrier stands in the loop: a warp waits only for its own
+// chunk to land.  TMA and not cp.async: one thread issues a chunk's four
+// copies, where cp.async would take 16-byte copies, with their addresses
+// and registers, from every thread, out of the issue budget that the
+// exponentials need.  A full chunk's 16 steps are unrolled with no
+// predicate, so every shared-memory address is a constant offset: per
+// state and step the loop issues its exp2, two products and two FMAs, and
+// per step 8 broadcast loads of B and C (N = 16), the thread's x and dt and
+// one store of y into its warp's (16 x 32) tile in shared memory; the tile
+// goes to y by one TMA store per warp and chunk (two tiles a warp, so that
+// a store reads one while the next chunk writes the other; the rows and
+// channels past S and D are not stored).  About six instructions per
+// exponential, so issue stays under the special-function units; the
+// rest of the time goes to the steps' dependences (four warps per
+// scheduler to hide them).  A wait that lasts about two seconds traps: a
+// fault in the ring ends the launch with an error instead of hanging the
+// card.  It runs the same float32 operations in the same order as
+// ssm_scan_kernel, so the two give the same bits.
+//
+// ssm_scan_kernel (every other layout; any strides, the last axis
+// included): the same recurrence with 128 channels a block, each chunk's B
+// and C staged in shared memory between two __syncthreads() and each
+// thread's x and dt loaded into registers before the chunk's steps.
+//
+// Plain C entry points, loaded with ctypes: each launch returns
 // cudaGetLastError() so that a refused launch surfaces in the caller.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <cstring>
+
+#include "hopper_common.cuh"
 
 namespace {
 
@@ -175,6 +211,234 @@ bool launch(dim3 grid, cudaStream_t s, const Params& p) {
   return true;
 }
 
+// ------------------------------------------------------------ ssm_scan_hopper
+namespace staged {
+
+constexpr int kChannels = 128;       // channels (threads) per block
+constexpr int kSteps = 16;           // time steps per chunk
+constexpr int kStages = 3;           // chunks in the shared-memory ring
+constexpr int kAhead = kStages - 2;  // chunks loaded ahead of the one that runs
+constexpr int kMinBlocks = 4;        // blocks per SM the registers must allow
+constexpr int kWarps = kChannels / 32;
+constexpr long long kTrapCycles = 4LL << 30;  // about 2 s at 1.98 GHz
+
+template <typename T, int kN>
+struct alignas(128) Stage {
+  T x[kSteps][kChannels];
+  float dt[kSteps][kChannels];
+  float b[kSteps][kN];
+  float c[kSteps][kN];
+};
+
+// what TMA writes into a stage: its boxes of x, dt, B and C
+template <typename T, int kN>
+constexpr uint32_t kStageBytes = kSteps * kChannels * (sizeof(T) + 4) + 2 * kSteps * kN * 4;
+
+// A warp's y of one chunk, (kSteps, 32 channels), for its TMA store; two per
+// warp, so that a chunk's store reads one while the next chunk writes the
+// other.
+template <typename T>
+struct alignas(128) YTile {
+  T v[kSteps][32];
+};
+
+template <typename T, int kN>
+constexpr int kSmemBytes =
+    kStages * sizeof(Stage<T, kN>) + 2 * kWarps * sizeof(YTile<T>) + 2 * kStages * 8;
+
+struct Maps {
+  CUtensorMap x, dt, b, c, y;  // (B, S, D) x, dt and y, (B, S, N) B and C
+};
+
+struct Params {
+  const float* A;   // (D, N) contiguous
+  const float* Dv;  // (D,) contiguous
+  const float* h0;  // (B, D, N) contiguous, or null
+  float* h_final;   // (B, D, N) contiguous
+  int64_t S, Dm;
+};
+
+__device__ __forceinline__ bool try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// Wait until the phase of `parity` of the barrier at `bar` has completed;
+// trap after kTrapCycles.
+__device__ __forceinline__ void wait(uint32_t bar, uint32_t parity) {
+  if (try_wait(bar, parity)) return;
+  const long long start = clock64();
+  while (!try_wait(bar, parity)) {
+    if (clock64() - start > kTrapCycles) __trap();
+  }
+}
+
+// Step t of a chunk for the calling thread's channel `ch` of the block:
+// the N states forward, y_t into its column of the warp's tile.
+template <typename T, int kN>
+__device__ __forceinline__ void step(const Stage<T, kN>& st, int t, int ch, const float (&a2)[kN],
+                                     float dd, float (&h)[kN], T* ycol) {
+  const float xv = to_float(st.x[t][ch]);
+  const float dtv = st.dt[t][ch];
+  const float dbx = dtv * xv;
+  float acc = 0.f;
+#pragma unroll
+  for (int n = 0; n < kN; ++n) {
+    h[n] = fmaf(hopper::ex2(dtv * a2[n]), h[n], dbx * st.b[t][n]);
+    acc = fmaf(st.c[t][n], h[n], acc);
+  }
+  const float yv = acc + dd * xv;
+  store(ycol + t * 32, yv);
+}
+
+template <typename T, int kN>
+__global__ void __launch_bounds__(kChannels, kMinBlocks)
+    ssm_scan_hopper(const __grid_constant__ Maps maps, const Params p) {
+  using St = Stage<T, kN>;
+  static_assert(sizeof(St) == kStageBytes<T, kN>, "a stage is exactly its four boxes");
+  extern __shared__ __align__(128) unsigned char smem[];
+  St* ring = reinterpret_cast<St*>(smem);
+  YTile<T>* ytiles = reinterpret_cast<YTile<T>*>(smem + kStages * sizeof(St));
+  const uint32_t full0 = hopper::smem_u32(ytiles + 2 * kWarps);
+  const uint32_t empty0 = full0 + 8 * kStages;
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int b = blockIdx.y;
+  const int d0 = blockIdx.x * kChannels;
+  const int64_t d = d0 + tid;
+  const bool active = d < p.Dm;
+  const int chunks = static_cast<int>((p.S + kSteps - 1) / kSteps);
+
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(full0 + 8 * s, 1);
+      hopper::mbar_init(empty0 + 8 * s, kWarps);
+    }
+    hopper::fence_barrier_init();
+    if (chunks > 0) {
+      hopper::tma_prefetch(&maps.x);
+      hopper::tma_prefetch(&maps.dt);
+      hopper::tma_prefetch(&maps.b);
+      hopper::tma_prefetch(&maps.c);
+      hopper::tma_prefetch(&maps.y);
+    }
+  }
+  __syncthreads();  // the ring's barriers are initialised (the only block-wide barrier)
+
+  // chunk c of x, dt, B and C into its stage (thread 0 only)
+  const auto fill = [&](int c) {
+    const int s = c % kStages;
+    const uint32_t full = full0 + 8 * s;
+    const int t0 = c * kSteps;
+    hopper::mbar_expect_tx(full, kStageBytes<T, kN>);
+    hopper::tma_load_3d(hopper::smem_u32(ring[s].x), &maps.x, full, d0, t0, b);
+    hopper::tma_load_3d(hopper::smem_u32(ring[s].dt), &maps.dt, full, d0, t0, b);
+    hopper::tma_load_3d(hopper::smem_u32(ring[s].b), &maps.b, full, 0, t0, b);
+    hopper::tma_load_3d(hopper::smem_u32(ring[s].c), &maps.c, full, 0, t0, b);
+  };
+  if (tid == 0) {
+    for (int c = 0; c < kAhead && c < chunks; ++c) fill(c);
+  }
+
+  float a2[kN];  // A * log2(e): exp(dt * A) = 2**(dt * a2)
+  float h[kN];
+  float dd = 0.f;
+#pragma unroll
+  for (int n = 0; n < kN; ++n) {
+    a2[n] = 0.f;
+    h[n] = 0.f;
+  }
+  if (active) {
+    dd = p.Dv[d];
+#pragma unroll
+    for (int n = 0; n < kN; ++n) {
+      a2[n] = p.A[d * kN + n] * kLog2e;
+      if (p.h0 != nullptr) h[n] = p.h0[(b * p.Dm + d) * kN + n];
+    }
+  }
+
+  for (int c = 0; c < chunks; ++c) {
+    const int next = c + kAhead;
+    if (tid == 0 && next < chunks) {
+      // the stage of chunk next - kStages (= c - 2), once every warp has run it
+      if (next >= kStages) wait(empty0 + 8 * (next % kStages), (next / kStages - 1) & 1);
+      fill(next);
+    }
+    // this warp's y tile of chunk c - 2, free once its store has read it
+    YTile<T>& yt = ytiles[2 * warp + (c & 1)];
+    if (lane == 0) hopper::bulk_wait_read<1>();
+    __syncwarp();
+    const int stage = c % kStages;
+    wait(full0 + 8 * stage, (c / kStages) & 1);
+    const St& st = ring[stage];
+    const int64_t t0 = static_cast<int64_t>(c) * kSteps;
+    const int64_t rest = p.S - t0;
+    const int steps = rest < kSteps ? static_cast<int>(rest) : kSteps;
+    T* ycol = &yt.v[0][lane];
+    if (steps == kSteps) {
+#pragma unroll
+      for (int t = 0; t < kSteps; ++t) step(st, t, tid, a2, dd, h, ycol);
+    } else {  // the last chunk: its steps that exist (TMA leaves the tile's other rows unstored)
+#pragma unroll 1
+      for (int t = 0; t < steps; ++t) step(st, t, tid, a2, dd, h, ycol);
+    }
+    hopper::fence_proxy_async_shared();  // the tile's writes, before TMA reads them
+    __syncwarp();
+    if (lane == 0) {
+      hopper::mbar_arrive(empty0 + 8 * stage);  // this warp is done with the stage
+      hopper::tma_store_3d(&maps.y, hopper::smem_u32(yt.v), d0 + 32 * warp,
+                           static_cast<int>(t0), b);
+    }
+  }
+  if (lane == 0) hopper::bulk_wait<0>();  // the stores are done before the block's memory goes
+  if (active) {
+#pragma unroll
+    for (int n = 0; n < kN; ++n) p.h_final[(b * p.Dm + d) * kN + n] = h[n];
+  }
+}
+
+template <typename T, int kN>
+int launch(dim3 grid, cudaStream_t s, const Maps& maps, const Params& p) {
+  constexpr int smem = kSmemBytes<T, kN>;
+  static int ready[hopper::kMaxDevices];  // the shared-memory limit is raised once per device
+  int device = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (device >= hopper::kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!ready[device]) {
+    e = cudaFuncSetAttribute(ssm_scan_hopper<T, kN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+    if (e == cudaSuccess) {
+      e = cudaFuncSetAttribute(ssm_scan_hopper<T, kN>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+    }
+    if (e != cudaSuccess) return static_cast<int>(e);
+    ready[device] = 1;
+  }
+  ssm_scan_hopper<T, kN><<<grid, kChannels, smem, s>>>(maps, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_n(int N, dim3 grid, cudaStream_t s, const Maps& maps, const Params& p) {
+  if (N == 16) return launch<T, 16>(grid, s, maps, p);
+  if (N == 4) return launch<T, 4>(grid, s, maps, p);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace staged
+
 }  // namespace
 
 // dims: B, S, D, N.  strides (in elements): x, dt, B, C, each as
@@ -217,6 +481,52 @@ extern "C" int ssm_scan_fwd(const void* x, const void* dt, const void* A, const 
                                   : false;
   if (!taken) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The same arguments, for inputs the wrapper's route gives to
+// ssm_scan_hopper: x, dt, B and C with a contiguous last axis (the strides
+// at 2, 5, 8 and 11 are not read) and every other stride TMA can take.
+extern "C" int ssm_scan_fwd_hopper(const void* x, const void* dt, const void* A, const void* Bc,
+                                   const void* Cc, const void* Dv, const void* h0, void* y,
+                                   void* h_final, int dtype, const int64_t* dims,
+                                   const int64_t* strides, void* stream) {
+  using namespace staged;
+  const int64_t B = dims[0], S = dims[1], Dm = dims[2], N = dims[3];
+  if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  Maps maps;
+  std::memset(&maps, 0, sizeof(maps));
+  if (S > 0) {  // an empty sequence reads nothing: no map, which TMA could not encode
+    int e = hopper::encode_3d(&maps.x, dtype == 0, x, Dm, S, B, strides[1], strides[0],
+                              kChannels, kSteps);
+    if (e == 0) {
+      e = hopper::encode_3d(&maps.dt, true, dt, Dm, S, B, strides[4], strides[3], kChannels,
+                            kSteps);
+    }
+    if (e == 0) {
+      e = hopper::encode_3d(&maps.b, true, Bc, N, S, B, strides[7], strides[6],
+                            static_cast<uint32_t>(N), kSteps);
+    }
+    if (e == 0) {
+      e = hopper::encode_3d(&maps.c, true, Cc, N, S, B, strides[10], strides[9],
+                            static_cast<uint32_t>(N), kSteps);
+    }
+    if (e == 0) {  // y: contiguous, stored a warp's 32 channels at a time
+      e = hopper::encode_3d(&maps.y, dtype == 0, y, Dm, S, B, Dm, S * Dm, 32, kSteps);
+    }
+    if (e != 0) return e;
+  }
+  staged::Params p;
+  p.A = static_cast<const float*>(A);
+  p.Dv = static_cast<const float*>(Dv);
+  p.h0 = static_cast<const float*>(h0);
+  p.h_final = static_cast<float*>(h_final);
+  p.S = S;
+  p.Dm = Dm;
+  const dim3 grid(static_cast<unsigned>((Dm + kChannels - 1) / kChannels),
+                  static_cast<unsigned>(B));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dtype == 0 ? launch_n<float>(static_cast<int>(N), grid, s, maps, p)
+                    : launch_n<__nv_bfloat16>(static_cast<int>(N), grid, s, maps, p);
 }
 
 extern "C" const char* cuda_error_string(int err) {

@@ -654,17 +654,19 @@ SSM_SHAPES = [(2, 1, 64, 4), (2, 37, 200, 4), (1, 300, 160, 16), (2, 37, 96, 16)
 SSM_RULE = {"float32": (2**-12, 2**-12), "bfloat16": (2**-8, 2**-6)}
 
 
-def _ssm_inputs(B, S, Dm, N, dtype, dev, seed=0):
+def _ssm_inputs(B, S, Dm, N, dtype, dev, seed=0, dt_rank=3):
     """The model's distributions and layouts: x one half of a wider
-    projection, B and C column slices of x_proj's float32 output."""
+    projection, B and C column slices of x_proj's float32 output after
+    ``dt_rank`` columns (3: 12 bytes into each row, where TMA cannot start,
+    so these take the simt kernel; 256, falcon-mamba-7b's, the Hopper one)."""
     g = torch.Generator().manual_seed(seed)
     xz = torch.randn((B, S, 2 * Dm), generator=g).to(dev, dtype)
     x = xz[..., :Dm]
     dt = torch.exp(torch.empty((B, S, Dm)).uniform_(-6.9078, -2.3026, generator=g)).to(dev)
     A = -torch.exp(torch.log(torch.arange(1, N + 1).float())[None]
                    + 0.1 * torch.randn((Dm, N), generator=g)).to(dev)
-    xdb = torch.randn((B, S, 3 + 2 * N), generator=g).to(dev)
-    Bc, Cc = xdb[..., 3:3 + N], xdb[..., 3 + N:]
+    xdb = torch.randn((B, S, dt_rank + 2 * N), generator=g).to(dev)
+    Bc, Cc = xdb[..., dt_rank:dt_rank + N], xdb[..., dt_rank + N:]
     D = (1 + 0.1 * torch.randn((Dm,), generator=g)).to(dev)
     h0 = (0.3 * torch.randn((B, Dm, N), generator=g)).to(dev)
     return x, dt, A, Bc, Cc, D, h0
@@ -735,6 +737,139 @@ def test_ssm_scan_kernel_refuses_what_it_does_not_take():
         ops.ssm_scan(x.clone().requires_grad_(), dt, A, Bc, Cc, D)
 
 
+# ------------------------------------------------ the staged (TMA) Hopper scan
+# S = 0, one step, under one 16-step chunk, past several, and 1,023 (none a
+# multiple of the chunk but 0); D not a multiple of the block's 128 channels
+SSM_STAGED_S = [0, 1, 37, 300, 1023]
+SSM_STAGED_D = [96, 160, 200]
+
+
+class _SimtOnly:
+    """A library whose Hopper entry point is the simt kernel's: through
+    ``ssm_scan.launch`` it runs the simt kernel on inputs routed to the
+    Hopper one (the same checks, outputs and arguments)."""
+
+    def __init__(self, lib):
+        self.ssm_scan_fwd = self.ssm_scan_fwd_hopper = lib.ssm_scan_fwd
+        self.cuda_error_string = lib.cuda_error_string
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("with_h0", [False, True], ids=["zeros", "h0"])
+@pytest.mark.parametrize("N", [4, 16])
+@pytest.mark.parametrize("Dm", SSM_STAGED_D)
+@pytest.mark.parametrize("S", SSM_STAGED_S)
+def test_ssm_staged_kernel_matches_plain_version(S, Dm, N, with_h0, dtype):
+    from repro_torch.kernels import ssm_scan
+
+    dev = _card()
+    x, dt, A, Bc, Cc, D, h0 = _ssm_inputs(2, S, Dm, N, dtype, dev, seed=S + Dm + N, dt_rank=256)
+    h0 = h0 if with_h0 else None
+    assert ssm_scan.route(x, dt, Bc, Cc) == "hopper"
+    before = (ssm_scan.ssm_scan.launches, ssm_scan.hopper_launches)
+    y, h = ops.ssm_scan(x, dt, A, Bc, Cc, D, h0)
+    torch.cuda.synchronize()
+    assert (ssm_scan.ssm_scan.launches, ssm_scan.hopper_launches) == (before[0] + 1, before[1] + 1)
+    assert (y.dtype, y.shape, h.dtype, h.shape) == (dtype, (2, S, Dm), torch.float32, (2, Dm, N))
+    want_y, want_h = ref.ssm_scan_ref(x, dt, A, Bc, Cc, D, h0)
+    _within_rule(y, want_y, *SSM_RULE[str(dtype).removeprefix("torch.")])
+    _within_rule(h, want_h, *SSM_RULE["float32"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_ssm_staged_kernel_computes_what_the_simt_kernel_does_bitwise(dtype):
+    """Both kernels run the same float32 operations in the same order, so
+    staging the inputs changes no bit."""
+    from repro_torch.kernels import ssm_scan
+
+    dev = _card()
+    inputs = _ssm_inputs(3, 300, 200, 16, dtype, dev, seed=11, dt_rank=256)
+    staged_y, staged_h, kernel = ssm_scan.launch(None, *inputs)
+    simt_y, simt_h, _ = ssm_scan.launch(_SimtOnly(ssm_scan._library()), *inputs)
+    torch.cuda.synchronize()
+    assert kernel == "hopper"
+    assert torch.equal(staged_y, simt_y) and torch.equal(staged_h, simt_h)
+
+
+@pytest.mark.cuda
+def test_ssm_staged_kernel_is_bitwise_repeatable_at_the_path_shape():
+    """falcon-mamba-7b's prefill scan: x (8, 1024, 8192) bf16, N 16, h0."""
+    from repro_torch.kernels import ssm_scan
+
+    dev = _card()
+    inputs = _ssm_inputs(8, 1024, 8192, 16, torch.bfloat16, dev, seed=5, dt_rank=256)
+    assert ssm_scan.route(*inputs[:2], *inputs[3:5]) == "hopper"
+    y1, h1 = ssm_scan.ssm_scan(*inputs)
+    y2, h2 = ssm_scan.ssm_scan(*inputs)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2) and torch.equal(h1, h2)
+    assert bool(torch.isfinite(y1.float()).all()) and bool(torch.isfinite(h1).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["b_c_after_dt_rank_3", "x_transposed", "x_last_stride_2"])
+def test_other_strides_keep_the_simt_kernel(layout):
+    from repro_torch.kernels import ssm_scan
+
+    dev = _card()
+    dt_rank = 3 if layout == "b_c_after_dt_rank_3" else 256
+    x, dt, A, Bc, Cc, D, h0 = _ssm_inputs(2, 300, 160, 16, torch.float32, dev, seed=9,
+                                          dt_rank=dt_rank)
+    if layout == "x_transposed":
+        x = x.transpose(1, 2).contiguous().transpose(1, 2)
+    elif layout == "x_last_stride_2":
+        x = torch.stack([x, x], dim=-1)[..., 0]
+    assert ssm_scan.route(x, dt, Bc, Cc) == "simt"
+    before = (ssm_scan.ssm_scan.launches, ssm_scan.hopper_launches)
+    y, h = ssm_scan.ssm_scan(x, dt, A, Bc, Cc, D, h0)
+    torch.cuda.synchronize()
+    assert (ssm_scan.ssm_scan.launches, ssm_scan.hopper_launches) == (before[0] + 1, before[1])
+    want_y, want_h = ref.ssm_scan_ref(x, dt, A, Bc, Cc, D, h0)
+    _within_rule(y, want_y, *SSM_RULE["float32"])
+    _within_rule(h, want_h, *SSM_RULE["float32"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,Dm", [(torch.bfloat16, 100), (torch.float32, 99)],
+                         ids=["bf16-200B", "f32-396B"])
+def test_ssm_staged_kernel_takes_one_step_of_one_row_at_any_width(dtype, Dm):
+    """B = S = 1 routes to the staged kernel whatever the row's bytes, so
+    its tensor maps must take a length-1 axis over a row that is not a
+    multiple of 16 bytes."""
+    from repro_torch.kernels import ssm_scan
+
+    dev = _card()
+    x, dt, A, Bc, Cc, D, h0 = _ssm_inputs(1, 1, Dm, 16, dtype, dev, seed=Dm, dt_rank=256)
+    assert ssm_scan.route(x, dt, Bc, Cc) == "hopper"
+    before = ssm_scan.hopper_launches
+    y, h = ssm_scan.ssm_scan(x, dt, A, Bc, Cc, D, h0)
+    torch.cuda.synchronize()
+    assert ssm_scan.hopper_launches == before + 1
+    want_y, want_h = ref.ssm_scan_ref(x, dt, A, Bc, Cc, D, h0)
+    _within_rule(y, want_y, *SSM_RULE[str(dtype).removeprefix("torch.")])
+    _within_rule(h, want_h, *SSM_RULE["float32"])
+
+
+@pytest.mark.cuda
+def test_hopper_launches_counts_exactly_the_staged_launches():
+    from repro_torch.kernels import ssm_scan
+
+    dev = _card()
+    staged = _ssm_inputs(2, 40, 96, 4, torch.bfloat16, dev, seed=1, dt_rank=256)
+    simt = _ssm_inputs(2, 40, 96, 4, torch.bfloat16, dev, seed=1)
+    x, dt, A, Bc, Cc, D, h0 = staged
+    calls = [staged, simt, staged,
+             (x[:, :0], dt[:, :0], A, Bc[:, :0], Cc[:, :0], D, h0),  # S = 0: h_final = h0
+             (x[:0], dt[:0], A, Bc[:0], Cc[:0], D, None)]  # no batch row: nothing launches
+    before = (ssm_scan.ssm_scan.launches, ssm_scan.hopper_launches)
+    for inputs in calls:
+        ssm_scan.ssm_scan(*inputs)
+    torch.cuda.synchronize()
+    assert (ssm_scan.ssm_scan.launches, ssm_scan.hopper_launches) == (before[0] + 4, before[1] + 3)
+
+
 @pytest.mark.cuda
 def test_mamba_prefill_and_decode_on_the_card_match_the_cpu(monkeypatch):
     """falcon-mamba-7b's mixer width at 2 layers with a small vocabulary in
@@ -757,9 +892,11 @@ def test_mamba_prefill_and_decode_on_the_card_match_the_cpu(monkeypatch):
     tokens = torch.randint(0, cfg.vocab_size, (2, 300), generator=torch.Generator().manual_seed(1))
     caches = [model.init_cache(2, 304, device=d) for d in ("cpu", dev)]
     before = ssm_scan.ssm_scan.launches
+    hopper_before = ssm_scan.hopper_launches
     want, _ = model.prefill(lm_cpu, {"tokens": tokens}, caches[0])
     got, _ = model.prefill(lm_gpu, {"tokens": tokens.to(dev)}, caches[1])
     assert ssm_scan.ssm_scan.launches == before + cfg.num_layers
+    assert ssm_scan.hopper_launches == hopper_before + cfg.num_layers  # the model's layouts
     torch.testing.assert_close(got.cpu(), want, atol=1e-3, rtol=1e-3)
     tok = want.argmax(-1)
     for i in range(4):
