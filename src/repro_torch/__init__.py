@@ -12,7 +12,8 @@ Ported so far, three slices.  The paper's cell-training path:
 - ``data``: the sharded on-disk CSR store, its I/O counters and the
   Tahoe-like generator;
 - ``kernels``: ``ell_to_dense``, a hand-written Hopper kernel
-  (``kernels/csrc/ell_to_dense.cu``), its plain version and the dispatch;
+  (``kernels/csrc/ell_to_dense.cu``) with an optional fused ``log1p``, its
+  plain version and the dispatch;
 - ``distributed.dataio``: the two-deep host-to-device feed;
 - ``train.probe``: the four linear heads and their Adam step;
 - ``convert``: JAX heads and Adam state as the port's.

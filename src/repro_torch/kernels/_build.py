@@ -87,8 +87,9 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def ptxas_report(name: str) -> dict[str, dict[str, int]]:
-    """Registers and spill bytes of each kernel in the built
-    ``csrc/<name>.cu``, by mangled name, from its ``ptxas -v`` log."""
+    """Registers, spill bytes and, where it has any, static shared memory
+    of each kernel in the built ``csrc/<name>.cu``, by mangled name, from
+    its ``ptxas -v`` log."""
     report, kernel = {}, None
     for line in _target(name).with_suffix(".log").read_text().splitlines():
         found = re.search(r"Compiling entry function '(\w+)'", line)
@@ -105,4 +106,7 @@ def ptxas_report(name: str) -> dict[str, dict[str, int]]:
         regs = re.search(r"Used (\d+) registers", line)
         if regs:
             report[kernel]["registers"] = int(regs.group(1))
+        smem = re.search(r"(\d+) bytes smem", line)
+        if smem:
+            report[kernel]["smem_bytes"] = int(smem.group(1))
     return report

@@ -19,12 +19,17 @@ from .ssm_scan import ssm_scan as _ssm_scan_kernel
 __all__ = ["ell_to_dense", "flash_attention", "ssm_scan"]
 
 
-def ell_to_dense(vals: torch.Tensor, cols: torch.Tensor, *, n_cols: int) -> torch.Tensor:
-    """ELL (R, K) -> dense (R, n_cols); see :func:`.ref.ell_to_dense_ref`."""
+def ell_to_dense(vals: torch.Tensor, cols: torch.Tensor, *, n_cols: int,
+                 log1p: bool = False) -> torch.Tensor:
+    """ELL (R, K) -> dense (R, n_cols), or with ``log1p`` its ``log1p``
+    (one fused pass on the card); see :func:`.ref.ell_to_dense_ref`."""
+    if not isinstance(log1p, bool):
+        raise TypeError(f"log1p must be a bool, got {log1p!r}")
     if vals.device.type == "cuda":
-        return _ell_to_dense_kernel(vals, cols, n_cols=n_cols)
+        return _ell_to_dense_kernel(vals, cols, n_cols=n_cols, log1p=log1p)
     if vals.device.type == "cpu":
-        return ref.ell_to_dense_ref(vals, cols, n_cols)
+        out = ref.ell_to_dense_ref(vals, cols, n_cols)
+        return out.log1p_() if log1p else out
     raise ValueError(f"no ell_to_dense for tensors on {vals.device}")
 
 

@@ -2,10 +2,10 @@
 
 The port of the loop in ``benchmarks/bench_fig5_classification.py`` and
 ``examples/cell_classifier.py``: CSR batches from the loader are densified
-on the batch's device (the ELL kernel through :mod:`repro_torch.kernels.ops`),
-``log1p`` is applied, and four linear heads — cell_line 50, drug 380,
-moa_broad 4, moa_fine 27 — take one Adam step on their summed mean
-cross-entropy.
+on the batch's device with ``log1p`` applied in the same pass (the ELL
+kernel's fused epilogue, through :mod:`repro_torch.kernels.ops`), and four
+linear heads — cell_line 50, drug 380, moa_broad 4, moa_fine 27 — take one
+Adam step on their summed mean cross-entropy.
 
 Adam is written out, not ``torch.optim.Adam``, so that it rounds as the JAX
 reference does: ``p - LR * (m / c1) / (sqrt(v / c2) + eps)`` with
@@ -101,7 +101,7 @@ def init_adam(heads: nn.Module) -> AdamState:
 
 def features(vals: torch.Tensor, cols: torch.Tensor, *, n_genes: int) -> torch.Tensor:
     """ELL batch -> ``log1p`` of its dense expression, on the batch's device."""
-    return ops.ell_to_dense(vals, cols, n_cols=n_genes).log1p_()
+    return ops.ell_to_dense(vals, cols, n_cols=n_genes, log1p=True)
 
 
 def loss_fn(heads: ProbeHeads, x: torch.Tensor, ys: dict[str, torch.Tensor]) -> torch.Tensor:

@@ -7,15 +7,25 @@ false.  Imports no JAX, so it runs on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest tests/test_torch_cuda.py -q
 """
+import os
+import sys
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import csr_to_dense, flash_attention, ops, ref
 
-# (rows, K, n_cols): the JAX package's ELL sweep, a batch at Tahoe's width
-# and a row narrower than one 16-byte store
-CASES = [(16, 8, 64), (33, 5, 100), (8, 16, 512), (1, 1, 8), (64, 1800, 62_710), (3, 7, 5)]
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+import chip_smoke  # noqa: E402  (the repo's card script: the replaced ELL kernel's launcher)
+
+ELL_TILE = 8192  # csrc/ell_to_dense.cu's kTile: columns a block owns
+# (rows, K, n_cols): the JAX package's ELL sweep, a batch at Tahoe's width,
+# a row narrower than one 16-byte store, widths around one tile, K = 0,
+# R = 0, and more rows than a grid's y axis takes (65,535)
+CASES = [(16, 8, 64), (33, 5, 100), (8, 16, 512), (1, 1, 8), (64, 1800, 62_710), (3, 7, 5),
+         (5, 9, 1), (5, 9, 3), (4, 50, ELL_TILE - 1), (4, 50, ELL_TILE), (4, 50, ELL_TILE + 1),
+         (3, 40, 62_710), (6, 0, 100), (0, 5, 100), (70_000, 4, 6)]
 ATOL = 1e-6  # random columns repeat, and atomics add duplicates in any order
 
 
@@ -25,30 +35,93 @@ def _card():
     return torch.device("cuda")
 
 
+def _want(vals, cols, G, log1p):
+    want = ref.ell_to_dense_ref(vals, cols, G)
+    return want.log1p_() if log1p else want
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("log1p", [False, True])
 @pytest.mark.parametrize("R,K,G", CASES)
-def test_ell_to_dense_kernel_matches_plain_version(R, K, G):
+def test_ell_to_dense_kernel_matches_plain_version(R, K, G, log1p):
+    """With log1p the values are non-negative (counts): log1p's domain."""
     dev = _card()
     rng = np.random.default_rng(R * 7 + K)
-    vals = torch.tensor(rng.normal(0, 1, (R, K)).astype(np.float32), device=dev)
+    vals = rng.normal(0, 1, (R, K)).astype(np.float32)
+    vals = torch.tensor(np.abs(vals) if log1p else vals, device=dev)
     cols = torch.tensor(rng.integers(-1, G, (R, K)).astype(np.int32), device=dev)
     before = csr_to_dense.ell_to_dense.launches
-    got = ops.ell_to_dense(vals, cols, n_cols=G)
+    got = ops.ell_to_dense(vals, cols, n_cols=G, log1p=log1p)
     torch.cuda.synchronize()
-    assert csr_to_dense.ell_to_dense.launches == before + 1
-    torch.testing.assert_close(got, ref.ell_to_dense_ref(vals, cols, G), atol=ATOL, rtol=0)
+    assert csr_to_dense.ell_to_dense.launches == before + (R > 0)
+    torch.testing.assert_close(got, _want(vals, cols, G, log1p), atol=ATOL, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("log1p", [False, True])
+def test_ell_to_dense_kernel_columns_out_of_range_add_nothing(log1p):
+    dev = _card()
+    R, K, G = 9, 30, 3 * ELL_TILE + 5
+    rng = np.random.default_rng(3)
+    cols = rng.choice([-7, -2, G, G + 1, 2**31 - 1, -(2**31)], (R, K)).astype(np.int32)
+    vals = torch.tensor(rng.integers(1, 9, (R, K)).astype(np.float32), device=dev)
+    got = ops.ell_to_dense(vals, torch.tensor(cols, device=dev), n_cols=G, log1p=log1p)
+    assert torch.equal(got, torch.zeros((R, G), device=dev))
+
+
+def _canonical(R=64, K=1800, G=62_710, seed=0):
+    """A batch of the path's shape without duplicate columns, counts as
+    values, the rows' tails padded."""
+    rng = np.random.default_rng(seed)
+    cols = np.stack([np.sort(rng.choice(G, K, replace=False)) for _ in range(R)]).astype(np.int32)
+    cols[:, -100:] = -1  # ragged rows
+    vals = rng.integers(1, 50, (R, K)).astype(np.float32)
+    return torch.tensor(vals, device="cuda"), torch.tensor(cols, device="cuda"), G
 
 
 @pytest.mark.cuda
 def test_ell_to_dense_kernel_bitwise_without_duplicates():
+    _card()
+    v, c, G = _canonical()
+    got = ops.ell_to_dense(v, c, n_cols=G)
+    assert torch.equal(got, ref.ell_to_dense_ref(v, c, G))
+    fused = ops.ell_to_dense(v, c, n_cols=G, log1p=True)
+    assert torch.equal(fused, got.log1p_())  # the fused epilogue is log1p_'s bits
+
+
+@pytest.mark.cuda
+def test_ell_to_dense_kernel_bitwise_the_replaced_kernel_and_repeatable():
+    _card()
+    v, c, G = _canonical(seed=1)
+    got = ops.ell_to_dense(v, c, n_cols=G)
+    fused = ops.ell_to_dense(v, c, n_cols=G, log1p=True)
+    previous = chip_smoke.previous_ell_to_dense(v, c, G)
+    assert torch.equal(got, previous)
+    assert torch.equal(fused, previous.log1p_())
+    assert torch.equal(ops.ell_to_dense(v, c, n_cols=G), got)
+    assert torch.equal(ops.ell_to_dense(v, c, n_cols=G, log1p=True), fused)
+
+
+@pytest.mark.cuda
+def test_ell_to_dense_kernel_past_2_to_the_31_elements():
+    """One launch whose output passes 2**31 elements (8.6 GB): offsets into
+    it are int64.  The last rows hold the entries; checked against the
+    plain version on those rows."""
     dev = _card()
-    rng = np.random.default_rng(0)
-    R, K, G = 64, 1800, 62_710
-    cols = np.stack([np.sort(rng.choice(G, K, replace=False)) for _ in range(R)]).astype(np.int32)
-    cols[:, -100:] = -1  # ragged rows
-    vals = rng.integers(1, 50, (R, K)).astype(np.float32)
-    v, c = torch.tensor(vals, device=dev), torch.tensor(cols, device=dev)
-    assert torch.equal(ops.ell_to_dense(v, c, n_cols=G), ref.ell_to_dense_ref(v, c, G))
+    R, K, G = 34_300, 3, 62_710
+    assert R * G >= 2**31
+    rng = np.random.default_rng(4)
+    cols = np.full((R, K), -1, np.int32)
+    cols[-3:] = rng.integers(0, G, (3, K))
+    cols[-1, -1] = G - 1  # the very last element
+    vals = torch.tensor(rng.integers(1, 9, (R, K)).astype(np.float32), device=dev)
+    cols = torch.tensor(cols, device=dev)
+    got = ops.ell_to_dense(vals, cols, n_cols=G, log1p=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got[-3:], _want(vals[-3:], cols[-3:], G, True))
+    assert not bool(got[:-3].any())
+    del got
+    torch.cuda.empty_cache()
 
 
 # ------------------------------------------------------------ flash attention

@@ -117,6 +117,7 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     *(("flash_attention", n, e) for n, e in chip_smoke.FLASH_MUTANTS.items()),
     *(("ssm_scan", n, e) for n, e in chip_smoke.SSM_MUTANTS.items()),
     *(("flash_attention_bwd", n, e) for n, e in chip_smoke.BWD_MUTANTS.items()),
+    *(("ell_to_dense", n, e) for n, e in chip_smoke.ELL_MUTANTS.items()),
 ])
 def test_each_mutant_edits_one_line_of_its_source(source, name, edit):
     """chip_smoke.py's mutation checks edit a line that occurs exactly once
@@ -144,4 +145,19 @@ def test_ptxas_report_reads_registers_and_spills(tmp_path, monkeypatch):
         "_ZN7fwd_hopper16flash_fwd_hopperILi64EEEv":
             {"registers": 168, "spill_store_bytes": 8, "spill_load_bytes": 12},
         "_Z14flash_fwd_bf16ILi32EEv": {"registers": 96, "spill_store_bytes": 0, "spill_load_bytes": 0},
+    }
+
+
+def test_ptxas_report_reads_static_shared_memory(tmp_path, monkeypatch):
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    log = "\n".join([
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_125ell_to_dense_tiled_kernelILb1EEEvPKfPKiPfllll' for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN12_GLOBAL__N_125ell_to_dense_tiled_kernelILb1EEEvPKfPKiPfllll",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 40 registers, used 1 barriers, 32784 bytes smem",
+    ])
+    _build._target("ell_to_dense").with_suffix(".log").write_text(log)
+    assert _build.ptxas_report("ell_to_dense") == {
+        "_ZN12_GLOBAL__N_125ell_to_dense_tiled_kernelILb1EEEvPKfPKiPfllll":
+            {"registers": 40, "spill_store_bytes": 0, "spill_load_bytes": 0, "smem_bytes": 32784},
     }
