@@ -79,7 +79,9 @@ d_model 960, 15 query heads over 5 kv heads of 64, vocab 49,152):
    just before and read just after (32 per prefill, all 32 through the
    Hopper kernel); time to first token,
    decode ms per step, tokens/s, peak memory; then one prefill under
-   ``torch.profiler`` for the kernel's own device time per launch;
+   ``torch.profiler`` for the kernel's own device time per launch, and
+   the decode step's wall ms with and without its ``full_float32_matmul``
+   block, in turns (``decode_ms_with_and_without_block``);
 10. batching: ``SlotBatcher`` in float32, 16 requests over 4 slots (prompts
    of 64-512 tokens, 16-64 new tokens, numpy seed 0, max_len 1024); every
    request's tokens equal a standalone batch-1 serve of its prompt except
@@ -174,10 +176,26 @@ Mamba serving (slice 4), falcon-mamba-7b at its full width (d_model
    ``ssm_scan_hopper``, none in the 31 decode steps); time to first token,
    decode ms per step, tokens/s, peak memory; then one prefill (64
    ``ssm_scan_hopper`` launches) and one decode step under
-   ``torch.profiler``;
+   ``torch.profiler``, and the decode step's wall ms with and without its
+   ``full_float32_matmul`` block, in turns;
 18. ssm_batching: ``SlotBatcher`` over SSM caches at full width with 4
    layers in float32, 10 requests of 16-512 prompt tokens over 4 slots;
    every request equals its standalone serve except across ties.
+
+The paper's Fig. 5 experiment (slice 9):
+
+19. fig5: ``repro_torch.train.fig5.run`` on a Tahoe-like store of 20,000
+   cells x 2,048 genes (FIG5_DATA, the benchmark's width), seed 0 only,
+   all four strategies (1,106 steps), from a caller that has TF32 on, with
+   ``ell_to_dense``'s launch count set to 0 just before and read just
+   after: one launch per step and one per chunk of the held-out plate;
+   every macro-F1 finite and in [0, 1]; the TF32 setting after the phase
+   what it was before; the host's microseconds per call of
+   ``full_float32_matmul`` alone.  Then, at one of its batches (64 cells, K the
+   batch's longest row, 2,048 genes), the kernel with and without its fused
+   ``log1p`` bitwise the plain version (followed by ``log1p_``), and event
+   times of both, of the plain version, of ``index_put_`` and of a
+   ``zero_()`` of the output, beside the bound.
 
 Then the kernels line (one entry per kernel), the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.  Any failure
@@ -325,6 +343,11 @@ SSM_CPU_LAYERS, SSM_CPU_BATCH, SSM_CPU_PROMPT, SSM_CPU_DECODE = 2, 2, 300, 8
 SSM_STATE_ATOL, SSM_STATE_RTOL = 1e-4, 1e-3
 SSM_BATCH_LAYERS, SSM_BATCH_REQUESTS, SSM_BATCH_MAX_LEN = 4, 10, 1024
 SSM_BATCH_PROMPT_LENS, SSM_BATCH_NEW = (16, 512), (8, 32)  # inclusive ranges drawn from
+# the Fig. 5 experiment: the benchmark's 2,048 genes, cut from 150,000 cells
+# to 20,000 (one fetch of each block strategy) and from two seeds to one
+DECODE_TURNS, DECODE_TURN_STEPS = 5, 4  # decode with and without the TF32 block, in turns
+FIG5_DATA = dict(n_cells=20_000, n_genes=2_048, seed=0)
+FIG5_SEEDS = (0,)
 
 
 def fail(msg: str) -> None:
@@ -380,6 +403,39 @@ def host_us(fns: dict, calls: int = TIMED_CALLS, groups: int = 2 * TIMED_GROUPS 
             per_call[name].append((time.perf_counter() - t0) / calls * 1e6)
             torch.cuda.synchronize()
     return {name: statistics.median(t) for name, t in per_call.items()}
+
+
+def decode_ms_with_and_without_block(params, tok, cache, pos: int) -> dict:
+    """Wall ms per decode step through ``decode_lm`` (one
+    ``full_float32_matmul`` block a call) and through the same function
+    without its block (the step as it was before the block, the flag being
+    off for the whole script), DECODE_TURN_STEPS steps at a time, the two
+    taking turns DECODE_TURNS times; the median of each."""
+    import inspect
+
+    import torch
+
+    from repro_torch.models import transformer as tr
+
+    bare = inspect.unwrap(tr.decode_lm)
+
+    def without_block():
+        with torch.no_grad():
+            return bare(params, tok, cache, pos)
+
+    fns = {"decode_lm": lambda: tr.decode_lm(params, tok, cache, pos),
+           "without_block": without_block}
+    per_step = {name: [] for name in fns}
+    for _ in range(DECODE_TURNS):
+        for name, fn in fns.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(DECODE_TURN_STEPS):
+                fn()
+            torch.cuda.synchronize()
+            per_step[name].append((time.perf_counter() - t0) / DECODE_TURN_STEPS * 1e3)
+    return {"steps": DECODE_TURN_STEPS, "turns": DECODE_TURNS,
+            **{name: statistics.median(t) for name, t in per_step.items()}}
 
 
 def previous_ell_to_dense(vals, cols, n_cols: int):
@@ -927,9 +983,14 @@ def main() -> None:
     kernel["trace_ms_per_launch"] = ms_per_launch
 
     kernel["launches"] = launches
+    del ds, heads, opt
+    torch.cuda.empty_cache()
+
+    # 19. the Fig. 5 experiment
+    kernel["fig5_shape"] = fig5_phase(dev)
     ell_keys = (*KERNEL_KEYS, "kernel", "fused_log1p_ms", "previous_kernel", "previous_kernel_ms",
                 "previous_plus_log1p_ms", "log1p_ms", "library", "library_plus_log1p_ms",
-                "write_floor_ms", "trace_ms_per_launch", "host_us_per_call", "bytes")
+                "write_floor_ms", "trace_ms_per_launch", "host_us_per_call", "bytes", "fig5_shape")
     emit({"kernels": [{k: kernel[k] for k in ell_keys}, lm_kernel, *train_kernels,
                       ssm_kernel]})
     print(smi)
@@ -1139,6 +1200,8 @@ def lm_phases(dev, sm_clock_hz: float) -> dict:
     fa_ms = sum(e.self_device_time_total for e in mine) / 1e3
     fa_n = sum(e.count for e in mine)
     top = sorted(on_card, key=lambda e: -e.self_device_time_total)[:8]
+    turns = decode_ms_with_and_without_block(
+        params, torch.from_numpy(toks[:, -1].astype(np.int64)).to(dev), cache, SERVE_PROMPT)
     emit({"phase": "serve", "arch": ARCH, "layers": cfg.num_layers, "d_model": cfg.d_model,
           "dtype": cfg.compute_dtype, "batch": SERVE_BATCH, "prompt": SERVE_PROMPT,
           "gen": SERVE_GEN, "prefill_ms": timings["prefill_s"] * 1e3,
@@ -1149,7 +1212,8 @@ def lm_phases(dev, sm_clock_hz: float) -> dict:
           "prefills": 1, "traced_prefill_device_kernel_ms": prefill_kernel_ms,
           "flash_attention_trace": {"count": fa_n, "device_ms": fa_ms, "ms_per_launch": fa_ms / fa_n,
                                     "share_of_prefill_kernel_time": fa_ms / prefill_kernel_ms},
-          "top_kernels": [[e.key[:80], e.count, e.self_device_time_total / 1e3] for e in top]})
+          "top_kernels": [[e.key[:80], e.count, e.self_device_time_total / 1e3] for e in top],
+          "decode_ms_with_and_without_tf32_block": turns})
     kernel["launches"] = launches
     kernel["hopper_launches"] = hopper
     kernel["trace_ms_per_launch"] = fa_ms / fa_n
@@ -2086,6 +2150,7 @@ def ssm_phases(dev, sm_clock_hz: float) -> dict:
     if any("ssm_scan" in e.key for e in dec_card):
         fail("a traced decode step launched ssm_scan")
     dec_top = sorted(dec_card, key=lambda e: -e.self_device_time_total)[:5]
+    turns = decode_ms_with_and_without_block(params, tok, cache, SSM_SERVE_PROMPT)
     emit({"phase": "ssm_serve", "arch": SSM_ARCH, "layers": cfg.num_layers,
           "d_model": cfg.d_model, "d_inner": s.expand * cfg.d_model, "params": n_params,
           "dtype": cfg.compute_dtype, "batch": SSM_SERVE_BATCH, "prompt": SSM_SERVE_PROMPT,
@@ -2106,7 +2171,8 @@ def ssm_phases(dev, sm_clock_hz: float) -> dict:
           "traced_decode_step_wall_ms": decode_wall * 1e3,
           "traced_decode_step_kernel_launches": sum(e.count for e in dec_card),
           "decode_top_kernels": [[e.key[:80], e.count, e.self_device_time_total / 1e3]
-                                 for e in dec_top]})
+                                 for e in dec_top],
+          "decode_ms_with_and_without_tf32_block": turns})
     kernel["launches"] = launches
     kernel["hopper_launches"] = hopper
     kernel["trace_ms_per_launch"] = scan_ms / scan_n
@@ -2149,6 +2215,102 @@ def ssm_phases(dev, sm_clock_hz: float) -> dict:
                                      "previous_kernel", "previous_kernel_ms", "host_us_per_call",
                                      "bound_parts_ms", "bytes", "exponentials", "sm_clock_hz",
                                      "sms")}
+
+
+
+def fig5_phase(dev) -> dict:
+    """Phase 19: the Fig. 5 experiment at FIG5_DATA; returns ``ell_to_dense``'s
+    times at one of its batches for the kernels line."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data import generate_tahoe_like, load_tahoe_like
+    from repro_torch.kernels import csr_to_dense, ref
+    from repro_torch.precision import full_float32_matmul
+    from repro_torch.train import fig5
+
+    root = os.path.join(HERE, "build", "chip_smoke_fig5")
+    t0 = time.perf_counter()
+    generate_tahoe_like(root, **FIG5_DATA)
+    store = load_tahoe_like(root)
+    data_s = time.perf_counter() - t0
+    flag = torch.backends.cuda.matmul
+    flag.allow_tf32 = True  # a caller with TF32 on: the experiment's products stay float32
+    torch.cuda.synchronize()
+    csr_to_dense.ell_to_dense.launches = 0
+    t0 = time.perf_counter()
+    result = fig5.run(store, seeds=FIG5_SEEDS, device=dev, log=lambda line: None)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = csr_to_dense.ell_to_dense.launches
+    tf32_after = flag.allow_tf32
+    flag.allow_tf32 = False  # the script's setting again
+    if tf32_after is not True:
+        fail(f"the Fig. 5 experiment left allow_tf32 {tf32_after}, its caller had True")
+    steps = sum(e["steps"] for e in result["epochs"])
+    test_chunks = -(-len(store.shards[fig5.TRAIN_PLATES]) // fig5.TEST_CHUNK_ROWS)
+    if launches != steps + test_chunks or any(e["ell_to_dense_launches"] != e["steps"]
+                                              for e in result["epochs"]):
+        fail(f"ell_to_dense launched {launches} times for {steps} steps and {test_chunks} "
+             f"chunks of the held-out plate: {result['epochs']}")
+    scores = [x for by in result["macro_f1"].values() for v in by.values() for x in v]
+    if len(scores) != 4 * 4 * len(FIG5_SEEDS) or not all(
+            math.isfinite(x) and 0.0 <= x <= 1.0 for x in scores):
+        fail(f"macro-F1 outside [0, 1]: {result['macro_f1']}")
+    # the host's cost of keeping float32 products in full float32: one
+    # flag block, as each model entry point and training step enters it once
+
+    def block():
+        with full_float32_matmul():
+            pass
+
+    precision_us = host_us({"full_float32_matmul": block})
+    emit({"phase": "fig5", "cells": len(store), "genes": store.n_var, "seeds": list(FIG5_SEEDS),
+          "cut": "20,000 cells, not 150,000, and one seed: the full experiment is its own run "
+                 "(python -m repro_torch.train.fig5)",
+          "data_seconds": data_s, "seconds": seconds, "steps": steps,
+          "ell_to_dense_launches": launches, "held_out_chunks": test_chunks,
+          "allow_tf32_before_and_after": [True, tf32_after], "epochs": result["epochs"],
+          "macro_f1": result["summary"], "ordering": result["ordering"],
+          "precision_host_us_per_call": precision_us})
+
+    # the kernel at one of the experiment's batches, after the counts were read
+    strategy, f = fig5.strategies()["block_shuffling"]
+    t = next(iter(fig5.train_dataset(store, strategy, f, 0))).to_tensors()
+    vals, cols, G = t["vals"].to(dev), t["cols"].to(dev), store.n_var
+    want = ref.ell_to_dense_ref(vals, cols, G)
+    if not torch.equal(csr_to_dense.ell_to_dense(vals, cols, n_cols=G), want):
+        fail("ell_to_dense is not bitwise its plain version at the Fig. 5 batch")
+    if not torch.equal(csr_to_dense.ell_to_dense(vals, cols, n_cols=G, log1p=True),
+                       want.clone().log1p_()):
+        fail("ell_to_dense with log1p is not bitwise the plain version then log1p_ at the "
+             "Fig. 5 batch")
+    R, K = vals.shape
+    valid = cols >= 0
+    rows = torch.arange(R, device=dev).unsqueeze(1).expand_as(cols)[valid]
+    lib_cols, lib_vals = cols[valid].long(), vals[valid]
+    timed = {
+        "kernel": lambda: csr_to_dense.ell_to_dense(vals, cols, n_cols=G),
+        "fused_log1p": lambda: csr_to_dense.ell_to_dense(vals, cols, n_cols=G, log1p=True),
+        "library": lambda: torch.zeros((R, G), device=dev).index_put_(
+            (rows, lib_cols), lib_vals, accumulate=True),
+        "write_floor": lambda: torch.empty((R, G), device=dev).zero_(),
+        "plain": lambda: ref.ell_to_dense_ref(vals, cols, G),
+    }
+    turns = {k: [] for k in timed}
+    for order in (list(timed), list(reversed(timed))):
+        for k in order:
+            turns[k].append(event_ms(timed[k]))
+    ms = {k: statistics.mean(v) for k, v in turns.items()}
+    moved = vals.numel() * 4 + cols.numel() * 4 + R * G * 4
+    nnz = int(valid.sum())
+    bytes_ms, ops_ms = moved / HBM_BYTES_PER_S * 1e3, nnz / FP32_FLOP_PER_S * 1e3
+    return {"shape": [R, K, G], "nnz": nnz, "launches": launches, "ms": ms["kernel"],
+            "fused_log1p_ms": ms["fused_log1p"], "plain_ms": ms["plain"],
+            "library_ms": ms["library"], "write_floor_ms": ms["write_floor"],
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "bytes": moved,
+            "ms_turns": turns}
 
 
 if __name__ == "__main__":

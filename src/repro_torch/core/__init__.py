@@ -1,4 +1,7 @@
-"""Sampling and loading: the port of ``repro.core``."""
+"""Sampling and loading: the port of ``repro.core``.
+
+:mod:`repro_torch.core.theory` (the §3.4 entropy bounds) is a submodule,
+as in the reference, and is not re-exported here."""
 from .callbacks import Callbacks, MultiIndexable
 from .dataset import LoaderState, ScIterableDataset
 from .sampling import (

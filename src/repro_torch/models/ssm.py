@@ -21,10 +21,11 @@ Where the port and the reference compute differently:
   function is the same (held equal at S = 1, 37 and 300 in
   ``tests/test_torch_ssm.py``).
 - **Float32 products.**  dt is computed in float32 with ``w_dt`` cast to
-  float32, as in the reference.  On the card that product relies on
-  PyTorch's default ``torch.backends.cuda.matmul.allow_tf32 = False``: with
-  TF32 on it keeps about three decimal digits.  The causal convolution is
-  K unrolled multiply-adds, as in the reference, not ``F.conv1d``, whose
+  float32, as in the reference.  The model's entry points
+  (:mod:`.transformer`) compute every float32 product in full float32
+  whatever the caller's TF32 setting, and leave that setting as they found
+  it (:mod:`repro_torch.precision`).  The causal convolution is K
+  unrolled multiply-adds, as in the reference, not ``F.conv1d``, whose
   float32 path goes through cuDNN in TF32 by default.
 - The sharding annotations (``constrain_act``) are dropped: one device.
 

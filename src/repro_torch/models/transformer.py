@@ -11,11 +11,15 @@ points, as in the reference:
   decode_lm   -- one token against the cache
 
 The two serving entry points run under ``torch.no_grad()``: serving builds
-no graph.  ``forward_lm`` honours ``cfg.remat``: ``"none"`` keeps every
+no graph.  Each of the three computes its float32 products in full float32,
+as the reference does, and leaves the caller's TF32 setting as it found
+it: one :func:`~repro_torch.precision.full_float32_matmul` block a call
+(a backward outside ``forward_lm`` needs its own, as ``train/step.py``
+has).  ``forward_lm`` honours ``cfg.remat``: ``"none"`` keeps every
 activation, ``"full"`` checkpoints each block
 (``torch.utils.checkpoint``, recomputed in the backward, as the
 reference's ``jax.checkpoint`` of each layer); ``"dots"`` raises
-``NotImplementedError`` (ROADMAP.md queue A #6).
+``NotImplementedError`` (ROADMAP.md queue A #7).
 
 Dense family: attention over a full sequence runs through
 :func:`.layers.attention`, so on the card it is the Hopper flash-attention
@@ -31,7 +35,7 @@ decode is one recurrence step per layer in plain tensor code.  The cache
 holds each layer's convolution window and scan state, overwritten in
 place; positions, ``pos_offset`` and ``start`` do not apply.  Only the
 forward without a gradient is ported: ``forward_lm`` with a gradient
-raises ``NotImplementedError`` (ROADMAP.md queue A #7).
+raises ``NotImplementedError`` (ROADMAP.md queue A #9).
 
 Dropped from the reference: the sharding annotations (``constrain_act``),
 the one-hot embedding under a sharding context (a gather always), the MoE
@@ -48,6 +52,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..precision import full_float32_matmul
 from .config import ModelConfig
 from .layers import (
     _expand_kv,
@@ -231,6 +236,7 @@ def _block(blk: Block, cfg: ModelConfig, h: torch.Tensor, rope) -> torch.Tensor:
     return _ffn(blk, cfg, h + o)
 
 
+@full_float32_matmul()
 def forward_lm(lm: LM, tokens: torch.Tensor) -> torch.Tensor:
     """Full-sequence logits (B, S, vocab) in ``logit_dtype``; under
     autograd with ``cfg.remat == "full"`` each block's activations are
@@ -240,7 +246,7 @@ def forward_lm(lm: LM, tokens: torch.Tensor) -> torch.Tensor:
         return _forward_ssm(lm, tokens)
     if cfg.remat not in ("none", "full"):
         raise NotImplementedError(
-            f"remat={cfg.remat!r} is not ported yet (ROADMAP.md queue A #6); use 'none' or 'full'"
+            f"remat={cfg.remat!r} is not ported yet (ROADMAP.md queue A #7); use 'none' or 'full'"
         )
     h = _embed(lm, tokens)
     rope = _rope(cfg, torch.arange(h.shape[1], device=h.device))
@@ -261,7 +267,7 @@ def _forward_ssm(lm: LM, tokens: torch.Tensor) -> torch.Tensor:
     the card."""
     if torch.is_grad_enabled() and any(p.requires_grad for p in lm.parameters()):
         raise NotImplementedError(
-            f"{lm.cfg.name}: training the ssm family is not ported yet (ROADMAP.md queue A #7); "
+            f"{lm.cfg.name}: training the ssm family is not ported yet (ROADMAP.md queue A #9); "
             "run forward_lm under torch.no_grad()"
         )
     cfg = lm.cfg
@@ -352,6 +358,7 @@ def _ssm_layers(lm: LM, h: torch.Tensor, cache: dict, mixer) -> torch.Tensor:
 
 
 @torch.no_grad()
+@full_float32_matmul()
 def decode_lm(lm: LM, token: torch.Tensor, cache: dict, pos: int,
               start: Optional[torch.Tensor] = None) -> tuple[torch.Tensor, dict]:
     """One serving step: token (B,) at absolute position ``pos`` ->
@@ -375,6 +382,7 @@ def decode_lm(lm: LM, token: torch.Tensor, cache: dict, pos: int,
 
 
 @torch.no_grad()
+@full_float32_matmul()
 def prefill_lm(lm: LM, tokens: torch.Tensor, cache: dict,
                pos_offset: int = 0) -> tuple[torch.Tensor, dict]:
     """Run the prompt (B, S) through the model, filling the cache in place.

@@ -12,8 +12,9 @@ reference does: ``p - LR * (m / c1) / (sqrt(v / c2) + eps)`` with
 ``c = 1 - beta ** count`` in float32 at the 1-based count.  The moments and
 the parameters are updated in place, which saves three parameter-sized
 buffers per step (0.35 GB at 62,710 genes).  The products ``x @ w`` stay
-``torch.matmul``; :func:`train_step` turns TF32 off for them, so the card
-multiplies in full float32 as the reference does.
+``torch.matmul``; :func:`train_step` computes them and their gradients in
+full float32, as the reference does, and leaves the caller's TF32 setting
+as it found it (:mod:`repro_torch.precision`).
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ from torch import nn
 from ..data.csr_store import CSRBatch
 from ..distributed.dataio import device_prefetch
 from ..kernels import ops
+from ..precision import full_float32_matmul
 
 __all__ = [
     "TASKS", "LR", "LinearHead", "ProbeHeads", "AdamState", "init_heads",
@@ -120,10 +122,10 @@ def train_step(
 ) -> torch.Tensor:
     """One Adam step of all heads on features ``x``; returns the loss
     (a 0-dim tensor, not yet read back from the device)."""
-    torch.backends.cuda.matmul.allow_tf32 = False  # full float32, as the reference
     params = dict(heads.named_parameters())
-    loss = loss_fn(heads, x, ys)
-    grads = torch.autograd.grad(loss, list(params.values()))
+    with full_float32_matmul():
+        loss = loss_fn(heads, x, ys)
+        grads = torch.autograd.grad(loss, list(params.values()))
     opt.count += 1
     cnt = torch.tensor(float(opt.count), dtype=torch.float32)
     c1 = float(1 - torch.tensor(B1, dtype=torch.float32) ** cnt)

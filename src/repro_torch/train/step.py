@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from ..models import Model
+from ..precision import full_float32_matmul
 from .loss import lm_loss
 from .optimizer import AdamWConfig, adamw_init, adamw_update
 
@@ -91,7 +92,8 @@ def make_train_step(
         return total, metrics
 
     def single(lm, params: dict, batch: dict):
-        with torch.enable_grad():
+        # the backward's float32 products in full float32 too, as the forward's
+        with torch.enable_grad(), full_float32_matmul():
             total, metrics = loss_fn(lm, batch)
             grads = torch.autograd.grad(total, list(params.values()))
         return dict(zip(params, grads)), {k: v.detach() for k, v in metrics.items()}

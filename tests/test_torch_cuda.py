@@ -22,10 +22,12 @@ import chip_smoke  # noqa: E402  (the repo's card script: the replaced ELL kerne
 ELL_TILE = 8192  # csrc/ell_to_dense.cu's kTile: columns a block owns
 # (rows, K, n_cols): the JAX package's ELL sweep, a batch at Tahoe's width,
 # a row narrower than one 16-byte store, widths around one tile, K = 0,
-# R = 0, and more rows than a grid's y axis takes (65,535)
+# R = 0, more rows than a grid's y axis takes (65,535), and the Fig. 5
+# batch (64 cells of at most 64 counts, the store's longest row, over 2,048
+# genes: one partly used tile per row)
 CASES = [(16, 8, 64), (33, 5, 100), (8, 16, 512), (1, 1, 8), (64, 1800, 62_710), (3, 7, 5),
          (5, 9, 1), (5, 9, 3), (4, 50, ELL_TILE - 1), (4, 50, ELL_TILE), (4, 50, ELL_TILE + 1),
-         (3, 40, 62_710), (6, 0, 100), (0, 5, 100), (70_000, 4, 6)]
+         (3, 40, 62_710), (6, 0, 100), (0, 5, 100), (70_000, 4, 6), (64, 64, 2_048)]
 ATOL = 1e-6  # random columns repeat, and atomics add duplicates in any order
 
 
@@ -943,20 +945,17 @@ def test_hopper_launches_counts_exactly_the_staged_launches():
     assert (ssm_scan.ssm_scan.launches, ssm_scan.hopper_launches) == (before[0] + 4, before[1] + 3)
 
 
-@pytest.mark.cuda
-def test_mamba_prefill_and_decode_on_the_card_match_the_cpu(monkeypatch):
+def _mamba_card_against_cpu(dev):
     """falcon-mamba-7b's mixer width at 2 layers with a small vocabulary in
     float32: the same weights on the card and on the CPU, a 300-token
     prefill (not a multiple of the reference's 256-step chunk) and 4
-    decode steps, logits and states."""
+    decode steps, logits and states within phase 16's tolerances."""
     import dataclasses
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import ssm_scan
     from repro_torch.models import Model
 
-    dev = _card()
-    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     cfg = dataclasses.replace(get_config("falcon-mamba-7b"), num_layers=2, vocab_size=1024,
                               param_dtype="float32", compute_dtype="float32")
     model = Model(cfg)
@@ -981,3 +980,47 @@ def test_mamba_prefill_and_decode_on_the_card_match_the_cpu(monkeypatch):
     for k in ("conv", "h"):
         torch.testing.assert_close(caches[1]["sub_0"][k].cpu(), caches[0]["sub_0"][k],
                                    atol=1e-4, rtol=1e-3)
+
+
+@pytest.mark.cuda
+def test_mamba_prefill_and_decode_on_the_card_match_the_cpu(monkeypatch):
+    dev = _card()
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    _mamba_card_against_cpu(dev)
+
+
+@pytest.mark.cuda
+def test_mamba_with_tf32_on_still_matches_the_cpu(monkeypatch):
+    """A caller with TF32 on: the model's float32 products are full float32
+    all the same, and the caller's setting is as it was after."""
+    dev = _card()
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    _mamba_card_against_cpu(dev)
+    assert torch.backends.cuda.matmul.allow_tf32 is True
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("caller", [True, False])
+def test_probe_step_on_the_card_matches_the_cpu_whatever_the_tf32_setting(monkeypatch, caller):
+    """One Adam step of the four heads at 2,048 genes, batch 64, from the
+    same heads and batch on the card and on the CPU: the loss within rtol
+    1e-5 and Adam's first moments (0.1 of the gradients) within 1e-5 of
+    their largest, which TF32's 10-bit products would miss."""
+    from repro_torch.train import probe
+
+    dev = _card()
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", caller)
+    rng = np.random.default_rng(5)
+    x = torch.tensor(np.log1p(rng.poisson(0.5, (64, 2048))).astype(np.float32))
+    ys = {t: torch.tensor(rng.integers(0, c, 64).astype(np.int32)) for t, c in probe.TASKS.items()}
+    runs = []
+    for d in ("cpu", dev):
+        heads = probe.init_heads(2048, device=d, generator=torch.Generator().manual_seed(2))
+        opt = probe.init_adam(heads)
+        loss = probe.train_step(heads, opt, x.to(d), {t: y.to(d) for t, y in ys.items()})
+        runs.append((loss.item(), {n: m.cpu() for n, m in opt.m.items()}))
+    assert torch.backends.cuda.matmul.allow_tf32 is caller
+    (want_loss, want_m), (got_loss, got_m) = runs
+    assert got_loss == pytest.approx(want_loss, rel=1e-5)
+    for n, m in want_m.items():
+        torch.testing.assert_close(got_m[n], m, atol=1e-5 * float(m.abs().max()), rtol=0, msg=n)

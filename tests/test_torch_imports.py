@@ -48,7 +48,8 @@ def test_port_imports_with_jax_and_repro_blocked():
         "repro_torch.pipeline.spec", "repro_torch.pipeline.builder", "repro_torch.checkpoint",
         "repro_torch.checkpoint.manager", "repro_torch.distributed.fault",
         "repro_torch.launch.train", "repro_torch.kernels.ssm_scan", "repro_torch.models.ssm",
-        "repro_torch.configs.falcon_mamba_7b",
+        "repro_torch.configs.falcon_mamba_7b", "repro_torch.core.theory",
+        "repro_torch.train.fig5", "repro_torch.precision",
     } <= names
 
 
