@@ -197,6 +197,29 @@ The paper's Fig. 5 experiment (slice 9):
    times of both, of the plain version, of ``index_put_`` and of a
    ``zero_()`` of the output, beside the bound.
 
+The planned storage layer on the cell path (slice 10):
+
+20. planned_cell_path: phase 5's store, strategy and geometry (32,768 cells,
+   ``BlockShuffling(16)``, batch 64, ``fetch_factor`` 256: two fetches and
+   512 steps an epoch), one epoch of ``train_probe`` from the same heads
+   in each of five ways, in turns, twice: (a) the ``ShardedCSRStore``
+   directly, as phase 5; (b) ``Pipeline.from_uri("sharded-csr://...")``
+   with ``io_workers=1`` and ``readahead=0``; (c) ``io_workers=4`` and
+   ``readahead=1``; (d) and (e): (b) and (c) with
+   ``IOCounters(simulate=NVME_SSD, simulate_scale=1.0)``, whose reads sleep
+   as an NVMe disk would (0.8 ms a run, 3.2 GB/s).  The planner's blocks
+   are the sampling blocks (``block_rows=16``); its cache holds
+   (readahead + 1) fetches of ``avg_row_bytes`` with 25% headroom
+   (``PLANNED_CACHE_HEADROOM``).  Each run opens its collection anew (a cold
+   block cache).  Every epoch's batches must be bitwise (a)'s (a CRC-32 of
+   each batch's values, columns, row pointers and obs on the host), its
+   ``ell_to_dense`` launches equal its steps and its losses finite and
+   falling; (c) and (e) must count ``prefetched`` blocks.  Per way:
+   samples/s, the loader wait (the host's time blocked on the next batch),
+   seconds, the stream's idle share and the counters ``runs``, ``bytes_read``, ``cache_hits``,
+   ``cache_misses``, ``prefetched``, ``wall_s`` and ``modeled_s``.  No speed
+   is asserted.
+
 Then the kernels line (one entry per kernel), the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.  Any failure
 exits non-zero before it.
@@ -214,6 +237,7 @@ import statistics
 import subprocess
 import sys
 import time
+import zlib
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
@@ -348,6 +372,12 @@ SSM_BATCH_PROMPT_LENS, SSM_BATCH_NEW = (16, 512), (8, 32)  # inclusive ranges dr
 DECODE_TURNS, DECODE_TURN_STEPS = 5, 4  # decode with and without the TF32 block, in turns
 FIG5_DATA = dict(n_cells=20_000, n_genes=2_048, seed=0)
 FIG5_SEEDS = (0,)
+# the planned cell path: ways (a)-(e) of phase 20, each (io_workers,
+# readahead, simulated storage); None is the store read directly
+PLANNED_WAYS = {"a_direct": None, "b_planned": (1, 0, False), "c_readahead": (4, 1, False),
+                "d_planned_nvme": (1, 0, True), "e_readahead_nvme": (4, 1, True)}
+PLANNED_TURNS = 2
+PLANNED_CACHE_HEADROOM = 1.25
 
 
 def fail(msg: str) -> None:
@@ -984,6 +1014,10 @@ def main() -> None:
 
     kernel["launches"] = launches
     del ds, heads, opt
+    torch.cuda.empty_cache()
+
+    # 20. the planned storage layer on the cell path
+    planned_phase(dev, root, store)
     torch.cuda.empty_cache()
 
     # 19. the Fig. 5 experiment
@@ -2216,6 +2250,100 @@ def ssm_phases(dev, sm_clock_hz: float) -> dict:
                                      "bound_parts_ms", "bytes", "exponentials", "sm_clock_hz",
                                      "sms")}
 
+
+
+def _batch_crc(batch) -> int:
+    """CRC-32 of a CSR batch's values, columns, row pointers and obs."""
+    import numpy as np
+
+    crc = 0
+    for a in (batch.data, batch.indices, batch.indptr,
+              *(batch.obs[k] for k in sorted(batch.obs))):
+        crc = zlib.crc32(np.ascontiguousarray(a).view(np.uint8), crc)
+    return crc
+
+
+def planned_phase(dev, root: str, store) -> dict:
+    """Phase 20: one epoch of the cell path in each way of PLANNED_WAYS, in
+    turns, PLANNED_TURNS times; see the module docstring."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import BlockShuffling, ScIterableDataset
+    from repro_torch.data import NVME_SSD, IOCounters
+    from repro_torch.kernels import csr_to_dense
+    from repro_torch.pipeline import Pipeline
+    from repro_torch.train import probe
+
+    fetch_rows = BATCH * FETCH_FACTOR
+    avg_row_bytes = store.avg_row_bytes
+    want, runs = None, {way: [] for way in PLANNED_WAYS}
+    for turn in range(PLANNED_TURNS):
+        for way, knobs in PLANNED_WAYS.items():
+            pipe, counters, cache_bytes = None, store.iostats, None
+            if knobs is None:
+                store.iostats.reset()
+                loader = ScIterableDataset(store, BlockShuffling(BLOCK), batch_size=BATCH,
+                                           fetch_factor=FETCH_FACTOR, seed=0)
+            else:
+                workers, readahead, nvme = knobs
+                counters = IOCounters(simulate=NVME_SSD if nvme else None, simulate_scale=1.0)
+                cache_bytes = int(PLANNED_CACHE_HEADROOM * (readahead + 1) * fetch_rows * avg_row_bytes)
+                pipe = (Pipeline.from_uri(f"sharded-csr://{root}", cache_bytes=cache_bytes,
+                                          block_rows=BLOCK, io_workers=workers,
+                                          readahead=readahead, iostats=counters)
+                        .strategy("block", block_size=BLOCK)
+                        .batch(BATCH, fetch_factor=FETCH_FACTOR).seed(0).build())
+                loader = pipe
+            crcs = []
+
+            def digested(batches):
+                for b in batches:
+                    crcs.append(_batch_crc(b))
+                    yield b
+
+            heads = probe.init_heads(N_GENES, device=dev, generator=torch.Generator().manual_seed(0))
+            opt = probe.init_adam(heads)
+            torch.cuda.synchronize()
+            csr_to_dense.ell_to_dense.launches = 0
+            run = probe.train_probe(digested(loader), heads, opt, device=dev)
+            launches = csr_to_dense.ell_to_dense.launches
+            snap = counters.snapshot()
+            if pipe is not None:
+                pipe.close()
+            del heads, opt
+            where = f"planned_cell_path {way}, turn {turn}"
+            if want is None:
+                want = crcs
+            if crcs != want:
+                diff = next(i for i, (x, y) in enumerate(zip(crcs, want)) if x != y) \
+                    if len(crcs) == len(want) else f"{len(crcs)} batches, not {len(want)}"
+                fail(f"{where}: the batches differ from way (a)'s (first at {diff})")
+            losses, steps = run["losses"], run["steps"]
+            if steps < MIN_STEPS or launches != steps:
+                fail(f"{where}: {steps} steps, ell_to_dense launched {launches} times")
+            if not all(math.isfinite(x) for x in losses):
+                fail(f"{where}: non-finite loss")
+            first, last = statistics.mean(losses[:20]), statistics.mean(losses[-20:])
+            if not last < first:
+                fail(f"{where}: loss did not fall: first 20 steps {first}, last 20 {last}")
+            if knobs is not None and knobs[1] > 0 and snap["prefetched"] <= 0:
+                fail(f"{where}: readahead staged no block (prefetched {snap['prefetched']})")
+            runs[way].append({
+                "samples_per_s": steps * BATCH / run["seconds"], "loader_wait_s": run["loader_wait_s"],
+                "seconds": run["seconds"], "steps": steps, "launches": launches,
+                "stream_idle_share": 1 - sum(run["step_stream_ms"]) / 1e3 / run["seconds"],
+                "cache_bytes": cache_bytes, "loss_first20": first, "loss_last20": last,
+                **{k: snap[k] for k in ("runs", "bytes_read", "cache_hits", "cache_misses",
+                                        "prefetched", "wall_s", "modeled_s")}})
+    out = {"phase": "planned_cell_path", "cells": len(store), "genes": store.n_var,
+           "batch": BATCH, "fetch_factor": FETCH_FACTOR, "block_size": BLOCK, "block_rows": BLOCK,
+           "avg_row_bytes": avg_row_bytes, "turns": PLANNED_TURNS, "batches_bitwise": True,
+           "storage_model": dataclasses.asdict(NVME_SSD),
+           "ways": {way: {"io_workers_readahead_nvme": PLANNED_WAYS[way], "runs": r}
+                    for way, r in runs.items()}}
+    emit(out)
+    return out
 
 
 def fig5_phase(dev) -> dict:

@@ -8,6 +8,9 @@ data access from sampling:
 - ``batch_callback(transformed, batch_indices) -> batch`` (once per minibatch)
 - ``batch_transform(batch) -> batch``                     (once per minibatch)
 
+and a fifth, ``prefetch_callback(collection, indices)``, which issues a
+future fetch's read plan in the background (readahead).
+
 The defaults are module-level functions, not lambdas, so that a dataset
 holding them pickles into ``DataLoader`` worker processes started by spawn.
 """
@@ -21,6 +24,7 @@ __all__ = [
     "MultiIndexable",
     "default_fetch_callback",
     "default_batch_callback",
+    "default_prefetch_callback",
     "identity",
     "Callbacks",
 ]
@@ -96,8 +100,30 @@ def _take(v: Any, rows) -> Any:
 
 
 def default_fetch_callback(collection: Any, indices: np.ndarray) -> Any:
-    """One batched read of ``indices``: ``collection[indices]``."""
+    """One batched read of ``indices``.
+
+    A planned collection (one with ``fetch``, ``nbytes_of`` and ``schema``,
+    the structure of :class:`~repro_torch.data.backend.CollectionProtocol`,
+    checked by attribute so that ``core`` does not import ``data``) is read
+    through ``fetch``, so the planner, its cache and its counters engage;
+    anything else is read as ``collection[indices]``.
+    """
+    if (
+        callable(getattr(collection, "fetch", None))
+        and hasattr(collection, "nbytes_of")
+        and hasattr(collection, "schema")
+    ):
+        return collection.fetch(indices)
     return _take(collection, indices)
+
+
+def default_prefetch_callback(collection: Any, indices: np.ndarray) -> int:
+    """Non-blocking readahead of a future fetch's ``indices``: a planned
+    collection's ``prefetch``, else nothing.  Returns the blocks scheduled."""
+    prefetch = getattr(collection, "prefetch", None)
+    if callable(prefetch) and hasattr(collection, "nbytes_of"):
+        return prefetch(indices)
+    return 0
 
 
 def default_batch_callback(transformed: Any, batch_indices: np.ndarray) -> Any:
@@ -112,7 +138,8 @@ def identity(x: Any) -> Any:
 class Callbacks:
     """Bundle of the hooks with defaults (identity transforms)."""
 
-    __slots__ = ("fetch_callback", "fetch_transform", "batch_callback", "batch_transform")
+    __slots__ = ("fetch_callback", "fetch_transform", "batch_callback", "batch_transform",
+                 "prefetch_callback")
 
     def __init__(
         self,
@@ -120,8 +147,10 @@ class Callbacks:
         fetch_transform: Optional[Callable] = None,
         batch_callback: Optional[Callable] = None,
         batch_transform: Optional[Callable] = None,
+        prefetch_callback: Optional[Callable] = None,
     ):
         self.fetch_callback = fetch_callback or default_fetch_callback
         self.fetch_transform = fetch_transform or identity
         self.batch_callback = batch_callback or default_batch_callback
         self.batch_transform = batch_transform or identity
+        self.prefetch_callback = prefetch_callback or default_prefetch_callback

@@ -14,6 +14,11 @@ The port's counterpart of ``repro.core.dataset.ScDataset``, as a
 - Per fetch: indices are sorted (line 7) so the store coalesces reads, data
   is loaded in ONE store call (line 8), reshuffled in memory (line 9), split
   into ``fetch_factor`` minibatches (line 10) and yielded (lines 11–12).
+- Over a planned collection (:mod:`repro_torch.data.backend`) with
+  ``readahead > 0``, each fetch first issues the read plans of this rank's
+  next ``readahead`` fetches in the background (and, with
+  ``cross_epoch_prefetch``, of the next epoch's first ones at an epoch's
+  tail); epoch boundaries reach the collection's ``epoch_boundary``.
 
 Batches, their order and :class:`LoaderState` are bitwise those of the JAX
 package's ``ScDataset`` for the same collection and arguments.  The class
@@ -104,7 +109,9 @@ class ScIterableDataset(IterableDataset):
         fetch_transform: Optional[Callable] = None,
         batch_callback: Optional[Callable] = None,
         batch_transform: Optional[Callable] = None,
+        prefetch_callback: Optional[Callable] = None,
         sort_fetch_indices: bool = True,
+        cross_epoch_prefetch: bool = False,
         diversity_obs: Optional[str] = None,
     ):
         if batch_size <= 0 or fetch_factor <= 0:
@@ -113,11 +120,13 @@ class ScIterableDataset(IterableDataset):
             raise ValueError(f"rank {rank} out of range for world_size {world_size}")
         if diversity_obs is not None:
             raise NotImplementedError(
-                "diversity_obs (the live entropy monitor) is not ported yet"
+                "diversity_obs (the live entropy monitor) is not ported yet "
+                "(ROADMAP.md queue A #5)"
             )
         if callbacks is not None and any(
             cb is not None
-            for cb in (fetch_callback, fetch_transform, batch_callback, batch_transform)
+            for cb in (fetch_callback, fetch_transform, batch_callback, batch_transform,
+                       prefetch_callback)
         ):
             raise ValueError("pass either a Callbacks bundle or individual hooks, not both")
         self.collection = collection
@@ -129,9 +138,14 @@ class ScIterableDataset(IterableDataset):
         self.world_size = int(world_size)
         self.drop_last = bool(drop_last)
         self.sort_fetch_indices = bool(sort_fetch_indices)
+        self.cross_epoch_prefetch = bool(cross_epoch_prefetch)
+        self.diversity_obs = diversity_obs
         self.callbacks = callbacks or Callbacks(
-            fetch_callback, fetch_transform, batch_callback, batch_transform
+            fetch_callback, fetch_transform, batch_callback, batch_transform, prefetch_callback
         )
+        # the pipeline spec's content hash, stamped by the Pipeline builder;
+        # surfaces in plan_epoch.  None for hand-wired loaders.
+        self.spec_fingerprint: Optional[str] = None
         self._state = LoaderState(seed=self.seed, epoch=0, fetch_cursor=0)
         # explicit (gid, skip) plan for the CURRENT epoch, installed by a
         # v2 load_state; None means the round-robin derivation
@@ -190,11 +204,45 @@ class ScIterableDataset(IterableDataset):
         g = self._global_fetch_count()
         return [(gid, 0) for gid in range(self.rank, g, self.world_size)]
 
+    def plan_epoch(self, epoch: Optional[int] = None) -> dict:
+        """The epoch's fetch plan without touching data: sampling, batching,
+        placement, the planned collection's async knobs and the spec
+        fingerprint (the reference's keys)."""
+        epoch = self._state.epoch if epoch is None else epoch
+        order = self._epoch_order(epoch)
+        entries = self._fetch_entries()
+        col = self.collection
+        return {
+            "epoch": epoch,
+            "order_len": len(order),
+            "global_fetches": self._global_fetch_count(),
+            "rank_fetches": [gid for gid, _ in entries],
+            "explicit_plan": self._fetch_plan is not None,
+            "fetch_size": self.fetch_size,
+            "rank_batches": sum(
+                max(0, self._fetch_num_batches(gid, len(order)) - skip) for gid, skip in entries
+            ),
+            "batch_size": self.batch_size,
+            "fetch_factor": self.fetch_factor,
+            "drop_last": self.drop_last,
+            "sort_fetch_indices": self.sort_fetch_indices,
+            "seed": self.seed,
+            "rank": self.rank,
+            "world_size": self.world_size,
+            "io_workers": int(getattr(col, "io_workers", 1) or 1),
+            "readahead": int(getattr(col, "readahead", 0) or 0),
+            "readahead_auto": bool(getattr(col, "readahead_auto", False)),
+            "admission": getattr(col, "admission", None),
+            "cross_epoch_prefetch": self.cross_epoch_prefetch,
+            "diversity_obs": self.diversity_obs,
+            "fingerprint": self.spec_fingerprint,
+        }
+
     def autotune(self, **kwargs):
-        raise NotImplementedError("autotune is not ported yet")
+        raise NotImplementedError("autotune is not ported yet (ROADMAP.md queue A #5)")
 
     def repartition(self, rank: int, world_size: int, plan: Optional[list] = None):
-        raise NotImplementedError("elastic repartition is not ported yet")
+        raise NotImplementedError("elastic repartition is not ported yet (ROADMAP.md queue A #12)")
 
     # ------------------------------------------------------------------ state
     def remaining_fetches(self) -> list:
@@ -236,8 +284,57 @@ class ScIterableDataset(IterableDataset):
     def set_epoch(self, epoch: int) -> None:
         self._fetch_plan = None
         self._state = LoaderState(self.seed, int(epoch), 0)
+        self._notify_epoch_boundary()
+
+    def _notify_epoch_boundary(self) -> None:
+        """Tell a planned collection that an epoch boundary passed (its
+        stream detector and readahead controller restart their windows)."""
+        eb = getattr(self.collection, "epoch_boundary", None)
+        if eb is not None:
+            eb()
 
     # ------------------------------------------------------------------ fetch
+    def _issue_prefetch(self, order: np.ndarray, global_fetch_id: int) -> bool:
+        """Issue ONE fetch's read plan in the background; False when the
+        fetch holds no rows."""
+        lo = global_fetch_id * self.fetch_size
+        idx = order[lo : min(lo + self.fetch_size, len(order))]
+        if len(idx) == 0:
+            return False
+        self.callbacks.prefetch_callback(
+            self.collection, np.sort(idx, kind="stable") if self.sort_fetch_indices else idx
+        )
+        return True
+
+    def _readahead(self, order: np.ndarray, epoch: int, global_fetch_id: int) -> None:
+        """Issue the next fetches' read plans before this fetch blocks on its
+        own reads.  ``readahead`` is read per fetch: under ``"auto"`` the
+        collection's controller moves it.  Repeat issues are no-ops."""
+        ra = int(getattr(self.collection, "readahead", 0) or 0)
+        if ra <= 0:
+            return
+        g = self._global_fetch_count()
+        if self._fetch_plan is not None:
+            # an explicit plan: the upcoming gids are its next entries
+            gids = [gid for gid, _ in self._fetch_plan]
+            pos = gids.index(global_fetch_id) if global_fetch_id in gids else len(gids)
+            upcoming = gids[pos + 1 : pos + 1 + ra]
+        else:
+            upcoming = [global_fetch_id + k * self.world_size for k in range(1, ra + 1)]
+        issued = 0
+        for nxt in upcoming:
+            if nxt >= g or not self._issue_prefetch(order, nxt):
+                break
+            issued += 1
+        if self.cross_epoch_prefetch and issued < ra:
+            # the epoch's tail: fill the window from this rank's first
+            # fetches of the next epoch
+            order2 = self._epoch_order(epoch + 1)
+            for j in range(ra - issued):
+                nxt2 = self.rank + j * self.world_size
+                if nxt2 >= g or not self._issue_prefetch(order2, nxt2):
+                    break
+
     def fetch(self, epoch: int, global_fetch_id: int) -> list:
         """Materialize ONE fetch (Alg. 1 lines 7–10): its minibatches.
 
@@ -253,6 +350,7 @@ class ScIterableDataset(IterableDataset):
             sorted_idx = fetch_idx[np.argsort(fetch_idx, kind="stable")]  # line 7
         else:
             sorted_idx = fetch_idx
+        self._readahead(order, epoch, global_fetch_id)
         fetched = cbs.fetch_transform(cbs.fetch_callback(self.collection, sorted_idx))  # line 8
 
         perm = epoch_rng(self.seed, epoch, 0xF37C, global_fetch_id).permutation(
@@ -292,6 +390,7 @@ class ScIterableDataset(IterableDataset):
                 yield batches[j]
         self._fetch_plan = None
         self._state = LoaderState(self.seed, epoch + 1, 0, 0)
+        self._notify_epoch_boundary()
 
     def epochs(self, num_epochs: int) -> Iterator:
         for _ in range(num_epochs):

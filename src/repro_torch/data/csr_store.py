@@ -132,6 +132,11 @@ class CSRBatch:
             obs[k] = t.pin_memory() if pin_memory else t
         return {"vals": vals, "cols": cols, "obs": obs}
 
+    @property
+    def nbytes(self) -> int:
+        """Bytes of the CSR arrays (the planner's cache budget counts these)."""
+        return int(self.data.nbytes + self.indices.nbytes + self.indptr.nbytes)
+
 
 def _ranges_concat(starts: np.ndarray, lens: np.ndarray) -> np.ndarray:
     """Concatenate [s, s+len) ranges, vectorized."""
@@ -178,12 +183,35 @@ class CSRStore:
         with np.load(os.path.join(path, "obs.npz"), allow_pickle=False) as obs_npz:
             self._obs = {k: obs_npz[k] for k in obs_npz.files}
         self.iostats = iostats if iostats is not None else IOCounters()
+        self._row_bytes = (self._data.nbytes + self._indices.nbytes) / max(1, self.n_obs)
 
     def __reduce__(self):
         return (CSRStore, (self.path, self.iostats))
 
     def __len__(self) -> int:
         return self.n_obs
+
+    @property
+    def obs(self) -> dict:
+        return self._obs
+
+    @property
+    def avg_row_bytes(self) -> float:
+        return self._row_bytes
+
+    def read_range(self, start: int, stop: int) -> CSRBatch:
+        """ONE contiguous read of local rows ``[start, stop)``, not counted:
+        the planner (:mod:`repro_torch.data.backend`) executes and counts
+        these.  The arrays are copies, not memmap views, because the planner
+        caches what this returns."""
+        lo, hi = int(self._indptr[start]), int(self._indptr[stop])
+        return CSRBatch(
+            data=np.array(self._data[lo:hi]),
+            indices=np.array(self._indices[lo:hi]),
+            indptr=np.asarray(self._indptr[start : stop + 1], dtype=np.int64) - lo,
+            n_var=self.n_var,
+            obs={k: v[start:stop] for k, v in self._obs.items()},
+        )
 
     def __getitem__(self, rows) -> CSRBatch:
         """Run-coalesced batched read (Algorithm 1 line 8).
@@ -259,6 +287,18 @@ class ShardedCSRStore:
 
     def __len__(self) -> int:
         return self.n_obs
+
+    @property
+    def avg_row_bytes(self) -> float:
+        return float(np.mean([s.avg_row_bytes for s in self.shards]))
+
+    @property
+    def obs_keys(self) -> list[str]:
+        return list(self.shards[0].obs.keys())
+
+    def obs_column(self, key: str) -> np.ndarray:
+        """A whole metadata column across shards."""
+        return np.concatenate([s.obs[key] for s in self.shards])
 
     def __getitem__(self, rows) -> CSRBatch:
         rows = np.asarray(rows, dtype=np.int64)

@@ -1,9 +1,16 @@
-"""The declarative data-pipeline API: the port of ``repro.pipeline`` for
-``tokens://`` streams."""
+"""The declarative data-pipeline API: the port of ``repro.pipeline``.
+``DataSpec`` is the reference's name of :class:`PipelineSpec`."""
 from .builder import DataPipeline, Pipeline
-from .spec import SPEC_VERSION, STRATEGY_REGISTRY, DataSpec, strategy_from_spec, strategy_to_spec
+from .spec import (
+    SPEC_VERSION,
+    STRATEGY_REGISTRY,
+    DataSpec,
+    PipelineSpec,
+    strategy_from_spec,
+    strategy_to_spec,
+)
 
 __all__ = [
-    "Pipeline", "DataPipeline", "DataSpec", "SPEC_VERSION", "STRATEGY_REGISTRY",
-    "strategy_to_spec", "strategy_from_spec",
+    "Pipeline", "DataPipeline", "PipelineSpec", "DataSpec", "SPEC_VERSION",
+    "STRATEGY_REGISTRY", "strategy_to_spec", "strategy_from_spec",
 ]

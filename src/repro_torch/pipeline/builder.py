@@ -1,88 +1,145 @@
-"""Pipeline — the fluent face of :class:`~repro_torch.pipeline.spec.DataSpec`;
-the port of ``repro.pipeline.builder`` as far as the training driver
-(``launch/train.py::build_loader``) uses it::
+"""Pipeline — the fluent face of :class:`~repro_torch.pipeline.spec.PipelineSpec`;
+the port of ``repro.pipeline.builder``::
 
-    pipe = (Pipeline.from_uri("tokens:///data/corpus", seq_len=2048)
+    pipe = (Pipeline.from_uri("sharded-csr:///data/tahoe",
+                              cache_bytes=64 << 20, io_workers=4, readahead=1)
             .strategy("block", block_size=16)
-            .batch(4, fetch_factor=8)
+            .batch(64, fetch_factor=8)
             .shard(rank=0, world_size=1)
             .seed(0)
-            .prefetch(workers=0)
             .build())
     for minibatch in pipe:
         ...
 
 Every chain method records into the spec and returns the builder, so
 ``pipe.spec.to_json()`` is the full reproducible description of the
-stream, equal to ``repro``'s for the same chain.  The built
-:class:`DataPipeline` iterates minibatches and owns checkpoint state:
-:meth:`DataPipeline.state` carries the spec fingerprint and
+stream, equal to ``repro``'s for the same chain.  The URI opens through the
+planned storage layer (:func:`repro_torch.data.backend.open_collection`),
+with the planner knobs as keywords or in the query string; a knob changed
+after ``build()`` reopens the collection at the next build.  The built
+:class:`DataPipeline` iterates minibatches and owns checkpoint state
+(:meth:`DataPipeline.state` carries the spec fingerprint;
 :meth:`DataPipeline.load_state` refuses a state whose fingerprint does not
-match.
+match) and closes only the collections it opened.
 
-``tokens://`` opens the port's :class:`~repro_torch.data.tokens.TokenStore`
-directly: its batches are bitwise those of ``repro``'s planned collection
-over the same store, whose block cache and extent merging change how the
-bytes are read, not which.  Other schemes, ``prefetch(workers > 0)``,
-``autotune`` and specs with non-default planner, prefetch, resilience,
-diversity or pooling fields raise ``NotImplementedError``: the planner
-behind them is ROADMAP.md queue A #1.
+Not ported yet, each raising ``NotImplementedError`` that names its
+ROADMAP.md item: ``prefetch(workers > 0)`` (queue A #4: ``PrefetchPool``),
+``resilience`` (A #6), ``diversity`` and ``autotune`` (A #5) and
+``shared`` (A #12).
 """
 from __future__ import annotations
 
 import dataclasses
-import urllib.parse
-from typing import Iterator, Optional
+from typing import Any, Iterator, Optional
 
 from ..core.dataset import LoaderState, ScIterableDataset
 from ..core.sampling import SamplingStrategy
-from ..data.tokens import TokenStore
-from .spec import DataSpec, strategy_from_spec, strategy_to_spec
+from ..data.backend import open_collection
+from ..data.readplan import normalize_readahead
+from .spec import PipelineSpec, strategy_from_spec, strategy_to_spec
 
 __all__ = ["Pipeline", "DataPipeline"]
 
-_TODO = "is not ported yet (ROADMAP.md queue A #1: the planner behind Pipeline)"
+#: spec fields the port builds only at their defaults, by ROADMAP.md item
+_LATER = {
+    "prefetch_workers": "A #4: PrefetchPool",
+    "retries": "A #6: resilient storage",
+    "hedge_factor": "A #6: resilient storage",
+    "breaker_threshold": "A #6: resilient storage",
+    "diversity_obs": "A #5: DiversityMonitor and autotune",
+    "entropy_floor": "A #5: DiversityMonitor and autotune",
+    "shared_pool": "A #12: the elastic fabric",
+}
 
-# spec fields the port builds only at their defaults: the planner's, the
-# prefetch pool's, resilience, diversity and pooling knobs
-_PLANNER_FIELDS = (
-    "cache_bytes", "block_rows", "max_extent_rows", "io_workers", "readahead", "admission",
-    "cache_policy", "prefetch_workers", "cross_epoch_prefetch", "retries",
-    "retry_backoff_s", "retry_max_backoff_s", "retry_deadline_s", "hedge_factor",
-    "hedge_min_s", "breaker_threshold", "breaker_cooldown_s", "diversity_obs",
-    "entropy_floor", "shared_pool",
-)
-# opener options of tokens://; anything else in a URI's query is a planner knob
-_TOKEN_OPTS = ("seq_len",)
+
+def _later(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md queue {item})")
 
 
 class Pipeline:
-    """Fluent builder accumulating a :class:`DataSpec`.  Construct with
-    :meth:`from_uri` or :meth:`from_spec`."""
+    """Fluent builder accumulating a :class:`PipelineSpec`.
 
-    def __init__(self, spec: DataSpec):
+    Construct with :meth:`from_uri`, :meth:`from_spec`, or
+    :meth:`from_collection` (an in-process collection; the spec then has
+    ``uri=None``, cannot be serialized and stamps no fingerprint).
+    """
+
+    #: spec fields that take effect only when the collection is opened
+    _COLLECTION_FIELDS = (
+        "uri", "cache_bytes", "block_rows", "max_extent_rows", "io_workers", "readahead",
+        "admission", "cache_policy", "open_opts", "retries", "retry_backoff_s",
+        "retry_max_backoff_s", "retry_deadline_s", "hedge_factor", "hedge_min_s",
+        "breaker_threshold", "breaker_cooldown_s", "shared_pool",
+    )
+
+    def __init__(self, spec: PipelineSpec, collection: Any = None, iostats: Any = None):
         self._spec = spec
+        self._collection = collection
+        # True only for a collection this builder opened from the URI: the
+        # built pipeline releases those, never a caller's
+        self._owns_collection = False
+        # a caller-owned IOCounters (e.g. with a storage model to simulate),
+        # threaded into open_collection; runtime only, never in the spec
+        self._iostats = iostats
 
     # ------------------------------------------------------------ entries
     @classmethod
-    def from_uri(cls, uri: str, **open_opts) -> "Pipeline":
-        """Start from a storage URI; keywords are opener options
-        (``seq_len``), recorded in the spec as ``repro`` records them.
-        ``repro``'s planner knobs are not taken here: their planner is not
-        ported."""
-        return cls(DataSpec(uri=uri, open_opts=dict(open_opts)))
+    def from_uri(
+        cls,
+        uri: str,
+        *,
+        cache_bytes: Optional[int] = None,
+        block_rows: Optional[int] = None,
+        max_extent_rows: Optional[int] = None,
+        io_workers: int = 1,
+        readahead=0,
+        admission: str = "always",
+        cache_policy: str = "lru",
+        iostats: Any = None,
+        **open_opts,
+    ) -> "Pipeline":
+        """Start from a storage URI plus the planner knobs of
+        ``open_collection``; other keywords are opener options
+        (``seq_len``), recorded in the spec.  ``None`` knobs mean the
+        backend's default; ``max_extent_rows=0`` means unbounded."""
+        return cls(PipelineSpec(
+            uri=uri,
+            cache_bytes=cache_bytes,
+            block_rows=block_rows,
+            max_extent_rows=max_extent_rows,
+            io_workers=io_workers,
+            readahead=readahead,
+            admission=admission,
+            cache_policy=cache_policy,
+            open_opts=dict(open_opts),
+        ), iostats=iostats)
 
     @classmethod
-    def from_spec(cls, spec: DataSpec) -> "Pipeline":
+    def from_spec(cls, spec: PipelineSpec) -> "Pipeline":
         return cls(spec)
+
+    @classmethod
+    def from_collection(cls, collection: Any, **spec_kw) -> "Pipeline":
+        """Wrap an in-process collection (an array, a store, an opened
+        :class:`~repro_torch.data.backend.PlannedRows`)."""
+        return cls(PipelineSpec(uri=None, **spec_kw), collection=collection)
 
     # ------------------------------------------------------------- chain
     @property
-    def spec(self) -> DataSpec:
+    def spec(self) -> PipelineSpec:
         return self._spec
 
     def _replace(self, **kw) -> "Pipeline":
-        self._spec = self._spec.replace(**kw)
+        old = self._spec
+        self._spec = old.replace(**kw)
+        # a collection knob changed after this builder opened its
+        # collection: the next build() reopens it with the new knobs (a
+        # pipeline already built keeps its own reference)
+        if self._owns_collection and any(
+            getattr(old, f) != getattr(self._spec, f) for f in self._COLLECTION_FIELDS
+        ):
+            self._collection = None
+            self._owns_collection = False
         return self
 
     def strategy(self, strategy, /, **params) -> "Pipeline":
@@ -96,10 +153,21 @@ class Pipeline:
             return self._replace(strategy=name, strategy_params=params)
         return self._replace(strategy=str(strategy), strategy_params=dict(params))
 
-    def batch(self, batch_size: int, *, fetch_factor: Optional[int] = None) -> "Pipeline":
+    def batch(
+        self,
+        batch_size: int,
+        *,
+        fetch_factor: Optional[int] = None,
+        drop_last: Optional[bool] = None,
+        sort_fetch_indices: Optional[bool] = None,
+    ) -> "Pipeline":
         kw: dict = {"batch_size": int(batch_size)}
         if fetch_factor is not None:
             kw["fetch_factor"] = int(fetch_factor)
+        if drop_last is not None:
+            kw["drop_last"] = bool(drop_last)
+        if sort_fetch_indices is not None:
+            kw["sort_fetch_indices"] = bool(sort_fetch_indices)
         return self._replace(**kw)
 
     def shard(self, rank: int, world_size: int) -> "Pipeline":
@@ -108,27 +176,107 @@ class Pipeline:
     def seed(self, seed: int) -> "Pipeline":
         return self._replace(seed=int(seed))
 
-    def prefetch(self, *, workers: Optional[int] = None) -> "Pipeline":
-        """The consumer-side pool's worker count, recorded as ``repro``
-        records it; building takes ``workers=0`` (synchronous iteration)
-        only."""
-        if workers is None:
-            return self
-        return self._replace(prefetch_workers=int(workers))
+    def prefetch(
+        self,
+        *,
+        workers: Optional[int] = None,
+        max_outstanding: Optional[int] = None,
+        straggler_factor: Optional[float] = None,
+        straggler_min_latency: Optional[float] = None,
+        readahead=None,
+        io_workers: Optional[int] = None,
+        cross_epoch: Optional[bool] = None,
+    ) -> "Pipeline":
+        """The consumer-side pool's knobs, recorded as ``repro`` records
+        them (building takes ``workers=0`` only), and the collection's
+        ``readahead`` / ``io_workers`` / ``cross_epoch`` prefetch.
+        Set-if-passed."""
+        kw: dict = {}
+        if workers is not None:
+            kw["prefetch_workers"] = int(workers)
+        if max_outstanding is not None:
+            kw["max_outstanding"] = int(max_outstanding)
+        if straggler_factor is not None:
+            kw["straggler_factor"] = float(straggler_factor)
+        if straggler_min_latency is not None:
+            kw["straggler_min_latency"] = float(straggler_min_latency)
+        if readahead is not None:
+            kw["readahead"] = normalize_readahead(readahead)
+        if io_workers is not None:
+            kw["io_workers"] = int(io_workers)
+        if cross_epoch is not None:
+            kw["cross_epoch_prefetch"] = bool(cross_epoch)
+        return self._replace(**kw)
+
+    def cache(
+        self,
+        *,
+        bytes: Optional[int] = None,
+        block_rows: Optional[int] = None,
+        admission: Optional[str] = None,
+        policy: Optional[str] = None,
+    ) -> "Pipeline":
+        """The block cache's byte budget, block size, admission policy
+        (``always`` | ``auto`` | ``never``) and organization (``lru`` |
+        ``wtinylfu``); all content-free.  Set-if-passed."""
+        kw: dict = {}
+        if bytes is not None:
+            kw["cache_bytes"] = int(bytes)
+        if block_rows is not None:
+            kw["block_rows"] = int(block_rows)
+        if admission is not None:
+            kw["admission"] = str(admission)
+        if policy is not None:
+            kw["cache_policy"] = str(policy)
+        return self._replace(**kw)
+
+    def shared(self, on: bool = True) -> "Pipeline":
+        raise _later("Pipeline.shared (the shared-collection pool)", _LATER["shared_pool"])
+
+    def resilience(self, **kwargs) -> "Pipeline":
+        raise _later("Pipeline.resilience (retries, hedged reads, shard breakers)",
+                     _LATER["retries"])
+
+    def diversity(self, **kwargs) -> "Pipeline":
+        raise _later("Pipeline.diversity", _LATER["diversity_obs"])
 
     def autotune(self, **kwargs) -> "Pipeline":
-        raise NotImplementedError(f"Pipeline.autotune {_TODO}")
+        raise _later("Pipeline.autotune", _LATER["diversity_obs"])
 
     # -------------------------------------------------------------- build
-    def build(self) -> "DataPipeline":
-        """Open the store, resolve the strategy and wire the
-        :class:`ScIterableDataset`; returns the iterable
-        :class:`DataPipeline`."""
+    def _open(self) -> Any:
+        """The collection this spec describes, opened once and reused.  A
+        pre-opened collection is returned as it is, so a collection knob
+        set on such a spec would act on nothing: that is an error."""
         s = self._spec
-        store = _open_from_spec(s)
-        strat = strategy_from_spec(s.strategy, s.strategy_params, store)
+        if self._collection is None:
+            self._collection = _open_from_spec(s, iostats=self._iostats)
+            self._owns_collection = True
+            return self._collection
+        if not self._owns_collection:
+            defaults = PipelineSpec()
+            overridden = [name for name in self._COLLECTION_FIELDS
+                          if name != "uri" and getattr(s, name) != getattr(defaults, name)]
+            if overridden:
+                raise ValueError(
+                    f"collection-side knob(s) {overridden} have no effect on a pre-opened "
+                    "collection (from_collection): pass them to open_collection yourself, "
+                    "or build from_uri"
+                )
+        return self._collection
+
+    def build(self, **dataset_kw) -> "DataPipeline":
+        """Open the collection, resolve the strategy and wire the
+        :class:`ScIterableDataset`; ``dataset_kw`` passes hooks through
+        (``batch_transform=...``)."""
+        s = self._spec
+        for name, item in _LATER.items():
+            if getattr(s, name) != getattr(PipelineSpec(), name):
+                raise _later(f"non-default {name}={getattr(s, name)!r}", item)
+        col = self._open()
+        strat = strategy_from_spec(s.strategy, s.strategy_params, col)
         ds = ScIterableDataset(
-            store,
+            col,
             strat,
             batch_size=s.batch_size,
             fetch_factor=s.fetch_factor,
@@ -137,48 +285,62 @@ class Pipeline:
             world_size=s.world_size,
             drop_last=s.drop_last,
             sort_fetch_indices=s.sort_fetch_indices,
+            cross_epoch_prefetch=s.cross_epoch_prefetch,
+            **dataset_kw,
         )
-        return DataPipeline(s, store, ds)
+        ds.spec_fingerprint = s.fingerprint() if s.uri is not None else None
+        return DataPipeline(s, col, ds, owns_collection=self._owns_collection)
 
 
-def _open_from_spec(spec: DataSpec) -> TokenStore:
-    """The store a ``tokens://`` spec names, refusing what the port does
-    not build."""
+def _open_from_spec(spec: PipelineSpec, iostats: Any = None) -> Any:
+    """``open_collection`` with exactly the knobs the spec records."""
     if spec.uri is None:
-        raise ValueError("pipeline has no collection: use from_uri(...)")
-    defaults = DataSpec()
-    changed = [f for f in _PLANNER_FIELDS if getattr(spec, f) != getattr(defaults, f)]
-    if changed:
-        raise NotImplementedError(f"non-default {changed} {_TODO}")
-    scheme, _, rest = spec.uri.partition("://")
-    if scheme != "tokens" or not rest:
-        raise NotImplementedError(f"the storage URI {spec.uri!r}: only tokens:// is ported; "
-                                  f"the other schemes {_TODO}")
-    opts = dict(spec.open_opts)
-    if "?" in rest:
-        rest, query = rest.split("?", 1)
-        opts = {**dict(urllib.parse.parse_qsl(query)), **opts}
-    unknown = sorted(set(opts) - set(_TOKEN_OPTS))
-    if unknown:
-        raise NotImplementedError(f"tokens:// options {unknown}: the planner's knobs {_TODO}")
-    if opts.get("seq_len") is None:
-        raise ValueError("tokens:// requires seq_len (e.g. tokens:///corpus?seq_len=128)")
-    return TokenStore(rest, seq_len=int(opts["seq_len"]))
+        raise ValueError("pipeline has no collection: use from_uri(...) or from_collection(...)")
+    knobs = {k: v for k, v in (("cache_bytes", spec.cache_bytes),
+                               ("block_rows", spec.block_rows)) if v is not None}
+    if spec.max_extent_rows is not None:
+        # the spec spells "unbounded" 0; open_collection spells it None
+        knobs["max_extent_rows"] = None if spec.max_extent_rows == 0 else spec.max_extent_rows
+    return open_collection(
+        spec.uri,
+        iostats=iostats,
+        io_workers=spec.io_workers,
+        readahead=spec.readahead,
+        admission=spec.admission,
+        cache_policy=spec.cache_policy,
+        retries=spec.retries,
+        retry_backoff_s=spec.retry_backoff_s,
+        retry_max_backoff_s=spec.retry_max_backoff_s,
+        retry_deadline_s=spec.retry_deadline_s,
+        hedge_factor=spec.hedge_factor,
+        hedge_min_s=spec.hedge_min_s,
+        breaker_threshold=spec.breaker_threshold,
+        breaker_cooldown_s=spec.breaker_cooldown_s,
+        **knobs,
+        **spec.open_opts,
+    )
 
 
 class DataPipeline:
-    """A built pipeline: iterate it and checkpoint it.  Sampling semantics
-    live in :class:`ScIterableDataset`, reads in the store; this object owns
-    the wiring and the fingerprint-checked resume contract."""
+    """A built pipeline: iterate it, checkpoint it, introspect it, close it.
+    Sampling semantics live in :class:`ScIterableDataset`, reads in the
+    collection; this object owns the wiring and the fingerprint-checked
+    resume contract."""
 
-    def __init__(self, spec: DataSpec, collection: TokenStore, dataset: ScIterableDataset):
+    def __init__(self, spec: PipelineSpec, collection: Any, dataset: ScIterableDataset, *,
+                 owns_collection: bool = False):
         self.spec = spec
         self.collection = collection
         self.dataset = dataset
+        self.owns_collection = owns_collection
 
     # ------------------------------------------------------------ iterate
     def __iter__(self) -> Iterator:
         return iter(self.dataset)
+
+    def epochs(self, num_epochs: int) -> Iterator:
+        for _ in range(num_epochs):
+            yield from iter(self)
 
     def __len__(self) -> int:
         """Minibatches THIS RANK yields per epoch (tail-exact)."""
@@ -186,8 +348,10 @@ class DataPipeline:
 
     # -------------------------------------------------------------- state
     def state(self) -> LoaderState:
-        """Loader state stamped with the spec fingerprint."""
-        return dataclasses.replace(self.dataset.state(), fingerprint=self.spec.fingerprint())
+        """Loader state stamped with the spec fingerprint (URI-backed specs
+        only: an in-process collection has no data identity to hash)."""
+        fp = self.spec.fingerprint() if self.spec.uri is not None else None
+        return dataclasses.replace(self.dataset.state(), fingerprint=fp)
 
     def load_state(self, state: LoaderState) -> None:
         """Resume — refusing a checkpoint from a DIFFERENT stream.  A state
@@ -200,9 +364,39 @@ class DataPipeline:
                     f"match this pipeline's spec ({want}): the spec drifted "
                     "since the checkpoint was taken — resuming would "
                     "silently change the minibatch stream. Rebuild from the "
-                    "checkpointed spec (DataSpec.from_json) or start fresh."
+                    "checkpointed spec (PipelineSpec.from_json) or start fresh."
                 )
         self.dataset.load_state(state)
 
     def set_epoch(self, epoch: int) -> None:
         self.dataset.set_epoch(epoch)
+
+    # ---------------------------------------------------------- introspect
+    def plan_epoch(self, epoch: Optional[int] = None) -> dict:
+        return self.dataset.plan_epoch(epoch)
+
+    def stats(self) -> dict:
+        if hasattr(self.collection, "stats"):
+            return self.collection.stats()
+        return {}
+
+    @property
+    def schema(self) -> dict:
+        return getattr(self.collection, "schema", {})
+
+    # ----------------------------------------------------------- lifecycle
+    def close(self) -> None:
+        """Release the collection's pool and OS resources, only when this
+        pipeline opened it; a caller's collection is the caller's to close."""
+        if not self.owns_collection:
+            return
+        if hasattr(self.collection, "release"):
+            self.collection.release()
+        elif hasattr(self.collection, "close"):
+            self.collection.close()
+
+    def __enter__(self) -> "DataPipeline":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()

@@ -1,11 +1,15 @@
-"""DataSpec — the one frozen, serializable description of a data stream.
+"""PipelineSpec — the one frozen, serializable description of a data stream.
 
-The port's copy of ``repro.pipeline.spec``, field for field with the same
+The port of ``repro.pipeline.spec``, field for field with the same
 ``SPEC_VERSION``: ``to_dict`` / ``to_json`` give the same JSON and
-:meth:`DataSpec.fingerprint` the same hex as ``repro``'s for the same
-spec, so a checkpoint from either package names its stream the same way.
+:meth:`PipelineSpec.fingerprint` the same hex as ``repro``'s ``DataSpec``
+for the same spec, so a checkpoint from either package names its stream the
+same way.  The class has another name than its counterpart because
+``tools/analyze`` resolves classes by bare name across ``src/``, and its
+dataspec-classification contract checks the reference's ``DataSpec``;
+``DataSpec`` stays importable here as an alias.
 
-A :class:`DataSpec` captures everything the loader takes — collection
+A :class:`PipelineSpec` captures everything the loader takes — collection
 knobs, sampling strategy, batch geometry, seed, rank and world — in one
 frozen record that:
 
@@ -13,10 +17,12 @@ frozen record that:
 - hashes to a :meth:`fingerprint` stored in
   :class:`~repro_torch.core.dataset.LoaderState`, so a checkpoint REFUSES to
   resume against a drifted spec;
-- builds: :meth:`DataSpec.build` returns the live
+- builds: :meth:`PipelineSpec.build` returns the live
   :class:`~repro_torch.pipeline.builder.DataPipeline`.  The port builds
-  ``tokens://`` specs with the default planner and resilience knobs; the
-  rest raise ``NotImplementedError`` (ROADMAP.md queue A #1).
+  specs over the csr, sharded-csr, chunked and tokens schemes with every
+  planner knob; prefetch workers, resilience, diversity and pooling fields
+  at non-default values raise ``NotImplementedError`` naming their
+  ROADMAP.md item (queue A #4, #6, #5 and #12).
 
 Strategies are serialized by NAME + JSON params via a small registry
 (:data:`STRATEGY_REGISTRY`).  Array-valued params (weights, labels) are
@@ -42,6 +48,7 @@ from ..core.sampling import (
 from ..data.readplan import normalize_readahead
 
 __all__ = [
+    "PipelineSpec",
     "DataSpec",
     "STRATEGY_REGISTRY",
     "strategy_to_spec",
@@ -147,7 +154,7 @@ def _jsonable(x: Any) -> Any:
     return x
 
 
-# Every DataSpec field is classified into exactly one of these two sets —
+# Every PipelineSpec field is classified into exactly one of these two sets —
 # machine-checked by `python tools/analyze` (dataspec-classification).  A
 # FINGERPRINT field changes the delivered byte stream, so it feeds
 # fingerprint() and a resume across a change of it is refused; a
@@ -182,7 +189,7 @@ CONTENT_FREE_FIELDS = frozenset({
 
 
 @dataclasses.dataclass(frozen=True)
-class DataSpec:
+class PipelineSpec:
     """Everything that determines a minibatch stream, in one frozen record.
 
     See ``docs/pipeline.md`` for the field reference.  Instances are
@@ -289,7 +296,7 @@ class DataSpec:
             raise ValueError("entropy_floor must be non-negative (bits)")
 
     # ----------------------------------------------------------- serialize
-    def replace(self, **kw) -> "DataSpec":
+    def replace(self, **kw) -> "PipelineSpec":
         return dataclasses.replace(self, **kw)
 
     def to_dict(self) -> dict:
@@ -304,7 +311,7 @@ class DataSpec:
         return json.dumps(self.to_dict(), indent=indent, sort_keys=True)
 
     @staticmethod
-    def from_dict(d: Mapping[str, Any]) -> "DataSpec":
+    def from_dict(d: Mapping[str, Any]) -> "PipelineSpec":
         d = dict(d)
         version = int(d.pop("version", SPEC_VERSION))
         if version > SPEC_VERSION:
@@ -312,15 +319,15 @@ class DataSpec:
                 f"spec version {version} is newer than this code's "
                 f"{SPEC_VERSION}; refusing to guess at its meaning"
             )
-        known = {f.name for f in dataclasses.fields(DataSpec)}
+        known = {f.name for f in dataclasses.fields(PipelineSpec)}
         unknown = set(d) - known
         if unknown:
-            raise ValueError(f"unknown DataSpec field(s): {sorted(unknown)}")
-        return DataSpec(version=version, **d)
+            raise ValueError(f"unknown PipelineSpec field(s): {sorted(unknown)}")
+        return PipelineSpec(version=version, **d)
 
     @staticmethod
-    def from_json(s: str) -> "DataSpec":
-        return DataSpec.from_dict(json.loads(s))
+    def from_json(s: str) -> "PipelineSpec":
+        return PipelineSpec.from_dict(json.loads(s))
 
     def fingerprint(self) -> str:
         """Stable short hash of everything that determines the stream.
@@ -343,3 +350,7 @@ class DataSpec:
         from .builder import Pipeline
 
         return Pipeline.from_spec(self).build()
+
+
+#: the reference's name, kept for callers of the port
+DataSpec = PipelineSpec

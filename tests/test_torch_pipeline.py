@@ -229,21 +229,31 @@ def test_set_epoch_len_and_rebuild_from_json(corpora):
 
 
 def test_what_the_port_does_not_build_yet_is_refused(corpora):
+    """Every knob whose module is not ported raises, naming its ROADMAP item;
+    the planner's knobs now build."""
     root = corpora[1]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Pipeline.from_uri(f"csr://{root}").build()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Pipeline.from_uri(f"tokens://{root}", seq_len=8).prefetch(workers=2).build()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Pipeline.from_uri(f"tokens://{root}", seq_len=8, cache_bytes=0).build()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Pipeline.from_uri(f"tokens://{root}?seq_len=8&io_workers=2").build()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Pipeline.from_uri(f"tokens://{root}", seq_len=8).autotune()
+
+    def pipe():
+        return Pipeline.from_uri(f"tokens://{root}", seq_len=8)
+
+    with pytest.raises(NotImplementedError, match="A #4"):
+        pipe().prefetch(workers=2).build()
+    for call, item in ((lambda p: p.resilience(retries=2), "A #6"),
+                       (lambda p: p.diversity(obs="source"), "A #5"),
+                       (lambda p: p.autotune(), "A #5"), (lambda p: p.shared(), "A #12")):
+        with pytest.raises(NotImplementedError, match=item):
+            call(pipe())
+    for kw, item in (({"retries": 1}, "A #6"), ({"hedge_factor": 2.0}, "A #6"),
+                     ({"diversity_obs": "source"}, "A #5"), ({"shared_pool": True}, "A #12")):
+        with pytest.raises(NotImplementedError, match=item):
+            DataSpec(uri=f"tokens://{root}", open_opts={"seq_len": 8}, **kw).build()
+    with pytest.raises(NotImplementedError, match="A #6"):
+        Pipeline.from_uri(f"cloud://tokens://{root}").build()
     with pytest.raises(ValueError, match="seq_len"):
         Pipeline.from_uri(f"tokens://{root}").build()
-    pipe = Pipeline.from_uri(f"tokens://{root}?seq_len=8").batch(4).build()
-    assert next(iter(pipe))["tokens"].shape == (4, 8)
+    built = Pipeline.from_uri(f"tokens://{root}?seq_len=8&io_workers=2", cache_bytes=0).batch(4).build()
+    assert next(iter(built))["tokens"].shape == (4, 8)
+    built.close()
 
 
 def test_train_loop_from_the_reference_state_follows_repro(corpora):
@@ -286,3 +296,126 @@ def test_train_loop_from_the_reference_state_follows_repro(corpora):
         err = (p.detach() - final[name].detach()).abs()
         assert float((err <= 2e-6).float().mean()) >= 0.999, name
         assert float(err.max()) <= 1e-4, (name, float(err.max()))
+
+
+# --------------------------------------------------------- planned cells
+@pytest.fixture(scope="module")
+def cells(tmp_path_factory):
+    """A three-shard CSR store written by the reference, and its URI."""
+    from repro.data import write_csr_shard
+
+    rng = np.random.default_rng(4)
+    root = tmp_path_factory.mktemp("cells")
+    paths = []
+    for s, n in enumerate((150, 90, 121)):
+        lens = rng.integers(0, 6, n)
+        indptr = np.zeros(n + 1, np.int64)
+        np.cumsum(lens, out=indptr[1:])
+        idx = np.concatenate([np.sort(rng.choice(30, int(k), replace=False)) for k in lens])
+        paths.append(str(root / f"p{s}"))
+        write_csr_shard(paths[-1], rng.random(int(indptr[-1])).astype(np.float32),
+                        idx.astype(np.int32), indptr, 30,
+                        {"cell_line": rng.integers(0, 5, n).astype(np.int32)})
+    return "sharded-csr://" + ",".join(paths)
+
+
+def _same_cells(a, b):
+    for f in ("data", "indices", "indptr"):
+        assert np.array_equal(getattr(a, f), getattr(b, f)), f
+    assert all(np.array_equal(a.obs[k], b.obs[k]) for k in a.obs)
+
+
+def _chain(cls, uri, **knobs):
+    return (cls.from_uri(uri, **knobs).strategy("block", block_size=4)
+            .batch(8, fetch_factor=4).seed(2)
+            .cache(bytes=1 << 16, block_rows=16, admission="auto", policy="wtinylfu")
+            .prefetch(readahead="auto", io_workers=3, cross_epoch=True))
+
+
+def test_planned_pipeline_equals_the_reference(cells):
+    """Planner knobs through ``from_uri``, ``cache`` and ``prefetch``: the
+    spec JSON, fingerprint, ``plan_epoch``, schema and two epochs of batches
+    equal ``repro``'s; the knobs reach the collection."""
+    from repro.pipeline import Pipeline as RefPipeline
+
+    ref_pipe = _chain(RefPipeline, cells, max_extent_rows=0).build()
+    pipe = _chain(Pipeline, cells, max_extent_rows=0).build()
+    assert pipe.spec.to_json() == ref_pipe.spec.to_json()
+    assert pipe.spec.fingerprint() == ref_pipe.spec.fingerprint()
+    assert pipe.plan_epoch() == ref_pipe.plan_epoch()
+    assert pipe.schema == ref_pipe.schema
+    col = pipe.collection
+    assert (col.cache.max_bytes, col.block_rows, col.max_extent_rows, col.io_workers,
+            col.admission, col.cache_policy, col.readahead_auto) == (
+        1 << 16, 16, None, 3, "auto", "wtinylfu", True)
+    for epoch in range(2):
+        got, want = list(pipe), list(ref_pipe)
+        assert len(got) == len(want) > 0
+        for a, b in zip(want, got):
+            _same_cells(a, b)
+        assert pipe.state().to_dict() == ref_pipe.state().to_dict()
+    assert pipe.plan_epoch(1) == ref_pipe.plan_epoch(1)
+    assert sorted(pipe.stats()) == ["admission", "cache", "io", "readahead"]
+    pipe.close()
+    ref_pipe.close()
+
+
+def test_query_string_knobs_are_parsed_as_the_reference_parses_them(cells):
+    """Knobs in the URI's query reach the collection as in ``repro``: the
+    ones the spec leaves unset (``cache_bytes``, ``block_rows``) take the
+    query's value, the ones it records (``io_workers``, ``readahead``,
+    ``admission``) take the spec's, which a keyword sets."""
+    from repro.pipeline import Pipeline as RefPipeline
+
+    base = cells.split(",")[0].replace("sharded-csr://", "csr://")
+    uri = base + "?cache_bytes=4096&block_rows=8&io_workers=2&readahead=1&admission=never"
+
+    def knobs(c):
+        return (c.cache.max_bytes, c.block_rows, c.io_workers, c.readahead, c.admission)
+
+    q, ref_q = Pipeline.from_uri(uri).batch(8).build(), RefPipeline.from_uri(uri).batch(8).build()
+    assert knobs(q.collection) == knobs(ref_q.collection) == (4096, 8, 1, 0, "always")
+    k = Pipeline.from_uri(base, cache_bytes=4096, block_rows=8, io_workers=2, readahead=1,
+                          admission="never").batch(8).build()
+    assert knobs(k.collection) == (4096, 8, 2, 1, "never")
+    assert q.spec.fingerprint() == ref_q.spec.fingerprint()
+    for a, b, c in zip(ref_q, q, k):
+        _same_cells(a, b)
+        _same_cells(a, c)
+    for p in (q, ref_q, k):
+        p.close()
+
+
+def test_from_collection_wraps_without_owning(cells):
+    from repro.data import open_collection as ref_open
+    from repro.pipeline import Pipeline as RefPipeline
+    from repro_torch.data import open_collection
+
+    col = open_collection(cells, io_workers=2, readahead=1)
+    pipe = Pipeline.from_collection(col, batch_size=16, fetch_factor=2, seed=5).build()
+    ref_pipe = RefPipeline.from_collection(ref_open(cells), batch_size=16, fetch_factor=2,
+                                           seed=5).build()
+    assert pipe.spec.uri is None and pipe.state().fingerprint is None
+    assert pipe.plan_epoch() == {**ref_pipe.plan_epoch(), "io_workers": 2, "readahead": 1}
+    for a, b in zip(ref_pipe, pipe):
+        _same_cells(a, b)
+    pipe.close()  # the caller's collection: untouched
+    assert col._pool() is not None
+    col.close()
+    with pytest.raises(ValueError, match="pre-opened"):
+        Pipeline.from_collection(col, cache_bytes=1).build()
+
+
+def test_close_releases_owned_and_a_knob_change_reopens(cells):
+    builder = Pipeline.from_uri(cells, io_workers=2).batch(8)
+    first = builder.build()
+    assert builder.build().collection is first.collection  # opened once, reused
+    builder.cache(bytes=2048)
+    second = builder.build()
+    assert second.collection is not first.collection
+    assert second.collection.cache.max_bytes == 2048
+    with first:
+        next(iter(first))
+    assert first.collection._pool() is None  # released
+    _same_cells(next(iter(second)), next(iter(Pipeline.from_uri(cells).batch(8).build())))
+    second.close()
