@@ -220,6 +220,36 @@ The planned storage layer on the cell path (slice 10):
    ``cache_misses``, ``prefetched``, ``wall_s`` and ``modeled_s``.  No speed
    is asserted.
 
+h5ad plate files and the fetch pool on the cell path (slice 11):
+
+21. h5ad_cell_path: phase 5's plates exported to ``build/chip_smoke_h5ad``
+   (one ``.h5ad`` each through ``csr_shard_to_h5ad``, the shim's writer,
+   and a ``manifest.json``; the export's seconds and bytes printed), then
+   one epoch of ``train_probe`` from the same heads in each of four ways,
+   in turns, twice: (a) the ``ShardedCSRStore`` directly, whose batches
+   are the reference; (b) ``Pipeline.from_uri("sharded-h5ad://...?driver=
+   shim")`` at ``io_workers`` 1 and ``readahead`` 0, its cache sized as
+   phase 20's; (c) (b) with ``.prefetch(workers=4)``, through
+   ``FetchPool``; (d) (b)'s dataset in a ``DataLoader`` with 4 forked
+   workers, which split the fetches round-robin.  (d) shares the
+   collection with its workers: it is opened in this process with no
+   executor thread, and no lock of it is held at the fork (checked); the
+   shim's reads are positioned, so the workers share its descriptors.
+   Each worker reports its ``IOCounters`` after its share.  Per way and
+   turn the batches must equal (a)'s (the CRC-32 of phase 20; (d) as a
+   multiset), ``ell_to_dense`` launch once a step, the losses be finite
+   and falling; the obs columns' dtypes must agree between the formats.
+   Printed per way: samples/s, loader wait, seconds, the stream's idle
+   share and the counters' ``runs``, ``bytes_read``, ``cache_hits``,
+   ``cache_misses``, ``wall_s`` and ``modeled_s``; for (c) the pool's
+   ``stats``.  Then the paper's random baseline on its format: 64 steps
+   of ``BlockShuffling(1)`` with ``fetch_factor`` 1 (one row a block and a
+   read, no cache) beside (b)'s first 64 steps, both counted under
+   ``IOCounters(simulate=SATA_SSD, simulate_scale=0.0)``, which models the
+   disk without sleeping; the page cache is warm.  Where h5py imports,
+   one more epoch of (b) through ``driver=h5py``, bitwise (a)'s
+   (``h5py_importable`` is printed either way).  No speed is asserted.
+
 Then the kernels line (one entry per kernel), the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.  Any failure
 exits non-zero before it.
@@ -378,6 +408,15 @@ PLANNED_WAYS = {"a_direct": None, "b_planned": (1, 0, False), "c_readahead": (4,
                 "d_planned_nvme": (1, 0, True), "e_readahead_nvme": (4, 1, True)}
 PLANNED_TURNS = 2
 PLANNED_CACHE_HEADROOM = 1.25
+# the h5ad cell path: ways (a)-(d) of phase 21; None is the CSR store read
+# directly, else how sharded-h5ad:// is iterated
+H5AD_WAYS = {"a_direct": None, "b_h5ad": "sync", "c_fetch_pool": "pool",
+             "d_dataloader": "dataloader"}
+H5AD_TURNS = 2
+H5AD_POOL_WORKERS = 4  # FetchPool threads of way (c)
+H5AD_LOADER_WORKERS = 4  # DataLoader processes of way (d)
+H5AD_LOADER_TIMEOUT_S = 300  # a worker that hangs raises instead of holding the call
+RANDOM_STEPS = 64  # the paper's random baseline: b = 1, f = 1
 
 
 def fail(msg: str) -> None:
@@ -1018,6 +1057,11 @@ def main() -> None:
 
     # 20. the planned storage layer on the cell path
     planned_phase(dev, root, store)
+    torch.cuda.empty_cache()
+
+    # 21. the same path from h5ad plate files, with the fetch pool and
+    #     DataLoader workers
+    h5ad_phase(dev, root, store)
     torch.cuda.empty_cache()
 
     # 19. the Fig. 5 experiment
@@ -2342,6 +2386,221 @@ def planned_phase(dev, root: str, store) -> dict:
            "storage_model": dataclasses.asdict(NVME_SSD),
            "ways": {way: {"io_workers_readahead_nvme": PLANNED_WAYS[way], "runs": r}
                     for way, r in runs.items()}}
+    emit(out)
+    return out
+
+
+def export_h5ad(root: str, out: str) -> dict:
+    """Phase 5's plates as one ``.h5ad`` file each (``csr_shard_to_h5ad``,
+    the shim's writer) and a ``manifest.json`` under ``out``; returns the
+    export's seconds and bytes."""
+    from repro_torch.data.synth import export_sharded_h5ad
+
+    t0 = time.perf_counter()
+    with open(os.path.join(root, "manifest.json")) as f:
+        shards = [os.path.join(root, s) for s in json.load(f)["shards"]]
+    files = export_sharded_h5ad(shards, out)
+    return {"seconds": time.perf_counter() - t0, "files": len(files),
+            "bytes": sum(os.path.getsize(p) for p in files)}
+
+
+def _digested(items, crcs: list, reports: list):
+    """``items``' batches, each one's CRC appended to ``crcs``; a DataLoader
+    worker's closing report of its counters goes to ``reports``."""
+    for b in items:
+        if isinstance(b, dict) and "worker_io" in b:
+            reports.append(b["worker_io"])
+            continue
+        crcs.append(_batch_crc(b))
+        yield b
+
+
+def _probe_run(dev, batches, max_steps=None) -> tuple[dict, int]:
+    """``train_probe`` from fresh heads (seed 0) over ``batches``, with
+    ``ell_to_dense``'s count set to 0 just before; returns the run and the
+    count read just after."""
+    import torch
+
+    from repro_torch.kernels import csr_to_dense
+    from repro_torch.train import probe
+
+    heads = probe.init_heads(N_GENES, device=dev, generator=torch.Generator().manual_seed(0))
+    opt = probe.init_adam(heads)
+    torch.cuda.synchronize()
+    csr_to_dense.ell_to_dense.launches = 0
+    run = probe.train_probe(batches, heads, opt, device=dev, max_steps=max_steps)
+    return run, csr_to_dense.ell_to_dense.launches
+
+
+def h5ad_phase(dev, root: str, store) -> dict:
+    """Phase 21: phase 5's plates exported to h5ad, then one epoch of the
+    cell path in each way of H5AD_WAYS, in turns, H5AD_TURNS times, the
+    paper's random baseline and, where h5py imports, one epoch through it;
+    see the module docstring."""
+    import numpy as np
+    import torch
+    from torch.utils.data import DataLoader, IterableDataset
+
+    from repro_torch.core import BlockShuffling, ScIterableDataset
+    from repro_torch.data import SATA_SSD, IOCounters
+    from repro_torch.pipeline import Pipeline
+
+    t_phase = time.perf_counter()
+    out_root = os.path.join(HERE, "build", "chip_smoke_h5ad")
+    export = export_h5ad(root, out_root)
+    emit({"phase": "h5ad_export", **export, "plates": len(store.shards), "cells": len(store),
+          "genes": store.n_var})
+    uri = f"sharded-h5ad://{out_root}?driver=shim"
+    cache_bytes = int(PLANNED_CACHE_HEADROOM * BATCH * FETCH_FACTOR * store.avg_row_bytes)
+
+    def pipeline(counters, *, driver="shim", workers=0, block=BLOCK, fetch_factor=FETCH_FACTOR,
+                 cache=cache_bytes):
+        pipe = Pipeline.from_uri(f"sharded-h5ad://{out_root}?driver={driver}", cache_bytes=cache,
+                                 block_rows=block, io_workers=1, readahead=0, iostats=counters)
+        return (pipe.strategy("block", block_size=block).batch(BATCH, fetch_factor=fetch_factor)
+                .seed(0).prefetch(workers=workers).build())
+
+    class Reporting(IterableDataset):
+        """A DataLoader worker's share of the epoch, then its counters."""
+
+        def __init__(self, ds):
+            self.ds = ds
+
+        def __iter__(self):
+            yield from self.ds
+            yield {"worker_io": self.ds.collection.iostats.snapshot()}
+
+    io_keys = ("runs", "bytes_read", "cache_hits", "cache_misses", "wall_s", "modeled_s")
+    want, runs, obs_dtypes = None, {way: [] for way in H5AD_WAYS}, None
+    for turn in range(H5AD_TURNS):
+        for way, how in H5AD_WAYS.items():
+            pipe, extra, reports = None, {}, []
+            if how is None:
+                store.iostats.reset()
+                loader = ScIterableDataset(store, BlockShuffling(BLOCK), batch_size=BATCH,
+                                           fetch_factor=FETCH_FACTOR, seed=0)
+                counters = store.iostats
+            else:
+                counters = IOCounters()
+                pipe = pipeline(counters, workers=H5AD_POOL_WORKERS if how == "pool" else 0)
+                loader = pipe
+                if how == "dataloader":
+                    # The collection is shared with forked workers: at the
+                    # fork no executor thread may exist and no lock be held.
+                    col = pipe.collection
+                    if col.async_enabled or col._executor is not None or any(
+                            lk.locked() for lk in (col._fl, col._exec_lock, counters._lock)):
+                        fail("h5ad_cell_path: the collection is not fork-safe at the fork")
+                    loader = DataLoader(Reporting(pipe.dataset), batch_size=None,
+                                        num_workers=H5AD_LOADER_WORKERS,
+                                        multiprocessing_context="fork",
+                                        timeout=H5AD_LOADER_TIMEOUT_S)
+            crcs = []
+            run, launches = _probe_run(dev, _digested(loader, crcs, reports))
+            where = f"h5ad_cell_path {way}, turn {turn}"
+            if how == "dataloader":
+                del loader
+                if len(reports) != H5AD_LOADER_WORKERS:
+                    fail(f"{where}: {len(reports)} worker reports, not {H5AD_LOADER_WORKERS}")
+                snap = {k: sum(r[k] for r in reports) for k in io_keys}
+            else:
+                snap = counters.snapshot()
+            if how == "pool":
+                st = pipe.last_pool.stats
+                extra = {"pool": {k: st[k] for k in ("fetches", "speculative_reissues",
+                                                     "heartbeat_reissues", "duplicate_completions")},
+                         "pool_worker_fetches": dict(sorted(st["worker_fetches"].items()))}
+            if pipe is not None:
+                if obs_dtypes is None:
+                    b = pipe.collection.fetch(np.arange(4))
+                    a = store[np.arange(4)]
+                    obs_dtypes = {k: [str(a.obs[k].dtype), str(b.obs[k].dtype)] for k in a.obs}
+                    if sorted(a.obs) != sorted(b.obs) or any(x != y for x, y in obs_dtypes.values()):
+                        fail(f"{where}: obs columns or dtypes differ between CSR and h5ad: "
+                             f"{obs_dtypes}")
+                pipe.close()
+            if want is None:
+                want = crcs
+            same = sorted(crcs) == sorted(want) if how == "dataloader" else crcs == want
+            if not same:
+                fail(f"{where}: the batches differ from way (a)'s "
+                     f"({len(crcs)} batches, {len(want)} wanted)")
+            losses, steps = run["losses"], run["steps"]
+            if steps < MIN_STEPS or launches != steps:
+                fail(f"{where}: {steps} steps, ell_to_dense launched {launches} times")
+            if not all(math.isfinite(x) for x in losses):
+                fail(f"{where}: non-finite loss")
+            first, last = statistics.mean(losses[:20]), statistics.mean(losses[-20:])
+            if not last < first:
+                fail(f"{where}: loss did not fall: first 20 steps {first}, last 20 {last}")
+            runs[way].append({
+                "samples_per_s": steps * BATCH / run["seconds"], "loader_wait_s": run["loader_wait_s"],
+                "seconds": run["seconds"], "steps": steps, "launches": launches,
+                "stream_idle_share": 1 - sum(run["step_stream_ms"]) / 1e3 / run["seconds"],
+                "loss_first20": first, "loss_last20": last, **{k: snap[k] for k in io_keys},
+                **extra})
+
+    # The paper's random baseline on the paper's format: b = 1, f = 1, one
+    # block of one row per read, beside way (b)'s first RANDOM_STEPS steps;
+    # both counted under a modeled SATA disk that does not sleep.
+    baseline = {}
+    for name, kw in (("random", dict(block=1, fetch_factor=1, cache=0)), ("block", {})):
+        counters = IOCounters(simulate=SATA_SSD, simulate_scale=0.0)
+        pipe = pipeline(counters, **kw)
+        run, launches = _probe_run(dev, pipe, max_steps=RANDOM_STEPS)
+        pipe.close()
+        if run["steps"] != RANDOM_STEPS or launches != RANDOM_STEPS:
+            fail(f"h5ad_cell_path {name}: {run['steps']} steps, {launches} launches")
+        if not all(math.isfinite(x) for x in run["losses"]):
+            fail(f"h5ad_cell_path {name}: non-finite loss")
+        snap = counters.snapshot()
+        baseline[name] = {"block_size": kw.get("block", BLOCK),
+                          "fetch_factor": kw.get("fetch_factor", FETCH_FACTOR),
+                          "samples_per_s": RANDOM_STEPS * BATCH / run["seconds"],
+                          "seconds": run["seconds"], "loader_wait_s": run["loader_wait_s"],
+                          "rows_read": snap["rows"], **{k: snap[k] for k in io_keys},
+                          "modeled_samples_per_s": RANDOM_STEPS * BATCH / snap["modeled_s"]}
+    ratio = baseline["block"]["samples_per_s"] / baseline["random"]["samples_per_s"]
+    modeled_ratio = (baseline["block"]["modeled_samples_per_s"]
+                     / baseline["random"]["modeled_samples_per_s"])
+
+    # h5py, where it imports: one more epoch of way (b) through it
+    try:
+        import h5py  # noqa: F401
+
+        h5py_importable = True
+    except ImportError:
+        h5py_importable = False
+    h5py_run = None
+    if h5py_importable:
+        counters = IOCounters()
+        pipe = pipeline(counters, driver="h5py")
+        crcs = []
+        run, launches = _probe_run(dev, _digested(pipe, crcs, []))
+        pipe.close()
+        if crcs != want or launches != run["steps"]:
+            fail(f"h5ad_cell_path h5py: batches equal (a)'s: {crcs == want}, {launches} launches "
+                 f"in {run['steps']} steps")
+        h5py_run = {"samples_per_s": run["steps"] * BATCH / run["seconds"],
+                    "loader_wait_s": run["loader_wait_s"], "seconds": run["seconds"],
+                    "launches": launches, **{k: counters.snapshot()[k] for k in io_keys}}
+
+    out = {"phase": "h5ad_cell_path", "uri": uri, "cells": len(store), "genes": store.n_var,
+           "batch": BATCH, "fetch_factor": FETCH_FACTOR, "block_size": BLOCK, "block_rows": BLOCK,
+           "cache_bytes": cache_bytes, "turns": H5AD_TURNS, "pool_workers": H5AD_POOL_WORKERS,
+           "loader_workers": H5AD_LOADER_WORKERS, "batches_bitwise": True,
+           "dataloader_compared_as": "multiset", "obs_dtypes_csr_h5ad": obs_dtypes,
+           "dataloader_design": "the collection is opened in the parent with io_workers 1 and "
+                                "readahead 0 (no executor thread, no lock held at the fork); "
+                                "forked workers share the shim's descriptor (positioned reads)",
+           "ways": {way: {"how": H5AD_WAYS[way], "runs": r} for way, r in runs.items()},
+           "random_baseline": {**baseline, "block_over_random_samples_per_s": ratio,
+                               "block_over_random_modeled": modeled_ratio,
+                               "storage_model": dataclasses.asdict(SATA_SSD),
+                               "note": "page cache warm; the paper's format and ratio, not "
+                                       "its figure"},
+           "h5py_importable": h5py_importable, "h5py_epoch": h5py_run,
+           "seconds": time.perf_counter() - t_phase}
     emit(out)
     return out
 

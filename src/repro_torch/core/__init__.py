@@ -4,6 +4,7 @@
 as in the reference, and is not re-exported here."""
 from .callbacks import Callbacks, MultiIndexable
 from .dataset import LoaderState, ScIterableDataset
+from .prefetch import FetchPool, prefetch_iterator
 from .sampling import (
     BlockShuffling,
     BlockWeightedSampling,
@@ -13,7 +14,8 @@ from .sampling import (
 )
 
 __all__ = [
-    "Callbacks", "MultiIndexable", "LoaderState", "ScIterableDataset",
+    "Callbacks", "MultiIndexable", "LoaderState", "ScIterableDataset", "FetchPool",
+    "prefetch_iterator",
     "SamplingStrategy", "Streaming", "BlockShuffling", "BlockWeightedSampling",
     "ClassBalancedSampling",
 ]

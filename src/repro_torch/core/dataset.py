@@ -28,11 +28,15 @@ a second ``ScDataset`` would hide the reference's lock edges from it.
 
 ``state()`` describes iteration in this process.  Under ``DataLoader``
 workers each worker iterates its own copy, so load a state and call
-:meth:`set_epoch` before the ``DataLoader`` starts its workers.
+:meth:`set_epoch` before the ``DataLoader`` starts its workers.  Threads of
+a :class:`~repro_torch.core.prefetch.FetchPool` share one dataset: they call
+:meth:`fetch`, which reads the epoch's order under a lock, and the pool
+keeps the state.
 """
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Any, Callable, Iterator, Optional
 
 import numpy as np
@@ -150,8 +154,20 @@ class ScIterableDataset(IterableDataset):
         # explicit (gid, skip) plan for the CURRENT epoch, installed by a
         # v2 load_state; None means the round-robin derivation
         self._fetch_plan: Optional[list] = None
-        # epoch -> materialized order; keeps at most two epochs
-        self._order_cache: dict[int, np.ndarray] = {}
+        # epoch -> materialized order; keeps at most two epochs.  Locked:
+        # FetchPool threads meeting a cold epoch build it once
+        self._order_lock = threading.Lock()
+        self._order_cache: dict[int, np.ndarray] = {}  # guarded-by: _order_lock
+
+    def __getstate__(self) -> dict:
+        # a lock does not pickle: a spawned DataLoader worker makes its own
+        state = self.__dict__.copy()
+        del state["_order_lock"]
+        return state
+
+    def __setstate__(self, state: dict) -> None:
+        self.__dict__.update(state)
+        self._order_lock = threading.Lock()
 
     # ------------------------------------------------------------------ sizes
     def __len__(self) -> int:
@@ -181,15 +197,19 @@ class ScIterableDataset(IterableDataset):
     def _epoch_order(self, epoch: int) -> np.ndarray:
         """Epoch index sequence, cached with the nearest other cached epoch
         (ties to the lower)."""
-        order = self._order_cache.get(epoch)
-        if order is None:
-            order = self.strategy.epoch_indices(self.n, self.seed, epoch)
-            kept = {epoch: order}
-            if self._order_cache:
-                near = min(self._order_cache, key=lambda e: (abs(e - epoch), e))
-                kept[near] = self._order_cache[near]
-            self._order_cache = kept
-        return order
+        order = self._order_cache.get(epoch)  # unlocked-ok: racy fast path on an immutable-once-cached value
+        if order is not None:
+            return order
+        with self._order_lock:
+            order = self._order_cache.get(epoch)
+            if order is None:
+                order = self.strategy.epoch_indices(self.n, self.seed, epoch)
+                kept = {epoch: order}
+                if self._order_cache:
+                    near = min(self._order_cache, key=lambda e: (abs(e - epoch), e))
+                    kept[near] = self._order_cache[near]
+                self._order_cache = kept
+            return order
 
     def _global_fetch_count(self) -> int:
         total = self.strategy.epoch_len(self.n)

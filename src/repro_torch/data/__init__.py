@@ -1,5 +1,7 @@
-"""On-disk data: the port of ``repro.data`` — the CSR, chunked and token
-stores, and the planned storage layer over them (``open_collection``)."""
+"""On-disk data: the port of ``repro.data`` — the CSR, chunked, token and
+h5ad stores, and the planned storage layer over them (``open_collection``).
+Importing the package registers every scheme, ``h5ad`` and
+``sharded-h5ad`` included."""
 from .backend import (
     CollectionProtocol,
     PlannedRows,
@@ -12,8 +14,18 @@ from .backend import (
 )
 from .chunked_store import ChunkedDenseStore, write_chunked_store
 from .csr_store import CSRBatch, CSRStore, ShardedCSRStore, write_csr_shard
+from .h5ad import H5adReader, H5adStore, ShardedH5adReader
 from .iostats import CLOUD_OBJECT, NVME_SSD, SATA_SSD, IOCounters, PendingCounters, StorageModel
-from .synth import TAHOE_PLATE_FRACS, generate_tahoe_like, load_tahoe_like
+from .synth import (
+    TAHOE_PLATE_FRACS,
+    csr_shard_to_h5ad,
+    export_sharded_h5ad,
+    generate_h5ad_like,
+    generate_sharded_h5ad_like,
+    generate_tahoe_like,
+    load_tahoe_like,
+    write_h5ad,
+)
 from .tokens import TokenStore, generate_token_corpus
 
 __all__ = [
@@ -22,5 +34,7 @@ __all__ = [
     "ChunkedDenseStore", "write_chunked_store", "CollectionProtocol", "StorageReader",
     "PlannedRows", "open_adapter", "open_collection", "piece_nbytes", "register_backend",
     "registered_schemes", "TAHOE_PLATE_FRACS", "generate_tahoe_like", "load_tahoe_like",
-    "TokenStore", "generate_token_corpus",
+    "TokenStore", "generate_token_corpus", "H5adStore", "H5adReader", "ShardedH5adReader",
+    "write_h5ad", "csr_shard_to_h5ad", "generate_h5ad_like", "generate_sharded_h5ad_like",
+    "export_sharded_h5ad",
 ]

@@ -11,7 +11,8 @@ The port of ``repro.data.backend``:
   ``CSRCompositeAdapter``, ``ShardedCSRAdapter``, ``ChunkedAdapter`` and
   ``TokenAdapter``.
 - a registry of URI schemes — ``csr``, ``sharded-csr``, ``chunked`` and
-  ``tokens`` — behind :func:`open_collection`.
+  ``tokens`` here, ``h5ad`` and ``sharded-h5ad`` in
+  :mod:`repro_torch.data.h5ad` — behind :func:`open_collection`.
 - :class:`PlannedRows` — the counterpart of ``PlannedCollection``: fetches
   go through the shared read planner and the byte-budgeted block cache of
   :mod:`repro_torch.data.readplan`, with miss extents read on a thread pool
@@ -24,15 +25,18 @@ Batches, read plans and counters of the synchronous path equal the
 reference's bit for bit; the asynchronous paths deliver the synchronous
 path's batches.  Not ported yet, each raising ``NotImplementedError``:
 the resilience knobs (``retries``, ``hedge_factor``, ``breaker_threshold``)
-and the ``cloud://`` / ``fault://`` schemes (ROADMAP.md queue A #6), the
-h5ad schemes (A #3) and :meth:`PlannedRows.tagged` (A #12).
+and the ``cloud://`` / ``fault://`` schemes, ``cloud://h5ad://`` included
+(ROADMAP.md queue A #6), and :meth:`PlannedRows.tagged` (A #12).
 
 Locks: one rendezvous lock (``_fl``) guards the in-flight table, the
 prefetch marks, the block cache, the stream detector, the sketch and the
 readahead controller, none of which locks itself; ``_exec_lock`` guards the
 executor.  :class:`IOCounters`' lock is taken only with neither held.
-A planned collection holds locks and a thread pool, so it does not pickle:
-iterate it in-process (multi-process loading is A #4).
+A planned collection holds locks and, once asynchronous, a thread pool, so
+it does not pickle.  Threads share it (``FetchPool``); ``DataLoader``
+workers forked from a process that holds it share it only while no
+executor thread exists and no lock is held: ``io_workers=1`` and
+``readahead=0``, no fetch in flight at the fork.
 """
 from __future__ import annotations
 
@@ -88,8 +92,6 @@ _ELASTIC = "is not ported yet (ROADMAP.md queue A #12: the elastic fabric)"
 _LATER = {
     "cloud": f"the cloud:// scheme {_RESILIENCE}",
     "fault": f"the fault:// scheme {_RESILIENCE}",
-    "h5ad": "the h5ad:// scheme is not ported yet (ROADMAP.md queue A #3: h5ad)",
-    "sharded-h5ad": "the sharded-h5ad:// scheme is not ported yet (ROADMAP.md queue A #3: h5ad)",
 }
 
 
@@ -932,8 +934,9 @@ def _open_tokens(path: str, *, seq_len=None) -> TokenReader:
 
 
 def _sniff_scheme(path: str) -> str:
-    """The backend of a bare path, from its on-disk layout (``.h5ad`` files
-    and HDF5 signatures are recognized, and then refused by the caller)."""
+    """The backend of a bare path, from its on-disk layout: ``.h5ad`` files
+    and HDF5 signatures are ``h5ad``, a manifest of ``.h5ad`` shards is
+    ``sharded-h5ad``."""
     if os.path.isfile(path):
         if path.endswith(".h5ad"):
             return "h5ad"

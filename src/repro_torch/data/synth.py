@@ -1,8 +1,9 @@
 """Synthetic Tahoe-100M-like dataset generator.
 
-The port's copy of ``repro.data.synth`` (the CSR shard writer; the h5ad
-writers are not ported yet).  The same seed and parameters give the same
-shards, byte for byte in every array, as the JAX package's generator.
+The port's copy of ``repro.data.synth``: the CSR shard generator and the
+h5ad writers.  The same seed and parameters give the same shards, byte for
+byte in every array, as the JAX package's generator, and the same ``.h5ad``
+files, byte for byte, as its writers.
 
 It reproduces the structure of Tahoe-100M that drives the paper's
 experiments: cells stored plate by plate in 14 CSR shards of non-uniform
@@ -23,9 +24,13 @@ from typing import Optional, Sequence
 
 import numpy as np
 
-from .csr_store import ShardedCSRStore, write_csr_shard
+from .csr_store import CSRStore, ShardedCSRStore, write_csr_shard
 
-__all__ = ["generate_tahoe_like", "load_tahoe_like", "TAHOE_PLATE_FRACS"]
+__all__ = [
+    "generate_tahoe_like", "load_tahoe_like", "write_h5ad", "csr_shard_to_h5ad",
+    "generate_h5ad_like", "generate_sharded_h5ad_like", "export_sharded_h5ad",
+    "TAHOE_PLATE_FRACS",
+]
 
 # Plate size fractions of paper §3.4 (min 4.7%, max 10.4%, H=3.78 bits).
 TAHOE_PLATE_FRACS = np.array(
@@ -163,3 +168,125 @@ def load_tahoe_like(root: str, iostats=None) -> ShardedCSRStore:
         manifest = json.load(f)
     return ShardedCSRStore([os.path.join(root, s) for s in manifest["shards"]],
                            iostats=iostats)
+
+
+# ------------------------------------------------------------------- h5ad
+def write_h5ad(
+    path: str,
+    data: np.ndarray,
+    indices: np.ndarray,
+    indptr: np.ndarray,
+    n_var: int,
+    obs: Optional[dict] = None,
+    extra_x_attrs: Optional[dict] = None,
+) -> None:
+    """Write an AnnData ``.h5ad`` file from raw CSR arrays through the
+    pure-Python writer of :mod:`repro_torch.data.h5shim` (no h5py).
+
+    The layout is h5ad's CSR encoding: ``X/data|indices|indptr`` with
+    ``encoding-type='csr_matrix'`` and ``shape`` attributes, one dataset per
+    ``obs`` column plus an integer ``_index``, and a ``var`` group whose
+    ``_index`` carries ``n_var``.  h5py and anndata open it natively.
+    """
+    from .h5shim import GroupSpec, write_shim_file
+
+    indptr = np.asarray(indptr, dtype=np.int64)
+    n_obs = len(indptr) - 1
+    obs = {k: np.asarray(v) for k, v in (obs or {}).items()}
+    for k, v in obs.items():
+        if len(v) != n_obs:
+            raise ValueError(f"obs column {k!r} has {len(v)} rows, X has {n_obs}")
+    df_attrs = {"encoding-type": "dataframe", "encoding-version": "0.2.0", "_index": "_index"}
+    root = GroupSpec(
+        children={
+            "X": GroupSpec(
+                children={
+                    "data": np.asarray(data, dtype=np.float32),
+                    "indices": np.asarray(indices, dtype=np.int32),
+                    "indptr": indptr,
+                },
+                attrs={
+                    "encoding-type": "csr_matrix",
+                    "encoding-version": "0.1.0",
+                    "shape": np.array([n_obs, int(n_var)], dtype=np.int64),
+                    **(extra_x_attrs or {}),
+                },
+            ),
+            "obs": GroupSpec(children={"_index": np.arange(n_obs, dtype=np.int64), **obs},
+                             attrs=df_attrs),
+            "var": GroupSpec(children={"_index": np.arange(int(n_var), dtype=np.int64)},
+                             attrs=df_attrs),
+        },
+        attrs={"encoding-type": "anndata", "encoding-version": "0.1.0"},
+    )
+    write_shim_file(path, root)
+
+
+def csr_shard_to_h5ad(shard_path: str, h5ad_path: str) -> str:
+    """Export one CSR shard (``write_csr_shard``'s layout) to ``.h5ad``: the
+    same rows, values and obs columns, so both formats read back bitwise
+    equal batches."""
+    store = CSRStore(shard_path)
+    write_h5ad(h5ad_path, np.asarray(store._data), np.asarray(store._indices), store._indptr,
+               store.n_var, obs=store.obs)
+    return h5ad_path
+
+
+def generate_sharded_h5ad_like(
+    root: str,
+    *,
+    n_cells: int = 20_000,
+    n_genes: int = 512,
+    n_plates: int = 4,
+    seed: int = 0,
+    **gen_kwargs,
+) -> str:
+    """A ``sharded-h5ad://`` dataset: Tahoe-like plate shards (generated
+    under ``root + ".csr"``) exported as one ``.h5ad`` file each, and a
+    ``manifest.json`` listing them.  Returns ``root``.  Reuses the CSR
+    shards, and rewrites an ``.h5ad`` file only when its shard is newer."""
+    shards = generate_tahoe_like(
+        root=root + ".csr", n_cells=n_cells, n_genes=n_genes, n_plates=n_plates,
+        plate_fracs=TAHOE_PLATE_FRACS[:n_plates], seed=seed, **gen_kwargs,
+    )
+    export_sharded_h5ad(shards, root)
+    return root
+
+
+def export_sharded_h5ad(shard_paths: Sequence[str], root: str) -> list[str]:
+    """Export CSR shards as one ``<shard>.h5ad`` file each under ``root``
+    and write the ``manifest.json`` that lists them (``sharded-h5ad://``'s
+    layout).  A file newer than its shard is kept.  Returns the files."""
+    os.makedirs(root, exist_ok=True)
+    names = []
+    for shard in shard_paths:
+        name = os.path.basename(shard) + ".h5ad"
+        names.append(name)
+        out = os.path.join(root, name)
+        src_marker = os.path.join(shard, "meta.json")
+        if not os.path.exists(out) or os.path.getmtime(out) < os.path.getmtime(src_marker):
+            csr_shard_to_h5ad(shard, out)
+    with open(os.path.join(root, "manifest.json"), "w") as f:
+        json.dump({"shards": names}, f, indent=1)
+    return [os.path.join(root, n) for n in names]
+
+
+def generate_h5ad_like(
+    path: str,
+    *,
+    n_cells: int = 20_000,
+    n_genes: int = 512,
+    seed: int = 0,
+    **gen_kwargs,
+) -> str:
+    """One Tahoe-like ``.h5ad`` file: a single-plate dataset (generated under
+    ``path + ".shards"``) exported to ``path``.  Reuses the shard, and
+    rewrites the file only when the shard is newer."""
+    root = path + ".shards"
+    shards = generate_tahoe_like(root, n_cells=n_cells, n_genes=n_genes, n_plates=1,
+                                 plate_fracs=[1.0], seed=seed, **gen_kwargs)
+    if not os.path.exists(path) or os.path.getmtime(path) < os.path.getmtime(
+        os.path.join(root, "manifest.json")
+    ):
+        csr_shard_to_h5ad(shards[0], path)
+    return path

@@ -22,10 +22,14 @@ after ``build()`` reopens the collection at the next build.  The built
 :meth:`DataPipeline.load_state` refuses a state whose fingerprint does not
 match) and closes only the collections it opened.
 
+``prefetch(workers=N)`` with N > 0 iterates through a
+:class:`~repro_torch.core.prefetch.FetchPool` of N threads with the spec's
+``max_outstanding`` and straggler knobs (:attr:`DataPipeline.last_pool`);
+its batches and their order are the synchronous iteration's.
+
 Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP.md item: ``prefetch(workers > 0)`` (queue A #4: ``PrefetchPool``),
-``resilience`` (A #6), ``diversity`` and ``autotune`` (A #5) and
-``shared`` (A #12).
+ROADMAP.md item: ``resilience`` and ``cloud://`` URIs (queue A #6),
+``diversity`` and ``autotune`` (A #5) and ``shared`` (A #12).
 """
 from __future__ import annotations
 
@@ -33,6 +37,7 @@ import dataclasses
 from typing import Any, Iterator, Optional
 
 from ..core.dataset import LoaderState, ScIterableDataset
+from ..core.prefetch import FetchPool
 from ..core.sampling import SamplingStrategy
 from ..data.backend import open_collection
 from ..data.readplan import normalize_readahead
@@ -42,7 +47,6 @@ __all__ = ["Pipeline", "DataPipeline"]
 
 #: spec fields the port builds only at their defaults, by ROADMAP.md item
 _LATER = {
-    "prefetch_workers": "A #4: PrefetchPool",
     "retries": "A #6: resilient storage",
     "hedge_factor": "A #6: resilient storage",
     "breaker_threshold": "A #6: resilient storage",
@@ -187,9 +191,10 @@ class Pipeline:
         io_workers: Optional[int] = None,
         cross_epoch: Optional[bool] = None,
     ) -> "Pipeline":
-        """The consumer-side pool's knobs, recorded as ``repro`` records
-        them (building takes ``workers=0`` only), and the collection's
-        ``readahead`` / ``io_workers`` / ``cross_epoch`` prefetch.
+        """The consumer-side pool (``workers`` threads of a
+        :class:`FetchPool`, 0 for synchronous iteration, and its straggler
+        re-issue knobs) and the collection's ``readahead`` / ``io_workers``
+        / ``cross_epoch`` prefetch, recorded as ``repro`` records them.
         Set-if-passed."""
         kw: dict = {}
         if workers is not None:
@@ -333,9 +338,21 @@ class DataPipeline:
         self.collection = collection
         self.dataset = dataset
         self.owns_collection = owns_collection
+        # the FetchPool behind the most recent __iter__ (None when iterating
+        # synchronously): its stats show the workers' balance
+        self.last_pool: Optional[FetchPool] = None
 
     # ------------------------------------------------------------ iterate
     def __iter__(self) -> Iterator:
+        if self.spec.prefetch_workers > 0:
+            self.last_pool = FetchPool(
+                self.dataset,
+                num_workers=self.spec.prefetch_workers,
+                max_outstanding=self.spec.max_outstanding,
+                straggler_factor=self.spec.straggler_factor,
+                straggler_min_latency=self.spec.straggler_min_latency,
+            )
+            return iter(self.last_pool)
         return iter(self.dataset)
 
     def epochs(self, num_epochs: int) -> Iterator:

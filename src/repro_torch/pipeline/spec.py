@@ -19,10 +19,11 @@ frozen record that:
   resume against a drifted spec;
 - builds: :meth:`PipelineSpec.build` returns the live
   :class:`~repro_torch.pipeline.builder.DataPipeline`.  The port builds
-  specs over the csr, sharded-csr, chunked and tokens schemes with every
-  planner knob; prefetch workers, resilience, diversity and pooling fields
-  at non-default values raise ``NotImplementedError`` naming their
-  ROADMAP.md item (queue A #4, #6, #5 and #12).
+  specs over the csr, sharded-csr, chunked, tokens, h5ad and sharded-h5ad
+  schemes with every planner knob and prefetch workers; resilience,
+  diversity and pooling fields at non-default values raise
+  ``NotImplementedError`` naming their ROADMAP.md item (queue A #6, #5 and
+  #12).
 
 Strategies are serialized by NAME + JSON params via a small registry
 (:data:`STRATEGY_REGISTRY`).  Array-valued params (weights, labels) are

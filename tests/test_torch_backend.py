@@ -160,7 +160,8 @@ def test_reader_contract_equals_the_reference(uris, scheme):
 
 
 def test_registry_uris_and_knobs(uris):
-    assert backend.registered_schemes() == ["chunked", "csr", "sharded-csr", "tokens"]
+    assert backend.registered_schemes() == ["chunked", "csr", "h5ad", "sharded-csr",
+                                            "sharded-h5ad", "tokens"]
     assert set(backend.registered_schemes()) <= set(ref_backend.registered_schemes())
     root = uris["root"]
     # bare paths are sniffed as the reference sniffs them
@@ -191,13 +192,16 @@ def test_refusals(uris, tmp_path):
     with pytest.raises(TypeError):
         port_open(uris["chunked"] + "?bogus=1")
     for uri, item in (("cloud://chunked:///x", "A #6"), ("fault://chunked:///x", "A #6"),
-                      ("h5ad:///x.h5ad", "A #3"), ("sharded-h5ad:///x", "A #3")):
+                      ("cloud://h5ad:///x.h5ad", "A #6"),
+                      ("cloud://sharded-h5ad:///x", "A #6")):
         with pytest.raises(NotImplementedError, match=item):
             port_open(uri)
+    # the h5ad schemes open now (tests/test_torch_h5ad.py); behind cloud://
+    # they stay refused, whatever the inner file
     h5 = tmp_path / "a.h5ad"
     h5.write_bytes(b"\x89HDF\r\n\x1a\n")
-    with pytest.raises(NotImplementedError, match="A #3"):
-        port_open(str(h5))
+    with pytest.raises(NotImplementedError, match="A #6"):
+        port_open(f"cloud://{h5}")
     for knob in ({"retries": 2}, {"hedge_factor": 1.5}, {"breaker_threshold": 3}):
         with pytest.raises(NotImplementedError, match="A #6"):
             port_open(uris["chunked"], **knob)

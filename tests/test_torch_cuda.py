@@ -126,6 +126,33 @@ def test_ell_to_dense_kernel_past_2_to_the_31_elements():
     torch.cuda.empty_cache()
 
 
+@pytest.mark.cuda
+def test_sharded_h5ad_batch_densifies_as_the_csr_batch(tmp_path):
+    """A ``sharded-h5ad://`` batch (the plates exported by the shim's
+    writer, read through the shim) densified on the card with the fused
+    ``log1p`` is bitwise the CSR store's batch densified the same way."""
+    from repro_torch.core import BlockShuffling, ScIterableDataset
+    from repro_torch.data import open_collection
+    from repro_torch.data.synth import generate_sharded_h5ad_like
+
+    dev = _card()
+    G = 2_048
+    root = generate_sharded_h5ad_like(str(tmp_path / "plates"), n_cells=3_000, n_genes=G,
+                                      n_plates=3, seed=2, total_counts=512, chunk=256)
+    got = []
+    for uri in (f"sharded-h5ad://{root}?driver=shim", f"sharded-csr://{root}.csr"):
+        col = open_collection(uri, block_rows=16)
+        ds = ScIterableDataset(col, BlockShuffling(16), batch_size=64, fetch_factor=4, seed=0)
+        t = ds.fetch(0, 1)[2].to_tensors()
+        before = csr_to_dense.ell_to_dense.launches
+        got.append(ops.ell_to_dense(t["vals"].to(dev), t["cols"].to(dev), n_cols=G, log1p=True))
+        torch.cuda.synchronize()
+        assert csr_to_dense.ell_to_dense.launches == before + 1
+        col.release()
+    assert got[0].shape == (64, G) and bool(got[0].any())
+    assert torch.equal(got[0], got[1])
+
+
 # ------------------------------------------------------------ flash attention
 # the JAX package's sweep (tests/test_kernels.py), D = 20 (the smoke
 # config) and the serving path's heads (GQA 15:5, D = 64)

@@ -230,14 +230,20 @@ def test_set_epoch_len_and_rebuild_from_json(corpora):
 
 def test_what_the_port_does_not_build_yet_is_refused(corpora):
     """Every knob whose module is not ported raises, naming its ROADMAP item;
-    the planner's knobs now build."""
+    the planner's knobs and prefetch workers now build, the latter giving
+    the synchronous batches."""
     root = corpora[1]
 
     def pipe():
         return Pipeline.from_uri(f"tokens://{root}", seq_len=8)
 
-    with pytest.raises(NotImplementedError, match="A #4"):
-        pipe().prefetch(workers=2).build()
+    pooled, sync = pipe().prefetch(workers=2).build(), pipe().build()
+    got, want = list(pooled), list(sync)
+    assert len(got) == len(want) > 0 and pooled.last_pool.stats["fetches"] > 0
+    for a, b in zip(got, want):
+        _same_batch(a, b)
+    pooled.close()
+    sync.close()
     for call, item in ((lambda p: p.resilience(retries=2), "A #6"),
                        (lambda p: p.diversity(obs="source"), "A #5"),
                        (lambda p: p.autotune(), "A #5"), (lambda p: p.shared(), "A #12")):
