@@ -250,6 +250,52 @@ h5ad plate files and the fetch pool on the cell path (slice 11):
    one more epoch of (b) through ``driver=h5py``, bitwise (a)'s
    (``h5py_importable`` is printed either way).  No speed is asserted.
 
+The diversity monitor, autotune and resilient storage on the cell path
+(slice 12), on phase 5's store:
+
+22. diversity_autotune: ``Pipeline.from_uri("sharded-csr://...")``, its
+   cache sized as phase 20's (b), ``BlockShuffling(16)``, batch 64,
+   ``drop_last=False`` (a recommended fetch may exceed the store: the
+   epoch is then one fetch), ``.diversity(obs="plate",
+   entropy_floor=3.5)`` and ``.autotune(budget=2e9)``, which probes a
+   freshly opened collection and records its pick in the spec: the
+   recommendation, the fitted model's ``c0``, ``c_seek``, ``c_byte``,
+   ``hit_rate`` and ``runs_per_sample`` and the probe's seconds are
+   printed.  Then one epoch of ``train_probe`` through the tuned pipeline
+   with the monitor and one without it (its spec less the diversity
+   fields), in turns: both epochs' batches bitwise equal (phase 20's
+   CRC-32), ``div_batches`` equal to the steps, the live mean entropy
+   within rtol 1e-9 of the offline mean of the delivered plates, the
+   measured entropy inside the §3.4 bounds for the tuned block size
+   widened by three standard deviations (at least 0.05 bits, the Fig. 4
+   benchmark's ``in_bounds``), ``ell_to_dense`` launched once a step,
+   losses finite and falling.  Printed per epoch: samples/s and loader
+   wait (the monitor's cost is the difference); then ``check_drift()`` and
+   a ``retune()`` of the live collection.  Then the Fig. 4 twin
+   (``repro_torch.train.fig4.run``) on this store at b in {1, 16, 256} x
+   f in {1, 16, 256} and random sampling: H, bounds and ``in_bounds`` per
+   cell, each cell's live counters held to its offline mean.
+23. resilient_cell_path: phase 21's h5ad plates behind
+   ``fault://cloud://sharded-h5ad://...?driver=shim`` (``same-region``
+   requests at ``latency_scale=0.1``; ``error_rate=0.05``,
+   ``spike_rate=0.02``, ``seed=3``) with ``.resilience(retries=4,
+   backoff_s=0.001, max_backoff_s=0.01, hedge_factor=3.0,
+   hedge_min_s=0.005, breaker_threshold=3)``, the cache sized as phase
+   20's; one epoch of ``train_probe`` each at (a) ``io_workers=1,
+   readahead=0``, twice; (b) ``io_workers=4, readahead=1``; (c) (a) with
+   shard 1's ops 5-10 failing (``blackout=1:5:11``) and
+   ``breaker_cooldown_s=0.001``, with ``retries=8``: one synchronous read
+   meets all six failing ops in a row, so 4 retries cannot outlive the
+   window (RESILIENT_BLACKOUT_RETRIES).  Every epoch's batches bitwise
+   those of phase 5's store (CRC-32), (a)'s ``retries`` equal in its two
+   runs and above 0, (c) opening and closing the shard circuit, no read
+   out of retries, ``ell_to_dense`` once a step, losses finite and
+   falling.  Printed per epoch: samples/s, loader wait, the stream's idle
+   share and the counters ``runs``, ``bytes_read``, ``requests``,
+   ``request_wait_s``, ``retries``, ``retry_wait_s``, ``hedges_issued``,
+   ``hedges_won``, ``breaker_opens`` and ``breaker_closes``.  No speed is
+   asserted.
+
 Then the kernels line (one entry per kernel), the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.  Any failure
 exits non-zero before it.
@@ -417,6 +463,21 @@ H5AD_POOL_WORKERS = 4  # FetchPool threads of way (c)
 H5AD_LOADER_WORKERS = 4  # DataLoader processes of way (d)
 H5AD_LOADER_TIMEOUT_S = 300  # a worker that hangs raises instead of holding the call
 RANDOM_STEPS = 64  # the paper's random baseline: b = 1, f = 1
+# the diversity monitor and autotune on the cell path (phase 22)
+DIVERSITY_FLOOR = 3.5  # bits: 14 plates have H(p) about 3.77, the IID deficit at m 64 is 0.15
+AUTOTUNE_BUDGET = 2e9
+FIG4_SUBGRID = ((1, 16, 256), (1, 16, 256))  # (b, f) of the Fig. 4 twin on phase 5's store
+# resilient storage on the cell path (phase 23)
+RESILIENT_FAULTS = "profile=same-region&latency_scale=0.1&error_rate=0.05&spike_rate=0.02&seed=3"
+RESILIENT_KNOBS = dict(retries=4, backoff_s=0.001, max_backoff_s=0.01, hedge_factor=3.0,
+                       hedge_min_s=0.005, breaker_threshold=3)
+RESILIENT_BLACKOUT = "1:5:11"  # shard 1's ops 5-10 fail: the reference test's window
+RESILIENT_BLACKOUT_RETRIES = 8  # a read meets all six failing ops: 4 retries run out first
+# ways of phase 23: (io_workers, readahead, blackout)
+RESILIENT_WAYS = {"a_sync": (1, 0, False), "a_sync_again": (1, 0, False),
+                  "b_readahead": (4, 1, False), "c_blackout": (1, 0, True)}
+RESILIENT_IO = ("runs", "bytes_read", "requests", "request_wait_s", "retries", "retry_wait_s",
+                "hedges_issued", "hedges_won", "breaker_opens", "breaker_closes")
 
 
 def fail(msg: str) -> None:
@@ -1062,6 +1123,15 @@ def main() -> None:
     # 21. the same path from h5ad plate files, with the fetch pool and
     #     DataLoader workers
     h5ad_phase(dev, root, store)
+    torch.cuda.empty_cache()
+
+    # 22. the diversity monitor and (b, f) autotune on the cell path
+    diversity_phase(dev, root, store)
+    torch.cuda.empty_cache()
+
+    # 23. resilient storage on the cell path: faults, cloud requests,
+    #     retries, hedged reads and the shard circuit
+    resilient_phase(dev, store)
     torch.cuda.empty_cache()
 
     # 19. the Fig. 5 experiment
@@ -2601,6 +2671,190 @@ def h5ad_phase(dev, root: str, store) -> dict:
                                        "its figure"},
            "h5py_importable": h5py_importable, "h5py_epoch": h5py_run,
            "seconds": time.perf_counter() - t_phase}
+    emit(out)
+    return out
+
+
+def _epoch_checks(where: str, run: dict, launches: int) -> tuple:
+    """An epoch of ``train_probe``: enough steps, one feature launch each,
+    finite losses that fall; returns the first and last 20 steps' means."""
+    losses, steps = run["losses"], run["steps"]
+    if steps < MIN_STEPS or launches != steps:
+        fail(f"{where}: {steps} steps, ell_to_dense launched {launches} times")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"{where}: non-finite loss")
+    first, last = statistics.mean(losses[:20]), statistics.mean(losses[-20:])
+    if not last < first:
+        fail(f"{where}: loss did not fall: first 20 steps {first}, last 20 {last}")
+    return first, last
+
+
+def _epoch_row(run: dict, launches: int, first: float, last: float) -> dict:
+    return {"samples_per_s": run["steps"] * BATCH / run["seconds"],
+            "loader_wait_s": run["loader_wait_s"], "seconds": run["seconds"],
+            "steps": run["steps"], "launches": launches,
+            "stream_idle_share": 1 - sum(run["step_stream_ms"]) / 1e3 / run["seconds"],
+            "loss_first20": first, "loss_last20": last}
+
+
+def diversity_phase(dev, root: str, store) -> dict:
+    """Phase 22: autotune with an entropy floor, the tuned cell path with
+    and without the diversity monitor, drift and a retune, and the Fig. 4
+    twin on phase 5's store; see the module docstring."""
+    import numpy as np
+
+    from repro_torch.core.theory import distribution_entropy, entropy_bounds, mean_batch_entropy
+    from repro_torch.pipeline import Pipeline
+    from repro_torch.train import fig4
+
+    t_phase = time.perf_counter()
+    cache_bytes = int(PLANNED_CACHE_HEADROOM * BATCH * FETCH_FACTOR * store.avg_row_bytes)
+    builder = (Pipeline.from_uri(f"sharded-csr://{root}", cache_bytes=cache_bytes,
+                                 block_rows=BLOCK)
+               .strategy("block", block_size=BLOCK)
+               .batch(BATCH, fetch_factor=FETCH_FACTOR, drop_last=False).seed(0)
+               .diversity(obs="plate", entropy_floor=DIVERSITY_FLOOR))
+    fingerprint = builder.spec.fingerprint()
+    t0 = time.perf_counter()
+    builder.autotune(budget=AUTOTUNE_BUDGET)
+    probe_s = time.perf_counter() - t0
+    rec, spec = builder.last_recommendation, builder.spec
+    block = int(spec.strategy_params["block_size"])
+    if (spec.fetch_factor, block) != (rec.fetch_factor, rec.block_size):
+        fail(f"diversity_autotune: the spec records ({block}, {spec.fetch_factor}), the pick is "
+             f"({rec.block_size}, {rec.fetch_factor})")
+    if rec.predicted_entropy < DIVERSITY_FLOOR:
+        fail(f"diversity_autotune: predicted E[H] {rec.predicted_entropy} under the floor")
+    plain_spec = spec.replace(diversity_obs=None, entropy_floor=0.0)
+    if plain_spec.fingerprint() != spec.fingerprint():
+        fail("diversity_autotune: the diversity fields moved the fingerprint")
+    sizes = np.array([len(s) for s in store.shards], dtype=np.float64)
+    p = sizes / sizes.sum()
+    lo, hi = entropy_bounds(p, BATCH, block)
+    want, epochs, drift, retuned = None, {}, None, None
+    for name, with_monitor in (("monitor", True), ("no_monitor", False)):
+        pipe = builder.build() if with_monitor else Pipeline.from_spec(plain_spec).build()
+        crcs, plates = [], []
+
+        def digested(batches):
+            for b in batches:
+                crcs.append(_batch_crc(b))
+                plates.append(np.asarray(b.obs["plate"]))
+                yield b
+
+        run, launches = _probe_run(dev, digested(pipe))
+        where = f"diversity_autotune {name}"
+        first, last = _epoch_checks(where, run, launches)
+        snap = pipe.collection.iostats.snapshot()
+        row = {**_epoch_row(run, launches, first, last), "io_workers": pipe.collection.io_workers,
+               "readahead": pipe.collection.readahead, "div_batches": snap["div_batches"]}
+        if want is None:
+            want = crcs
+        elif crcs != want:
+            fail(f"{where}: the batches differ from the monitored epoch's")
+        if with_monitor:
+            mean, std = mean_batch_entropy(plates)
+            if snap["div_batches"] != run["steps"]:
+                fail(f"{where}: div_batches {snap['div_batches']} for {run['steps']} steps")
+            live = snap["div_entropy_sum"] / snap["div_batches"]
+            if not math.isclose(live, mean, rel_tol=1e-9):
+                fail(f"{where}: live mean entropy {live} != offline {mean}")
+            slack = 3 * max(std, 0.05)
+            in_bounds = lo - slack <= mean <= hi + slack
+            if not in_bounds:
+                fail(f"{where}: entropy {mean} +- {std} outside the bounds [{lo}, {hi}]")
+            row.update({"entropy_live_mean": live, "entropy_offline_mean": mean,
+                        "entropy_std": std, "entropy_min": snap["div_entropy_min"],
+                        "in_bounds": in_bounds, "stats_diversity": pipe.stats()["diversity"]})
+            drift = pipe.check_drift()
+            t0 = time.perf_counter()
+            r2 = pipe.retune(budget=AUTOTUNE_BUDGET)
+            retuned = {"seconds": time.perf_counter() - t0, "block_size": r2.block_size,
+                       "fetch_factor": r2.fetch_factor, "predicted_entropy": r2.predicted_entropy,
+                       "io_workers": r2.io_workers, "readahead": r2.readahead,
+                       "hit_rate": r2.model.hit_rate, "runs_per_sample": r2.model.runs_per_sample}
+        elif snap["div_batches"] != 0:
+            fail(f"{where}: an unmonitored epoch counted {snap['div_batches']} batches")
+        pipe.close()
+        epochs[name] = row
+    t0 = time.perf_counter()
+    grid = fig4.run(root, grid_b=FIG4_SUBGRID[0], grid_f=FIG4_SUBGRID[1], log=lambda line: None)
+    fig4_s = time.perf_counter() - t0
+    m = rec.model
+    out = {"phase": "diversity_autotune", "cells": len(store), "genes": store.n_var,
+           "batch": BATCH, "entropy_floor": DIVERSITY_FLOOR, "budget": AUTOTUNE_BUDGET,
+           "cache_bytes": cache_bytes, "probe_seconds": probe_s,
+           "recommendation": {"block_size": rec.block_size, "fetch_factor": rec.fetch_factor,
+                              "predicted_entropy": rec.predicted_entropy,
+                              "io_workers": rec.io_workers, "readahead": rec.readahead,
+                              "buffer_bytes": rec.buffer_bytes,
+                              "cache_reserved_bytes": rec.cache_reserved_bytes,
+                              "modeled_samples_per_s": rec.modeled_samples_per_sec,
+                              "rationale": rec.rationale},
+           "model": {"c0": m.c0, "c_seek": m.c_seek, "c_byte": m.c_byte, "hit_rate": m.hit_rate,
+                     "runs_per_sample": m.runs_per_sample, "row_bytes": m.row_bytes},
+           "fingerprint_before_autotune": fingerprint, "fingerprint": spec.fingerprint(),
+           "Hp": distribution_entropy(p), "bounds_at_tuned_b": [lo, hi],
+           "batches_bitwise": True, "epochs": epochs,
+           "monitor_cost_s": epochs["monitor"]["seconds"] - epochs["no_monitor"]["seconds"],
+           "check_drift": drift, "retune": retuned,
+           "fig4": {"seconds": fig4_s, "Hp": grid["Hp"], "all_in_bounds": grid["all_in_bounds"],
+                    "random": [grid["random"]["H"], grid["random"]["std"]],
+                    "cells": {k: {"H": c["H"], "std": c["std"], "bounds": c["bounds"],
+                                  "in_bounds": c["in_bounds"]} for k, c in grid["grid"].items()}},
+           "seconds": time.perf_counter() - t_phase}
+    emit(out)
+    return out
+
+
+def resilient_phase(dev, store) -> dict:
+    """Phase 23: the cell path from phase 21's h5ad plates behind fault
+    injection and object-store requests, under the resilience knobs; see
+    the module docstring."""
+    from repro_torch.core import BlockShuffling, ScIterableDataset
+    from repro_torch.pipeline import Pipeline
+
+    t_phase = time.perf_counter()
+    out_root = os.path.join(HERE, "build", "chip_smoke_h5ad")  # phase 21's export
+    uri = f"fault://cloud://sharded-h5ad://{out_root}?driver=shim&{RESILIENT_FAULTS}"
+    want = [_batch_crc(b) for b in ScIterableDataset(store, BlockShuffling(BLOCK), batch_size=BATCH,
+                                                     fetch_factor=FETCH_FACTOR, seed=0)]
+    fetch_rows = BATCH * FETCH_FACTOR
+    runs = {}
+    for way, (workers, readahead, blackout) in RESILIENT_WAYS.items():
+        knobs = dict(RESILIENT_KNOBS)
+        if blackout:
+            knobs.update(retries=RESILIENT_BLACKOUT_RETRIES, breaker_cooldown_s=0.001)
+        cache_bytes = int(PLANNED_CACHE_HEADROOM * (readahead + 1) * fetch_rows * store.avg_row_bytes)
+        pipe = (Pipeline.from_uri(uri + (f"&blackout={RESILIENT_BLACKOUT}" if blackout else ""),
+                                  cache_bytes=cache_bytes, block_rows=BLOCK, io_workers=workers,
+                                  readahead=readahead)
+                .strategy("block", block_size=BLOCK).batch(BATCH, fetch_factor=FETCH_FACTOR).seed(0)
+                .resilience(**knobs).build())
+        crcs = []
+        run, launches = _probe_run(dev, _digested(pipe, crcs, []))
+        where = f"resilient_cell_path {way}"
+        first, last = _epoch_checks(where, run, launches)
+        snap, stats = pipe.collection.iostats.snapshot(), pipe.stats()
+        pipe.close()
+        if crcs != want:
+            fail(f"{where}: the batches differ from phase 5's store's ({len(crcs)} batches, "
+                 f"{len(want)} wanted)")
+        runs[way] = {**_epoch_row(run, launches, first, last), "io_workers": workers,
+                     "readahead": readahead, "retries_budget": knobs["retries"],
+                     "cache_bytes": cache_bytes, **{k: snap[k] for k in RESILIENT_IO},
+                     "faults": stats["faults"], "breaker": stats["resilience"]["breaker"]}
+    a, a2, c = runs["a_sync"], runs["a_sync_again"], runs["c_blackout"]
+    if not (a["retries"] == a2["retries"] > 0):
+        fail(f"resilient_cell_path: (a) retried {a['retries']} and {a2['retries']} times")
+    if c["breaker_opens"] < 1 or c["breaker_closes"] < 1:
+        fail(f"resilient_cell_path c_blackout: the circuit opened {c['breaker_opens']} and closed "
+             f"{c['breaker_closes']} times")
+    out = {"phase": "resilient_cell_path", "uri": uri, "resilience": RESILIENT_KNOBS,
+           "blackout": RESILIENT_BLACKOUT, "blackout_retries": RESILIENT_BLACKOUT_RETRIES,
+           "cells": len(store), "genes": store.n_var, "batch": BATCH,
+           "fetch_factor": FETCH_FACTOR, "block_size": BLOCK, "batches_bitwise": True,
+           "ways": runs, "seconds": time.perf_counter() - t_phase}
     emit(out)
     return out
 

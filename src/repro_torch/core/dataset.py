@@ -26,6 +26,13 @@ has another name than its counterpart because the repository's static lock
 analyzer (``tools/analyze``) resolves classes by bare name across ``src/``:
 a second ``ScDataset`` would hide the reference's lock edges from it.
 
+``diversity_obs`` names an obs column whose per-batch label entropy an
+:class:`EntropyMonitor` records into the collection's counters (the
+reference's ``DiversityMonitor``; the stream is untouched), and
+:meth:`ScIterableDataset.autotune` probes a planned collection and
+recommends ``(block_size, fetch_factor)`` through
+:mod:`repro_torch.core.autotune`.
+
 ``state()`` describes iteration in this process.  Under ``DataLoader``
 workers each worker iterates its own copy, so load a state and call
 :meth:`set_epoch` before the ``DataLoader`` starts its workers.  Threads of
@@ -45,7 +52,80 @@ from torch.utils.data import IterableDataset, get_worker_info
 from .callbacks import Callbacks
 from .sampling import BlockShuffling, SamplingStrategy, epoch_rng
 
-__all__ = ["ScIterableDataset", "LoaderState"]
+__all__ = ["ScIterableDataset", "LoaderState", "EntropyMonitor"]
+
+
+class EntropyMonitor:
+    """Per-batch label entropy over one obs column (the §3.4 theory, live).
+
+    The counterpart of ``repro.core.dataset.DiversityMonitor``, renamed for
+    the reason :class:`ScIterableDataset` is.  :meth:`observe` takes one
+    minibatch's global rows, computes the plug-in entropy (bits) of their
+    labels with one ``bincount`` over integer codes, and records it into the
+    collection's :class:`~repro_torch.data.iostats.IOCounters` ``div_*``
+    counters where the collection has them.  Observation only: the delivered
+    stream is untouched, and an observation made inside a dropped duplicate
+    fetch lands in the ``spec_*`` mirrors through the counters' deferred
+    capture.  The codes resolve on the first observation (``np.unique`` over
+    the whole column), once, under a lock: threads of a
+    :class:`~repro_torch.core.prefetch.FetchPool` may observe at once.
+    """
+
+    def __init__(self, collection: Any, obs: str):
+        if not hasattr(collection, "obs_column"):
+            raise ValueError(
+                f"diversity_obs={obs!r} needs a collection with obs columns "
+                f"(obs_column); got {type(collection).__name__}"
+            )
+        self.obs = str(obs)
+        self._collection = collection
+        self._codes: Optional[np.ndarray] = None  # guarded-by: _lock
+        self._num_classes = 0  # guarded-by: _lock — set with _codes
+        self._lock = threading.Lock()
+
+    def __getstate__(self) -> dict:
+        state = self.__dict__.copy()
+        del state["_lock"]
+        return state
+
+    def __setstate__(self, state: dict) -> None:
+        self.__dict__.update(state)
+        self._lock = threading.Lock()
+
+    def _resolve(self) -> np.ndarray:
+        codes = self._codes  # unlocked-ok: racy fast path on an immutable-once-cached value
+        if codes is not None:
+            return codes
+        with self._lock:
+            if self._codes is None:
+                values = np.asarray(self._collection.obs_column(self.obs))
+                uniq, inv = np.unique(values, return_inverse=True)
+                self._num_classes = int(len(uniq))
+                self._codes = inv.astype(np.int64, copy=False)
+            return self._codes
+
+    @property
+    def num_classes(self) -> int:
+        self._resolve()
+        return self._num_classes  # unlocked-ok: immutable once _resolve returned
+
+    def class_probs(self) -> np.ndarray:
+        """The label distribution p over the whole collection: the H(p) an
+        entropy floor is predicted against."""
+        codes = self._resolve()
+        counts = np.bincount(codes, minlength=self._num_classes)  # unlocked-ok: immutable once _resolve returned
+        return counts / max(1, len(codes))
+
+    def observe(self, global_rows: np.ndarray) -> float:
+        """Record, and return, the label entropy of one batch."""
+        from .theory import batch_entropy
+
+        codes = self._resolve()
+        h = batch_entropy(codes[np.asarray(global_rows)], self._num_classes)  # unlocked-ok: immutable once _resolve returned
+        stats = getattr(self._collection, "iostats", None)
+        if stats is not None and hasattr(stats, "record_diversity"):
+            stats.record_diversity(h)
+        return h
 
 
 @dataclasses.dataclass
@@ -122,11 +202,6 @@ class ScIterableDataset(IterableDataset):
             raise ValueError("batch_size and fetch_factor must be positive")
         if not (0 <= rank < world_size):
             raise ValueError(f"rank {rank} out of range for world_size {world_size}")
-        if diversity_obs is not None:
-            raise NotImplementedError(
-                "diversity_obs (the live entropy monitor) is not ported yet "
-                "(ROADMAP.md queue A #5)"
-            )
         if callbacks is not None and any(
             cb is not None
             for cb in (fetch_callback, fetch_transform, batch_callback, batch_transform,
@@ -144,6 +219,7 @@ class ScIterableDataset(IterableDataset):
         self.sort_fetch_indices = bool(sort_fetch_indices)
         self.cross_epoch_prefetch = bool(cross_epoch_prefetch)
         self.diversity_obs = diversity_obs
+        self._div = EntropyMonitor(collection, diversity_obs) if diversity_obs is not None else None
         self.callbacks = callbacks or Callbacks(
             fetch_callback, fetch_transform, batch_callback, batch_transform, prefetch_callback
         )
@@ -158,6 +234,13 @@ class ScIterableDataset(IterableDataset):
         # FetchPool threads meeting a cold epoch build it once
         self._order_lock = threading.Lock()
         self._order_cache: dict[int, np.ndarray] = {}  # guarded-by: _order_lock
+        # autotune's cached fit, the counters at the fit, the readahead
+        # controller's moves at the fit and the adopted pick's predicted
+        # entropy: the caller's, as in the reference
+        self._tuned_model = None  # guarded-by: external
+        self._tuned_base = None  # guarded-by: external
+        self._tuned_ra_mark = 0  # guarded-by: external
+        self._tuned_entropy = None  # guarded-by: external
 
     def __getstate__(self) -> dict:
         # a lock does not pickle: a spawned DataLoader worker makes its own
@@ -258,8 +341,75 @@ class ScIterableDataset(IterableDataset):
             "fingerprint": self.spec_fingerprint,
         }
 
-    def autotune(self, **kwargs):
-        raise NotImplementedError("autotune is not ported yet (ROADMAP.md queue A #5)")
+    def autotune(
+        self,
+        *,
+        mem_budget_bytes: float = 2e9,
+        drift_threshold: float = 0.5,
+        num_classes: int = 14,
+        entropy_slack_bits: float = 0.1,
+        throughput_slack: float = 0.0,
+        entropy_floor: Optional[float] = None,
+        probes: int = 3,
+        probe_rows: int = 512,
+        apply: bool = False,
+        force: bool = False,
+    ):
+        """Probe this loader's planned collection and recommend ``(b, f)``.
+
+        The fitted :class:`~repro_torch.core.autotune.IOCostModel` is
+        cached; a later call probes again only when ``force`` or when the
+        collection's counters since the fit (and the readahead controller's
+        moves, and a measured entropy under the adopted pick's prediction)
+        drift past ``drift_threshold`` (:func:`~repro_torch.core.autotune.
+        model_drift`).  ``entropy_floor`` (bits) keeps only cells whose
+        predicted E[H] clears it, against the monitor's label distribution
+        where the loader has one.  ``apply=True`` adopts the pick
+        (``fetch_factor``, and the strategy's ``block_size`` where it has
+        one): call it at an epoch boundary, it changes the stream.  Returns
+        the :class:`~repro_torch.core.autotune.Recommendation`.
+        """
+        from .autotune import model_drift, probe_collection, recommend_from
+
+        col = self.collection
+        if not (hasattr(col, "iostats") and hasattr(col, "cache")):
+            raise TypeError(
+                "autotune() needs a planned collection (open_collection); "
+                f"got {type(col).__name__}"
+            )
+        ctl = getattr(col, "_ra_controller", None)
+        ra_now = (ctl.grows + ctl.shrinks) if ctl is not None else 0
+        model = self._tuned_model
+        if model is None or force or model_drift(
+            model,
+            col.iostats,
+            base=self._tuned_base,
+            ra_shifts=max(0, ra_now - self._tuned_ra_mark),
+            expected_entropy=self._tuned_entropy,
+        ) > drift_threshold:
+            model = probe_collection(col, probes=probes, probe_rows=probe_rows)
+            self._tuned_model = model
+            # later drift is measured on the counters' deltas from here
+            self._tuned_base = col.iostats.snapshot()
+            self._tuned_ra_mark = (ctl.grows + ctl.shrinks) if ctl is not None else 0
+        rec = recommend_from(
+            model,
+            batch_size=self.batch_size,
+            budget=mem_budget_bytes,
+            num_classes=num_classes,
+            entropy_slack_bits=entropy_slack_bits,
+            throughput_slack=throughput_slack,
+            class_probs=self._div.class_probs() if self._div is not None else None,
+            entropy_floor=entropy_floor,
+        )
+        if apply:
+            self._tuned_entropy = rec.predicted_entropy
+            self.fetch_factor = int(rec.fetch_factor)
+            if hasattr(self.strategy, "block_size"):
+                self.strategy = dataclasses.replace(self.strategy, block_size=int(rec.block_size))
+            with self._order_lock:
+                self._order_cache = {}  # the geometry changed: derive the order anew
+        return rec
 
     def repartition(self, rank: int, world_size: int, plan: Optional[list] = None):
         raise NotImplementedError("elastic repartition is not ported yet (ROADMAP.md queue A #12)")
@@ -378,10 +528,13 @@ class ScIterableDataset(IterableDataset):
         )  # line 9
         m = self.batch_size
         nb = len(perm) // m if self.drop_last else (len(perm) + m - 1) // m
-        return [  # line 10
-            cbs.batch_transform(cbs.batch_callback(fetched, perm[j * m : (j + 1) * m]))
-            for j in range(nb)
-        ]
+        batches = []
+        for j in range(nb):  # line 10
+            rows = perm[j * m : (j + 1) * m]
+            if self._div is not None:
+                self._div.observe(sorted_idx[rows])  # telemetry: the batch is untouched
+            batches.append(cbs.batch_transform(cbs.batch_callback(fetched, rows)))
+        return batches
 
     # ---------------------------------------------------------------- iterate
     def __iter__(self) -> Iterator:

@@ -52,7 +52,8 @@ class _FetchResult:
 class FetchPool:
     """Run a rank's fetch list through a work-stealing thread pool.
 
-    ``heartbeat`` is duck-typed (``.beat(name)``, ``.suspects()``): workers
+    ``heartbeat`` is duck-typed (``.beat(name)``, ``.suspects()``; e.g. a
+    :class:`~repro_torch.distributed.fault.LivenessMonitor`): workers
     beat once per claim and once per completed fetch, and a worker named
     among the suspects has its claimed fetch issued again without waiting
     for the latency deadline.  ``stats`` counts ``fetches``,

@@ -12,26 +12,30 @@ The port of ``repro.data.backend``:
   ``TokenAdapter``.
 - a registry of URI schemes — ``csr``, ``sharded-csr``, ``chunked`` and
   ``tokens`` here, ``h5ad`` and ``sharded-h5ad`` in
-  :mod:`repro_torch.data.h5ad` — behind :func:`open_collection`.
+  :mod:`repro_torch.data.h5ad`, and the wrapping ``cloud`` and ``fault``
+  in :mod:`repro_torch.data.cloud` and :mod:`repro_torch.data.faults` —
+  behind :func:`open_collection`.
 - :class:`PlannedRows` — the counterpart of ``PlannedCollection``: fetches
   go through the shared read planner and the byte-budgeted block cache of
   :mod:`repro_torch.data.readplan`, with miss extents read on a thread pool
   (``io_workers``), upcoming fetches staged in the background
   (``readahead``, fixed or ``"auto"``) and cache admission by policy; one
   :class:`~repro_torch.data.iostats.IOCounters` counts runs, bytes and
-  cache outcomes once, uniformly, for every format.
+  cache outcomes once, uniformly, for every format; its reads run under
+  the resilience knobs: retries, hedged reads and per-shard breakers.
 
 Batches, read plans and counters of the synchronous path equal the
-reference's bit for bit; the asynchronous paths deliver the synchronous
-path's batches.  Not ported yet, each raising ``NotImplementedError``:
-the resilience knobs (``retries``, ``hedge_factor``, ``breaker_threshold``)
-and the ``cloud://`` / ``fault://`` schemes, ``cloud://h5ad://`` included
-(ROADMAP.md queue A #6), and :meth:`PlannedRows.tagged` (A #12).
+reference's bit for bit, under injected faults too; the asynchronous paths
+deliver the synchronous path's batches.  Not ported yet, raising
+``NotImplementedError``: :meth:`PlannedRows.tagged` (ROADMAP.md queue A
+#12).
 
 Locks: one rendezvous lock (``_fl``) guards the in-flight table, the
 prefetch marks, the block cache, the stream detector, the sketch and the
 readahead controller, none of which locks itself; ``_exec_lock`` guards the
-executor.  :class:`IOCounters`' lock is taken only with neither held.
+executor.  :class:`IOCounters`' lock, and the lock of the shard circuit
+(:class:`~repro_torch.data.faults.ShardCircuit`), are taken only with
+neither held, and never one inside the other.
 A planned collection holds locks and, once asynchronous, a thread pool, so
 it does not pickle.  Threads share it (``FetchPool``); ``DataLoader``
 workers forked from a process that holds it share it only while no
@@ -45,7 +49,9 @@ import os
 import threading
 import time
 import urllib.parse
-from concurrent.futures import Future, ThreadPoolExecutor
+from concurrent.futures import FIRST_COMPLETED, Future, ThreadPoolExecutor
+from concurrent.futures import TimeoutError as FuturesTimeout
+from concurrent.futures import wait as futures_wait
 from typing import Any, Callable, Optional, Protocol, Sequence, runtime_checkable
 
 import numpy as np
@@ -86,13 +92,7 @@ DEFAULT_CACHE_BYTES = 64 << 20
 DEFAULT_BLOCK_ROWS = 256
 DEFAULT_MAX_EXTENT_ROWS = 32768
 
-_RESILIENCE = "is not ported yet (ROADMAP.md queue A #6: resilient storage)"
 _ELASTIC = "is not ported yet (ROADMAP.md queue A #12: the elastic fabric)"
-#: schemes of the reference the port does not open yet -> why
-_LATER = {
-    "cloud": f"the cloud:// scheme {_RESILIENCE}",
-    "fault": f"the fault:// scheme {_RESILIENCE}",
-}
 
 
 @runtime_checkable
@@ -394,9 +394,28 @@ class PlannedRows:
     (:class:`SegmentedRowBlockCache`).  ``cache_bytes=0`` disables the
     cache.
 
+    Resilience, off by default:
+
+    - ``retries > 0`` — each physical read runs under a
+      :class:`~repro_torch.data.faults.RetryPolicy`: a transient failure
+      (``OSError``, ``TimeoutError``) is read again after a decorrelated-
+      jitter backoff, within the attempt budget and ``retry_deadline_s``;
+      then :class:`~repro_torch.data.faults.RetryBudgetExhausted` ends it.
+    - ``hedge_factor > 0`` (with ``io_workers > 1``) — a miss read still
+      running ``max(hedge_min_s, hedge_factor * wait_EWMA)`` after the
+      fetch issued it races a duplicate; the first success wins
+      (``hedges_issued``, ``hedges_won``; the duplicate's work is not in
+      ``runs``/``bytes_read``).
+    - ``breaker_threshold > 0`` — that many consecutive failures of a shard
+      open its :class:`~repro_torch.data.faults.ShardCircuit`: background
+      prefetch skips it, and a demand read of it gets a budget of one retry
+      until a half-open probe, after ``breaker_cooldown_s``, closes it.
+
     A read that fails deregisters its blocks before their futures are
-    failed; a fetch waiting on such a block makes one recovery read of it
-    (:meth:`_reissue_block`) and raises if that fails too.
+    failed.  Under a retry policy a fetch waiting on such a block makes one
+    recovery read of it (:meth:`_reissue_block`) and raises if that fails
+    too; with no retry policy the producer's failure is the waiter's, as in
+    the reference.
     """
 
     def __init__(
@@ -412,19 +431,24 @@ class PlannedRows:
         admission: str = "always",
         cache_policy: str = "lru",
         retries: int = 0,
+        retry_backoff_s: float = 0.005,
+        retry_max_backoff_s: float = 0.25,
+        retry_deadline_s: float = 0.0,
         hedge_factor: float = 0.0,
+        hedge_min_s: float = 0.05,
         breaker_threshold: int = 0,
+        breaker_cooldown_s: float = 1.0,
     ):
+        from .faults import RetryPolicy, ShardCircuit  # faults imports this module
+
         if block_rows <= 0:
             raise ValueError("block_rows must be positive")
         if io_workers < 1:
             raise ValueError("io_workers must be >= 1")
         if retries < 0 or hedge_factor < 0 or breaker_threshold < 0:
             raise ValueError("resilience knobs must be non-negative")
-        for name, v in (("retries", retries), ("hedge_factor", hedge_factor),
-                        ("breaker_threshold", breaker_threshold)):
-            if v:
-                raise NotImplementedError(f"{name}={v!r}: the planner's {name} {_RESILIENCE}")
+        if hedge_min_s <= 0:
+            raise ValueError("hedge_min_s must be positive")
         readahead = normalize_readahead(readahead)
         ra_auto = readahead == "auto"
         if admission not in ("always", "auto", "never"):
@@ -469,8 +493,19 @@ class PlannedRows:
         # consumption counts as `prefetched`, not as a cache hit
         self._pf_marks: set[int] = set()  # guarded-by: _fl
         self._fl = threading.Lock()
-        # smoothed seconds per physical read (the controller's storage-tier
-        # signal); a single float store, a racing update only blurs it
+        self._retry = None  # guarded-by: external — a frozen RetryPolicy, set once
+        if retries > 0:
+            self._retry = RetryPolicy(retries=int(retries), backoff_s=float(retry_backoff_s),
+                                      max_backoff_s=float(retry_max_backoff_s),
+                                      deadline_s=float(retry_deadline_s))
+        self._breaker = None  # guarded-by: external — set once; the circuit locks itself
+        if breaker_threshold > 0:
+            self._breaker = ShardCircuit(int(breaker_threshold), float(breaker_cooldown_s))
+        self.hedge_factor = float(hedge_factor)
+        self.hedge_min_s = float(hedge_min_s)
+        # smoothed seconds per physical read (the hedge deadline and the
+        # controller's storage-tier signal); a single float store, a racing
+        # update only blurs it
         self._wait_ewma = 0.0  # guarded-by: external — benign-race EWMA
 
     @property
@@ -569,11 +604,21 @@ class PlannedRows:
         return self.fetch(rows)
 
     # ---------------------------------------------------- read primitives
+    def _shard_of(self, row: int) -> int:
+        """The boundary interval holding ``row``: the unit of circuit
+        breaking (one shard 0 without interior boundaries)."""
+        edges = self._boundaries
+        if edges is None or len(edges) <= 2:
+            return 0
+        return int(np.searchsorted(edges, row, side="right") - 1)
+
     def _read_one(self, lo: int, hi: int) -> tuple[Any, int]:
-        """ONE physical read and its simulated latency, slept in the
-        reading thread so that concurrent reads overlap it."""
+        """ONE logical read (retried under the policy) and its simulated
+        latency, slept in the reading thread so that concurrent reads
+        overlap it; backoff sleeps count into the wait EWMA, which widens
+        the hedge deadline while storage misbehaves."""
         t0 = time.perf_counter()
-        piece = self.adapter.read_range(lo, hi)
+        piece = self._resilient_read(lo, hi)
         nb = piece_nbytes(piece)
         self.iostats.sleep_for(runs=1, bytes_read=nb)
         dt = time.perf_counter() - t0
@@ -581,10 +626,101 @@ class PlannedRows:
         self._wait_ewma = dt if prev == 0.0 else 0.8 * prev + 0.2 * dt
         return piece, nb
 
+    def _resilient_read(self, lo: int, hi: int) -> Any:
+        """One contiguous read under the retry policy and the shard circuit;
+        with neither configured, the bare ``read_range``.  A transition of
+        the circuit is recorded here, after its lock was released."""
+        retry, breaker = self._retry, self._breaker
+        if retry is None and breaker is None:
+            return self.adapter.read_range(lo, hi)
+        from .faults import RetryBudgetExhausted, is_transient
+
+        shard = self._shard_of(lo)
+        budget = retry.retries if retry is not None else 0
+        if breaker is not None and breaker.admit(shard) == "open":
+            # an open shard is still read on demand, with one retry at most
+            budget = min(budget, 1)
+        deadline = (time.monotonic() + retry.deadline_s
+                    if retry is not None and retry.deadline_s > 0 else None)
+        attempt, prev_delay = 0, 0.0
+        while True:
+            try:
+                piece = self.adapter.read_range(lo, hi)
+            except BaseException as e:
+                if breaker is not None and breaker.record_failure(shard):
+                    self.iostats.record_resilience(breaker_opens=1)
+                if retry is None or not is_transient(e):
+                    raise
+                if attempt >= budget:
+                    raise RetryBudgetExhausted(
+                        f"read [{lo}, {hi}) failed after {attempt + 1} attempts (budget {budget})"
+                    ) from e
+                delay = retry.backoff(lo, hi, attempt, prev_delay)
+                if deadline is not None:
+                    left = deadline - time.monotonic()
+                    if left <= 0.0:
+                        raise RetryBudgetExhausted(
+                            f"read [{lo}, {hi}) deadline ({retry.deadline_s:.3f}s) exhausted "
+                            f"after {attempt + 1} attempts"
+                        ) from e
+                    delay = min(delay, left)
+                time.sleep(delay)
+                self.iostats.record_resilience(retries=1, retry_wait_s=delay)
+                prev_delay = delay
+                attempt += 1
+                continue
+            if breaker is not None and breaker.record_success(shard):
+                self.iostats.record_resilience(breaker_closes=1)
+            return piece
+
     def _read_one_for(self, lo: int, hi: int, pend) -> tuple[Any, int]:
         """Pool-thread read on behalf of a (possibly deferred) consumer."""
         with self.iostats.borrowed_pending(pend):
             return self._read_one(lo, hi)
+
+    def _gather_hedged(self, read_futs: list, spans, pool: ThreadPoolExecutor, pend) -> list:
+        """A fetch's concurrent miss reads, in plan order, each raced by a
+        duplicate once it overruns ``max(hedge_min_s, hedge_factor *
+        wait_EWMA)`` from the fetch's issue; both read the same span, so
+        the winner changes ``hedges_won`` only, never the bytes."""
+        t_issue = time.perf_counter()
+        out = []
+        for fut, (lo, hi) in zip(read_futs, spans):
+            tail = max(self.hedge_min_s, self.hedge_factor * self._wait_ewma)
+            left = t_issue + tail - time.perf_counter()
+            try:
+                out.append(fut.result(timeout=max(0.0, left)))
+                continue
+            except FuturesTimeout:
+                pass
+            hedge = pool.submit(self._read_one_for, lo, hi, pend)
+            self.iostats.record_resilience(hedges_issued=1)
+            val, hedge_won = self._first_success(fut, hedge)
+            if hedge_won:
+                self.iostats.record_resilience(hedges_won=1)
+            out.append(val)
+        return out
+
+    @staticmethod
+    def _first_success(primary: Future, hedge: Future) -> tuple[Any, bool]:
+        """Race a late primary against its hedge: the first success wins
+        (the primary on a tie); both failing raise the last failure.
+        Returns ``(result, hedge_won)``."""
+        waiting = {primary, hedge}
+        last_exc: Optional[BaseException] = None
+        while waiting:
+            done, waiting = futures_wait(waiting, return_when=FIRST_COMPLETED)
+            if primary in done:
+                exc = primary.exception()
+                if exc is None:
+                    return primary.result(), False
+                last_exc = exc
+            if hedge in done:
+                exc = hedge.exception()
+                if exc is None:
+                    return hedge.result(), True
+                last_exc = exc
+        raise last_exc
 
     def _blocks_of(self, spans, pieces, blocks) -> dict:
         """Cut span pieces at block edges; each block's value, in span
@@ -719,11 +855,13 @@ class PlannedRows:
 
         # ---- plan + issue the physical reads
         spans = np.empty((0, 2), dtype=np.int64)
-        read_futs = None
+        read_futs = pool = pend = None
         if missing:
             spans = self._spans_for_blocks(np.asarray(missing))
             pool = self._pool()
-            if pool is not None and self.io_workers > 1 and len(spans) > 1:
+            # a lone span reads inline, unless a hedge needs a future to race
+            if pool is not None and self.io_workers > 1 and (
+                    len(spans) > 1 or self.hedge_factor > 0.0):
                 pend = self.iostats.current_pending()
                 read_futs = [pool.submit(self._read_one_for, lo, hi, pend) for lo, hi in spans]
 
@@ -745,7 +883,9 @@ class PlannedRows:
         adm = {"bypassed": 0, "rejected": 0, "stored": 0}
         if missing:
             try:
-                if read_futs is not None:
+                if read_futs is not None and self.hedge_factor > 0.0:
+                    results = self._gather_hedged(read_futs, spans, pool, pend)
+                elif read_futs is not None:
                     results = [f.result() for f in read_futs]
                 else:
                     results = [self._read_one(lo, hi) for lo, hi in spans]
@@ -767,6 +907,8 @@ class PlannedRows:
                 local[b] = fut.result()  # raises the producer's failure
                 pf_blocks.append(b)
             except BaseException:
+                if self._retry is None:
+                    raise  # no retry policy: the producer's failure is this fetch's
                 val, runs2, nb2, outcome = self._reissue_block(b)
                 local[b] = val
                 if outcome == "served":
@@ -826,9 +968,15 @@ class PlannedRows:
         rows = np.asarray(rows, dtype=np.int64)
         if rows.size == 0:
             return 0
+        block_list = np.unique(rows // self.block_rows).tolist()
+        if self._breaker is not None:
+            # background staging skips shards whose circuit is open (a block
+            # follows the shard of its first row); demand fetches still read them
+            block_list = [b for b in block_list
+                          if not self._breaker.is_open(self._shard_of(b * self.block_rows))]
         futs: dict[int, Future] = {}
         with self._fl:
-            for b in np.unique(rows // self.block_rows).tolist():
+            for b in block_list:
                 if b in self._inflight or self.cache.peek(b) is not None:
                     continue
                 futs[b] = self._inflight[b] = Future()
@@ -876,14 +1024,36 @@ class PlannedRows:
                             calls=0, slept=True)
 
     def stats(self) -> dict:
+        """The counters, the cache and, where they act, the readahead
+        controller, the admission sketch, the diversity counters' mean and
+        minimum, the resilience settings and the injected faults: the
+        reference's sections, key for key."""
         io = self.iostats.snapshot()
         with self._fl:
             out = {"io": io, "cache": self.cache.snapshot()}
+            if io["div_batches"] > 0:
+                out["diversity"] = {"batches": io["div_batches"],
+                                    "entropy_mean": io["div_entropy_sum"] / io["div_batches"],
+                                    "entropy_min": io["div_entropy_min"]}
             if self._ra_controller is not None:
                 out["readahead"] = self._ra_controller.snapshot()
             if self._sketch is not None:
                 out["admission"] = {"doorkeeper": len(self._sketch.door),
                                     "ops": self._sketch.ops, "ages": self._sketch.ages}
+        if self._retry is not None or self._breaker is not None or self.hedge_factor > 0.0:
+            res: dict = {"wait_ewma_s": self._wait_ewma, "hedge_factor": self.hedge_factor,
+                         "hedge_min_s": self.hedge_min_s}
+            if self._retry is not None:
+                res["retry"] = {"retries": self._retry.retries,
+                                "backoff_s": self._retry.backoff_s,
+                                "max_backoff_s": self._retry.max_backoff_s,
+                                "deadline_s": self._retry.deadline_s}
+            if self._breaker is not None:
+                res["breaker"] = self._breaker.snapshot()
+            out["resilience"] = res
+        faults = getattr(self.adapter, "fault_snapshot", None)
+        if faults is not None:
+            out["faults"] = faults()
         return out
 
 
@@ -977,8 +1147,6 @@ def _parse_uri(uri: str, opts: dict) -> tuple[str, str, dict]:
     if "?" in rest:
         rest, query = rest.split("?", 1)
         opts = {**dict(urllib.parse.parse_qsl(query)), **opts}
-    if scheme in _LATER:
-        raise NotImplementedError(_LATER[scheme])
     if scheme not in _REGISTRY:
         raise ValueError(f"unknown backend scheme {scheme!r}; known: {registered_schemes()}")
     return scheme, rest, opts
@@ -1018,10 +1186,10 @@ def open_collection(
     ``max_extent_rows``, ``io_workers``, ``readahead``, ``admission``,
     ``cache_policy``) and the resilience knobs may ride in the query
     string; an explicit keyword wins over the query.  Other query keys go
-    to the opener, which rejects what it does not know.  Resilience knobs
-    that would act (``retries``, ``hedge_factor``, ``breaker_threshold``
-    above 0) raise ``NotImplementedError``; their timings alone act on
-    nothing, as in the reference.
+    to the opener, which rejects what it does not know.  The resilience
+    knobs are ``retries`` with ``retry_backoff_s``, ``retry_max_backoff_s``
+    and ``retry_deadline_s``; ``hedge_factor`` with ``hedge_min_s``;
+    ``breaker_threshold`` with ``breaker_cooldown_s`` (:class:`PlannedRows`).
     """
     scheme, rest, opts = _parse_uri(uri, opts)
 
@@ -1046,14 +1214,15 @@ def open_collection(
         admission=str(knob(admission, "admission", "always", cast=str)),
         cache_policy=str(knob(cache_policy, "cache_policy", "lru", cast=str)),
         retries=int(knob(retries, "retries", 0)),
+        retry_backoff_s=float(knob(retry_backoff_s, "retry_backoff_s", 0.005, cast=float)),
+        retry_max_backoff_s=float(knob(retry_max_backoff_s, "retry_max_backoff_s", 0.25,
+                                       cast=float)),
+        retry_deadline_s=float(knob(retry_deadline_s, "retry_deadline_s", 0.0, cast=float)),
         hedge_factor=float(knob(hedge_factor, "hedge_factor", 0.0, cast=float)),
+        hedge_min_s=float(knob(hedge_min_s, "hedge_min_s", 0.05, cast=float)),
         breaker_threshold=int(knob(breaker_threshold, "breaker_threshold", 0)),
+        breaker_cooldown_s=float(knob(breaker_cooldown_s, "breaker_cooldown_s", 1.0, cast=float)),
     )
-    for kwarg, key in ((retry_backoff_s, "retry_backoff_s"),
-                       (retry_max_backoff_s, "retry_max_backoff_s"),
-                       (retry_deadline_s, "retry_deadline_s"), (hedge_min_s, "hedge_min_s"),
-                       (breaker_cooldown_s, "breaker_cooldown_s")):
-        knob(kwarg, key, 0.0, cast=float)  # timings of the knobs above
     if planner["io_workers"] < 1:
         raise ValueError("io_workers must be >= 1")
     adapter = _REGISTRY[scheme](rest, **opts)

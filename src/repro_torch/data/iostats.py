@@ -10,11 +10,12 @@ regime by sleeping ``seek_s`` per run and ``1/bw_Bps`` per byte
 :data:`CLOUD_OBJECT` are the reference's).  ``snapshot()`` has the
 reference's keys, key for key.
 
-The counters of fault recovery (``retries``, ``hedges_*``, ``breaker_*``),
-of the elastic fabric (``reissued_fetches``; ``shared_rank_hits``) and of
-the diversity monitor (``div_*``) are kept, so that snapshots compare with
-the reference's, but nothing in the port records them yet: their recorders
-come with ROADMAP.md queue A #6, #12 and #5.
+:meth:`IOCounters.record_resilience` counts fault recovery (``retries``,
+``hedges_*``, ``breaker_*``) and :meth:`IOCounters.record_diversity` the
+diversity monitor's per-batch label entropy (``div_*``).  The counters of
+the elastic fabric (``reissued_fetches``; ``shared_rank_hits``) are kept,
+so that snapshots compare with the reference's, but nothing in the port
+records them yet (ROADMAP.md queue A #12).
 
 The classes are named apart from ``IOStats`` / ``PendingIO`` (their
 counterparts) for the same reason as
@@ -239,6 +240,53 @@ class IOCounters:
                 self.requests += n
                 self.request_wait_s += wait_s
 
+    def record_resilience(
+        self,
+        *,
+        retries: int = 0,
+        retry_wait_s: float = 0.0,
+        hedges_issued: int = 0,
+        hedges_won: int = 0,
+        breaker_opens: int = 0,
+        breaker_closes: int = 0,
+    ) -> None:
+        """Account fault-recovery events: re-issued failed read attempts
+        (``retries``, with ``retry_wait_s`` their backoff sleeps), duplicate
+        tail-latency reads and how many beat their primary (``hedges_*``),
+        and per-shard circuit transitions (``breaker_*``).  Honours
+        :meth:`deferred` and :meth:`scoped` like :meth:`record`."""
+        got = dict(retries=retries, retry_wait_s=retry_wait_s, hedges_issued=hedges_issued,
+                   hedges_won=hedges_won, breaker_opens=breaker_opens,
+                   breaker_closes=breaker_closes)
+        pend: Optional[PendingCounters] = getattr(self._tl, "pending", None)
+        scope: Optional[IOCounters] = getattr(self._tl, "scope", None)
+        if pend is not None:
+            with pend._lock:
+                _add_each(pend, got)
+        elif scope is not None:
+            scope.record_resilience(**got)
+        else:
+            with self._lock:
+                _add_each(self, got)
+
+    def record_diversity(self, entropy_bits: float) -> None:
+        """Account one materialized minibatch's label entropy (bits).
+        ``div_entropy_min`` is valid only while ``div_batches > 0`` (0.0 is
+        a legal observation: a single-class batch).  Honours
+        :meth:`deferred` and :meth:`scoped` like :meth:`record`, so a
+        dropped duplicate's observations land in the ``spec_*`` mirrors."""
+        h = float(entropy_bits)
+        pend: Optional[PendingCounters] = getattr(self._tl, "pending", None)
+        scope: Optional[IOCounters] = getattr(self._tl, "scope", None)
+        if pend is not None:
+            with pend._lock:
+                _observe(pend, h)
+        elif scope is not None:
+            scope.record_diversity(h)
+        else:
+            with self._lock:
+                _observe(self, h)
+
     def sleep_for(self, runs: int, bytes_read: int) -> None:
         """Sleep the simulated latency of one physical read in the reading
         thread; no counter moves (pair with ``record(..., slept=True)``)."""
@@ -364,6 +412,21 @@ def _add(target, got: dict, calls: int, wall_s: float, dt: float) -> None:
         setattr(target, k, getattr(target, k) + got[k])
     target.wall_s += wall_s
     target.modeled_s += dt
+
+
+def _add_each(target, got: dict) -> None:
+    """Add each counter of ``got`` to ``target`` (caller holds its lock)."""
+    for k, v in got.items():
+        setattr(target, k, getattr(target, k) + v)
+
+
+def _observe(target, h: float) -> None:
+    """One entropy observation into ``target``'s ``div_*`` counters, summed
+    in arrival order (caller holds its lock)."""
+    if target.div_batches == 0 or h < target.div_entropy_min:
+        target.div_entropy_min = h
+    target.div_batches += 1
+    target.div_entropy_sum += h
 
 
 _SNAPSHOT_KEYS = tuple(

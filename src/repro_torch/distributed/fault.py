@@ -1,22 +1,51 @@
-"""Restart supervision for the training driver: a JAX-free copy of
-``repro.distributed.fault.run_with_restarts``.
+"""Restart supervision and liveness: JAX-free copies of
+``repro.distributed.fault.run_with_restarts`` and ``HeartbeatMonitor``.
 
 :func:`run_with_restarts` catches a worker failure and runs the work again
 with ``resume=True``; the training driver resumes from its latest
 checkpoint, loader cursor included, so the restarted run continues the
-uninterrupted one bitwise (``tests/test_torch_train.py``).  The elastic
-re-mesh and ``HeartbeatMonitor`` of the reference are not ported yet
-(ROADMAP.md queue A #5 and #13).  Unlike the reference, which restarts on any
-``BaseException``, it restarts on ``Exception`` only: an interrupt or a
-``SystemExit`` ends the run.
+uninterrupted one bitwise (``tests/test_torch_train.py``).  Unlike the
+reference, which restarts on any ``BaseException``, it restarts on
+``Exception`` only: an interrupt or a ``SystemExit`` ends the run.
+
+:class:`LivenessMonitor` (the reference's ``HeartbeatMonitor``, renamed
+because ``tools/analyze`` resolves classes by bare name) flags members whose
+last beat is older than its timeout, on ``time.monotonic``; a
+:class:`~repro_torch.core.prefetch.FetchPool` takes it as ``heartbeat=``.
+The elastic re-mesh of the reference is not ported yet (ROADMAP.md queue A
+#13).
 """
 from __future__ import annotations
 
 import random
+import threading
 import time
 from typing import Any, Callable, Optional
 
-__all__ = ["run_with_restarts"]
+__all__ = ["run_with_restarts", "LivenessMonitor"]
+
+
+class LivenessMonitor:
+    """Tracks the liveness of named members; flags those past their deadline."""
+
+    def __init__(self, timeout_s: float = 5.0):
+        self.timeout_s = timeout_s
+        self._last: dict[str, float] = {}  # guarded-by: _lock
+        self._lock = threading.Lock()
+
+    def beat(self, member: str) -> None:
+        with self._lock:
+            self._last[member] = time.monotonic()
+
+    def suspects(self) -> list[str]:
+        now = time.monotonic()
+        with self._lock:
+            return [m for m, t in self._last.items() if now - t > self.timeout_s]
+
+    def alive(self) -> list[str]:
+        now = time.monotonic()
+        with self._lock:
+            return [m for m, t in self._last.items() if now - t <= self.timeout_s]
 
 
 def run_with_restarts(

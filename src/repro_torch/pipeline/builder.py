@@ -27,15 +27,27 @@ match) and closes only the collections it opened.
 ``max_outstanding`` and straggler knobs (:attr:`DataPipeline.last_pool`);
 its batches and their order are the synchronous iteration's.
 
-Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP.md item: ``resilience`` and ``cloud://`` URIs (queue A #6),
-``diversity`` and ``autotune`` (A #5) and ``shared`` (A #12).
+``resilience`` records the retry, hedge and shard-circuit knobs and
+``diversity`` the monitored obs column and the entropy floor; all of them
+are content-free, so the fingerprint ignores them.  ``autotune`` probes a
+freshly opened collection (:func:`repro_torch.core.autotune.
+fit_and_recommend`) and records the recommended ``(block_size,
+fetch_factor)``, ``io_workers`` and ``readahead`` in the spec; the built
+pipeline keeps the recommendation, measures drift from its model
+(:meth:`DataPipeline.check_drift`) and probes its live collection again on
+request (:meth:`DataPipeline.retune`).
+
+Not ported yet: ``shared`` (the shared-collection pool), which raises
+``NotImplementedError`` naming ROADMAP.md queue A #12.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Iterator, Optional
 
+import numpy as np
+
+from ..core.autotune import Recommendation, fit_and_recommend, model_drift
 from ..core.dataset import LoaderState, ScIterableDataset
 from ..core.prefetch import FetchPool
 from ..core.sampling import SamplingStrategy
@@ -47,11 +59,6 @@ __all__ = ["Pipeline", "DataPipeline"]
 
 #: spec fields the port builds only at their defaults, by ROADMAP.md item
 _LATER = {
-    "retries": "A #6: resilient storage",
-    "hedge_factor": "A #6: resilient storage",
-    "breaker_threshold": "A #6: resilient storage",
-    "diversity_obs": "A #5: DiversityMonitor and autotune",
-    "entropy_floor": "A #5: DiversityMonitor and autotune",
     "shared_pool": "A #12: the elastic fabric",
 }
 
@@ -85,6 +92,8 @@ class Pipeline:
         # a caller-owned IOCounters (e.g. with a storage model to simulate),
         # threaded into open_collection; runtime only, never in the spec
         self._iostats = iostats
+        # the pick of the last autotune(), handed to the built pipeline
+        self.last_recommendation: Optional[Recommendation] = None
 
     # ------------------------------------------------------------ entries
     @classmethod
@@ -238,15 +247,111 @@ class Pipeline:
     def shared(self, on: bool = True) -> "Pipeline":
         raise _later("Pipeline.shared (the shared-collection pool)", _LATER["shared_pool"])
 
-    def resilience(self, **kwargs) -> "Pipeline":
-        raise _later("Pipeline.resilience (retries, hedged reads, shard breakers)",
-                     _LATER["retries"])
+    def resilience(
+        self,
+        *,
+        retries: Optional[int] = None,
+        backoff_s: Optional[float] = None,
+        max_backoff_s: Optional[float] = None,
+        deadline_s: Optional[float] = None,
+        hedge_factor: Optional[float] = None,
+        hedge_min_s: Optional[float] = None,
+        breaker_threshold: Optional[int] = None,
+        breaker_cooldown_s: Optional[float] = None,
+    ) -> "Pipeline":
+        """Bounded ``retries`` with decorrelated-jitter backoff
+        (``backoff_s`` base, ``max_backoff_s`` cap, a per-read
+        ``deadline_s``), hedged reads (``hedge_factor`` times the reads'
+        wait EWMA, at least ``hedge_min_s``) and a per-shard circuit
+        (``breaker_threshold`` consecutive failures open it,
+        ``breaker_cooldown_s`` before a half-open probe); see
+        :class:`~repro_torch.data.backend.PlannedRows`.  Content-free.
+        Set-if-passed."""
+        kw: dict = {}
+        for key, v, cast in (("retries", retries, int), ("retry_backoff_s", backoff_s, float),
+                             ("retry_max_backoff_s", max_backoff_s, float),
+                             ("retry_deadline_s", deadline_s, float),
+                             ("hedge_factor", hedge_factor, float),
+                             ("hedge_min_s", hedge_min_s, float),
+                             ("breaker_threshold", breaker_threshold, int),
+                             ("breaker_cooldown_s", breaker_cooldown_s, float)):
+            if v is not None:
+                kw[key] = cast(v)
+        return self._replace(**kw)
 
-    def diversity(self, **kwargs) -> "Pipeline":
-        raise _later("Pipeline.diversity", _LATER["diversity_obs"])
+    def diversity(self, *, obs: Optional[str] = None,
+                  entropy_floor: Optional[float] = None) -> "Pipeline":
+        """``obs``: the obs column whose per-batch label entropy the built
+        loader records into the collection's ``div_*`` counters (an
+        :class:`~repro_torch.core.dataset.EntropyMonitor`; the stream is
+        untouched).  ``entropy_floor`` (bits): the target :meth:`autotune`
+        keeps the predicted E[H] above.  Content-free.  Set-if-passed."""
+        kw: dict = {}
+        if obs is not None:
+            kw["diversity_obs"] = str(obs)
+        if entropy_floor is not None:
+            kw["entropy_floor"] = float(entropy_floor)
+        return self._replace(**kw)
 
-    def autotune(self, **kwargs) -> "Pipeline":
-        raise _later("Pipeline.autotune", _LATER["diversity_obs"])
+    def autotune(
+        self,
+        *,
+        budget: float = 2e9,
+        probes: int = 3,
+        probe_rows: int = 512,
+        num_classes: int = 14,
+        entropy_slack_bits: float = 0.1,
+        throughput_slack: float = 0.0,
+        entropy_floor: Optional[float] = None,
+        apply: bool = True,
+    ) -> "Pipeline":
+        """Probe the collection this spec opens, recommend ``(block_size,
+        fetch_factor)``, and with ``apply`` record the pick in the spec.
+
+        A URI-backed spec is probed on a freshly opened collection, released
+        after, so the built pipeline's cache and counters start clean; an
+        in-process collection is probed as it is.  With
+        ``.diversity(obs=...)`` the prediction uses that column's label
+        distribution; ``entropy_floor`` (recorded in the spec) keeps only
+        cells whose predicted E[H] clears it, and an unreachable floor
+        raises with the best achievable value.  With ``apply``, a URI-backed
+        spec also records the pick's ``io_workers``, and its ``readahead``
+        where the cache is on.  The pick is kept as
+        :attr:`last_recommendation`.
+        """
+        if entropy_floor is not None:
+            self._replace(entropy_floor=float(entropy_floor))
+        floor = self._spec.entropy_floor or None  # 0.0: no floor
+        own = self._collection is None
+        col = _open_from_spec(self._spec) if own else self._collection
+        try:
+            rec = fit_and_recommend(
+                col,
+                probes=probes,
+                probe_rows=probe_rows,
+                batch_size=self._spec.batch_size,
+                budget=budget,
+                num_classes=num_classes,
+                entropy_slack_bits=entropy_slack_bits,
+                throughput_slack=throughput_slack,
+                class_probs=_class_probs(col, self._spec.diversity_obs),
+                entropy_floor=floor,
+            )
+        finally:
+            if own and hasattr(col, "release"):
+                col.release()
+        self.last_recommendation = rec
+        if apply:
+            self._replace(fetch_factor=int(rec.fetch_factor))
+            if self._spec.strategy in ("block", "block-weighted", "class-balanced"):
+                self._replace(strategy_params={**self._spec.strategy_params,
+                                               "block_size": int(rec.block_size)})
+            if self._spec.uri is not None:
+                conc: dict = {"io_workers": int(rec.io_workers)}
+                if self._spec.cache_bytes is None or self._spec.cache_bytes > 0:
+                    conc["readahead"] = rec.readahead  # readahead stages through the cache
+                self._replace(**conc)
+        return self
 
     # -------------------------------------------------------------- build
     def _open(self) -> Any:
@@ -291,10 +396,21 @@ class Pipeline:
             drop_last=s.drop_last,
             sort_fetch_indices=s.sort_fetch_indices,
             cross_epoch_prefetch=s.cross_epoch_prefetch,
+            diversity_obs=s.diversity_obs,
             **dataset_kw,
         )
         ds.spec_fingerprint = s.fingerprint() if s.uri is not None else None
-        return DataPipeline(s, col, ds, owns_collection=self._owns_collection)
+        return DataPipeline(s, col, ds, recommendation=self.last_recommendation,
+                            owns_collection=self._owns_collection)
+
+
+def _class_probs(collection: Any, obs: Optional[str]) -> Optional[np.ndarray]:
+    """The label distribution of ``obs`` over the collection (None without
+    a diversity column): the H(p) an entropy floor is predicted against."""
+    if obs is None:
+        return None
+    _, counts = np.unique(np.asarray(collection.obs_column(obs)), return_counts=True)
+    return counts / counts.sum()
 
 
 def _open_from_spec(spec: PipelineSpec, iostats: Any = None) -> Any:
@@ -333,10 +449,14 @@ class DataPipeline:
     resume contract."""
 
     def __init__(self, spec: PipelineSpec, collection: Any, dataset: ScIterableDataset, *,
+                 recommendation: Optional[Recommendation] = None,
                  owns_collection: bool = False):
         self.spec = spec
         self.collection = collection
         self.dataset = dataset
+        # the autotune pick this pipeline was built from (its model is what
+        # check_drift measures against), or retune's latest
+        self.recommendation = recommendation
         self.owns_collection = owns_collection
         # the FetchPool behind the most recent __iter__ (None when iterating
         # synchronously): its stats show the workers' balance
@@ -400,6 +520,46 @@ class DataPipeline:
     @property
     def schema(self) -> dict:
         return getattr(self.collection, "schema", {})
+
+    def check_drift(self) -> Optional[float]:
+        """:func:`~repro_torch.core.autotune.model_drift` of the live
+        counters from the autotuned model (lifetime totals); None when the
+        pipeline was not autotuned or its collection has no counters.
+        Compare it with a threshold of your own and :meth:`retune`."""
+        model = getattr(self.recommendation, "model", None)
+        stats = getattr(self.collection, "iostats", None)
+        if model is None or stats is None:
+            return None
+        return model_drift(model, stats)
+
+    def retune(
+        self,
+        *,
+        budget: float = 2e9,
+        probes: int = 3,
+        probe_rows: int = 512,
+        num_classes: int = 14,
+        entropy_slack_bits: float = 0.1,
+        throughput_slack: float = 0.0,
+    ) -> Recommendation:
+        """Probe the live collection (its cache warm) and recommend again
+        under the spec's ``diversity_obs`` and ``entropy_floor``.  The spec
+        is unchanged: the pick is returned and kept as
+        :attr:`recommendation`; rebuild from an updated spec to adopt it."""
+        rec = fit_and_recommend(
+            self.collection,
+            probes=probes,
+            probe_rows=probe_rows,
+            batch_size=self.spec.batch_size,
+            budget=budget,
+            num_classes=num_classes,
+            entropy_slack_bits=entropy_slack_bits,
+            throughput_slack=throughput_slack,
+            class_probs=_class_probs(self.collection, self.spec.diversity_obs),
+            entropy_floor=self.spec.entropy_floor or None,
+        )
+        self.recommendation = rec
+        return rec
 
     # ----------------------------------------------------------- lifecycle
     def close(self) -> None:

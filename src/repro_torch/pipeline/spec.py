@@ -19,11 +19,10 @@ frozen record that:
   resume against a drifted spec;
 - builds: :meth:`PipelineSpec.build` returns the live
   :class:`~repro_torch.pipeline.builder.DataPipeline`.  The port builds
-  specs over the csr, sharded-csr, chunked, tokens, h5ad and sharded-h5ad
-  schemes with every planner knob and prefetch workers; resilience,
-  diversity and pooling fields at non-default values raise
-  ``NotImplementedError`` naming their ROADMAP.md item (queue A #6, #5 and
-  #12).
+  specs over every scheme (``cloud://`` and ``fault://`` included) with
+  every planner, resilience and diversity knob and prefetch workers; a
+  non-default ``shared_pool`` raises ``NotImplementedError`` naming its
+  ROADMAP.md item (queue A #12).
 
 Strategies are serialized by NAME + JSON params via a small registry
 (:data:`STRATEGY_REGISTRY`).  Array-valued params (weights, labels) are

@@ -94,3 +94,26 @@ def test_port_spec_classification_equals_the_reference():
     assert port_spec.FINGERPRINT_FIELDS | port_spec.CONTENT_FREE_FIELDS == names
     assert not port_spec.FINGERPRINT_FIELDS & port_spec.CONTENT_FREE_FIELDS
     assert port_spec.DataSpec is port_spec.PipelineSpec
+
+
+#: the reference's lock-bearing classes this slice meets, and the port's
+#: counterparts, named apart
+RENAMED = {"DiversityMonitor": "EntropyMonitor", "CloudAdapter": "CloudReader",
+           "FaultInjectingAdapter": "FaultInjectingReader", "ShardBreaker": "ShardCircuit",
+           "HeartbeatMonitor": "LivenessMonitor"}
+
+
+def test_the_resilience_and_diversity_classes_are_named_apart(model):
+    """Each reference class resolves to the reference; each port class to
+    the port, with its lock in the static graph and no edge through it."""
+    graph = static_lock_graph(SRC)
+    for ref_name, port_name in RENAMED.items():
+        ref_cls, port_cls = model.resolve_class(ref_name), model.resolve_class(port_name)
+        assert ref_cls is not None and _in_reference(ref_cls.file), ref_name
+        assert ref_cls.locks, ref_name
+        assert port_cls is not None and not _in_reference(port_cls.file), port_name
+        assert port_cls.locks, port_name
+        ids = {port_cls.lock_id(a) for a in port_cls.locks}
+        assert ids <= set(graph.kinds)
+        assert not [e for e in graph.edges if e[0] in ids or e[1] in ids], port_name
+

@@ -2,7 +2,8 @@
 ``tests/test_async_backend.py``: with ``io_workers`` 4 and ``readahead`` 0,
 2 or ``"auto"`` the batches are bitwise the synchronous path's; concurrent
 fetches of one block make one physical read; a read that raises leaves no
-in-flight entry, and what waited on it raises or recovers through one
+in-flight entry, and what waited on it raises (with no retry policy, as in
+the reference) or, under a retry policy, raises or recovers through one
 recovery read.  Every test runs under the runtime lock-order witness
 (``tests/conftest.py``).
 
@@ -21,6 +22,7 @@ from repro.data import write_chunked_store, write_csr_shard
 from repro_torch.core import BlockShuffling, ScIterableDataset, Streaming
 from repro_torch.data import IOCounters, open_adapter, open_collection
 from repro_torch.data.backend import PlannedRows, StorageReader
+from repro_torch.data.faults import RetryBudgetExhausted
 
 TIMEOUT = 30.0
 
@@ -205,32 +207,41 @@ def test_concurrent_fetches_of_one_block_make_one_read(chunked):
 
 @pytest.mark.parametrize("fail", [-1, 1])
 def test_a_failed_read_leaves_no_inflight_entry(chunked, fail):
-    """A staged read fails.  The fetch that waited on it makes one recovery
-    read: with a lasting fault that read fails too and the fetch raises;
-    with a fault of one read the fetch recovers the block."""
+    """A staged read fails.  With no retry policy the fetch that waited on
+    it raises the producer's failure, as the reference does.  Under a retry
+    policy the producer spends its budget and the waiting fetch makes one
+    recovery read: with a lasting fault that read fails too and the fetch
+    raises; with a fault of the producer's attempts only, the fetch
+    recovers the block."""
     uri, X = chunked
-    reader = GatedReader(open_adapter(uri), fail=fail)
-    col = PlannedRows(reader, block_rows=64, io_workers=2, readahead=1)
     rows = np.arange(130, 180)  # one block, one span
-    assert col.prefetch(rows) == 1
-    tb, b = _run(lambda: col.fetch(rows))
-    _wait_until(lambda: col.cache.misses == 1, "the fetch's lookup")
-    reader.gate.set()
-    _join(tb)
-    assert col._inflight == {}
-    if fail < 0:
-        assert isinstance(b.get("error"), OSError) and reader.reads == 2
-    else:
-        np.testing.assert_array_equal(b["value"], X[rows])
-        snap = col.iostats.snapshot()
-        assert (snap["runs"], snap["cache_misses"], snap["prefetched"]) == (1, 1, 0)
-    # a failing fetch of its own claims deregisters them too
-    reader.fail = -1
-    with pytest.raises(OSError):
-        col.fetch(np.arange(600, 700))
-    assert col._inflight == {}
-    col.close()
-    assert col.prefetch(rows) == 0  # closed: no pool
+    for retries in (0, 1):
+        reader = GatedReader(open_adapter(uri), fail=fail if fail < 0 else fail + retries)
+        col = PlannedRows(reader, block_rows=64, io_workers=2, readahead=1, retries=retries,
+                          retry_backoff_s=1e-4, retry_max_backoff_s=1e-3)
+        assert col.prefetch(rows) == 1
+        tb, b = _run(lambda: col.fetch(rows))
+        _wait_until(lambda: col.cache.misses == 1, "the fetch's lookup")
+        reader.gate.set()
+        _join(tb)
+        assert col._inflight == {}
+        if retries == 0:
+            assert isinstance(b.get("error"), OSError) and reader.reads == 1
+        elif fail < 0:
+            assert isinstance(b.get("error"), RetryBudgetExhausted) and reader.reads == 4
+        else:
+            np.testing.assert_array_equal(b["value"], X[rows])
+            assert reader.reads == 3
+            snap = col.iostats.snapshot()
+            assert (snap["runs"], snap["cache_misses"], snap["prefetched"], snap["retries"]) == (
+                1, 1, 0, 1)
+        # a failing fetch of its own claims deregisters them too
+        reader.fail = -1
+        with pytest.raises((OSError, RetryBudgetExhausted)):
+            col.fetch(np.arange(600, 700))
+        assert col._inflight == {}
+        col.close()
+        assert col.prefetch(rows) == 0  # closed: no pool
 
 
 def test_close_drops_staging_and_reads_synchronously(chunked):

@@ -160,9 +160,9 @@ def test_reader_contract_equals_the_reference(uris, scheme):
 
 
 def test_registry_uris_and_knobs(uris):
-    assert backend.registered_schemes() == ["chunked", "csr", "h5ad", "sharded-csr",
-                                            "sharded-h5ad", "tokens"]
-    assert set(backend.registered_schemes()) <= set(ref_backend.registered_schemes())
+    assert backend.registered_schemes() == ["chunked", "cloud", "csr", "fault", "h5ad",
+                                            "sharded-csr", "sharded-h5ad", "tokens"]
+    assert backend.registered_schemes() == ref_backend.registered_schemes()
     root = uris["root"]
     # bare paths are sniffed as the reference sniffs them
     for path in (root, os.path.join(root, "s0"), os.path.join(root, "ck"),
@@ -191,22 +191,21 @@ def test_refusals(uris, tmp_path):
         port_open(uris["tokens"].split("?")[0])
     with pytest.raises(TypeError):
         port_open(uris["chunked"] + "?bogus=1")
-    for uri, item in (("cloud://chunked:///x", "A #6"), ("fault://chunked:///x", "A #6"),
-                      ("cloud://h5ad:///x.h5ad", "A #6"),
-                      ("cloud://sharded-h5ad:///x", "A #6")):
-        with pytest.raises(NotImplementedError, match=item):
+    # cloud:// and fault:// open (tests/test_torch_cloud.py and
+    # tests/test_torch_resilience.py); over a missing store, a bad profile
+    # or a bad fault knob they raise what the reference raises
+    for uri in ("cloud://chunked:///x", "fault://chunked:///x", "cloud://h5ad:///x.h5ad",
+                "cloud://sharded-h5ad:///x", uris["chunked"].replace("chunked://", "cloud://chunked://")
+                + "?profile=mars", "fault://" + uris["chunked"] + "?error_rate=2"):
+        with pytest.raises(Exception) as ea:
+            ref_open(uri)
+        with pytest.raises(Exception) as eb:
             port_open(uri)
-    # the h5ad schemes open now (tests/test_torch_h5ad.py); behind cloud://
-    # they stay refused, whatever the inner file
-    h5 = tmp_path / "a.h5ad"
-    h5.write_bytes(b"\x89HDF\r\n\x1a\n")
-    with pytest.raises(NotImplementedError, match="A #6"):
-        port_open(f"cloud://{h5}")
-    for knob in ({"retries": 2}, {"hedge_factor": 1.5}, {"breaker_threshold": 3}):
-        with pytest.raises(NotImplementedError, match="A #6"):
-            port_open(uris["chunked"], **knob)
+        assert type(ea.value) is type(eb.value) and str(ea.value) == str(eb.value), uri
     for bad in ({"block_rows": 0}, {"io_workers": 0}, {"admission": "x"},
-                {"cache_policy": "x"}, {"readahead": 1, "cache_bytes": 0}, {"readahead": -1}):
+                {"cache_policy": "x"}, {"readahead": 1, "cache_bytes": 0}, {"readahead": -1},
+                {"retries": -1}, {"hedge_factor": -1.0}, {"breaker_threshold": -1},
+                {"hedge_min_s": 0.0}):
         with pytest.raises(ValueError):
             port_open(uris["chunked"], **bad)
         with pytest.raises(ValueError):

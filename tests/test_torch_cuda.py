@@ -153,6 +153,60 @@ def test_sharded_h5ad_batch_densifies_as_the_csr_batch(tmp_path):
     assert torch.equal(got[0], got[1])
 
 
+@pytest.mark.cuda
+def test_a_fault_and_diversity_epoch_on_the_card_is_the_cpus(tmp_path):
+    """One epoch of ``train_probe`` on the card from ``fault://`` with
+    retries and the diversity monitor, at 2,048 genes: its batches and
+    diversity counters bitwise a clean epoch's on the host, one launch of
+    the feature kernel a step, and a batch densified on the card bitwise
+    the plain version on the CPU."""
+    from repro_torch.data import generate_tahoe_like
+    from repro_torch.pipeline import Pipeline
+    from repro_torch.train import probe
+
+    dev = _card()
+    G = 2_048
+    root = str(tmp_path / "cells")
+    generate_tahoe_like(root, n_cells=4_096, n_genes=G, seed=1, total_counts=512)
+
+    def pipe(uri, **res):
+        p = (Pipeline.from_uri(uri, cache_bytes=1 << 22, block_rows=16).strategy("block", block_size=16)
+             .batch(64, fetch_factor=8).seed(0).diversity(obs="plate"))
+        return (p.resilience(**res) if res else p).build()
+
+    clean = pipe(f"sharded-csr://{root}")
+    want = list(clean)
+    faulty = pipe(f"fault://sharded-csr://{root}?error_rate=0.1&seed=3", retries=6,
+                  backoff_s=1e-4, max_backoff_s=1e-3)
+    got = []
+
+    def kept(batches):
+        for b in batches:
+            got.append(b)
+            yield b
+
+    heads = probe.init_heads(G, device=dev, generator=torch.Generator().manual_seed(0))
+    opt = probe.init_adam(heads)
+    torch.cuda.synchronize()
+    before = csr_to_dense.ell_to_dense.launches
+    run = probe.train_probe(kept(faulty), heads, opt, device=dev)
+    launches = csr_to_dense.ell_to_dense.launches - before
+    assert run["steps"] == len(want) == len(got) > 0 and launches == run["steps"]
+    assert all(np.isfinite(run["losses"]))
+    for a, b in zip(want, got):
+        for f in ("data", "indices", "indptr"):
+            assert np.array_equal(getattr(a, f), getattr(b, f))
+    div = ("div_batches", "div_entropy_sum", "div_entropy_min")
+    snap, clean_snap = faulty.collection.iostats.snapshot(), clean.collection.iostats.snapshot()
+    assert {k: snap[k] for k in div} == {k: clean_snap[k] for k in div}
+    assert snap["div_batches"] == len(got) and snap["retries"] > 0
+    t = got[0].to_tensors()
+    card = ops.ell_to_dense(t["vals"].to(dev), t["cols"].to(dev), n_cols=G)
+    assert torch.equal(card.cpu(), ref.ell_to_dense_ref(t["vals"], t["cols"], G))
+    clean.close()
+    faulty.close()
+
+
 # ------------------------------------------------------------ flash attention
 # the JAX package's sweep (tests/test_kernels.py), D = 20 (the smoke
 # config) and the serving path's heads (GQA 15:5, D = 64)

@@ -51,7 +51,8 @@ def test_port_imports_with_jax_and_repro_blocked():
         "repro_torch.configs.falcon_mamba_7b", "repro_torch.core.theory",
         "repro_torch.train.fig5", "repro_torch.precision", "repro_torch.data.backend",
         "repro_torch.data.chunked_store", "repro_torch.data.h5shim", "repro_torch.data.h5ad",
-        "repro_torch.core.prefetch",
+        "repro_torch.core.prefetch", "repro_torch.core.autotune", "repro_torch.data.cloud",
+        "repro_torch.data.faults", "repro_torch.train.fig4",
     } <= names
 
 

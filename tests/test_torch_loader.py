@@ -203,11 +203,14 @@ def test_loader_state_json_roundtrip_matches_reference():
 
 
 def test_unported_features_raise(stores):
-    with pytest.raises(NotImplementedError):
-        ScIterableDataset(stores[1], diversity_obs="plate")
+    # the monitor and autotune are ported: they refuse what the reference
+    # refuses (tests/test_torch_diversity.py, tests/test_torch_autotune.py)
+    for cls, store in ((ScDataset, stores[0]), (ScIterableDataset, stores[1])):
+        with pytest.raises(ValueError, match="diversity_obs"):
+            cls(np.arange(10), diversity_obs="plate")
+        with pytest.raises(TypeError, match="planned collection"):
+            cls(store).autotune()
     ds = ScIterableDataset(stores[1])
-    with pytest.raises(NotImplementedError):
-        ds.autotune()
     with pytest.raises(NotImplementedError):
         ds.repartition(0, 2)
     with pytest.raises(ValueError):

@@ -244,17 +244,23 @@ def test_what_the_port_does_not_build_yet_is_refused(corpora):
         _same_batch(a, b)
     pooled.close()
     sync.close()
-    for call, item in ((lambda p: p.resilience(retries=2), "A #6"),
-                       (lambda p: p.diversity(obs="source"), "A #5"),
-                       (lambda p: p.autotune(), "A #5"), (lambda p: p.shared(), "A #12")):
-        with pytest.raises(NotImplementedError, match=item):
-            call(pipe())
-    for kw, item in (({"retries": 1}, "A #6"), ({"hedge_factor": 2.0}, "A #6"),
-                     ({"diversity_obs": "source"}, "A #5"), ({"shared_pool": True}, "A #12")):
-        with pytest.raises(NotImplementedError, match=item):
-            DataSpec(uri=f"tokens://{root}", open_opts={"seq_len": 8}, **kw).build()
-    with pytest.raises(NotImplementedError, match="A #6"):
-        Pipeline.from_uri(f"cloud://tokens://{root}").build()
+    # resilience, diversity, autotune and cloud:// build now (their own
+    # files hold them against the reference); the shared pool does not
+    with pytest.raises(NotImplementedError, match="A #12"):
+        pipe().shared()
+    with pytest.raises(NotImplementedError, match="A #12"):
+        DataSpec(uri=f"tokens://{root}", open_opts={"seq_len": 8}, shared_pool=True).build()
+    for kw in ({"retries": 1}, {"hedge_factor": 2.0}):
+        DataSpec(uri=f"tokens://{root}", open_opts={"seq_len": 8}, **kw).build().close()
+    from repro.pipeline import DataSpec as RefDataSpec
+
+    for cls in (RefDataSpec, DataSpec):  # a token corpus has no obs column to monitor
+        with pytest.raises(KeyError, match="source"):
+            next(iter(cls(uri=f"tokens://{root}", open_opts={"seq_len": 8},
+                          diversity_obs="source").build()))
+    cloud = Pipeline.from_uri(f"cloud://tokens://{root}?latency_scale=0", seq_len=8).batch(4).build()
+    assert next(iter(cloud))["tokens"].shape == (4, 8)
+    cloud.close()
     with pytest.raises(ValueError, match="seq_len"):
         Pipeline.from_uri(f"tokens://{root}").build()
     built = Pipeline.from_uri(f"tokens://{root}?seq_len=8&io_workers=2", cache_bytes=0).batch(4).build()
@@ -360,7 +366,16 @@ def test_planned_pipeline_equals_the_reference(cells):
         for a, b in zip(want, got):
             _same_cells(a, b)
         assert pipe.state().to_dict() == ref_pipe.state().to_dict()
-    assert pipe.plan_epoch(1) == ref_pipe.plan_epoch(1)
+    # After two epochs "readahead" is each controller's live depth, which
+    # steps on measured read waits: two pipelines timed apart may stand at
+    # different depths.  Every other key is compared bitwise; the depth is
+    # held to its controller's range on each side.
+    got, want = pipe.plan_epoch(1), ref_pipe.plan_epoch(1)
+    assert {k: v for k, v in got.items() if k != "readahead"} == \
+        {k: v for k, v in want.items() if k != "readahead"}
+    for p in (pipe, ref_pipe):
+        ctl = p.collection._ra_controller
+        assert ctl.min_depth <= p.plan_epoch(1)["readahead"] <= ctl.max_depth
     assert sorted(pipe.stats()) == ["admission", "cache", "io", "readahead"]
     pipe.close()
     ref_pipe.close()
