@@ -296,6 +296,53 @@ The diversity monitor, autotune and resilient storage on the cell path
    ``hedges_won``, ``breaker_opens`` and ``breaker_closes``.  No speed is
    asserted.
 
+Data serving and the elastic fabric on the cell path (slice 13), on phase
+5's store behind ``cloud://sharded-csr://...?profile=same-region&
+latency_scale=0.1``:
+
+24. served_cell_path: a ``BatchServer`` in this process on ``127.0.0.1:0``
+   (``io_workers=2``, ``block_rows`` 16, ``queue_depth`` 2), its cache
+   three times phase 20's synchronous budget for a fetch of 64 x 16 rows
+   (printed), and three tenants with identical specs (``BlockShuffling(16)``,
+   batch 64, ``fetch_factor`` 16, seed 0), each in a thread of its own with
+   its own ``DataClient``, probe heads and CUDA stream, one epoch of
+   ``train_probe`` each; tenant 0 stops after 200 steps and resumes over a
+   new connection from its ``state()``.  Then a ``qint8`` tenant for one
+   fetch, and ``GET /stats`` over HTTP.  The isolated arm: the same three
+   specs as local pipelines, a third of the cache each, in three threads.
+   Every tenant's and isolated loader's batches must be bitwise one local
+   pipeline's epoch of the spec (phase 20's CRC-32), the qint8 tenant's
+   columns, row pointers and obs exact and its values within the codec's
+   bound (the batch's largest value over 127), the shared arm's
+   ``requests`` and ``bytes_read`` strictly below the isolated arm's,
+   ``ell_to_dense`` launched once a step in each arm (the count set to 0
+   before the threads start and read after they end), losses finite and
+   falling.  Printed per arm and tenant: samples/s, loader wait, the
+   stream's idle share, wire bytes (the server's ``bytes_sent``) and the
+   arm's ``requests``, ``bytes_read``, ``cache_hits``; the ``/stats``
+   aggregate.
+25. elastic_cell_path: an ``ElasticFabric`` of world 3 over one collection
+   (``BlockShuffling(16)``, batch 64, ``fetch_factor`` 8: 64 fetches and
+   512 batches an epoch; the planner's default 256-row blocks, so that
+   ranks' fetches meet in blocks; the cache three times phase 20's
+   synchronous budget, ``io_workers=2``), the ranks drawn in turns batch
+   by batch, each through probe heads of its own: 13 batches a rank (the
+   kill lands mid-fetch), ``kill(1)``, ``recover()`` of the
+   ``RankSupervisor`` that issued and acknowledged every fetch,
+   ``resize(2)``, 13 batches a rank, ``resize(3)``, the rest of the epoch.
+   Beside it the never-resized world-3 epoch on one collection, and the
+   isolated arm: the three ranks on a collection and a third of the cache
+   each.  The merged stream keyed by ``(gid, batch_index)`` must be the
+   never-resized one (CRC-32), 512 batches and no key twice;
+   ``shared_rank_hits > 0``, ``reissued_fetches >= 1`` with rank 1's
+   fetch re-issued, no duplicate acknowledgement and nothing outstanding;
+   the shared arm's ``requests`` and ``bytes_read`` per sample strictly
+   below the isolated arm's; ``ell_to_dense`` launched once a batch;
+   losses finite.  Printed per arm: samples/s, loader wait, the stream's
+   idle share, ``requests``, ``bytes_read``, ``cache_hits``,
+   ``shared_rank_hits``, and ``recover()``'s result.  No speed is
+   asserted in either phase.
+
 Then the kernels line (one entry per kernel), the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.  Any failure
 exits non-zero before it.
@@ -478,6 +525,19 @@ RESILIENT_WAYS = {"a_sync": (1, 0, False), "a_sync_again": (1, 0, False),
                   "b_readahead": (4, 1, False), "c_blackout": (1, 0, True)}
 RESILIENT_IO = ("runs", "bytes_read", "requests", "request_wait_s", "retries", "retry_wait_s",
                 "hedges_issued", "hedges_won", "breaker_opens", "breaker_closes")
+# the served cell path (phase 24): tenants of one server on phase 5's store
+SERVE_TENANTS = 3
+SERVE_FETCH_FACTOR = 16  # the reference's serving benchmark's geometry (bench_serve.py)
+SERVE_CLOUD = "profile=same-region&latency_scale=0.1"
+SERVE_RESUME_AFTER = 200  # tenant 0's steps before it reconnects and resumes
+SERVE_QINT8_STEPS = 16  # one fetch of the qint8 tenant
+SERVE_SOCKET_S = 120.0  # every client socket's timeout
+SERVE_THREAD_S = 600.0  # a tenant thread still running after this fails the phase
+# the elastic cell path (phase 25): the reference's elastic benchmark's geometry
+ELASTIC_WORLD = 3
+ELASTIC_FETCH_FACTOR = 8
+ELASTIC_PHASE_BATCHES = 13  # a rank's batches between events: the kill lands mid-fetch
+ELASTIC_HEARTBEAT_S = 0.05  # the liveness timeout: the killed rank is a suspect after it
 
 
 def fail(msg: str) -> None:
@@ -1132,6 +1192,14 @@ def main() -> None:
     # 23. resilient storage on the cell path: faults, cloud requests,
     #     retries, hedged reads and the shard circuit
     resilient_phase(dev, store)
+    torch.cuda.empty_cache()
+
+    # 24. tenants of one batch server against the same loaders isolated
+    served_phase(dev, root, store)
+    torch.cuda.empty_cache()
+
+    # 25. the elastic fabric: a kill and two resizes over one collection
+    elastic_phase(dev, root, store)
     torch.cuda.empty_cache()
 
     # 19. the Fig. 5 experiment
@@ -2675,11 +2743,12 @@ def h5ad_phase(dev, root: str, store) -> dict:
     return out
 
 
-def _epoch_checks(where: str, run: dict, launches: int) -> tuple:
-    """An epoch of ``train_probe``: enough steps, one feature launch each,
-    finite losses that fall; returns the first and last 20 steps' means."""
+def _epoch_checks(where: str, run: dict, launches: int | None) -> tuple:
+    """An epoch of ``train_probe``: enough steps, one feature launch each
+    (unless ``launches`` is None: threads share the count), finite losses
+    that fall; returns the first and last 20 steps' means."""
     losses, steps = run["losses"], run["steps"]
-    if steps < MIN_STEPS or launches != steps:
+    if steps < MIN_STEPS or launches not in (None, steps):
         fail(f"{where}: {steps} steps, ell_to_dense launched {launches} times")
     if not all(math.isfinite(x) for x in losses):
         fail(f"{where}: non-finite loss")
@@ -2855,6 +2924,424 @@ def resilient_phase(dev, store) -> dict:
            "cells": len(store), "genes": store.n_var, "batch": BATCH,
            "fetch_factor": FETCH_FACTOR, "block_size": BLOCK, "batches_bitwise": True,
            "ways": runs, "seconds": time.perf_counter() - t_phase}
+    emit(out)
+    return out
+
+
+def _idle_share(run: dict):
+    """The stream's idle share over a run (None where no step was timed on
+    the card)."""
+    spans = run.get("step_stream_ms")
+    return None if spans is None else 1 - sum(spans) / 1e3 / run["seconds"]
+
+
+def _http_stats(address) -> dict:
+    """The server's ``GET /stats`` body, over a socket with a timeout."""
+    import socket
+
+    with socket.create_connection(address, timeout=SERVE_SOCKET_S) as s:
+        s.sendall(b"GET /stats HTTP/1.0\r\n\r\n")
+        resp = b""
+        while chunk := s.recv(1 << 16):
+            resp += chunk
+    head, body = resp.split(b"\r\n\r\n", 1)
+    if b"200 OK" not in head:
+        fail(f"served_cell_path: GET /stats answered {head[:80]!r}")
+    return json.loads(body)
+
+
+def _run_threads(where: str, fns: list) -> list:
+    """Run each function in a thread of its own; their results in order.
+    A function that raised, or a thread still running after
+    SERVE_THREAD_S, fails the phase."""
+    import threading
+
+    out = [None] * len(fns)
+
+    def body(i):
+        try:
+            out[i] = fns[i]()
+        except BaseException as e:  # handed to the caller, which fails
+            out[i] = e
+
+    threads = [threading.Thread(target=body, args=(i,), name=f"{where}-{i}", daemon=True)
+               for i in range(len(fns))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=SERVE_THREAD_S)
+        if th.is_alive():
+            fail(f"{where}: {th.name} still running after {SERVE_THREAD_S} s")
+    for i, r in enumerate(out):
+        if isinstance(r, BaseException):
+            fail(f"{where} {i}: {type(r).__name__}: {r}")
+    return out
+
+
+def _threaded_probe(dev, batches) -> dict:
+    """``train_probe`` from fresh heads (seed 0) over ``batches``, on a
+    stream of this thread's own (the ranks' steps do not share a stream)."""
+    import contextlib
+
+    import torch
+
+    from repro_torch.train import probe
+
+    heads = probe.init_heads(N_GENES, device=dev, generator=torch.Generator().manual_seed(0))
+    opt = probe.init_adam(heads)
+    on_card = dev.type == "cuda"
+    with torch.cuda.stream(torch.cuda.Stream(dev)) if on_card else contextlib.nullcontext():
+        return probe.train_probe(batches, heads, opt, device=dev)
+
+
+def served_phase(dev, root: str, store) -> dict:
+    """Phase 24: tenants of one batch server against the same loaders
+    isolated, on phase 5's store; see the module docstring."""
+    import numpy as np
+
+    from repro_torch.kernels import csr_to_dense
+    from repro_torch.pipeline import Pipeline
+    from repro_torch.serve.data import BatchServer, DataClient, ServeConfig
+
+    t_phase = time.perf_counter()
+    uri = f"cloud://sharded-csr://{root}?{SERVE_CLOUD}"
+    spec = (Pipeline.from_uri(uri, io_workers=2).strategy("block", block_size=BLOCK)
+            .batch(BATCH, fetch_factor=SERVE_FETCH_FACTOR).seed(0).spec)
+    budget = int(PLANNED_CACHE_HEADROOM * BATCH * SERVE_FETCH_FACTOR * store.avg_row_bytes)
+    cache_total = SERVE_TENANTS * budget
+    local = Pipeline.from_spec(spec).build()
+    want, head = [], []
+    for b in local:
+        want.append(_batch_crc(b))
+        if len(head) < SERVE_QINT8_STEPS:
+            head.append(b)
+    local.close()
+    io = ("requests", "bytes_read", "cache_hits", "cache_misses", "runs")
+
+    def arm_row(runs, wire, snap, launches):
+        rows = []
+        for i, (run, first, last) in enumerate(runs):
+            rows.append({"samples_per_s": run["steps"] * BATCH / run["seconds"],
+                         "loader_wait_s": run["loader_wait_s"], "seconds": run["seconds"],
+                         "steps": run["steps"], "stream_idle_share": _idle_share(run),
+                         "loss_first20": first, "loss_last20": last,
+                         **({"wire_bytes": wire[i]} if wire else {})})
+        return {"tenants": rows, "launches": launches, **{k: snap[k] for k in io}}
+
+    srv = BatchServer(ServeConfig(max_tenants=SERVE_TENANTS, cache_bytes=cache_total,
+                                  block_rows=BLOCK, io_workers=2, queue_depth=2)).start()
+    try:
+        def sent(cli) -> int:
+            return next(t["bytes_sent"] for t in srv.stats().tenants if t["id"] == cli.tenant_id)
+
+        def tenant(i):
+            crcs, wire = [], [0]
+
+            def batches():
+                cli = DataClient(srv.address, spec, timeout_s=SERVE_SOCKET_S)
+                try:
+                    it = iter(cli)
+                    if i == 0:  # stops, then resumes over a new connection
+                        for k, b in enumerate(it):
+                            crcs.append(_batch_crc(b))
+                            yield b
+                            if k + 1 == SERVE_RESUME_AFTER:
+                                break
+                        ckpt = cli.state()
+                        wire[0] += sent(cli)
+                        cli.close()
+                        cli = DataClient(srv.address, spec, timeout_s=SERVE_SOCKET_S)
+                        cli.load_state(ckpt)
+                        it = iter(cli)
+                    for b in it:
+                        crcs.append(_batch_crc(b))
+                        yield b
+                    wire[0] += sent(cli)
+                finally:
+                    cli.close()
+
+            return _threaded_probe(dev, batches()), crcs, wire[0]
+
+        csr_to_dense.ell_to_dense.launches = 0
+        tenants = _run_threads("served_cell_path tenant", [lambda i=i: tenant(i)
+                                                           for i in range(SERVE_TENANTS)])
+        launches = csr_to_dense.ell_to_dense.launches
+        shared_snap = srv.stats().aggregate
+        runs = []
+        for i, (run, crcs, _) in enumerate(tenants):
+            if crcs != want:
+                fail(f"served_cell_path tenant {i}: {len(crcs)} batches, not bitwise the local "
+                     f"pipeline's {len(want)}")
+            runs.append((run, *_epoch_checks(f"served_cell_path tenant {i}", run, None)))
+        if launches != sum(r["steps"] for r, _, _ in tenants):
+            fail(f"served_cell_path: ell_to_dense launched {launches} times in "
+                 f"{[r['steps'] for r, _, _ in tenants]} steps")
+        shared = arm_row(runs, [w for _, _, w in tenants], shared_snap, launches)
+
+        # the qint8 tenant: exact structure, values within the codec's bound
+        with DataClient(srv.address, spec, compression="qint8", timeout_s=SERVE_SOCKET_S) as cli:
+            it = iter(cli)
+            qbatches = [next(it) for _ in range(SERVE_QINT8_STEPS)]
+            q_wire = sent(cli)
+        q_err = 0.0
+        for i, (a, b) in enumerate(zip(head, qbatches)):
+            if not (np.array_equal(a.indices, b.indices) and np.array_equal(a.indptr, b.indptr)
+                    and all(np.array_equal(a.obs[k], b.obs[k]) for k in a.obs)
+                    and list(a.obs) == list(b.obs)):
+                fail(f"served_cell_path qint8: batch {i}'s columns, row pointers or obs differ")
+            err, bound = float(np.abs(a.data - b.data).max()), float(np.abs(a.data).max()) / 127
+            if err > bound + 1e-6:
+                fail(f"served_cell_path qint8: batch {i} off by {err}, bound {bound}")
+            q_err = max(q_err, err)
+        q_run, q_launches = _probe_run(dev, qbatches)
+        if q_launches != q_run["steps"] or q_run["steps"] != SERVE_QINT8_STEPS or not all(
+                math.isfinite(x) for x in q_run["losses"]):
+            fail(f"served_cell_path qint8: {q_run['steps']} steps, {q_launches} launches")
+        http = _http_stats(srv.address)
+    finally:
+        srv.stop()
+
+    # the isolated arm: the same specs as local pipelines, a third of the cache each
+    pipes = [Pipeline.from_spec(spec.replace(cache_bytes=budget, block_rows=BLOCK)).build()
+             for _ in range(SERVE_TENANTS)]
+
+    def isolated(i):
+        crcs = []
+        return _threaded_probe(dev, _digested(pipes[i], crcs, [])), crcs
+
+    csr_to_dense.ell_to_dense.launches = 0
+    loaders = _run_threads("served_cell_path isolated", [lambda i=i: isolated(i)
+                                                         for i in range(SERVE_TENANTS)])
+    iso_launches = csr_to_dense.ell_to_dense.launches
+    iso_snap = {k: sum(p.collection.iostats.snapshot()[k] for p in pipes) for k in io}
+    for p in pipes:
+        p.close()
+    iso_runs = []
+    for i, (run, crcs) in enumerate(loaders):
+        if crcs != want:
+            fail(f"served_cell_path isolated {i}: not bitwise the local pipeline's batches")
+        iso_runs.append((run, *_epoch_checks(f"served_cell_path isolated {i}", run, None)))
+    if iso_launches != sum(r["steps"] for r, _ in loaders):
+        fail(f"served_cell_path isolated: ell_to_dense launched {iso_launches} times")
+    isolated_row = arm_row(iso_runs, None, iso_snap, iso_launches)
+    for k in ("requests", "bytes_read"):
+        if not shared[k] < isolated_row[k]:
+            fail(f"served_cell_path: the shared arm's {k} {shared[k]} is not below the "
+                 f"isolated arm's {isolated_row[k]}")
+    out = {"phase": "served_cell_path", "uri": uri, "cells": len(store), "genes": store.n_var,
+           "tenants": SERVE_TENANTS, "batch": BATCH, "fetch_factor": SERVE_FETCH_FACTOR,
+           "block_size": BLOCK, "block_rows": BLOCK, "cache_bytes_total": cache_total,
+           "cache_bytes_isolated_each": budget, "resume_after": SERVE_RESUME_AFTER,
+           "batches_bitwise": True, "shared": shared, "isolated": isolated_row,
+           "requests_ratio": isolated_row["requests"] / shared["requests"],
+           "bytes_ratio": isolated_row["bytes_read"] / shared["bytes_read"],
+           "qint8": {"steps": SERVE_QINT8_STEPS, "max_abs_err": q_err, "wire_bytes": q_wire,
+                     "launches": q_launches},
+           "http_stats": {"aggregate": {k: http["aggregate"][k] for k in io},
+                          "admission": http["admission"],
+                          "collections": [{"key": c["key"], "refs": c["refs"]}
+                                          for c in http["collections"]]},
+           "seconds": time.perf_counter() - t_phase}
+    emit(out)
+    return out
+
+
+def _fabric_steps(dev, heads: dict, loaders: dict, got: dict, limit, on_batch=None) -> dict:
+    """The ranks' loaders in turns, batch by batch (the co-located
+    schedule), each rank's batch through its own heads and optimizer
+    (``heads[rank]``) on the card; each batch's CRC under its
+    ``(gid, batch_index)``, which must be new.  Returns the steps'
+    losses, span events, loader wait and batches."""
+    import torch
+
+    from repro_torch.distributed.elastic import tagged_batches
+    from repro_torch.train import probe
+
+    its = {r: tagged_batches(ds, limit=limit) for r, ds in sorted(loaders.items())}
+    acc = {"losses": [], "marks": [], "wait": 0.0, "batches": 0}
+    on_card = dev.type == "cuda"
+    while its:
+        for r in list(its):
+            tw = time.perf_counter()
+            try:
+                gid, j, b = next(its[r])
+            except StopIteration:
+                del its[r]
+                continue
+            finally:
+                acc["wait"] += time.perf_counter() - tw
+            if (gid, j) in got:
+                fail(f"elastic_cell_path: batch {(gid, j)} delivered twice")
+            got[(gid, j)] = _batch_crc(b)
+            if on_batch is not None:
+                on_batch(r, gid, j)
+            rank_heads, opt = heads[r]
+            t = b.to_tensors()
+            if on_card:
+                acc["marks"].append((torch.cuda.Event(enable_timing=True),
+                                     torch.cuda.Event(enable_timing=True)))
+                acc["marks"][-1][0].record()
+            x = probe.features(t["vals"].to(dev), t["cols"].to(dev), n_genes=N_GENES)
+            acc["losses"].append(probe.train_step(rank_heads, opt, x, {k: v.to(dev) for k, v in
+                                                                       t["obs"].items()}))
+            if on_card:
+                acc["marks"][-1][1].record()
+            acc["batches"] += 1
+    return acc
+
+
+def _fabric_arm(dev, schedule) -> tuple:
+    """One arm of phase 25: ``schedule(step)`` calls ``step(loaders,
+    limit=None, on_batch=None)`` for each stretch of :func:`_fabric_steps`,
+    with fresh heads per rank and the feature kernel's count set to 0 just
+    before and read just after; returns the delivered CRCs and the arm's
+    row (without its counters)."""
+    import torch
+
+    from repro_torch.kernels import csr_to_dense
+    from repro_torch.train import probe
+
+    heads = {}
+    for r in range(ELASTIC_WORLD):
+        h = probe.init_heads(N_GENES, device=dev, generator=torch.Generator().manual_seed(r))
+        heads[r] = (h, probe.init_adam(h))
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    got, steps = {}, []
+
+    def step(loaders, limit=None, on_batch=None):
+        steps.append(_fabric_steps(dev, heads, loaders, got, limit, on_batch))
+
+    csr_to_dense.ell_to_dense.launches = 0
+    t0 = time.perf_counter()
+    schedule(step)
+    losses = torch.stack([x for s in steps for x in s["losses"]]).tolist()
+    seconds = time.perf_counter() - t0
+    launches = csr_to_dense.ell_to_dense.launches
+    n = sum(s["batches"] for s in steps)
+    spans = [a.elapsed_time(b) for s in steps for a, b in s["marks"]]
+    if launches != n or len(got) != n:
+        fail(f"elastic_cell_path: {n} batches, {len(got)} keys, ell_to_dense launched "
+             f"{launches} times")
+    if not all(math.isfinite(x) for x in losses):
+        fail("elastic_cell_path: a non-finite loss")
+    return got, {"batches": n, "launches": launches, "seconds": seconds,
+                 "samples_per_s": n * BATCH / seconds,
+                 "loader_wait_s": sum(s["wait"] for s in steps),
+                 "stream_idle_share": 1 - sum(spans) / 1e3 / seconds if spans else None,
+                 "loss_first20": statistics.mean(losses[:20]),
+                 "loss_last20": statistics.mean(losses[-20:])}
+
+
+def elastic_phase(dev, root: str, store) -> dict:
+    """Phase 25: the elastic fabric over one cloud collection, with a kill
+    and two resizes, against the never-resized epoch and isolated ranks,
+    on phase 5's store; see the module docstring."""
+    from repro_torch.core import BlockShuffling, ScIterableDataset
+    from repro_torch.data import IOCounters, open_collection
+    from repro_torch.distributed.elastic import ElasticFabric, RankSupervisor
+    from repro_torch.distributed.fault import LivenessMonitor
+
+    t_phase = time.perf_counter()
+    uri = f"cloud://sharded-csr://{root}?{SERVE_CLOUD}"
+    kw = dict(batch_size=BATCH, fetch_factor=ELASTIC_FETCH_FACTOR, seed=0)
+    cache_total = ELASTIC_WORLD * int(PLANNED_CACHE_HEADROOM * BATCH * FETCH_FACTOR
+                                      * store.avg_row_bytes)
+    io = ("requests", "bytes_read", "cache_hits", "cache_misses", "shared_rank_hits",
+          "reissued_fetches", "prefetched")
+
+    def shared_collection():
+        return open_collection(uri, iostats=IOCounters(), cache_bytes=cache_total, io_workers=2)
+
+    # the reference arm: world 3, never resized, on one collection
+    ref_col = shared_collection()
+    ref_fab = ElasticFabric(ref_col, world_size=ELASTIC_WORLD, strategy=BlockShuffling(BLOCK), **kw)
+    ref, ref_row = _fabric_arm(dev, lambda step: step(ref_fab.loaders))
+    ref_row.update({k: ref_col.iostats.snapshot()[k] for k in io})
+    ref_col.release()
+    epoch_batches = len(ScIterableDataset(store, BlockShuffling(BLOCK), **kw))
+    if len(ref) != epoch_batches:
+        fail(f"elastic_cell_path: the never-resized epoch gave {len(ref)} batches, "
+             f"not {epoch_batches}")
+
+    # the elastic arm: kill(1) mid-fetch, resize(2), resize(3), drain
+    col = shared_collection()
+    fab = ElasticFabric(col, world_size=ELASTIC_WORLD, strategy=BlockShuffling(BLOCK), **kw)
+    sup = RankSupervisor(ScIterableDataset(col, BlockShuffling(BLOCK), **kw),
+                         heartbeat=LivenessMonitor(timeout_s=ELASTIC_HEARTBEAT_S))
+    owes: dict = {}  # rank -> the gid it has issued and not yet acknowledged
+    acks = []
+
+    def on_batch(rank, gid, j):
+        sup.beat(rank)
+        if owes.get(rank) != gid:
+            sup.issue(rank, 0, gid)
+            owes[rank] = gid
+        if j == ELASTIC_FETCH_FACTOR - 1:
+            acks.append(sup.ack(rank, 0, gid))
+            owes.pop(rank)
+
+    recovered = {}
+
+    def schedule(step):
+        step(fab.loaders, ELASTIC_PHASE_BATCHES, on_batch)
+        killed = fab.kill(1)
+        time.sleep(2 * ELASTIC_HEARTBEAT_S)
+        for r in fab.loaders:  # the live ranks beat on; rank 1 is a suspect now
+            sup.beat(r)
+        recovered.update(sup.recover())
+        recovered["killed_in"] = list(killed.remaining[0])  # (gid, batches it delivered)
+        owes.clear()
+        fab.resize(ELASTIC_WORLD - 1)
+        step(fab.loaders, ELASTIC_PHASE_BATCHES, on_batch)
+        owes.clear()
+        fab.resize(ELASTIC_WORLD)
+        step(fab.loaders, None, on_batch)
+
+    got, row = _fabric_arm(dev, schedule)
+    snap = col.iostats.snapshot()
+    row.update({k: snap[k] for k in io})
+    col.release()
+    if got != ref:
+        missing = sorted(set(ref) - set(got))[:5]
+        fail(f"elastic_cell_path: the kill/resize stream is not the never-resized one "
+             f"({len(got)} batches, {len(ref)} wanted, missing e.g. {missing})")
+    gid, skip = recovered["killed_in"]
+    if not 0 < skip < ELASTIC_FETCH_FACTOR or recovered.get("1") != [gid]:
+        fail(f"elastic_cell_path: rank 1 died in fetch {gid} after {skip} of its batches, and "
+             f"recover() re-issued {recovered}")
+    if snap["shared_rank_hits"] <= 0 or snap["reissued_fetches"] < 1:
+        fail(f"elastic_cell_path: shared_rank_hits {snap['shared_rank_hits']}, "
+             f"reissued_fetches {snap['reissued_fetches']}")
+    if not all(acks) or sup.outstanding():
+        fail(f"elastic_cell_path: {acks.count(False)} duplicate acks, outstanding "
+             f"{sup.outstanding()}")
+
+    # the isolated arm: the same three ranks, a collection and a third of the cache each
+    cols = [open_collection(uri, iostats=IOCounters(), cache_bytes=cache_total // ELASTIC_WORLD,
+                            io_workers=2) for _ in range(ELASTIC_WORLD)]
+    loaders = {r: ScIterableDataset(cols[r], BlockShuffling(BLOCK), rank=r,
+                                    world_size=ELASTIC_WORLD, **kw) for r in range(ELASTIC_WORLD)}
+    iso, iso_row = _fabric_arm(dev, lambda step: step(loaders))
+    iso_row.update({k: sum(c.iostats.snapshot()[k] for c in cols) for k in io})
+    for c in cols:
+        c.release()
+    if iso != ref:
+        fail("elastic_cell_path: the isolated ranks' stream is not the never-resized one")
+    for k in ("requests", "bytes_read"):
+        if not row[k] / row["batches"] < iso_row[k] / iso_row["batches"]:
+            fail(f"elastic_cell_path: the shared arm's {k} per sample is not below the "
+                 f"isolated arm's ({row[k]} against {iso_row[k]})")
+    out = {"phase": "elastic_cell_path", "uri": uri, "cells": len(store), "genes": store.n_var,
+           "world": ELASTIC_WORLD, "schedule": f"{ELASTIC_WORLD} -> kill(1) -> "
+           f"{ELASTIC_WORLD - 1} -> {ELASTIC_WORLD}, {ELASTIC_PHASE_BATCHES} batches a rank "
+           f"between events", "batch": BATCH, "fetch_factor": ELASTIC_FETCH_FACTOR,
+           "block_size": BLOCK, "block_rows": "default (256)", "cache_bytes_total": cache_total,
+           "batches_bitwise": True, "recover": recovered,
+           "acks": len(acks), "reference": ref_row, "elastic": row, "isolated": iso_row,
+           "requests_ratio": iso_row["requests"] / row["requests"],
+           "bytes_ratio": iso_row["bytes_read"] / row["bytes_read"],
+           "seconds": time.perf_counter() - t_phase}
     emit(out)
     return out
 

@@ -411,8 +411,33 @@ class ScIterableDataset(IterableDataset):
                 self._order_cache = {}  # the geometry changed: derive the order anew
         return rec
 
-    def repartition(self, rank: int, world_size: int, plan: Optional[list] = None):
-        raise NotImplementedError("elastic repartition is not ported yet (ROADMAP.md queue A #12)")
+    def repartition(self, rank: int, world_size: int, plan: Optional[list] = None) -> None:
+        """Re-home this loader as ``rank`` of ``world_size`` mid-epoch.
+
+        With ``plan`` (``(global_fetch_id, skip_batches)`` entries, e.g. one
+        share of :func:`repro_torch.distributed.elastic.partition`) it
+        delivers exactly those fetches for the rest of the CURRENT epoch,
+        and round-robin under the new world from the next epoch on; without
+        one, the round-robin derivation applies at once.  The cursors
+        restart at zero: the entries' skips carry a mid-fetch position.
+        """
+        if not (0 <= rank < world_size):
+            raise ValueError(f"rank {rank} out of range for world_size {world_size}")
+        self.rank = int(rank)
+        self.world_size = int(world_size)
+        if plan is None:
+            self._fetch_plan = None
+        else:
+            g = self._global_fetch_count()
+            norm = [(int(gid), int(skip)) for gid, skip in plan]
+            bad = [gid for gid, _ in norm if not (0 <= gid < g)]
+            if bad:
+                raise ValueError(
+                    f"plan contains global fetch ids {bad} outside [0, {g}) "
+                    f"for this epoch's geometry"
+                )
+            self._fetch_plan = norm
+        self._state = LoaderState(self.seed, self._state.epoch, 0, 0)
 
     # ------------------------------------------------------------------ state
     def remaining_fetches(self) -> list:

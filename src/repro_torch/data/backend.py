@@ -26,9 +26,10 @@ The port of ``repro.data.backend``:
 
 Batches, read plans and counters of the synchronous path equal the
 reference's bit for bit, under injected faults too; the asynchronous paths
-deliver the synchronous path's batches.  Not ported yet, raising
-``NotImplementedError``: :meth:`PlannedRows.tagged` (ROADMAP.md queue A
-#12).
+deliver the synchronous path's batches.  :meth:`PlannedRows.tagged`
+attributes a thread's reads to a tag (a rank of the elastic fabric): blocks
+read under a tag are owned by it, and a tagged fetch that obtains a block
+another tag read counts one ``shared_rank_hits``.
 
 Locks: one rendezvous lock (``_fl``) guards the in-flight table, the
 prefetch marks, the block cache, the stream detector, the sketch and the
@@ -44,6 +45,7 @@ executor thread exists and no lock is held: ``io_workers=1`` and
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import threading
@@ -52,7 +54,7 @@ import urllib.parse
 from concurrent.futures import FIRST_COMPLETED, Future, ThreadPoolExecutor
 from concurrent.futures import TimeoutError as FuturesTimeout
 from concurrent.futures import wait as futures_wait
-from typing import Any, Callable, Optional, Protocol, Sequence, runtime_checkable
+from typing import Any, Callable, Iterator, Optional, Protocol, Sequence, runtime_checkable
 
 import numpy as np
 
@@ -91,8 +93,6 @@ __all__ = [
 DEFAULT_CACHE_BYTES = 64 << 20
 DEFAULT_BLOCK_ROWS = 256
 DEFAULT_MAX_EXTENT_ROWS = 32768
-
-_ELASTIC = "is not ported yet (ROADMAP.md queue A #12: the elastic fabric)"
 
 
 @runtime_checkable
@@ -493,6 +493,11 @@ class PlannedRows:
         # consumption counts as `prefetched`, not as a cache hit
         self._pf_marks: set[int] = set()  # guarded-by: _fl
         self._fl = threading.Lock()
+        # cross-rank attribution: block id -> the tag whose read produced
+        # the block's value.  A tag claims a block when it claims its read;
+        # an untagged claim clears the owner.  The tag itself is per thread
+        self._tag = threading.local()
+        self._block_owner: dict[int, Any] = {}  # guarded-by: _fl
         self._retry = None  # guarded-by: external — a frozen RetryPolicy, set once
         if retries > 0:
             self._retry = RetryPolicy(retries=int(retries), backoff_s=float(retry_backoff_s),
@@ -533,8 +538,29 @@ class PlannedRows:
             if self._ra_controller is not None:
                 self._ra_controller.epoch_boundary()
 
-    def tagged(self, tag: Any):
-        raise NotImplementedError(f"PlannedRows.tagged (cross-rank attribution) {_ELASTIC}")
+    @contextlib.contextmanager
+    def tagged(self, tag: Any) -> Iterator[None]:
+        """Attribute this thread's fetches and prefetches to ``tag`` (a rank
+        id in the elastic fabric) for the duration.  Blocks read under a tag
+        are owned by it; a later tagged fetch that obtains a block owned by
+        another tag, from the cache, a staged prefetch or a read in flight,
+        counts one ``shared_rank_hits``: the read the shared cache saved it.
+        Untagged traffic neither claims nor counts.  Nesting restores the
+        outer tag."""
+        prev = getattr(self._tag, "value", None)
+        self._tag.value = tag
+        try:
+            yield
+        finally:
+            self._tag.value = prev
+
+    def _own(self, block: int, tag: Any) -> None:
+        """Record ``tag`` as the owner of a block whose read it claimed
+        (caller holds ``_fl``); an untagged read leaves it unowned."""
+        if tag is not None:
+            self._block_owner[block] = tag  # unlocked-ok: the caller holds _fl
+        else:
+            self._block_owner.pop(block, None)  # unlocked-ok: the caller holds _fl
 
     def _pool(self) -> Optional[ThreadPoolExecutor]:
         if not self.async_enabled:
@@ -786,6 +812,7 @@ class PlannedRows:
             other = self._inflight.get(b)
             if other is None:
                 self._inflight[b] = f
+                self._own(b, getattr(self._tag, "value", None))
         if other is not None:
             return other.result(), 0, 0, "served"
         try:
@@ -825,6 +852,7 @@ class PlannedRows:
         claimed: dict[int, Future] = {}
         pf_blocks: list[int] = []
         streaming = False
+        my_tag = getattr(self._tag, "value", None)
         with self._fl:
             if self.admission == "auto":
                 streaming = self._stream.observe(blocks)
@@ -850,7 +878,11 @@ class PlannedRows:
                     else:
                         claimed[b] = self._inflight[b] = Future()
                         self._pf_marks.discard(b)  # stale staging: we re-read
+                        # owned from the claim on: a waiter may take the
+                        # block before this fetch reaches its accounting
+                        self._own(b, my_tag)
                 missing = list(claimed)
+        served = list(local)  # from the cache, staged blocks included
         hits = len(local) - len(pf_blocks)
 
         # ---- plan + issue the physical reads
@@ -941,6 +973,23 @@ class PlannedRows:
         if not np.array_equal(inv, np.arange(len(rows))):
             merged = self.adapter.take(merged, inv)
 
+        # ---- cross-rank attribution: blocks this fetch obtained without
+        # reading them (cache, staged, another thread's read) that another
+        # tag read.  The synchronous path claims no read ahead, so its own
+        # reads take their owner here
+        shared = 0
+        if my_tag is not None or self._block_owner:  # unlocked-ok: emptiness fast path; untagged traffic skips the lock, a stale non-empty read costs one locked no-op pass
+            obtained = set(served) | set(pf_blocks)
+            with self._fl:
+                if not async_mode:
+                    for b in missing:
+                        self._own(b, my_tag)
+                if my_tag is not None:
+                    for b in obtained:
+                        owner = self._block_owner.get(b)
+                        if owner is not None and owner != my_tag:
+                            shared += 1
+
         self.iostats.record(
             runs=len(spans) + reissue_runs,
             rows=len(rows),
@@ -951,6 +1000,7 @@ class PlannedRows:
             prefetched=len(pf_blocks),
             adm_bypassed=adm["bypassed"],
             adm_rejected=adm["rejected"],
+            shared_rank_hits=shared,
             slept=True,
         )
         return merged
@@ -975,11 +1025,13 @@ class PlannedRows:
             block_list = [b for b in block_list
                           if not self._breaker.is_open(self._shard_of(b * self.block_rows))]
         futs: dict[int, Future] = {}
+        my_tag = getattr(self._tag, "value", None)
         with self._fl:
             for b in block_list:
                 if b in self._inflight or self.cache.peek(b) is not None:
                     continue
                 futs[b] = self._inflight[b] = Future()
+                self._own(b, my_tag)
         if not futs:
             return 0
         arr = np.asarray(list(futs))

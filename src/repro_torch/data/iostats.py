@@ -11,11 +11,13 @@ regime by sleeping ``seek_s`` per run and ``1/bw_Bps`` per byte
 reference's keys, key for key.
 
 :meth:`IOCounters.record_resilience` counts fault recovery (``retries``,
-``hedges_*``, ``breaker_*``) and :meth:`IOCounters.record_diversity` the
-diversity monitor's per-batch label entropy (``div_*``).  The counters of
-the elastic fabric (``reissued_fetches``; ``shared_rank_hits``) are kept,
-so that snapshots compare with the reference's, but nothing in the port
-records them yet (ROADMAP.md queue A #12).
+``hedges_*``, ``breaker_*``), :meth:`IOCounters.record_diversity` the
+diversity monitor's per-batch label entropy (``div_*``) and
+:meth:`IOCounters.record_elastic` the elastic fabric's events: fetches a
+:class:`~repro_torch.distributed.elastic.RankSupervisor` issued again for a
+suspect rank (``reissued_fetches``) and blocks one rank obtained from
+another rank's read (``shared_rank_hits``, which a planned fetch also
+records through :meth:`IOCounters.record`).
 
 The classes are named apart from ``IOStats`` / ``PendingIO`` (their
 counterparts) for the same reason as
@@ -265,6 +267,24 @@ class IOCounters:
                 _add_each(pend, got)
         elif scope is not None:
             scope.record_resilience(**got)
+        else:
+            with self._lock:
+                _add_each(self, got)
+
+    def record_elastic(self, *, reissued_fetches: int = 0, shared_rank_hits: int = 0) -> None:
+        """Account elastic-fabric events: fetches of a suspect rank issued
+        again through the rendezvous table (``reissued_fetches``) and blocks
+        one rank obtained from another rank's read (``shared_rank_hits``).
+        Neither changes delivered data.  Honours :meth:`deferred` and
+        :meth:`scoped` like :meth:`record`."""
+        got = dict(reissued_fetches=reissued_fetches, shared_rank_hits=shared_rank_hits)
+        pend: Optional[PendingCounters] = getattr(self._tl, "pending", None)
+        scope: Optional[IOCounters] = getattr(self._tl, "scope", None)
+        if pend is not None:
+            with pend._lock:
+                _add_each(pend, got)
+        elif scope is not None:
+            scope.record_elastic(**got)
         else:
             with self._lock:
                 _add_each(self, got)

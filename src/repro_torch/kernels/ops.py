@@ -57,12 +57,12 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bc: torch.Tenso
     float32); see :func:`.ref.ssm_scan_ref`.  Neither version has a
     backward: with grad enabled and an input that requires it, raises
     ``NotImplementedError`` (training the ssm family is ROADMAP.md queue A
-    #7)."""
+    #9)."""
     inputs = (x, dt, A, Bc, Cc, D, h0)
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in inputs):
         raise NotImplementedError(
             "the selective scan has no backward yet: training the ssm family is not ported "
-            "(ROADMAP.md queue A #7)"
+            "(ROADMAP.md queue A #9)"
         )
     if x.device.type == "cuda":
         return _ssm_scan_kernel(x, dt, A, Bc, Cc, D, h0)

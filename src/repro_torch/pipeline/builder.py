@@ -37,8 +37,11 @@ pipeline keeps the recommendation, measures drift from its model
 (:meth:`DataPipeline.check_drift`) and probes its live collection again on
 request (:meth:`DataPipeline.retune`).
 
-Not ported yet: ``shared`` (the shared-collection pool), which raises
-``NotImplementedError`` naming ROADMAP.md queue A #12.
+``shared()`` opens the collection through the process's pool of shared
+collections (:data:`repro_torch.distributed.elastic.GLOBAL_POOL`, keyed by
+the URI and opener options), so that co-located pipelines of the same data
+share one block cache and one rendezvous table; closing such a pipeline
+drops its reference and leaves the shared collection open.
 """
 from __future__ import annotations
 
@@ -53,18 +56,10 @@ from ..core.prefetch import FetchPool
 from ..core.sampling import SamplingStrategy
 from ..data.backend import open_collection
 from ..data.readplan import normalize_readahead
+from ..distributed.elastic.pool import GLOBAL_POOL, pool_key
 from .spec import PipelineSpec, strategy_from_spec, strategy_to_spec
 
 __all__ = ["Pipeline", "DataPipeline"]
-
-#: spec fields the port builds only at their defaults, by ROADMAP.md item
-_LATER = {
-    "shared_pool": "A #12: the elastic fabric",
-}
-
-
-def _later(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md queue {item})")
 
 
 class Pipeline:
@@ -89,6 +84,9 @@ class Pipeline:
         # True only for a collection this builder opened from the URI: the
         # built pipeline releases those, never a caller's
         self._owns_collection = False
+        # the pool key of a collection taken from GLOBAL_POOL (shared_pool):
+        # the built pipeline drops the reference, never the collection
+        self._pool_key: Optional[str] = None
         # a caller-owned IOCounters (e.g. with a storage model to simulate),
         # threaded into open_collection; runtime only, never in the spec
         self._iostats = iostats
@@ -151,6 +149,9 @@ class Pipeline:
         if self._owns_collection and any(
             getattr(old, f) != getattr(self._spec, f) for f in self._COLLECTION_FIELDS
         ):
+            if self._pool_key is not None:
+                GLOBAL_POOL.release(self._pool_key)
+                self._pool_key = None
             self._collection = None
             self._owns_collection = False
         return self
@@ -245,7 +246,12 @@ class Pipeline:
         return self._replace(**kw)
 
     def shared(self, on: bool = True) -> "Pipeline":
-        raise _later("Pipeline.shared (the shared-collection pool)", _LATER["shared_pool"])
+        """Open the collection through the process's pool of shared
+        collections instead of privately: pipelines of the same URI and
+        opener options then share one block cache and one rendezvous
+        table, and the first opener's collection knobs hold for all.
+        Content-free; closing the built pipeline drops its reference."""
+        return self._replace(shared_pool=bool(on))
 
     def resilience(
         self,
@@ -360,7 +366,16 @@ class Pipeline:
         set on such a spec would act on nothing: that is an error."""
         s = self._spec
         if self._collection is None:
-            self._collection = _open_from_spec(s, iostats=self._iostats)
+            if s.shared_pool:
+                if s.uri is None:
+                    raise ValueError("shared_pool=True needs a URI-backed spec (the pool "
+                                     "keys collections by data identity)")
+                key = pool_key(s.uri, s.open_opts)
+                self._collection = GLOBAL_POOL.acquire(
+                    key, lambda: _open_from_spec(s, iostats=self._iostats))
+                self._pool_key = key
+            else:
+                self._collection = _open_from_spec(s, iostats=self._iostats)
             self._owns_collection = True
             return self._collection
         if not self._owns_collection:
@@ -380,9 +395,6 @@ class Pipeline:
         :class:`ScIterableDataset`; ``dataset_kw`` passes hooks through
         (``batch_transform=...``)."""
         s = self._spec
-        for name, item in _LATER.items():
-            if getattr(s, name) != getattr(PipelineSpec(), name):
-                raise _later(f"non-default {name}={getattr(s, name)!r}", item)
         col = self._open()
         strat = strategy_from_spec(s.strategy, s.strategy_params, col)
         ds = ScIterableDataset(
@@ -401,7 +413,7 @@ class Pipeline:
         )
         ds.spec_fingerprint = s.fingerprint() if s.uri is not None else None
         return DataPipeline(s, col, ds, recommendation=self.last_recommendation,
-                            owns_collection=self._owns_collection)
+                            owns_collection=self._owns_collection, pool_key=self._pool_key)
 
 
 def _class_probs(collection: Any, obs: Optional[str]) -> Optional[np.ndarray]:
@@ -450,7 +462,7 @@ class DataPipeline:
 
     def __init__(self, spec: PipelineSpec, collection: Any, dataset: ScIterableDataset, *,
                  recommendation: Optional[Recommendation] = None,
-                 owns_collection: bool = False):
+                 owns_collection: bool = False, pool_key: Optional[str] = None):
         self.spec = spec
         self.collection = collection
         self.dataset = dataset
@@ -458,6 +470,9 @@ class DataPipeline:
         # check_drift measures against), or retune's latest
         self.recommendation = recommendation
         self.owns_collection = owns_collection
+        #: set when the collection is a GLOBAL_POOL reference: close() then
+        #: drops the reference instead of closing the shared collection
+        self.pool_key = pool_key
         # the FetchPool behind the most recent __iter__ (None when iterating
         # synchronously): its stats show the workers' balance
         self.last_pool: Optional[FetchPool] = None
@@ -564,8 +579,12 @@ class DataPipeline:
     # ----------------------------------------------------------- lifecycle
     def close(self) -> None:
         """Release the collection's pool and OS resources, only when this
-        pipeline opened it; a caller's collection is the caller's to close."""
+        pipeline opened it; a caller's collection is the caller's to close,
+        and a shared one stays open for the pool's other holders."""
         if not self.owns_collection:
+            return
+        if self.pool_key is not None:
+            GLOBAL_POOL.release(self.pool_key)
             return
         if hasattr(self.collection, "release"):
             self.collection.release()

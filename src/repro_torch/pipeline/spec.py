@@ -20,9 +20,8 @@ frozen record that:
 - builds: :meth:`PipelineSpec.build` returns the live
   :class:`~repro_torch.pipeline.builder.DataPipeline`.  The port builds
   specs over every scheme (``cloud://`` and ``fault://`` included) with
-  every planner, resilience and diversity knob and prefetch workers; a
-  non-default ``shared_pool`` raises ``NotImplementedError`` naming its
-  ROADMAP.md item (queue A #12).
+  every planner, resilience and diversity knob, prefetch workers and
+  ``shared_pool`` (the process's pool of shared collections).
 
 Strategies are serialized by NAME + JSON params via a small registry
 (:data:`STRATEGY_REGISTRY`).  Array-valued params (weights, labels) are

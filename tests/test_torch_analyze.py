@@ -96,11 +96,12 @@ def test_port_spec_classification_equals_the_reference():
     assert port_spec.DataSpec is port_spec.PipelineSpec
 
 
-#: the reference's lock-bearing classes this slice meets, and the port's
+#: the reference's lock-bearing classes the port meets, and the port's
 #: counterparts, named apart
 RENAMED = {"DiversityMonitor": "EntropyMonitor", "CloudAdapter": "CloudReader",
            "FaultInjectingAdapter": "FaultInjectingReader", "ShardBreaker": "ShardCircuit",
-           "HeartbeatMonitor": "LivenessMonitor"}
+           "HeartbeatMonitor": "LivenessMonitor", "DataServeServer": "BatchServer",
+           "CollectionPool": "SharedCollections", "ElasticSupervisor": "RankSupervisor"}
 
 
 def test_the_resilience_and_diversity_classes_are_named_apart(model):

@@ -217,8 +217,13 @@ def test_refusals(uris, tmp_path):
         col.fetch([-1])
     with pytest.raises(ValueError):
         col.fetch([])
-    with pytest.raises(NotImplementedError, match="A #12"):
-        col.tagged(0)
+    # tagged() is ported (tests/test_torch_elastic.py holds its counters):
+    # a thread-local tag, restored on exit
+    with col.tagged(0):
+        with col.tagged(1):
+            assert col._tag.value == 1
+        assert col._tag.value == 0
+    assert col._tag.value is None
 
 
 def test_chunked_store_files_are_byte_identical(tmp_path):

@@ -207,6 +207,75 @@ def test_a_fault_and_diversity_epoch_on_the_card_is_the_cpus(tmp_path):
     faulty.close()
 
 
+def _card_densify_equals_plain(dev, batch, G):
+    """A delivered batch through the feature kernel on the card: bitwise
+    the plain version on the CPU, and with ``log1p`` fused bitwise the
+    plain version followed by ``log1p_`` on the card (the CPU's ``log1p``
+    has other bits, ROADMAP.md C #5)."""
+    t = batch.to_tensors()
+    vals, cols = t["vals"].to(dev), t["cols"].to(dev)
+    before = csr_to_dense.ell_to_dense.launches
+    dense = ops.ell_to_dense(vals, cols, n_cols=G)
+    card = ops.ell_to_dense(vals, cols, n_cols=G, log1p=True)
+    torch.cuda.synchronize()
+    assert csr_to_dense.ell_to_dense.launches == before + 2
+    assert bool(card.any())
+    assert torch.equal(dense.cpu(), ref.ell_to_dense_ref(t["vals"], t["cols"], G))
+    assert torch.equal(card, ref.ell_to_dense_ref(vals, cols, G).log1p_())
+
+
+@pytest.mark.cuda
+def test_a_served_batch_densifies_on_the_card_as_the_plain_version(tmp_path):
+    """A batch streamed from the batch server, bitwise the local pipeline's,
+    densified on the card as the plain version does on the CPU."""
+    from repro_torch.data import generate_tahoe_like
+    from repro_torch.pipeline import Pipeline
+    from repro_torch.serve.data import BatchServer, DataClient, ServeConfig
+
+    dev = _card()
+    G = 2_048
+    root = str(tmp_path / "cells")
+    generate_tahoe_like(root, n_cells=4_096, n_genes=G, seed=1, total_counts=512)
+    spec = (Pipeline.from_uri(f"cloud://sharded-csr://{root}?latency_scale=0")
+            .strategy("block", block_size=16).batch(64, fetch_factor=4).seed(0).spec)
+    local = Pipeline.from_spec(spec).build()
+    want = next(iter(local))
+    local.close()
+    with BatchServer(ServeConfig(max_tenants=1)) as srv, DataClient(srv.address, spec,
+                                                                   timeout_s=60) as cli:
+        got = next(iter(cli))
+    for f in ("data", "indices", "indptr"):
+        assert np.array_equal(getattr(want, f), getattr(got, f))
+    _card_densify_equals_plain(dev, got, G)
+
+
+@pytest.mark.cuda
+def test_a_fabric_batch_densifies_on_the_card_as_the_plain_version(tmp_path):
+    """A batch a re-homed rank delivers after a kill and a resize, densified
+    on the card as the plain version does on the CPU."""
+    from repro_torch.core import BlockShuffling, ScIterableDataset
+    from repro_torch.data import generate_tahoe_like, open_collection
+    from repro_torch.distributed.elastic import ElasticFabric, tagged_batches
+
+    dev = _card()
+    G = 2_048
+    root = str(tmp_path / "cells")
+    generate_tahoe_like(root, n_cells=4_096, n_genes=G, seed=1, total_counts=512)
+    kw = dict(batch_size=64, fetch_factor=4, seed=0)
+    fab = ElasticFabric(open_collection(f"sharded-csr://{root}", io_workers=2), world_size=3,
+                        strategy=BlockShuffling(16), **kw)
+    for r in list(fab.loaders):
+        list(tagged_batches(fab.loaders[r], limit=3))
+    fab.kill(1)
+    fab.resize(2)
+    gid, j, got = next(tagged_batches(fab.loaders[1]))
+    want = ScIterableDataset(open_collection(f"sharded-csr://{root}"), BlockShuffling(16),
+                             **kw).fetch(0, gid)[j]
+    for f in ("data", "indices", "indptr"):
+        assert np.array_equal(getattr(want, f), getattr(got, f))
+    _card_densify_equals_plain(dev, got, G)
+
+
 # ------------------------------------------------------------ flash attention
 # the JAX package's sweep (tests/test_kernels.py), D = 20 (the smoke
 # config) and the serving path's heads (GQA 15:5, D = 64)

@@ -53,6 +53,11 @@ def test_port_imports_with_jax_and_repro_blocked():
         "repro_torch.data.chunked_store", "repro_torch.data.h5shim", "repro_torch.data.h5ad",
         "repro_torch.core.prefetch", "repro_torch.core.autotune", "repro_torch.data.cloud",
         "repro_torch.data.faults", "repro_torch.train.fig4",
+        "repro_torch.distributed.compression", "repro_torch.distributed.elastic",
+        "repro_torch.distributed.elastic.pool", "repro_torch.distributed.elastic.repartition",
+        "repro_torch.distributed.elastic.supervisor", "repro_torch.distributed.elastic.fabric",
+        "repro_torch.serve.data", "repro_torch.serve.data.protocol",
+        "repro_torch.serve.data.server", "repro_torch.serve.data.client",
     } <= names
 
 

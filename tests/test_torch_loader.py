@@ -211,8 +211,14 @@ def test_unported_features_raise(stores):
         with pytest.raises(TypeError, match="planned collection"):
             cls(store).autotune()
     ds = ScIterableDataset(stores[1])
-    with pytest.raises(NotImplementedError):
-        ds.repartition(0, 2)
+    # repartition is ported (tests/test_torch_elastic.py): it refuses what
+    # the reference refuses
+    with pytest.raises(ValueError, match="out of range"):
+        ds.repartition(2, 2)
+    with pytest.raises(ValueError, match="outside"):
+        ds.repartition(0, 2, plan=[(10**6, 0)])
+    ds.repartition(1, 2)
+    assert (ds.rank, ds.world_size, ds._fetch_plan) == (1, 2, None)
     with pytest.raises(ValueError):
         ds.load_state(LoaderState(seed=99, epoch=0, fetch_cursor=0))
 

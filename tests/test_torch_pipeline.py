@@ -244,12 +244,17 @@ def test_what_the_port_does_not_build_yet_is_refused(corpora):
         _same_batch(a, b)
     pooled.close()
     sync.close()
-    # resilience, diversity, autotune and cloud:// build now (their own
-    # files hold them against the reference); the shared pool does not
-    with pytest.raises(NotImplementedError, match="A #12"):
-        pipe().shared()
-    with pytest.raises(NotImplementedError, match="A #12"):
-        DataSpec(uri=f"tokens://{root}", open_opts={"seq_len": 8}, shared_pool=True).build()
+    # resilience, diversity, autotune, cloud:// and the shared pool build
+    # now (their own tests hold them against the reference); a shared pool
+    # needs a URI, as in the reference
+    from repro.pipeline import Pipeline as RefPipeline
+
+    for cls in (RefPipeline, Pipeline):
+        with pytest.raises(ValueError, match="URI-backed"):
+            cls(DataSpec(uri=None, shared_pool=True)).build()
+    shared = pipe().shared().build()
+    assert shared.spec.shared_pool and shared.pool_key is not None
+    shared.close()
     for kw in ({"retries": 1}, {"hedge_factor": 2.0}):
         DataSpec(uri=f"tokens://{root}", open_opts={"seq_len": 8}, **kw).build().close()
     from repro.pipeline import DataSpec as RefDataSpec
@@ -440,3 +445,51 @@ def test_close_releases_owned_and_a_knob_change_reopens(cells):
     assert first.collection._pool() is None  # released
     _same_cells(next(iter(second)), next(iter(Pipeline.from_uri(cells).batch(8).build())))
     second.close()
+
+
+def test_pipeline_shared_pool_is_content_free_and_shared(tmp_path):
+    """``shared()`` keeps the fingerprint, builds pipelines of one spec on
+    one pooled collection, delivers the private pipeline's batches, and
+    closing drops references without closing the collection; as the
+    reference's ``shared_pool`` does."""
+    from repro.data.chunked_store import write_chunked_store
+    from repro.distributed.elastic import GLOBAL_POOL as REF_POOL
+    from repro.pipeline import Pipeline as RefPipeline
+    from repro_torch.distributed.elastic import GLOBAL_POOL, pool_key
+
+    X = (np.random.default_rng(11).random((512, 8)) * 10).astype(np.float32)
+    write_chunked_store(str(tmp_path / "chunks"), X, chunk_rows=32)
+    uri = f"chunked://{tmp_path / 'chunks'}"
+    refs = {}
+    for cls, pool in ((Pipeline, GLOBAL_POOL), (RefPipeline, REF_POOL)):
+        spec_priv = cls.from_uri(uri).strategy("block", block_size=8).batch(8, fetch_factor=2) \
+            .seed(3).spec
+        spec_shared = spec_priv.replace(shared_pool=True)
+        assert spec_shared.fingerprint() == spec_priv.fingerprint()
+        p1, p2 = cls(spec_shared).build(), cls(spec_shared).build()
+        key = pool_key(spec_shared.uri, spec_shared.open_opts)
+        try:
+            assert p1.collection is p2.collection and pool.refs(key) == 2
+            batches = [np.asarray(b) for b in p1]
+            private = cls(spec_priv).build()
+            ref = [np.asarray(b) for b in private]
+            private.close()
+            assert len(batches) == len(ref) > 0
+            for a, b in zip(batches, ref):
+                np.testing.assert_array_equal(a, b)
+            refs[cls] = (spec_shared.to_json(), batches)
+        finally:
+            p1.close()
+            p2.close()
+        assert pool.refs(key) == 0
+        assert p1.collection.fetch(np.arange(4)) is not None  # still open
+        # a collection knob changed after a build drops the builder's reference
+        builder = cls(spec_shared)
+        builder.build()
+        assert pool.refs(key) == 1
+        builder.cache(bytes=1 << 16)
+        assert pool.refs(key) == 0
+    (ours, got), (theirs, want) = refs[Pipeline], refs[RefPipeline]
+    assert ours == theirs
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
