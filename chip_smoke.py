@@ -12,7 +12,8 @@ nothing of JAX or of the JAX package.  Phases, each printing one JSON line:
    ``sm_90a``, all started together; the registers and spill bytes of the
    Hopper flash-attention kernels (``flash_fwd_hopper``,
    ``flash_bwd_dq_hopper`` and ``flash_bwd_dkv_hopper``, head_dim 64 and
-   128) and the registers, shared memory and spill bytes of
+   128), of the forward's two kernels at head_dim 256 (``flash_fwd_bf16``
+   and ``flash_fwd_f32``), and the registers, shared memory and spill bytes of
    ``ell_to_dense``'s tiled kernel (identity and ``log1p`` epilogues) from
    ``ptxas -v``;
 
@@ -343,6 +344,44 @@ latency_scale=0.1``:
    ``shared_rank_hits``, and ``recover()``'s result.  No speed is
    asserted in either phase.
 
+LM serving of the other registered configs (slice 14), after phase 18:
+
+26. wide_kernels: the forward at gemma-7b's prefill shape, q, k and v (4,
+   16, 4,608, 256), causal, and h2o-danube-3-4b's, q (4, 32, 4,608, 120)
+   over k, v (4, 8, 4,608, 120), window 4,096 (WIDE_SHAPES), as the model's
+   strided (B, S, H, D) views, in bf16 and float32, against the plain
+   version: max |err| and rms(err) / rms(want) within WIDE_RULE; bf16 at
+   256 through the ``mma.sync`` kernel (``wide_launches`` + 1), at 120
+   through the Hopper kernel (``hopper_launches`` + 1); the mutation
+   check: three edited copies of ``csrc/flash_attention.cu``
+   (WIDE_MUTANTS) must each fail the rule FLASH_MUTANT_MIN times over at
+   one of the cases, the unedited build pass all; CUDA-event times, in
+   turns, of the kernel and of ``scaled_dot_product_attention`` (at 120
+   with the kv heads expanded and the window as a mask, made outside the
+   timing), the plain version's, and the bound;
+27. dense_serve: phi3-medium-14b (40 layers, head_dim 128), h2o-danube-3-4b
+   (24 layers, head_dim 120, window 4,096) and gemma-7b (28 layers,
+   head_dim 256) at full width and depth, each first at 2 layers in
+   float32 on the card against the CPU (64-token prompts; 4,160 for
+   danube, past its window; 4 decode steps; CPU_RTOL / CPU_ATOL, greedy
+   ties as phase 8), then in bf16, weights drawn on the card from a seed,
+   ``serve_batch`` of 4 prompts of 4,608 tokens and 32 greedy tokens after
+   a warm-up serve of 2, with the attention counts set to 0 just before
+   and read just after: every prefill layer through its kernel (the
+   Hopper one at 128 and 120, the ``mma.sync`` one at 256); time to first
+   token, decode ms per step, peak memory and the route; then one prefill
+   and one decode step under ``torch.profiler``: device kernel ms by kind
+   (the attention kernel, matrix products, the rest) and the longest
+   kernels;
+28. moe_serve: mixtral-8x7b and phi3.5-moe-42b-a6.6b at full width and
+   MOE_LAYERS of their 32 layers (``reduced``: the full depth does not fit
+   the card), each first at 1 layer in float32 on the card against the
+   CPU (as phase 27, and each layer's expert choices equal where the
+   router's top-k margin exceeds MOE_ROUTER_TIE), then served as phase 27;
+   then ``SlotBatcher`` at mixtral's width with 2 layers in float32, 8
+   requests over 4 slots: every request equals its standalone serve
+   except across ties.
+
 Then the kernels line (one entry per kernel), the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.  Any failure
 exits non-zero before it.
@@ -538,6 +577,45 @@ ELASTIC_WORLD = 3
 ELASTIC_FETCH_FACTOR = 8
 ELASTIC_PHASE_BATCHES = 13  # a rank's batches between events: the kill lands mid-fetch
 ELASTIC_HEARTBEAT_S = 0.05  # the liveness timeout: the killed rank is a suspect after it
+# LM serving of the other registered configs (phases 26-28)
+DENSE_ARCHS = ("phi3-medium-14b", "h2o-danube-3-4b", "gemma-7b")
+MOE_ARCHS = ("mixtral-8x7b", "phi3.5-moe-42b-a6.6b")
+MOE_LAYERS = 16  # of 32: the full depth's bf16 weights (93 GB, 84 GB) exceed the card's 80 GB
+WIDE_BATCH, WIDE_PROMPT, WIDE_GEN = 4, 4608, 32  # prompts past danube's and mixtral's 4,096 window
+# the card against the CPU in float32 at full width: layers, prompt, decode steps
+WIDE_CPU_LAYERS, MOE_CPU_LAYERS, WIDE_CPU_PROMPT, WIDE_CPU_DECODE = 2, 1, 64, 4
+DANUBE_CPU_PROMPT = 4160  # past the 4,096-token window: the mask cuts and the ring wraps
+# expert choices are compared where the router's k-th and (k+1)-th
+# probabilities lie further apart than this: float32 router logits summed
+# in another order move a probability by about 1e-7
+MOE_ROUTER_TIE = 1e-4
+MOE_BATCH_LAYERS, MOE_BATCH_REQUESTS, MOE_BATCH_MAX_LEN = 2, 8, 512
+MOE_BATCH_PROMPT_LENS, MOE_BATCH_NEW = (16, 128), (4, 16)  # inclusive ranges drawn from
+# the forward at the new head widths' serving shapes, (B, H, Hkv, S, D,
+# window): gemma-7b's prefill and h2o-danube-3-4b's
+WIDE_SHAPES = {"d256": (4, 16, 16, 4608, 256, None), "d120": (4, 32, 8, 4608, 120, 4096)}
+# (max |got - want|, rms(got - want) / rms(want)) at those shapes.  The max
+# is phase 7's atol; the rms term sees what the max cannot at 4,608 keys,
+# where an output's rms is about 0.02: float32, sums in another order
+# (measured: 2e-5 of rms(want)); bf16, each side rounds its output to bf16
+# once (an error of about 2**-9 of rms(want)) and P as an operand
+WIDE_RULE = {"float32": (3e-5, 2**-12), "bfloat16": (3e-2, 2**-7)}
+WIDE_TIMED_CALLS = 10
+# the mutation check at the new shapes: edited copies of
+# csrc/flash_attention.cu, each of which must fail WIDE_RULE at one of
+# WIDE_SHAPES' cases FLASH_MUTANT_MIN times over: head_dim 256's Q.K^T
+# without its last 16 columns, head_dim 120's store without its last 8
+# columns (the output there is left as allocated), float32's Q.K^T
+# without its last column
+WIDE_MUTANTS = {
+    "d256_qk_skips_last_slice": (
+        "for (int kk = 0; kk < kD / 16; ++kk) {  // one fragment of A a step",
+        "for (int kk = 0; kk < kD / 16 - 1; ++kk) {  // one fragment of A a step"),
+    "d120_store_drops_last_8_columns": ("if (8 * j >= p.D) break;",
+                                        "if (8 * j >= p.D - 8) break;"),
+    "f32_qk_skips_last_column": ("for (int d = 0; d < p.D; ++d) {",
+                                 "for (int d = 0; d < p.D - 1; ++d) {"),
+}
 
 
 def fail(msg: str) -> None:
@@ -1008,6 +1086,7 @@ def ell_kernel_phase(dev, vals, cols) -> dict:
 def main() -> None:
     import torch
 
+    script_t0 = time.perf_counter()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script measures the card and has no CPU mode")
     from repro_torch.core import BlockShuffling, ScIterableDataset
@@ -1051,13 +1130,18 @@ def main() -> None:
     if len(bwd_hopper) != 4:
         fail(f"ptxas reports {len(bwd_hopper)} Hopper backward kernels, not 4 (dq and dk/dv at "
              f"head_dim 64 and 128)")
+    wide = {k: v for k, v in _build.ptxas_report("flash_attention").items() if "ILi256E" in k}
+    if len(wide) != 2:
+        fail(f"ptxas reports {len(wide)} flash-attention kernels at head_dim 256, not 2 (bf16 "
+             f"and f32)")
     ell_ptxas = {k: v for k, v in _build.ptxas_report("ell_to_dense").items()
                  if "ell_to_dense_tiled" in k}
     if len(ell_ptxas) != 2:
         fail(f"ptxas reports {len(ell_ptxas)} tiled ell_to_dense kernels, not 2 (identity and "
              f"log1p epilogues)")
     emit({"phase": "build", "seconds": seconds, "built": built, "flash_fwd_hopper_ptxas": hopper,
-          "flash_bwd_hopper_ptxas": bwd_hopper, "ell_to_dense_tiled_ptxas": ell_ptxas})
+          "flash_fwd_head_dim_256_ptxas": wide, "flash_bwd_hopper_ptxas": bwd_hopper,
+          "ell_to_dense_tiled_ptxas": ell_ptxas})
 
     # before any of the port's kernels runs (see sdpa_backward_kernels)
     sdpa_bwd_kernels = sdpa_backward_kernels(dev, (TRAIN_BATCH, TRAIN_SEQ, *FULL_WIDTH[2:]))
@@ -1067,6 +1151,23 @@ def main() -> None:
     torch.cuda.empty_cache()
     ssm_kernel = ssm_phases(dev, float(max_sm_mhz) * 1e6)
     torch.cuda.empty_cache()
+
+    # 26-28. the other registered configs' serving: the forward at head_dim
+    # 256 and 120, three dense configs at full depth, two MoE configs
+    seconds = {}
+    t0 = time.perf_counter()
+    wide_kernels = wide_kernel_phase(dev)
+    torch.cuda.empty_cache()
+    seconds["wide_kernels"] = time.perf_counter() - t0
+    dense = dense_serve_phase(dev)
+    wide_kernels[0]["launches"] = dense["gemma-7b"]["wide"]
+    wide_kernels[1]["launches"] = dense["h2o-danube-3-4b"]["hopper"]
+    seconds["dense_serve"] = time.perf_counter() - t0 - sum(seconds.values())
+    moe_serve_phase(dev)
+    torch.cuda.empty_cache()
+    seconds["moe_serve"] = time.perf_counter() - t0 - sum(seconds.values())
+    emit({"phase": "other_configs_seconds", **seconds,
+          "script_seconds_so_far": time.perf_counter() - script_t0})
 
     # 3. data
     root = os.path.join(HERE, "build", "chip_smoke_data")
@@ -1207,8 +1308,9 @@ def main() -> None:
     ell_keys = (*KERNEL_KEYS, "kernel", "fused_log1p_ms", "previous_kernel", "previous_kernel_ms",
                 "previous_plus_log1p_ms", "log1p_ms", "library", "library_plus_log1p_ms",
                 "write_floor_ms", "trace_ms_per_launch", "host_us_per_call", "bytes", "fig5_shape")
-    emit({"kernels": [{k: kernel[k] for k in ell_keys}, lm_kernel, *train_kernels,
-                      ssm_kernel]})
+    emit({"phase": "script_seconds", "seconds": time.perf_counter() - script_t0})
+    emit({"kernels": [{k: kernel[k] for k in ell_keys}, lm_kernel, *wide_kernels,
+                      *train_kernels, ssm_kernel]})
     print(smi)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
@@ -3440,6 +3542,437 @@ def fig5_phase(dev) -> dict:
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "bytes": moved,
             "ms_turns": turns}
 
+
+def _wide_err(got, want, dtype_name: str) -> dict:
+    """The new shapes' rule, WIDE_RULE: the largest |got - want| and
+    rms(got - want) / rms(want), each over its bound; ``of_rule`` is the
+    larger ratio, at most 1 within the rule."""
+    import torch
+
+    # float64, non-finite values as 1e30: a mutant's stale output stays a
+    # finite, failing number in the JSON lines
+    d = torch.nan_to_num(got.double() - want.double(), nan=1e30, posinf=1e30, neginf=-1e30)
+    max_abs = d.abs().max().item()
+    rms_want = want.double().square().mean().sqrt().item()
+    rms_of = d.square().mean().sqrt().item() / rms_want
+    a, r = WIDE_RULE[dtype_name]
+    return {"max_abs_err": max_abs, "rms_err_of_rms_want": rms_of, "rms_want": rms_want,
+            "of_rule": max(max_abs / a, rms_of / r)}
+
+
+def _visible_pairs(S: int, window) -> int:
+    """(query, key) pairs a causal mask (and a window) keeps over S rows."""
+    if window is None or window >= S:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
+
+
+def _wide_inputs(B, H, Hkv, S, D, dtype, dev, gen):
+    """q, k, v as the model passes them: (B, S, H, D) projections viewed as
+    (B, H, S, D), drawn on the card."""
+    import torch
+
+    def view(heads):
+        return torch.randn((B, S, heads, D), generator=gen, device=dev).to(dtype).transpose(1, 2)
+    return view(H), view(Hkv), view(Hkv)
+
+
+def _wide_mutants(cases: dict) -> dict:
+    """Run the unedited forward and each of WIDE_MUTANTS, built by
+    :func:`_build_mutants`, on every case of the new shapes (``cases``:
+    {(shape, dtype): (q, k, v, window, want)}); return each one's error
+    over the rule per case."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    libs, out_dir = _build_mutants("flash_attention", WIDE_MUTANTS, fa.bind)
+    result = {}
+    for name, lib in libs.items():
+        result[name] = {}
+        for (shape, dtype_name), (q, k, v, window, want) in cases.items():
+            out, _, kernel = fa.launch(lib, q, k, v, True, window, 0, False)
+            torch.cuda.synchronize()
+            result[name][f"{shape}_{dtype_name}"] = _wide_err(out, want, dtype_name)["of_rule"]
+            del out
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return result
+
+
+def wide_kernel_phase(dev) -> list:
+    """Phase 26: the forward at the new head widths' serving shapes
+    (WIDE_SHAPES) on the card against its plain version, in bf16 and
+    float32; the mutation check (WIDE_MUTANTS); CUDA-event times, in turns,
+    of the kernel and of ``scaled_dot_product_attention``, beside the
+    bound.  Returns the kernels-line entries of the two shapes (their
+    launches filled in by phase 27)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    cases, entries, phase = {}, {}, {}
+    for shape, (B, H, Hkv, S, D, window) in WIDE_SHAPES.items():
+        errs = {}
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).removeprefix("torch.")
+            q, k, v = _wide_inputs(B, H, Hkv, S, D, dtype, dev, gen)
+            route = fa.route(q, k, v, window)
+            want_route = "f32" if dtype == torch.float32 else ("bf16" if D > 128 else "hopper")
+            if route != want_route:
+                fail(f"the {shape} shape in {name} routes to {route}, not {want_route}")
+            counts = (fa.hopper_launches, fa.wide_launches)
+            got = fa.flash_attention(q, k, v, causal=True, window=window)
+            want = ref.flash_attention_ref(q, k, v, causal=True, window=window)
+            torch.cuda.synchronize()
+            moved = (fa.hopper_launches - counts[0], fa.wide_launches - counts[1])
+            if moved != (int(route == "hopper"), int(D > 128)):
+                fail(f"the {shape} shape in {name} moved the Hopper and wide counts by {moved}")
+            errs[name] = _wide_err(got, want, name)
+            if not errs[name]["of_rule"] <= 1.0:
+                fail(f"flash_attention disagrees with its plain version at {shape} in {name}: "
+                     f"{errs[name]}")
+            cases[(shape, name)] = (q, k, v, window, want)
+            del got
+        q, k, v, _, _ = cases[(shape, "bfloat16")]
+        if window is None:
+            def library(q=q, k=k, v=v):
+                return F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+        else:  # SDPA's GQA with a mask: the heads expanded and the mask made outside the timing
+            pos = torch.arange(S, device=dev)
+            mask = (pos[None, :] <= pos[:, None]) & (pos[:, None] - pos[None, :] < window)
+            kx, vx = (t.repeat_interleave(H // Hkv, dim=1) for t in (k, v))
+
+            def library(q=q, kx=kx, vx=vx, mask=mask):
+                return F.scaled_dot_product_attention(q, kx, vx, attn_mask=mask)
+        lib_err = _wide_err(library(), cases[(shape, "bfloat16")][4], "bfloat16")
+
+        def kernel(q=q, k=k, v=v, window=window):
+            return fa.flash_attention(q, k, v, causal=True, window=window)
+
+        def plain(q=q, k=k, v=v, window=window):
+            return ref.flash_attention_ref(q, k, v, causal=True, window=window)
+
+        turns = {"kernel": [], "library": []}
+        for order in (("kernel", "library"), ("library", "kernel")):
+            for key in order:
+                turns[key].append(event_ms(kernel if key == "kernel" else library,
+                                           calls=WIDE_TIMED_CALLS, groups=3))
+        plain_ms = event_ms(plain, calls=1, groups=3)
+        pairs = _visible_pairs(S, window)
+        moved = (2 * B * H * S * D + 2 * B * Hkv * S * D) * 2  # q, k, v read; o written
+        flop = 4 * B * H * D * pairs
+        bytes_ms, ops_ms = moved / HBM_BYTES_PER_S * 1e3, flop / BF16_FLOP_PER_S * 1e3
+        kernel_name = "flash_fwd_bf16<256> (mma.sync)" if D > 128 else \
+            "flash_fwd_hopper<128> (inner extent 120)"
+        ms = statistics.mean(turns["kernel"])
+        entries[shape] = {
+            "name": f"flash_attention_{shape}", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:86", "kernel": kernel_name,
+            "launches": None, "max_abs_err": errs["bfloat16"]["max_abs_err"],
+            "f32_max_abs_err": errs["float32"]["max_abs_err"],
+            "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
+            "library_ms": statistics.mean(turns["library"]),
+            "library": "scaled_dot_product_attention", "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bound_parts_ms": {"bytes": bytes_ms, "tensor_cores": ops_ms},
+            "shape": [B, H, Hkv, S, S, D], "window": window, "dtype": "bfloat16",
+            "bytes": moved, "flop": flop}
+        phase[shape] = {"shape": [B, H, Hkv, S, S, D], "window": window, "errors": errs,
+                        "library_error": lib_err, "ms_turns": turns, "plain_ms": plain_ms,
+                        "bound_ms": entries[shape]["bound_ms"],
+                        "bound_by": entries[shape]["bound_by"], "kernel": kernel_name}
+    mutants = _wide_mutants(cases)
+    for case, of_rule in mutants["shipped"].items():
+        if not of_rule <= 1.0:
+            fail(f"the unedited build fails the rule at {case}: {of_rule}")
+    for name, by_case in mutants.items():
+        if name != "shipped" and not max(by_case.values()) >= FLASH_MUTANT_MIN:
+            fail(f"mutant {name} passes the new shapes' rule: {by_case}")
+    del cases
+    torch.cuda.empty_cache()
+    emit({"phase": "wide_kernels", "rule": {k: {"max_abs": a, "rms_of_rms_want": r}
+                                             for k, (a, r) in WIDE_RULE.items()},
+          **phase, "mutants": mutants, "mutant_min": FLASH_MUTANT_MIN})
+    return [entries["d256"], entries["d120"]]
+
+
+def _serve_arch(dev, cfg, prompts, phase: str, extra: dict) -> dict:
+    """Serve ``prompts`` with ``cfg`` at full width on the card in bf16:
+    weights drawn there from a seeded generator, a warm-up serve of 2
+    tokens at the same shapes, then WIDE_GEN tokens with the attention
+    kernels' counts set to 0 just before and read just after: every
+    prefill layer through its kernel, the Hopper one at head_dim 64, 120
+    and 128, the mma.sync one past 128.  Emits the phase line; returns
+    the launch counts."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.models import Model
+
+    model = Model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights = sum(p.numel() for p in params.parameters())
+    serve_batch(model, prompts, 2, params=params, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    timings = {}
+    fa.flash_attention.launches = fa.hopper_launches = fa.wide_launches = 0
+    toks = serve_batch(model, prompts, WIDE_GEN, params=params, device=dev, timings=timings)
+    counts = {"flash_attention": fa.flash_attention.launches, "hopper": fa.hopper_launches,
+              "wide": fa.wide_launches}
+    L, D = cfg.num_layers, cfg.resolved_head_dim
+    want = {"flash_attention": L, "hopper": 0 if D > 128 else L, "wide": L if D > 128 else 0}
+    if counts != want:
+        fail(f"{cfg.name}: one prefill of {L} layers launched {counts}, not {want}")
+    B = prompts.shape[0]
+    if toks.shape != (B, WIDE_GEN) or not ((toks >= 0) & (toks < cfg.vocab_size)).all():
+        fail(f"{cfg.name}: serve_batch gave tokens of shape {toks.shape} outside the vocabulary")
+    views = [torch.empty((B, prompts.shape[1], h, D), dtype=torch.bfloat16,
+                         device="meta").transpose(1, 2)
+             for h in (cfg.num_heads, cfg.num_kv_heads, cfg.num_kv_heads)]
+    trace = _trace_prefill_and_decode(model, params, prompts)
+    line = {"phase": phase, "arch": cfg.name, "layers": L, "d_model": cfg.d_model,
+            "heads": [cfg.num_heads, cfg.num_kv_heads, D], "window": cfg.sliding_window,
+            "weights": weights, "init_s": init_s, "dtype": cfg.compute_dtype, "batch": B,
+            "prompt": prompts.shape[1], "gen": WIDE_GEN,
+            "time_to_first_token_ms": timings["prefill_s"] * 1e3,
+            "decode_ms_per_step": timings["decode_s"] / timings["decode_steps"] * 1e3,
+            "decode_tokens_per_s": B * timings["decode_steps"] / timings["decode_s"],
+            "peak_device_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+            "route": fa.route(*views, cfg.sliding_window), "launches": counts,
+            "first_tokens": np.asarray(toks[0, :8]).tolist(), "trace": trace, **extra}
+    emit(line)
+    del params
+    torch.cuda.empty_cache()
+    return counts
+
+
+# kernel names by what they compute, for the traces' shares of device time
+_KERNEL_KINDS = (("attention_kernel", ("flash_fwd",)),
+                 ("matrix_products", ("gemm", "xmma", "nvjet", "cutlass", "sm90_", "cublas")))
+
+
+def _device_time(prof) -> dict:
+    """The profiler's device kernels: their total ms, each kind's ms
+    (_KERNEL_KINDS; the rest is elementwise, copies, reductions), and the
+    ten longest by name with their count and ms."""
+    import torch
+
+    on_card = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not on_card:
+        fail("the trace shows no kernel on the card")
+    total = sum(e.self_device_time_total for e in on_card) / 1e3
+    kinds = {kind: sum(e.self_device_time_total for e in on_card
+                       if any(m in e.key.lower() for m in marks)) / 1e3
+             for kind, marks in _KERNEL_KINDS}
+    kinds["other"] = total - sum(kinds.values())
+    top = sorted(on_card, key=lambda e: -e.self_device_time_total)[:10]
+    return {"device_kernel_ms": total, "ms_by_kind": kinds,
+            "top_kernels": [[e.key[:80], e.count, e.self_device_time_total / 1e3] for e in top]}
+
+
+def _trace_prefill_and_decode(model, params, prompts) -> dict:
+    """One prefill of ``prompts`` and one decode step under
+    ``torch.profiler``, after the counts were read: each one's device
+    kernel time by kind and its longest kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    B, P = prompts.shape
+    dev = params.embed.device
+    cache = model.init_cache(B, P + WIDE_GEN, device=dev)
+    batch = {"tokens": torch.from_numpy(prompts.astype("int64")).to(dev)}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        logits, cache = model.prefill(params, batch, cache)
+        torch.cuda.synchronize()
+    prefill = _device_time(prof)
+    tok = logits.argmax(-1)
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        model.decode(params, tok, cache, P)
+        torch.cuda.synchronize()
+    decode = {**_device_time(prof), "wall_ms_traced": (time.perf_counter() - t0) * 1e3}
+    del cache
+    return {"prefill": prefill, "decode_step": decode}
+
+
+def _routing_spy(seen: list):
+    """A stand-in for ``transformer.moe_apply`` that records each MoE
+    layer's expert choices and router probabilities (on the host) before
+    computing what ``moe_apply`` computes."""
+    from repro_torch.models import moe
+
+    def spy(p, cfg, x, **kw):
+        G = moe.group_count(cfg.moe, x.shape[0], x.shape[1], kw.get("groups"))
+        r = moe.moe_dispatch(p, cfg, x.reshape(G, -1, cfg.d_model))
+        seen.append((r.expert_ids.cpu(), r.probs.cpu()))
+        return moe.moe_apply(p, cfg, x, **kw)
+    return spy
+
+
+def _wide_vs_cpu(dev, cfg, layers: int, prompt_len: int, moe_routing: bool) -> dict:
+    """``cfg`` at full width with ``layers`` layers in float32, the same
+    weights (drawn on the card from one seed, a copy moved to the CPU) on
+    the card and on the CPU: a prefill of ``prompt_len`` tokens and
+    WIDE_CPU_DECODE greedy steps, logits within CPU_RTOL / CPU_ATOL,
+    greedy tokens equal except across ties; with ``moe_routing`` each MoE
+    layer's expert choices equal wherever the router's k-th and (k+1)-th
+    probabilities lie more than MOE_ROUTER_TIE apart."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import Model
+    from repro_torch.models import transformer as tr
+
+    cfg32 = dataclasses.replace(cfg, num_layers=layers, param_dtype="float32",
+                                compute_dtype="float32")
+    model = Model(cfg32)
+    t0 = time.perf_counter()
+    lm_cpu = model.init(generator=torch.Generator(device=dev).manual_seed(1), device="cpu")
+    lm_card = model.init(generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+    prompt = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab_size, (1, prompt_len)))
+    max_len = prompt_len + WIDE_CPU_DECODE
+    caches = {"cpu": model.init_cache(1, max_len, device="cpu"),
+              "card": model.init_cache(1, max_len, device=dev)}
+    seen = {"cpu": [], "card": []}
+    original = tr.moe_apply
+    try:
+        def run(side, fn):
+            if moe_routing:
+                tr.moe_apply = _routing_spy(seen[side])
+            return fn()
+        want, _ = run("cpu", lambda: model.prefill(lm_cpu, {"tokens": prompt}, caches["cpu"]))
+        got, _ = run("card", lambda: model.prefill(lm_card, {"tokens": prompt.to(dev)},
+                                                   caches["card"]))
+        steps = [(got.cpu(), want)]
+        tok = want.argmax(-1)
+        for i in range(WIDE_CPU_DECODE):
+            want, _ = run("cpu", lambda: model.decode(lm_cpu, tok, caches["cpu"], prompt_len + i))
+            got, _ = run("card", lambda: model.decode(lm_card, tok.to(dev), caches["card"],
+                                                      prompt_len + i))
+            steps.append((got.cpu(), want))
+            tok = want.argmax(-1)
+    finally:
+        tr.moe_apply = original
+    err, ties = 0.0, 0
+    for g, w in steps:
+        if not bool(torch.isfinite(g).all()):
+            fail(f"{cfg.name}: non-finite logits on the card")
+        if not torch.allclose(g, w, rtol=CPU_RTOL, atol=CPU_ATOL):
+            fail(f"{cfg.name}: card and CPU logits disagree: max err {(g - w).abs().max().item()}")
+        err = max(err, (g - w).abs().max().item())
+        gt, wt = int(g[0].argmax()), int(w[0].argmax())
+        if gt != wt:
+            if not abs(float(w[0, gt]) - float(w[0, wt])) < TIE_F32:
+                fail(f"{cfg.name}: greedy tokens differ off a tie: card {gt}, CPU {wt}")
+            ties += 1
+    line = {"layers": layers, "dtype": "float32", "prompt": prompt_len,
+            "decode_steps": WIDE_CPU_DECODE, "max_abs_err": err,
+            "max_abs_logit": max(w.abs().max().item() for _, w in steps),
+            "rtol": CPU_RTOL, "atol": CPU_ATOL, "greedy_ties": ties,
+            "seconds": time.perf_counter() - t0}
+    if moe_routing:
+        k = cfg.moe.top_k
+        compared = near = 0
+        for (ids_c, pr_c), (ids_g, pr_g) in zip(seen["cpu"], seen["card"]):
+            top = torch.sort(pr_c, dim=-1, descending=True).values
+            clear = (top[..., k - 1] - top[..., k]) > MOE_ROUTER_TIE  # (G, Sg)
+            if not torch.equal(ids_c[clear], ids_g[clear]):
+                fail(f"{cfg.name}: the card routes tokens to other experts than the CPU")
+            compared += int(clear.sum())
+            near += int((~clear).sum())
+        if len(seen["cpu"]) != layers * (1 + WIDE_CPU_DECODE) or compared == 0:
+            fail(f"{cfg.name}: routing recorded {len(seen['cpu'])} times, {compared} compared")
+        line["routing"] = {"tokens_compared": compared, "near_ties_skipped": near,
+                           "tie": MOE_ROUTER_TIE}
+    del lm_cpu, lm_card, caches
+    torch.cuda.empty_cache()
+    return line
+
+
+def dense_serve_phase(dev) -> dict:
+    """Phase 27: phi3-medium-14b, h2o-danube-3-4b and gemma-7b at full width
+    and depth; returns the prefill launches of the new kernel shapes."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+
+    rng = np.random.default_rng(3)
+    launches = {}
+    for arch in DENSE_ARCHS:
+        cfg = get_config(arch)
+        prompt = DANUBE_CPU_PROMPT if cfg.sliding_window else WIDE_CPU_PROMPT
+        vs_cpu = _wide_vs_cpu(dev, cfg, WIDE_CPU_LAYERS, prompt, False)
+        prompts = rng.integers(0, cfg.vocab_size, (WIDE_BATCH, WIDE_PROMPT)).astype(np.int32)
+        launches[arch] = _serve_arch(dev, cfg, prompts, "dense_serve", {"vs_cpu": vs_cpu})
+    return launches
+
+
+def moe_serve_phase(dev) -> None:
+    """Phase 28: mixtral-8x7b and phi3.5-moe at full width and MOE_LAYERS of
+    their 32 layers, the card against the CPU at 1 layer, and SlotBatcher
+    at mixtral's width."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.serve.scheduler import SlotBatcher
+
+    rng = np.random.default_rng(4)
+    for arch in MOE_ARCHS:
+        full = get_config(arch)
+        vs_cpu = _wide_vs_cpu(dev, full, MOE_CPU_LAYERS, WIDE_CPU_PROMPT, True)
+        cfg = dataclasses.replace(full, num_layers=MOE_LAYERS)
+        prompts = rng.integers(0, cfg.vocab_size, (WIDE_BATCH, WIDE_PROMPT)).astype(np.int32)
+        _serve_arch(dev, cfg, prompts, "moe_serve", {
+            "reduced": {"num_layers": [full.num_layers, MOE_LAYERS],
+                        "why": "memory: the full depth's bf16 weights exceed the card's 80 GB"},
+            "experts": [full.moe.num_experts, full.moe.top_k], "vs_cpu": vs_cpu})
+
+    # continuous batching at mixtral's width, 2 layers, float32
+    cfg = dataclasses.replace(get_config("mixtral-8x7b"), num_layers=MOE_BATCH_LAYERS,
+                              param_dtype="float32", compute_dtype="float32")
+    model = Model(cfg)
+    lm = model.init(generator=torch.Generator(device=dev).manual_seed(5), device=dev)
+    brng = np.random.default_rng(5)
+    lens = brng.integers(MOE_BATCH_PROMPT_LENS[0], MOE_BATCH_PROMPT_LENS[1] + 1, MOE_BATCH_REQUESTS)
+    max_new = brng.integers(MOE_BATCH_NEW[0], MOE_BATCH_NEW[1] + 1, MOE_BATCH_REQUESTS)
+    prompts = [brng.integers(0, cfg.vocab_size, int(n)).astype(np.int32) for n in lens]
+    batcher = SlotBatcher(model, lm, batch_slots=BATCH_SLOTS, max_len=MOE_BATCH_MAX_LEN)
+    for p, m in zip(prompts, max_new):
+        batcher.submit(p, int(m))
+    t0 = time.perf_counter()
+    done = batcher.run()
+    batch_s = time.perf_counter() - t0
+    if [r.rid for r in done] != list(range(MOE_BATCH_REQUESTS)) or not all(r.done for r in done):
+        fail(f"the MoE batcher completed {[r.rid for r in done]}")
+    diverged, equal = [], 0
+    for req, p, m in zip(done, prompts, max_new):
+        want, lgs = _greedy_standalone(model, lm, p, int(m), MOE_BATCH_MAX_LEN, dev)
+        tie = _tie_diverged(req.out, want, lgs, TIE_F32)
+        if tie is None:
+            equal += 1
+        else:
+            diverged.append({"rid": req.rid, **tie})
+    emit({"phase": "moe_batching", "arch": cfg.name, "layers": cfg.num_layers,
+          "d_model": cfg.d_model, "dtype": "float32", "slots": BATCH_SLOTS,
+          "requests": MOE_BATCH_REQUESTS, "max_len": MOE_BATCH_MAX_LEN,
+          "prompt_lens": lens.tolist(), "max_new": max_new.tolist(),
+          "tokens": int(sum(len(r.out) for r in done)), "equal_to_standalone": equal,
+          "seconds": batch_s, "ties": diverged})
+    del lm, batcher
+    torch.cuda.empty_cache()
 
 if __name__ == "__main__":
     main()

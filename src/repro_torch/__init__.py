@@ -18,9 +18,10 @@ Ported so far, three slices.  The paper's cell-training path:
 - ``train.probe``: the four linear heads and their Adam step;
 - ``convert``: JAX heads and Adam state as the port's.
 
-LM serving at smollm-360m's width (``models``, ``configs``,
-``serve.scheduler``, ``launch.serve``) with the ``flash_attention`` Hopper
-kernel, and LM training (``launch.train``: the ``tokens://`` ``pipeline``
+LM serving (``models``, ``configs``, ``serve.scheduler``,
+``launch.serve``) of the dense, moe and ssm families, seven of the
+reference's ten configs, with the ``flash_attention`` kernels and the
+``ssm_scan`` Hopper kernel, and LM training (``launch.train``: the ``tokens://`` ``pipeline``
 over ``data.tokens``, ``train.loss``, ``train.optimizer``, ``train.step``,
 ``checkpoint``, ``distributed.fault``) with the forward-with-lse, dq and
 dk/dv Hopper kernels under ``kernels.flash_attention_bwd``.

@@ -10,21 +10,37 @@ import importlib
 
 __all__ = ["ARCHS", "get_config", "smoke_config"]
 
-ARCHS = ["falcon-mamba-7b", "smollm-360m"]
+ARCHS = [
+    "falcon-mamba-7b",
+    "mixtral-8x7b",
+    "phi3.5-moe-42b-a6.6b",
+    "gemma-7b",
+    "phi3-medium-14b",
+    "smollm-360m",
+    "h2o-danube-3-4b",
+]
 
-_MODULES = {"falcon-mamba-7b": "falcon_mamba_7b", "smollm-360m": "smollm_360m"}
+_MODULES = {
+    "falcon-mamba-7b": "falcon_mamba_7b",
+    "mixtral-8x7b": "mixtral_8x7b",
+    "phi3.5-moe-42b-a6.6b": "phi3_5_moe",
+    "gemma-7b": "gemma_7b",
+    "phi3-medium-14b": "phi3_medium_14b",
+    "smollm-360m": "smollm_360m",
+    "h2o-danube-3-4b": "h2o_danube_3_4b",
+}
 
-# the JAX package's other ids: their families are not ported yet
-_NOT_PORTED = (
-    "internvl2-26b", "jamba-1.5-large-398b", "mixtral-8x7b",
-    "phi3.5-moe-42b-a6.6b", "gemma-7b", "phi3-medium-14b", "h2o-danube-3-4b",
-    "whisper-large-v3",
-)
+# the JAX package's other ids, by the ROADMAP.md item that ports their family
+_NOT_PORTED = {
+    "internvl2-26b": "queue A #10 (the vlm family)",
+    "whisper-large-v3": "queue A #10 (the encdec family)",
+    "jamba-1.5-large-398b": "queue A #13 (the hybrid family, which needs four cards)",
+}
 
 
 def _mod(name: str):
     if name in _NOT_PORTED:
-        raise KeyError(f"arch {name!r} is not ported yet (ROADMAP.md queue A #10)")
+        raise KeyError(f"arch {name!r} is not ported yet (ROADMAP.md {_NOT_PORTED[name]})")
     if name not in _MODULES:
         raise KeyError(f"unknown arch {name!r}; choose from {ARCHS}")
     return importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")

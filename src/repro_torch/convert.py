@@ -96,19 +96,42 @@ def _ssm_shapes(cfg: ModelConfig) -> dict:
             "A_log": (L, d_in, n), "D": (L, d_in), "w_out": (L, d_in, d)}
 
 
+def _ffn_shapes(cfg: ModelConfig) -> tuple[str, dict]:
+    """The FFN group of every layer in the stacked tree, ``mlp`` or
+    ``moe``, and its shapes.  The tree stacks one kind for all layers (the
+    reference's ``sub_0``), so a config whose layers mix them has none."""
+    L, d, ff = cfg.num_layers, cfg.d_model, cfg.d_ff
+    kinds = {cfg.is_moe_layer(i) for i in range(L)}
+    if len(kinds) != 1:
+        raise ValueError(f"{cfg.name}: layers mix MoE and MLP, which one stacked tree cannot hold")
+    gated = cfg.act in ("swiglu", "geglu")
+    if kinds.pop():
+        E = cfg.moe.num_experts
+        moe = {"router": (L, d, E), "w_in": (L, E, d, ff), "w_out": (L, E, ff, d)}
+        if gated:
+            moe["w_gate"] = (L, E, d, ff)
+        return "moe", moe
+    mlp = {"w_in": (L, d, ff), "w_out": (L, ff, d)}
+    if gated:
+        mlp["w_gate"] = (L, d, ff)
+    return "mlp", mlp
+
+
 def lm_from_jax(params_np: Mapping, cfg: ModelConfig, *, device="cuda") -> LM:
-    """``repro``'s LM params tree (dense or ssm family) as numpy arrays ->
-    the port's LM.
+    """``repro``'s LM params tree (dense, moe or ssm family) as numpy
+    arrays -> the port's LM.
 
     The tree is ``embed`` (vocab, d), ``lm_head`` (d, vocab) unless the
     embeddings are tied, ``final_norm``, and ``blocks/sub_0``, each leaf
     stacked (layers, ...): dense ``norm1``, ``attn`` {wq, wk, wv, wo},
-    ``norm2`` and ``mlp`` {w_in, w_gate, w_out}; ssm ``norm1`` and ``ssm``
-    {w_in, w_conv, w_x, w_dt, dt_bias, A_log, D, w_out}.  Each layer
-    becomes one block; each weight keeps its layout (``wq`` stays (d,
-    heads, head_dim)) and takes ``cfg.param_dtype``, the norms and the
-    ssm's ``dt_bias``, ``A_log`` and ``D`` float32, as in the reference.
-    Raises ``ValueError`` on a missing or extra key or a wrong shape.
+    ``norm2`` and ``mlp`` {w_in, w_gate, w_out}; moe the same with ``moe``
+    {router (d, E), w_in, w_gate (E, d, ff), w_out (E, ff, d)} in place of
+    ``mlp``; ssm ``norm1`` and ``ssm`` {w_in, w_conv, w_x, w_dt, dt_bias,
+    A_log, D, w_out}.  Each layer becomes one block; each weight keeps its
+    layout (``wq`` stays (d, heads, head_dim)) and takes
+    ``cfg.param_dtype``, the norms and the ssm's ``dt_bias``, ``A_log``
+    and ``D`` float32, as in the reference.  Raises ``ValueError`` on a
+    missing or extra key or a wrong shape.
     """
     check_family(cfg)
     L, d, hq, hkv, hd = (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
@@ -118,14 +141,12 @@ def lm_from_jax(params_np: Mapping, cfg: ModelConfig, *, device="cuda") -> LM:
     if cfg.family == "ssm":
         layer_shapes = {"norm1": stacked_norm, "ssm": _ssm_shapes(cfg)}
     else:
-        mlp = {"w_in": (L, d, cfg.d_ff), "w_out": (L, cfg.d_ff, d)}
-        if cfg.act in ("swiglu", "geglu"):
-            mlp["w_gate"] = (L, d, cfg.d_ff)
+        ffn, ffn_shapes = _ffn_shapes(cfg)
         layer_shapes = {
             "norm1": stacked_norm,
             "attn": {"wq": (L, d, hq, hd), "wk": (L, d, hkv, hd), "wv": (L, d, hkv, hd),
                      "wo": (L, hq, hd, d)},
-            "norm2": stacked_norm, "mlp": mlp,
+            "norm2": stacked_norm, ffn: ffn_shapes,
         }
     shapes = {"embed": (cfg.vocab_size, d), "final_norm": norm,
               "blocks": {"sub_0": layer_shapes}}

@@ -21,8 +21,12 @@
 // the masks leave empty for every row of the block are not visited (the
 // TPU kernel runs them masked; the result is the same).  Three kernels,
 // chosen by the wrapper (kernels/flash_attention.py, route):
-//   - flash_fwd_hopper (bf16, head_dim 64 or 128, every tensor TMA can
-//     address: the serving and training paths).  Persistent: one block of
+//   - flash_fwd_hopper (bf16, head_dim 64, 120 or 128, every tensor TMA
+//     can address: the serving and training paths).  Head_dim 120
+//     (h2o-danube-3-4b) runs the 128 instantiation: its tensor maps have an
+//     inner extent of 120, so TMA fills columns 120-127 of every Q, K and
+//     V tile with zeros, which add nothing to Q.K^T, and the epilogue
+//     stores only the first 120 columns of O.  Persistent: one block of
 //     three warpgroups per SM walks work items of 128 query rows of one
 //     (batch, head), those with the most key tiles first.  Warpgroup 0 is
 //     the producer: its first thread loads each item's Q into one of two
@@ -41,13 +45,19 @@
 //     while the tensor cores finish P.V.  setmaxnreg moves registers from
 //     the producer to the consumers.
 //   - flash_fwd_bf16 (other bf16 inputs: head_dim 16, 20 or 32 in the
-//     sweeps and the smoke config, strides TMA refuses): 64 query rows a
-//     block, 4 warps of mma.sync.m16n8k16, each owning 16 rows, with K and
-//     V loaded by plain loads (16 bytes a thread where they allow) and
-//     head_dim padded with zeros to 32, 64 or 128 in shared memory.
+//     sweeps and the smoke configs, gemma-7b's 256, strides TMA refuses):
+//     64 query rows a block, 4 warps of mma.sync.m16n8k16, each owning 16
+//     rows, with K and V loaded by plain loads (16 bytes a thread where
+//     they allow) and head_dim padded with zeros to 32, 64, 128 or 256 in
+//     shared memory.  Up to 128 each warp keeps its Q fragments in
+//     registers; at 256 they would take 64 registers a thread beside O's
+//     128, so they are read from shared memory for each tile instead
+//     (mma_rows_smem), and the block holds 101,376 bytes of shared memory.
 //   - flash_fwd_f32 (float32: tests and the card-against-CPU checks): the
 //     same tiling on CUDA cores, each thread owning 4 rows x 8 key columns
-//     of S and 4 rows x D/8 columns of the output, in full float32.
+//     of S and 4 rows x D/8 columns of the output, in full float32; at
+//     head_dim 256 its Q, K, V and P tiles take 214,016 bytes of the
+//     227 KB a block may have.
 //
 // lse[b*H + h, s] = m + log(l), the row's max scaled score plus the log of
 // its softmax denominator, natural-log units, in float32, written once per
@@ -128,6 +138,26 @@ __device__ __forceinline__ float row_lse(float m, float l) {
 }
 
 // ----------------------------------------------------------------- bf16
+// acc (+)= A . X^T as flash::mma_rows does, with A the 16 rows [r, r + 16)
+// of the (64, kD) tile As in shared memory, read one 16-column fragment at
+// a time (4 registers, not kD / 4)
+template <int kD>
+__device__ __forceinline__ void mma_rows_smem(float (&acc)[8][4], const __nv_bfloat16* As, int r,
+                                              const __nv_bfloat16* X, int g, int t) {
+  constexpr int kLd = kD + 8;
+#pragma unroll
+  for (int kk = 0; kk < kD / 16; ++kk) {  // one fragment of A a step
+    uint32_t a[4];
+    load_a_frag(a, As, kLd, r, kk * 16, g, t);
+#pragma unroll
+    for (int nb = 0; nb < 8; ++nb) {
+      const __nv_bfloat16* xr = X + (nb * 8 + g) * kLd + 2 * t + kk * 16;
+      mma_bf16(acc[nb], a, *reinterpret_cast<const uint32_t*>(xr),
+               *reinterpret_cast<const uint32_t*>(xr + 8));
+    }
+  }
+}
+
 template <int kD>
 __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(const Params p) {
   constexpr int kLd = kD + 8;  // +16 bytes a row: the fragment loads hit distinct banks
@@ -150,9 +180,12 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(const Params p) {
 
   load_tile_bf16<kD>(Qs, q, p.q_ss, q0, p.S, p.D);
   __syncthreads();
-  uint32_t qa[kD / 16][4];
+  constexpr bool kQInRegs = kD <= 128;  // else Q's fragments are read from Qs for each tile
+  uint32_t qa[kQInRegs ? kD / 16 : 1][4];
+  if constexpr (kQInRegs) {
 #pragma unroll
-  for (int kk = 0; kk < kD / 16; ++kk) load_a_frag(qa[kk], Qs, kLd, warp * 16, kk * 16, g, t);
+    for (int kk = 0; kk < kD / 16; ++kk) load_a_frag(qa[kk], Qs, kLd, warp * 16, kk * 16, g, t);
+  }
 
   float oacc[kD / 8][4];
 #pragma unroll
@@ -172,7 +205,11 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(const Params p) {
     float s[kBlockK / 8][4];
 #pragma unroll
     for (int nb = 0; nb < kBlockK / 8; ++nb) s[nb][0] = s[nb][1] = s[nb][2] = s[nb][3] = 0.f;
-    mma_rows<kD>(s, qa, Ks, g, t);
+    if constexpr (kQInRegs) {
+      mma_rows<kD>(s, qa, Ks, g, t);
+    } else {
+      mma_rows_smem<kD>(s, Qs, warp * 16, Ks, g, t);
+    }
 
     // scale, mask, online softmax; each row's 64 scores live in 4 lanes
     float alpha[2];
@@ -667,6 +704,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         __nv_bfloat16* orow = out + row * p.o_ss + 2 * t;
 #pragma unroll
         for (int j = 0; j < kD / 8; ++j) {
+          if (8 * j >= p.D) break;  // head_dim 120: columns 120-127 are padding
           *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
               __floats2bfloat162_rn(o[4 * j + 2 * ri] * inv, o[4 * j + 2 * ri + 1] * inv);
         }
@@ -685,9 +723,10 @@ template <int kD>
 int launch_hopper(const Params& p, cudaStream_t stream) {
   CUtensorMap tm_q, tm_k, tm_v;
   using hopper::encode_bhsd;
-  int err = encode_bhsd(&tm_q, p.q, p.B, p.H, p.S, kD, p.q_sb, p.q_sh, p.q_ss, kBlockM);
-  if (err == 0) err = encode_bhsd(&tm_k, p.k, p.B, p.Hkv, p.T, kD, p.k_sb, p.k_sh, p.k_st, kBlockN);
-  if (err == 0) err = encode_bhsd(&tm_v, p.v, p.B, p.Hkv, p.T, kD, p.v_sb, p.v_sh, p.v_st, kBlockN);
+  const int extent = p.D;  // the maps' inner extent: TMA fills columns extent..kD-1 with zeros
+  int err = encode_bhsd(&tm_q, p.q, p.B, p.H, p.S, extent, p.q_sb, p.q_sh, p.q_ss, kBlockM);
+  if (err == 0) err = encode_bhsd(&tm_k, p.k, p.B, p.Hkv, p.T, extent, p.k_sb, p.k_sh, p.k_st, kBlockN);
+  if (err == 0) err = encode_bhsd(&tm_v, p.v, p.B, p.Hkv, p.T, extent, p.v_sb, p.v_sh, p.v_st, kBlockN);
   if (err != 0) return err;
   static int sms[hopper::kMaxDevices] = {};
   void* args[] = {&tm_q, &tm_k, &tm_v, const_cast<Params*>(&p)};
@@ -740,6 +779,7 @@ int forward(const Params& p, int dtype, cudaStream_t s) {
   if (p.D <= 32) return launch_dtype<32>(dtype, p, s);
   if (p.D <= 64) return launch_dtype<64>(dtype, p, s);
   if (p.D <= 128) return launch_dtype<128>(dtype, p, s);
+  if (p.D <= 256) return launch_dtype<256>(dtype, p, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -748,7 +788,7 @@ int forward_hopper(const Params& p, int dtype, cudaStream_t s) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (p.D == 64) return fwd_hopper::launch_hopper<64>(p, s);
-  if (p.D == 128) return fwd_hopper::launch_hopper<128>(p, s);
+  if (p.D == 120 || p.D == 128) return fwd_hopper::launch_hopper<128>(p, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -757,9 +797,9 @@ int forward_hopper(const Params& p, int dtype, cudaStream_t s) {
 // dtype: 0 float32, 1 bfloat16.  dims: B, H, Hkv, S, T, D.  strides (in
 // elements; the last axis is contiguous): q b,h,s; k b,h,t; v b,h,t; o b,h,s.
 // lse: (B*H, S) float32, contiguous, or null (serving: not written).
-// flash_attention_fwd launches flash_fwd_f32 or flash_fwd_bf16;
-// flash_attention_fwd_hopper launches flash_fwd_hopper, which takes bf16
-// with D 64 or 128, q, k and v 16-byte aligned with strides of 16-byte
+// flash_attention_fwd launches flash_fwd_f32 or flash_fwd_bf16 (D up to
+// 256); flash_attention_fwd_hopper launches flash_fwd_hopper, which takes
+// bf16 with D 64, 120 or 128, q, k and v 16-byte aligned with strides of 16-byte
 // multiples on every axis longer than 1, and at most 2**30 blocks of 128
 // query rows (ceil(S / 128) x B x H).
 // Each returns a cudaError_t: 0 when the launch was taken; 1

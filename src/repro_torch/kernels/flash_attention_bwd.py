@@ -25,9 +25,14 @@ of type, shape, strides and base addresses (never a trial launch):
   Persistent blocks, TMA loads into an mbarrier ring, ``wgmma`` products,
   a producer warp and two consumer warpgroups (see the source).
 - ``"bf16"``: every other bfloat16 input (head_dim 16, 20 or 32 in the
-  sweeps and the smoke config; strides TMA refuses): ``mma.sync`` on
-  64-row tiles.
+  sweeps and the smoke config, h2o-danube-3-4b's 120; strides TMA
+  refuses): ``mma.sync`` on 64-row tiles.
 - ``"f32"``: float32, on the CUDA cores in full float32.
+
+The backward kernels take head_dim up to 128, where the forward takes
+256: :func:`check_head_dim` raises on more on the card, naming ROADMAP.md
+queue C #10 (training gemma-7b, head_dim 256, waits for it).  The plain
+versions on the CPU take any head_dim.
 
 On the CPU each piece is its plain version
 (:func:`~repro_torch.kernels.ref.flash_attention_fwd_lse_ref`,
@@ -54,7 +59,6 @@ import torch
 from . import _build, ref
 from .flash_attention import (
     _DTYPES,
-    HOPPER_HEAD_DIMS,
     HOPPER_MAX_ITEMS,
     _tma_ready,
     check_device,
@@ -70,7 +74,13 @@ __all__ = [
     "flash_attention_bwd_dq",
     "flash_attention_bwd_dkv",
     "route",
+    "check_head_dim",
+    "MAX_HEAD_DIM",
+    "HOPPER_HEAD_DIMS",
 ]
+
+MAX_HEAD_DIM = 128  # the backward kernels' widest tile
+HOPPER_HEAD_DIMS = (64, 128)
 
 _ARGS = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # q k v dout
@@ -110,9 +120,10 @@ def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout: torch.Tensor,
     """The backward kernels that take these inputs: ``"hopper"``,
     ``"bf16"`` or ``"f32"`` (see the module's docstring).  A pure function
     of type, shape, strides and base addresses: it needs no card, and
-    raises where :func:`.flash_attention.check_layout` does and on a
-    ``dout`` that does not fit ``q``."""
+    raises where :func:`.flash_attention.check_layout` and
+    :func:`check_head_dim` do and on a ``dout`` that does not fit ``q``."""
     check_layout(q, k, v, window)
+    check_head_dim(q.shape[3])
     if dout.shape != q.shape or dout.dtype != q.dtype:
         raise ValueError(f"dout {tuple(dout.shape)} {dout.dtype} does not fit q {tuple(q.shape)}")
     if dout.stride(3) != 1:
@@ -126,6 +137,16 @@ def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout: torch.Tensor,
             and all(_tma_ready(t) for t in (q, k, v, dout))):
         return "hopper"
     return "bf16"
+
+
+def check_head_dim(D: int) -> None:
+    """Raise ``ValueError`` on a head_dim the backward kernels do not take
+    (over 128), naming the open fault."""
+    if D > MAX_HEAD_DIM:
+        raise ValueError(
+            f"the backward kernels take head_dim up to {MAX_HEAD_DIM}, got {D} "
+            "(ROADMAP.md queue C #10: training at head_dim 256, gemma-7b's, is not ported yet)"
+        )
 
 
 def launch(lib: Optional[ctypes.CDLL], dkv: bool, q, k, v, dout, lse, delta, causal: bool,

@@ -5,11 +5,18 @@ device, the port of ``repro.launch.serve``::
       --batch 4 --prompt-len 64 --gen 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b \
       --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \
+      --smoke --device cpu
 
-One prefill for the whole batch, then shared decode steps.  On the card
-the prefill's attention (smollm-360m) is the Hopper flash-attention
-kernel, and its selective scan (falcon-mamba-7b) the Hopper scan kernel;
-decode runs no kernel of the port's own.
+``--arch`` takes any id of :data:`repro_torch.configs.ARCHS`: the dense
+smollm-360m, phi3-medium-14b, h2o-danube-3-4b and gemma-7b, the moe
+mixtral-8x7b and phi3.5-moe-42b-a6.6b, the ssm falcon-mamba-7b.  One
+prefill for the whole batch, then shared decode steps.  On the card the
+prefill's attention is a flash-attention kernel of the port's own (the
+Hopper one at head_dim 64, 120 and 128, the ``mma.sync`` one at gemma's
+256), and falcon-mamba-7b's selective scan the Hopper scan kernel; the
+MoE layers' dispatch and experts are plain products, as in the
+reference; decode runs no kernel of the port's own.
 """
 from __future__ import annotations
 

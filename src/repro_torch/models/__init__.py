@@ -1,4 +1,4 @@
-"""The port's model zoo: the decoder-only LM, dense and ssm families so far."""
+"""The port's model zoo: the decoder-only LM, dense, moe and ssm families so far."""
 from .api import Model
 from .config import ModelConfig, MoEConfig, SSMConfig, active_param_count, param_count
 

@@ -1,4 +1,4 @@
-"""Decoder-only LM, dense and ssm families: the port of
+"""Decoder-only LM, dense, moe and ssm families: the port of
 ``repro.models.transformer``.
 
 The model is an ``nn.Module`` with one submodule per layer (the reference
@@ -22,11 +22,22 @@ reference's ``jax.checkpoint`` of each layer); ``"dots"`` raises
 ``NotImplementedError`` (ROADMAP.md queue A #7).
 
 Dense family: attention over a full sequence runs through
-:func:`.layers.attention`, so on the card it is the Hopper flash-attention
-kernel: the forward in serving, the forward with lse, dq and dk/dv
-kernels under autograd in training.  Decode attention is plain tensor
-code (float32 scores and softmax), as it is plain jnp in the reference:
-the kernel has no per-slot ``start`` mask.  The cache is updated in place.
+:func:`.layers.attention`, so on the card it is a flash-attention kernel
+(the Hopper kernel at head_dim 64, 120 and 128, the ``mma.sync`` kernel
+at gemma's 256): the forward in serving, the forward with lse, dq and
+dk/dv kernels under autograd in training.  Decode attention is plain
+tensor code (float32 scores and softmax), as it is plain jnp in the
+reference: the kernel has no per-slot ``start`` mask.  The cache is
+updated in place.
+
+Moe family (mixtral, phi3.5-moe): the dense layer with the MLP of each
+layer where ``cfg.is_moe_layer(i)`` replaced by :func:`.moe.moe_apply`,
+the reference's one-hot dispatch in plain products.  ``forward_lm(...,
+return_aux=True)`` also gives the router's aux losses, summed over the
+layers as the reference sums them.  Only the forward without a gradient
+is ported: with one, ``forward_lm`` raises ``NotImplementedError``
+(ROADMAP.md queue A #17), since a training step that left the aux losses
+unweighted would differ from the reference's silently.
 
 Ssm family (falcon-mamba): each layer is ``norm1`` and the Mamba mixer
 (:mod:`.ssm`), with no ``norm2`` or MLP, as in the reference.  A full
@@ -37,10 +48,11 @@ place; positions, ``pos_offset`` and ``start`` do not apply.  Only the
 forward without a gradient is ported: ``forward_lm`` with a gradient
 raises ``NotImplementedError`` (ROADMAP.md queue A #9).
 
-Dropped from the reference: the sharding annotations (``constrain_act``),
-the one-hot embedding under a sharding context (a gather always), the MoE
-aux losses, and the families ``moe``, ``hybrid``, ``encdec`` and ``vlm``,
-which raise ``NotImplementedError`` (ROADMAP.md queue A #10).
+Dropped from the reference: the sharding annotations (``constrain_act``)
+and the one-hot embedding under a sharding context (a gather always).
+The families ``encdec`` and ``vlm`` raise ``NotImplementedError``
+(ROADMAP.md queue A #10), ``hybrid`` too (queue A #13: jamba needs four
+cards).
 """
 from __future__ import annotations
 
@@ -64,6 +76,7 @@ from .layers import (
     mlp_apply,
     rope_tables,
 )
+from .moe import moe_apply, moe_init
 from .ssm import ssm_apply, ssm_decode_step, ssm_init, ssm_state_init
 
 __all__ = [
@@ -78,13 +91,16 @@ __all__ = [
 ]
 
 
-_FAMILIES = ("dense", "ssm")
+_FAMILIES = ("dense", "moe", "ssm")
+# the ROADMAP.md item that ports each other family
+_NOT_PORTED = {"encdec": "#10", "vlm": "#10", "hybrid": "#13"}
 
 
 def check_family(cfg: ModelConfig) -> None:
     if cfg.family not in _FAMILIES:
+        item = _NOT_PORTED.get(cfg.family, "#10")
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet (ROADMAP.md queue A #10)"
+            f"{cfg.name}: the {cfg.family!r} family is not ported yet (ROADMAP.md queue A {item})"
         )
 
 
@@ -112,8 +128,10 @@ class _Params(nn.Module):
 
 class Block(nn.Module):
     """One layer, a :class:`_Params` per group of weights: ``norm1``,
-    ``attn`` (wq wk wv wo), ``norm2`` and ``mlp`` in the dense family;
-    ``norm1`` and ``ssm`` in the ssm family."""
+    ``attn`` (wq wk wv wo), ``norm2`` and ``mlp`` in the dense family, and
+    in the moe family ``moe`` (router w_in w_gate w_out) in place of
+    ``mlp`` where the layer is an MoE layer; ``norm1`` and ``ssm`` in the
+    ssm family."""
 
     def __init__(self, **groups: dict):
         super().__init__()
@@ -169,20 +187,22 @@ def init_lm(cfg: ModelConfig, *, generator: Optional[torch.Generator] = None,
     embed = w((cfg.vocab_size, d), 0.02)
     lm_head = None if cfg.tie_embeddings else w((d, cfg.vocab_size))
     blocks = []
-    for _ in range(cfg.num_layers):
+    for i in range(cfg.num_layers):
         if cfg.family == "ssm":
             blocks.append(Block(norm1=_norm_init(d, cfg.norm, device),
                                 ssm=ssm_init(cfg, gen, device)))
             continue
         attn = {"wq": w((d, hq, hd)), "wk": w((d, hkv, hd)), "wv": w((d, hkv, hd)),
                 "wo": w((hq, hd, d), 1.0 / math.sqrt(hq * hd))}
-        if cfg.act in ("swiglu", "geglu"):
-            mlp = {"w_in": w((d, cfg.d_ff)), "w_gate": w((d, cfg.d_ff)),
-                   "w_out": w((cfg.d_ff, d))}
+        if cfg.is_moe_layer(i):
+            ffn = {"moe": moe_init(cfg, gen, device)}
+        elif cfg.act in ("swiglu", "geglu"):
+            ffn = {"mlp": {"w_in": w((d, cfg.d_ff)), "w_gate": w((d, cfg.d_ff)),
+                           "w_out": w((cfg.d_ff, d))}}
         else:
-            mlp = {"w_in": w((d, cfg.d_ff)), "w_out": w((cfg.d_ff, d))}
+            ffn = {"mlp": {"w_in": w((d, cfg.d_ff)), "w_out": w((cfg.d_ff, d))}}
         blocks.append(Block(norm1=_norm_init(d, cfg.norm, device), attn=attn,
-                            norm2=_norm_init(d, cfg.norm, device), mlp=mlp))
+                            norm2=_norm_init(d, cfg.norm, device), **ffn))
     return LM(cfg, embed, _norm_init(d, cfg.norm, device), blocks, lm_head)
 
 
@@ -227,23 +247,54 @@ def _logits(lm: LM, h: torch.Tensor) -> torch.Tensor:
     return logits.to(_dtype(cfg.logit_dtype))
 
 
-def _ffn(blk: Block, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
-    return h + mlp_apply(blk.mlp.p, apply_norm(h, blk.norm2.p, cfg.norm), cfg.act)
+def _ffn(blk: Block, cfg: ModelConfig, h: torch.Tensor,
+         aux: Optional[dict] = None) -> torch.Tensor:
+    """``h`` plus the layer's MLP or MoE of ``norm2(h)``; an MoE layer's
+    aux losses are added into ``aux`` where it is given."""
+    x = apply_norm(h, blk.norm2.p, cfg.norm)
+    if not hasattr(blk, "moe"):
+        return h + mlp_apply(blk.mlp.p, x, cfg.act)
+    f, layer_aux = moe_apply(blk.moe.p, cfg, x)
+    if aux is not None:
+        for name, value in layer_aux.items():
+            aux[name] = aux[name] + value
+    return h + f
 
 
-def _block(blk: Block, cfg: ModelConfig, h: torch.Tensor, rope) -> torch.Tensor:
+def _block(blk: Block, cfg: ModelConfig, h: torch.Tensor, rope,
+           aux: Optional[dict] = None) -> torch.Tensor:
     o, _ = _attn_apply(blk.attn.p, cfg, apply_norm(h, blk.norm1.p, cfg.norm), rope)
-    return _ffn(blk, cfg, h + o)
+    return _ffn(blk, cfg, h + o, aux)
+
+
+def _no_gradient(lm: LM, what: str, item: str) -> None:
+    """Raise where autograd would record through ``lm``'s parameters: that
+    family's training is not ported."""
+    if torch.is_grad_enabled() and any(p.requires_grad for p in lm.parameters()):
+        raise NotImplementedError(
+            f"{lm.cfg.name}: training {what} is not ported yet (ROADMAP.md queue A {item}); "
+            "run forward_lm under torch.no_grad()"
+        )
 
 
 @full_float32_matmul()
-def forward_lm(lm: LM, tokens: torch.Tensor) -> torch.Tensor:
-    """Full-sequence logits (B, S, vocab) in ``logit_dtype``; under
-    autograd with ``cfg.remat == "full"`` each block's activations are
-    recomputed in the backward instead of kept."""
+def forward_lm(lm: LM, tokens: torch.Tensor, *, return_aux: bool = False):
+    """Full-sequence logits (B, S, vocab) in ``logit_dtype``; with
+    ``return_aux``, ``(logits, {"lb_loss", "z_loss"})``, the MoE layers'
+    aux losses summed over the layers (float32 zeros without MoE layers),
+    as the reference returns them.  Under autograd with ``cfg.remat ==
+    "full"`` each block's activations are recomputed in the backward
+    instead of kept."""
     cfg = lm.cfg
+    aux = None
+    if return_aux:
+        aux = {name: torch.zeros((), dtype=torch.float32, device=lm.embed.device)
+               for name in ("lb_loss", "z_loss")}
     if cfg.family == "ssm":
-        return _forward_ssm(lm, tokens)
+        logits = _forward_ssm(lm, tokens)
+        return (logits, aux) if return_aux else logits
+    if cfg.family == "moe":
+        _no_gradient(lm, "the moe family (the router's aux losses in the step)", "#17")
     if cfg.remat not in ("none", "full"):
         raise NotImplementedError(
             f"remat={cfg.remat!r} is not ported yet (ROADMAP.md queue A #7); use 'none' or 'full'"
@@ -254,22 +305,19 @@ def forward_lm(lm: LM, tokens: torch.Tensor) -> torch.Tensor:
     for blk in lm.blocks:
         if remat:
             # no dropout or other draws inside: no RNG state to stash
-            h = checkpoint(_block, blk, cfg, h, rope, use_reentrant=False,
+            h = checkpoint(_block, blk, cfg, h, rope, aux, use_reentrant=False,
                            preserve_rng_state=False)
         else:
-            h = _block(blk, cfg, h, rope)
-    return _logits(lm, h)
+            h = _block(blk, cfg, h, rope, aux)
+    logits = _logits(lm, h)
+    return (logits, aux) if return_aux else logits
 
 
 def _forward_ssm(lm: LM, tokens: torch.Tensor) -> torch.Tensor:
     """The ssm family's full-sequence logits, without a gradient: the scan
     kernel has no backward, and the plain scan must not stand in for it on
     the card."""
-    if torch.is_grad_enabled() and any(p.requires_grad for p in lm.parameters()):
-        raise NotImplementedError(
-            f"{lm.cfg.name}: training the ssm family is not ported yet (ROADMAP.md queue A #9); "
-            "run forward_lm under torch.no_grad()"
-        )
+    _no_gradient(lm, "the ssm family", "#9")
     cfg = lm.cfg
     h = _embed(lm, tokens)
     for blk in lm.blocks:
@@ -280,7 +328,7 @@ def _forward_ssm(lm: LM, tokens: torch.Tensor) -> torch.Tensor:
 
 # ===================================================================== cache
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device="cuda") -> dict:
-    """Decode cache.  Dense: ``{"sub_0": {"k", "v"}}``, each (layers,
+    """Decode cache.  Dense and moe: ``{"sub_0": {"k", "v"}}``, each (layers,
     batch, W, kv_heads, head_dim) in ``compute_dtype`` with
     ``W = min(max_len, sliding_window or max_len)``: linear buffers, or
     rings for a sliding window.  Ssm: ``{"sub_0": {"conv", "h"}}``, the

@@ -19,6 +19,11 @@ the P positions behind the cursor):
   window and scan state overwrite the slot's wholesale at admission, and
   ``pos_offset`` and ``start`` do not apply to them.
 
+The moe family (mixtral, phi3.5-moe) batches as the dense one: a decode
+step routes each slot's token in a dispatch group of its own (G = B, one
+token a group), so a slot's experts and gates do not depend on the other
+slots, and a batched step computes what B standalone steps would.
+
 Every request's greedy continuation equals the standalone batch-1 serve
 of the same prompt (``tests/test_torch_serve.py``).  The batcher is named
 ``SlotBatcher``, not ``ContinuousBatcher``: the repo's lock analyzer

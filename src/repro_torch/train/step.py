@@ -1,5 +1,7 @@
 """Train-state, train-step and serve-step factories: the port of
-``repro.train.step`` for the dense family.
+``repro.train.step``; the train step for the dense family (the moe and
+ssm families raise in their forward under a gradient, ROADMAP.md queue A
+#17 and #9), the serve steps for every ported family.
 
 ``make_train_step`` builds ``(state, batch) -> (state, metrics)`` with:
 
@@ -130,8 +132,8 @@ def make_train_step(
 
 
 def make_serve_steps(model: Model) -> tuple[Callable, Callable]:
-    """Returns (prefill_step, decode_step) for any ported family (dense or
-    ssm).  ``decode_step`` gives the greedy next token (int32), the logits
+    """Returns (prefill_step, decode_step) for any ported family (dense,
+    moe or ssm).  ``decode_step`` gives the greedy next token (int32), the logits
     and the cache."""
 
     def prefill_step(params, batch: dict, cache):

@@ -281,7 +281,8 @@ def test_a_fabric_batch_densifies_on_the_card_as_the_plain_version(tmp_path):
 # config) and the serving path's heads (GQA 15:5, D = 64)
 FA_SHAPES = [(1, 2, 2, 64, 64, 16), (2, 4, 2, 128, 128, 32), (1, 8, 1, 96, 160, 64),
              (2, 2, 1, 64, 128, 32), (2, 3, 1, 37, 37, 20), (1, 15, 5, 200, 200, 64),
-             (1, 4, 2, 70, 70, 128)]
+             (1, 4, 2, 70, 70, 128), (1, 8, 2, 70, 70, 120), (2, 3, 1, 37, 37, 160),
+             (1, 4, 4, 70, 100, 256)]
 FA_MASKS = [(True, None), (True, 48), (False, None)]
 # float32: the kernel sums in another order than cuBLAS (TF32 off on both)
 FA_F32_ATOL = 3e-5
@@ -364,8 +365,8 @@ def test_flash_attention_kernel_refuses_what_it_does_not_take():
     q, k, v = _fa_inputs(1, 2, 2, 16, 16, 32, torch.float32, dev)
     with pytest.raises(TypeError):
         ops.flash_attention(q.half(), k.half(), v.half())
-    with pytest.raises(ValueError):
-        ops.flash_attention(*_fa_inputs(1, 2, 2, 16, 16, 160, torch.float32, dev))
+    with pytest.raises(ValueError):  # one past the widest kernel, head_dim 256
+        ops.flash_attention(*_fa_inputs(1, 2, 2, 16, 16, 257, torch.float32, dev))
     with pytest.raises(ValueError):
         ops.flash_attention(q[..., ::2], k[..., ::2], v[..., ::2])
     with pytest.raises(ValueError):
@@ -385,6 +386,44 @@ def test_prefill_and_decode_on_the_card_match_the_cpu():
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = dataclasses.replace(get_config("smollm-360m"), num_layers=2,
                               param_dtype="float32", compute_dtype="float32")
+    model = Model(cfg)
+    lm_cpu = model.init(generator=torch.Generator().manual_seed(0), device="cpu")
+    lm_gpu = model.init(generator=torch.Generator().manual_seed(0), device=dev)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 40), generator=torch.Generator().manual_seed(1))
+    caches = [model.init_cache(2, 48, device=d) for d in ("cpu", dev)]
+    before = flash_attention.flash_attention.launches
+    want, _ = model.prefill(lm_cpu, {"tokens": tokens}, caches[0])
+    got, _ = model.prefill(lm_gpu, {"tokens": tokens.to(dev)}, caches[1])
+    assert flash_attention.flash_attention.launches == before + cfg.num_layers
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    tok = want.argmax(-1)
+    for i in range(4):
+        want, _ = model.decode(lm_cpu, tok, caches[0], 40 + i)
+        got, _ = model.decode(lm_gpu, tok.to(dev), caches[1], 40 + i)
+        torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+        tok = want.argmax(-1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "phi3.5-moe-42b-a6.6b", "gemma-7b",
+                                  "h2o-danube-3-4b"])
+def test_new_configs_prefill_and_decode_on_the_card_match_the_cpu(arch):
+    """The moe family and the head widths 256 and 120, at their full head
+    width and expert count with d_model, d_ff and the vocabulary narrowed,
+    2 layers, float32, a window of 24 where the config has one: the same
+    weights on the card and on the CPU, a 40-token prefill (the window
+    cuts) and 4 decode steps, every prefill layer through the kernel."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+
+    dev = _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, num_layers=2, d_model=256, d_ff=512, vocab_size=1024,
+                              param_dtype="float32", compute_dtype="float32",
+                              sliding_window=24 if full.sliding_window else None)
     model = Model(cfg)
     lm_cpu = model.init(generator=torch.Generator().manual_seed(0), device="cpu")
     lm_gpu = model.init(generator=torch.Generator().manual_seed(0), device=dev)
@@ -562,7 +601,7 @@ def test_training_kernels_refuse_what_they_do_not_take():
     with pytest.raises(TypeError):
         flash_attention.flash_attention_fwd_lse(q.half(), k.half(), v.half())
     with pytest.raises(ValueError):
-        flash_attention.flash_attention_fwd_lse(*_fa_inputs(1, 2, 2, 16, 16, 160, torch.float32, dev))
+        flash_attention.flash_attention_fwd_lse(*_fa_inputs(1, 2, 2, 16, 16, 257, torch.float32, dev))
     with pytest.raises(ValueError):
         fab.flash_attention_bwd_dq(q, k, v, torch.randn((1, 2, 16, 64), device=dev)[..., ::2],
                                    lse, delta)
@@ -622,7 +661,7 @@ def _rows_with_keys(S, T, causal, window, q_offset, device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 120, 128])
 @pytest.mark.parametrize("B,H,Hkv,S,T,causal,window,q_offset", HOPPER_CASES)
 def test_hopper_kernel_matches_plain_version(B, H, Hkv, S, T, causal, window, q_offset, D):
     """Both entry points (the training one where q_offset is 0) through the
@@ -649,7 +688,7 @@ def test_hopper_kernel_matches_plain_version(B, H, Hkv, S, T, causal, window, q_
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 120, 128])
 def test_hopper_kernel_takes_strided_bshd_views(D):
     """The model's (B, S, H, D) projections, k and v sliced from one tensor
     (strided in the head axis too), through the Hopper kernel; the outputs
@@ -689,6 +728,50 @@ def test_other_bf16_inputs_keep_the_mma_sync_kernel():
             n[0], n[1] + 1)
         want = ref.flash_attention_ref(*(t.contiguous() for t in args), causal=True)
         torch.testing.assert_close(got.float(), want.float(), atol=FA_BF16_ATOL, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", list(chip_smoke.WIDE_SHAPES))
+def test_the_new_head_widths_serving_shapes_match_plain_version(shape, dtype):
+    """gemma-7b's prefill attention (head_dim 256: the mma.sync kernel in
+    bf16) and h2o-danube-3-4b's (head_dim 120, window 4,096: the Hopper
+    kernel), at batch 4 of 4,608 tokens as the model's (B, S, H, D) views,
+    against the plain version within chip_smoke.py's WIDE_RULE."""
+    dev = _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, H, Hkv, S, D, window = chip_smoke.WIDE_SHAPES[shape]
+    gen = torch.Generator(device=dev).manual_seed(3)
+    q, k, v = chip_smoke._wide_inputs(B, H, Hkv, S, D, dtype, dev, gen)
+    want_route = "f32" if dtype == torch.float32 else ("bf16" if D > 128 else "hopper")
+    assert flash_attention.route(q, k, v, window) == want_route
+    n = (flash_attention.hopper_launches, flash_attention.wide_launches)
+    got = ops.flash_attention(q, k, v, causal=True, window=window)
+    want = ref.flash_attention_ref(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert (flash_attention.hopper_launches - n[0], flash_attention.wide_launches - n[1]) == (
+        int(want_route == "hopper"), int(D > 128))
+    assert got.stride() == q.stride()
+    err = chip_smoke._wide_err(got, want, str(dtype).removeprefix("torch."))
+    assert err["of_rule"] <= 1.0, err
+
+
+@pytest.mark.cuda
+def test_training_at_head_dim_256_raises_naming_its_item():
+    """The forward takes head_dim 256 with a gradient (the forward with
+    lse); the backward refuses it, naming ROADMAP.md queue C #10, and
+    launches nothing."""
+    from repro_torch.kernels import flash_attention_bwd as fab
+
+    dev = _card()
+    q, k, v = (t.requires_grad_() for t in _fa_inputs(1, 2, 2, 64, 64, 256, torch.bfloat16, dev))
+    n = flash_attention.flash_attention_fwd_lse.launches
+    out = ops.flash_attention(q, k, v, causal=True)
+    assert flash_attention.flash_attention_fwd_lse.launches == n + 1
+    counts = (fab.flash_attention_bwd_dq.launches, fab.flash_attention_bwd_dkv.launches)
+    with pytest.raises(ValueError, match="queue C #10"):
+        out.float().square().sum().backward()
+    assert (fab.flash_attention_bwd_dq.launches, fab.flash_attention_bwd_dkv.launches) == counts
 
 
 @pytest.mark.cuda

@@ -104,6 +104,39 @@ def test_route_raises_where_the_kernels_do(case, err):
         fab.route(q, k, v, dout, window)
 
 
+def test_head_dim_120_takes_the_mma_sync_backward_and_256_is_refused():
+    """danube's head_dim 120 goes to the Hopper forward but to the
+    mma.sync backward kernels (the Hopper ones are built at 64 and 128);
+    gemma's 256, which the forward takes, the backward refuses, naming the
+    open fault."""
+    q, k, v = _bshd_views(4, 2048, 32, 8, 120)
+    assert fa.route(q, k, v) == "hopper"
+    for dout in _douts(q):
+        assert fab.route(q, k, v, dout) == "bf16"
+        assert fab.route(*(t.float() for t in (q, k, v, dout))) == "f32"
+    q, k, v = _bshd_views(1, 64, 16, 16, 256, device="meta")
+    assert fa.route(q, k, v) == "bf16"
+    for dout in _douts(q):
+        with pytest.raises(ValueError, match="queue C #10"):
+            fab.route(q, k, v, dout)
+    with pytest.raises(ValueError, match="queue C #10"):
+        fab.check_head_dim(129)
+    fab.check_head_dim(128)
+
+
+def test_cpu_plain_versions_take_head_dim_256_with_a_gradient():
+    """On the CPU the plain versions take any head_dim: a gradient through
+    ``ops.flash_attention`` at 256 is the plain backward's."""
+    g = torch.Generator().manual_seed(1)
+    q = torch.randn((1, 2, 20, 256), generator=g).requires_grad_()
+    k, v = (torch.randn((1, 2, 20, 256), generator=g).requires_grad_() for _ in range(2))
+    out = ops.flash_attention(q, k, v, causal=True)
+    out.square().sum().backward()
+    want = ref.flash_attention_ref(q.detach().requires_grad_(), k, v, causal=True)
+    assert torch.allclose(out, want, atol=1e-5)
+    assert all(t.grad is not None and bool(torch.isfinite(t.grad).all()) for t in (q, k, v))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_cpu_tensors_take_the_plain_version_and_count_nothing(dtype):
     """``ops.flash_attention`` on CPU tensors that need a gradient runs

@@ -53,11 +53,15 @@ def _misaligned_base():
     (lambda: _bshd_views(1, 64, 2, 2, 16), "bf16"),  # the sweeps'
     (lambda: _bshd_views(2, 64, 4, 2, 32), "bf16"),
     (lambda: _bshd_views(2, 64, 4, 2, 96), "bf16"),  # under 128, not a TMA panel width
+    (lambda: _bshd_views(4, 512, 16, 16, 256), "bf16"),  # gemma-7b's head_dim
+    (lambda: _bshd_views(1, 64, 4, 2, 160), "bf16"),  # padded to 256
+    (lambda: _bshd_views(1, 40, 32, 8, 120, dtype=torch.float32), "f32"),
     (lambda: _bshd_views(8, 512, 15, 5, 64, dtype=torch.float32), "f32"),
     (lambda: _bshd_views(1, 40, 2, 2, 128, dtype=torch.float32), "f32"),
     (_misaligned_row_stride, "bf16"),
     (_misaligned_base, "bf16"),
-], ids=["d20", "d16", "d32", "d96", "f32-d64", "f32-d128", "row-stride-136B", "base-8B"])
+], ids=["d20", "d16", "d32", "d96", "d256", "d160", "f32-d120", "f32-d64", "f32-d128",
+        "row-stride-136B", "base-8B"])
 def test_other_inputs_keep_their_kernels(make, want):
     assert fa.route(*make()) == want
 
@@ -76,8 +80,8 @@ def test_length_one_axes_do_not_count_their_strides():
 
 
 @pytest.mark.parametrize("case,err", [
-    ("float16", TypeError), ("mixed_types", TypeError), ("head_dim_160", ValueError),
-    ("head_dim_256", ValueError), ("last_axis_strided", ValueError), ("heads_not_grouped", ValueError),
+    ("float16", TypeError), ("mixed_types", TypeError), ("head_dim_257", ValueError),
+    ("head_dim_384", ValueError), ("last_axis_strided", ValueError), ("heads_not_grouped", ValueError),
     ("window_zero", ValueError),
 ])
 def test_route_raises_where_the_kernels_do(case, err):
@@ -87,10 +91,10 @@ def test_route_raises_where_the_kernels_do(case, err):
         q, k, v = q.half(), k.half(), v.half()
     elif case == "mixed_types":
         k = k.float()
-    elif case == "head_dim_160":
-        q, k, v = _bshd_views(1, 16, 4, 2, 160)
-    elif case == "head_dim_256":
-        q, k, v = _bshd_views(1, 16, 4, 2, 256)
+    elif case == "head_dim_257":  # one past the widest kernel, gemma-7b's 256
+        q, k, v = _bshd_views(1, 16, 4, 2, 257)
+    elif case == "head_dim_384":
+        q, k, v = _bshd_views(1, 16, 4, 2, 384)
     elif case == "last_axis_strided":
         q, k, v = (t[..., ::2] for t in _bshd_views(1, 16, 4, 2, 128))
     elif case == "heads_not_grouped":
@@ -113,8 +117,35 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     assert fa.hopper_launches == counts[0]
 
 
+def test_the_served_configs_take_their_kernels():
+    """Every registered attention config's prefill views: the Hopper kernel
+    at head_dim 64, 120 and 128, the mma.sync kernel at gemma-7b's 256; in
+    float32 (the card-against-CPU checks) the f32 kernel."""
+    from repro_torch.configs import ARCHS, get_config
+
+    for arch in ARCHS:
+        cfg = get_config(arch)
+        if cfg.num_heads == 0:
+            continue
+        views = _bshd_views(4, 4608, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim,
+                            device="meta")
+        want = "bf16" if cfg.resolved_head_dim == 256 else "hopper"
+        assert fa.route(*views, cfg.sliding_window) == want, arch
+        f32 = _bshd_views(1, 64, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim,
+                          dtype=torch.float32, device="meta")
+        assert fa.route(*f32, cfg.sliding_window) == "f32", arch
+
+
+def test_the_forward_takes_head_dims_up_to_256():
+    for D in (1, 20, 120, 129, 200, 256):
+        assert fa.route(*_bshd_views(1, 16, 4, 2, D, device="meta")) in ("hopper", "bf16")
+    with pytest.raises(ValueError, match="1..256"):
+        fa.route(*_bshd_views(1, 16, 4, 2, 257, device="meta"))
+
+
 @pytest.mark.parametrize("source,name,edit", [
     *(("flash_attention", n, e) for n, e in chip_smoke.FLASH_MUTANTS.items()),
+    *(("flash_attention", n, e) for n, e in chip_smoke.WIDE_MUTANTS.items()),
     *(("ssm_scan", n, e) for n, e in chip_smoke.SSM_MUTANTS.items()),
     *(("flash_attention_bwd", n, e) for n, e in chip_smoke.BWD_MUTANTS.items()),
     *(("ell_to_dense", n, e) for n, e in chip_smoke.ELL_MUTANTS.items()),

@@ -58,6 +58,9 @@ def test_port_imports_with_jax_and_repro_blocked():
         "repro_torch.distributed.elastic.supervisor", "repro_torch.distributed.elastic.fabric",
         "repro_torch.serve.data", "repro_torch.serve.data.protocol",
         "repro_torch.serve.data.server", "repro_torch.serve.data.client",
+        "repro_torch.models.moe", "repro_torch.models.flags", "repro_torch.configs.gemma_7b",
+        "repro_torch.configs.phi3_medium_14b", "repro_torch.configs.h2o_danube_3_4b",
+        "repro_torch.configs.mixtral_8x7b", "repro_torch.configs.phi3_5_moe",
     } <= names
 
 

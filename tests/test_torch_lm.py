@@ -129,16 +129,35 @@ def _f32(cfg):
     return dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
 
 
+# the other registered ids' smoke configs: the moe family (mixtral: 4
+# experts, sliding window 32; phi3.5-moe: 4 experts, d_ff 96), gemma's
+# geglu, tied and scaled embeddings, phi3-medium, danube's sliding window
+SMOKE_IDS = {"mixtral_smoke": "mixtral-8x7b", "phi35moe_smoke": "phi3.5-moe-42b-a6.6b",
+             "gemma_smoke": "gemma-7b", "phi3medium_smoke": "phi3-medium-14b",
+             "danube_smoke": "h2o-danube-3-4b"}
+# full head width at 2 layers, with d_model, d_ff and the vocabulary
+# narrowed: danube's 32 heads of 120 over 8 kv heads (the Hopper kernel's
+# zero-padded width on the card) and gemma's 16 heads of 256 (the widest
+# mma.sync kernel)
+HEAD_CUTS = {"danube_d120": ("h2o-danube-3-4b", dict(d_model=256, d_ff=512, vocab_size=512)),
+             "gemma_d256": ("gemma-7b", dict(d_model=256, d_ff=512, vocab_size=512))}
+
+
 def _cut(name, smoke, full):
     if name == "smoke":  # head_dim 20, GQA 3:1
         return _f32(smoke("smollm-360m"))
     if name == "smollm2":  # smollm-360m's widths at 2 layers: head_dim 64, GQA 15:5
         return dataclasses.replace(_f32(full("smollm-360m")), num_layers=2)
+    if name in SMOKE_IDS:
+        return _f32(smoke(SMOKE_IDS[name]))
+    if name in HEAD_CUTS:
+        arch, narrow = HEAD_CUTS[name]
+        return dataclasses.replace(_f32(full(arch)), num_layers=2, remat="none", **narrow)
     # the smoke config with a sliding window: the ring cache and the window mask
     return dataclasses.replace(_f32(smoke("smollm-360m")), sliding_window=12)
 
 
-CONFIGS = ["smoke", "smollm2", "smoke_window"]
+CONFIGS = ["smoke", "smollm2", "smoke_window", *SMOKE_IDS, *HEAD_CUTS]
 
 
 def _pair(name):
@@ -219,10 +238,43 @@ def test_init_draws_the_reference_scales():
 
 
 def test_other_families_and_archs_are_refused():
-    with pytest.raises(KeyError, match="ROADMAP"):
-        get_config("mixtral-8x7b")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tr.init_lm(ref_smoke_config("mixtral-8x7b"), device="cpu")
+    for arch, item in (("jamba-1.5-large-398b", "queue A #13"), ("whisper-large-v3", "queue A #10"),
+                       ("internvl2-26b", "queue A #10")):
+        with pytest.raises(KeyError, match=f"ROADMAP.md {item}"):
+            get_config(arch)
+        with pytest.raises(KeyError, match="ROADMAP"):
+            smoke_config(arch)
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
+            tr.init_lm(ref_smoke_config(arch), device="cpu")
+
+
+def test_forward_returns_the_reference_aux_losses():
+    """``return_aux``: the router's aux losses summed over the MoE layers,
+    as the reference's forward returns them; zeros for a dense model."""
+    for name in ("mixtral_smoke", "smoke"):
+        cfg, jmodel, jparams, model, lm, _, _ = _pair(name)
+        tokens = np.random.default_rng(6).integers(0, cfg.vocab_size, (2, 24)).astype(np.int32)
+        want_logits, want = jmodel.forward(jparams, {"tokens": jnp.asarray(tokens)})
+        with torch.no_grad():
+            logits, aux = model.forward(lm, {"tokens": torch.from_numpy(tokens)}, return_aux=True)
+        _close(logits, want_logits, "forward logits")
+        for key in ("lb_loss", "z_loss"):
+            assert aux[key].dtype == torch.float32 and aux[key].shape == ()
+            np.testing.assert_allclose(float(aux[key]), float(want[key]), rtol=1e-6, atol=1e-6)
+        if name == "smoke":
+            assert float(aux["lb_loss"]) == float(aux["z_loss"]) == 0.0
+
+
+def test_moe_forward_under_a_gradient_raises():
+    """Training the moe family would leave the aux losses unweighted:
+    ``forward_lm`` refuses a gradient, naming the item."""
+    cfg = _f32(smoke_config("mixtral-8x7b"))
+    lm = tr.init_lm(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    tokens = torch.zeros((1, 8), dtype=torch.int64)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A #17"):
+        tr.forward_lm(lm, tokens)
+    with torch.no_grad():
+        assert tr.forward_lm(lm, tokens).shape == (1, 8, cfg.vocab_size)
 
 
 def test_lm_from_jax_refuses_a_wrong_tree():
