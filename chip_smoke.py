@@ -10,10 +10,11 @@ nothing of JAX or of the JAX package.  Phases, each printing one JSON line:
 1. device: the card's name, count and power limit;
 2. build: every ``src/repro_torch/kernels/csrc/*.cu`` with ``nvcc`` for
    ``sm_90a``, all started together; the registers and spill bytes of the
-   Hopper flash-attention kernels (``flash_fwd_hopper``,
-   ``flash_bwd_dq_hopper`` and ``flash_bwd_dkv_hopper``, head_dim 64 and
-   128), of the forward's two kernels at head_dim 256 (``flash_fwd_bf16``
-   and ``flash_fwd_f32``), and the registers, shared memory and spill bytes of
+   Hopper flash-attention kernels (``flash_fwd_hopper`` at head_dim 64,
+   128 and 256, which must not spill at 256; ``flash_bwd_dq_hopper`` and
+   ``flash_bwd_dkv_hopper`` at 64 and 128), of the forward's three kernels
+   at head_dim 256 (``flash_fwd_hopper``, ``flash_fwd_bf16`` and
+   ``flash_fwd_f32``), and the registers, shared memory and spill bytes of
    ``ell_to_dense``'s tiled kernel (identity and ``log1p`` epilogues) from
    ``ptxas -v``;
 
@@ -350,15 +351,20 @@ LM serving of the other registered configs (slice 14), after phase 18:
    16, 4,608, 256), causal, and h2o-danube-3-4b's, q (4, 32, 4,608, 120)
    over k, v (4, 8, 4,608, 120), window 4,096 (WIDE_SHAPES), as the model's
    strided (B, S, H, D) views, in bf16 and float32, against the plain
-   version: max |err| and rms(err) / rms(want) within WIDE_RULE; bf16 at
-   256 through the ``mma.sync`` kernel (``wide_launches`` + 1), at 120
-   through the Hopper kernel (``hopper_launches`` + 1); the mutation
-   check: three edited copies of ``csrc/flash_attention.cu``
-   (WIDE_MUTANTS) must each fail the rule FLASH_MUTANT_MIN times over at
-   one of the cases, the unedited build pass all; CUDA-event times, in
-   turns, of the kernel and of ``scaled_dot_product_attention`` (at 120
-   with the kv heads expanded and the window as a mask, made outside the
-   timing), the plain version's, and the bound;
+   version: max |err| and rms(err) / rms(want) within WIDE_RULE; bf16
+   through the Hopper kernel (``hopper_launches`` + 1; at 256
+   ``wide_launches`` + 1 too); gemma's bf16 inputs also copied into rows
+   of 260 values (a head stride TMA refuses), through the ``mma.sync``
+   kernel ``flash_fwd_bf16<256>`` (``wide_launches`` + 1 alone), within
+   the same rule; the mutation check: six edited copies of
+   ``csrc/flash_attention.cu`` (WIDE_MUTANTS) must each fail the rule
+   FLASH_MUTANT_MIN times over at one of the cases, the unedited build
+   pass all, and the one without V's loads is timed beside the unedited
+   build at gemma's shape; CUDA-event times, in turns, of the kernel and of
+   ``scaled_dot_product_attention`` (at 120 with the kv heads expanded and
+   the window as a mask, made outside the timing), at 256 also of
+   ``flash_fwd_bf16<256>`` on the same inputs (``previous_kernel``), the
+   plain version's, the bound and the kernel's share of it;
 27. dense_serve: phi3-medium-14b (40 layers, head_dim 128), h2o-danube-3-4b
    (24 layers, head_dim 120, window 4,096) and gemma-7b (28 layers,
    head_dim 256) at full width and depth, each first at 2 layers in
@@ -367,8 +373,8 @@ LM serving of the other registered configs (slice 14), after phase 18:
    ties as phase 8), then in bf16, weights drawn on the card from a seed,
    ``serve_batch`` of 4 prompts of 4,608 tokens and 32 greedy tokens after
    a warm-up serve of 2, with the attention counts set to 0 just before
-   and read just after: every prefill layer through its kernel (the
-   Hopper one at 128 and 120, the ``mma.sync`` one at 256); time to first
+   and read just after: every prefill layer through the Hopper kernel (at
+   256 counted in ``wide_launches`` too); time to first
    token, decode ms per step, peak memory and the route; then one prefill
    and one decode step under ``torch.profiler``: device kernel ms by kind
    (the attention kernel, matrix products, the rest) and the longest
@@ -603,11 +609,26 @@ WIDE_RULE = {"float32": (3e-5, 2**-12), "bfloat16": (3e-2, 2**-7)}
 WIDE_TIMED_CALLS = 10
 # the mutation check at the new shapes: edited copies of
 # csrc/flash_attention.cu, each of which must fail WIDE_RULE at one of
-# WIDE_SHAPES' cases FLASH_MUTANT_MIN times over: head_dim 256's Q.K^T
-# without its last 16 columns, head_dim 120's store without its last 8
-# columns (the output there is left as allocated), float32's Q.K^T
+# wide_kernel_phase's cases FLASH_MUTANT_MIN times over: the mma.sync
+# kernel's head_dim 256 Q.K^T without its last 16 columns (on the layout
+# TMA refuses), the Hopper kernel's S without its last 16-column step,
+# the Hopper kernel's P.V without V's last 64-column panel (V's tensor map
+# ends at column 192 at head_dim 256, so TMA fills that panel with
+# zeros), the Hopper kernel at head_dim 256 without V's loads (P.V reads
+# whatever the stage held; phase 26 also times it beside the unedited
+# build: what V's bytes from L2 cost), head_dim 120's store without its
+# last 8 columns (the output there is left as allocated), float32's Q.K^T
 # without its last column
 WIDE_MUTANTS = {
+    "d256_hopper_s_skips_last_step": (
+        "for (int kk = 0; kk < kD / 16; ++kk) {  // 16 columns of Q and K a step",
+        "for (int kk = 0; kk < kD / 16 - 1; ++kk) {  // 16 columns of Q and K a step"),
+    "d256_hopper_pv_drops_last_v_panel": (
+        "p.B, p.Hkv, p.T, extent, p.v_sb", "p.B, p.Hkv, p.T, kD == 256 ? 192 : extent, p.v_sb"),
+    "d256_hopper_skips_v_loads": (
+        "mbar_expect_tx(bar_v + 8 * s, L::kTileBytes);",
+        "if (kD == 256) { mbar_arrive(bar_v + 8 * s); continue; } "
+        "mbar_expect_tx(bar_v + 8 * s, L::kTileBytes);"),
     "d256_qk_skips_last_slice": (
         "for (int kk = 0; kk < kD / 16; ++kk) {  // one fragment of A a step",
         "for (int kk = 0; kk < kD / 16 - 1; ++kk) {  // one fragment of A a step"),
@@ -1123,17 +1144,22 @@ def main() -> None:
     built = _build.build()
     seconds = time.perf_counter() - t0
     hopper = {k: v for k, v in _build.ptxas_report("flash_attention").items() if "flash_fwd_hopper" in k}
-    if len(hopper) != 2:
-        fail(f"ptxas reports {len(hopper)} flash_fwd_hopper kernels, not 2 (head_dim 64 and 128)")
+    if len(hopper) != 3:
+        fail(f"ptxas reports {len(hopper)} flash_fwd_hopper kernels, not 3 (head_dim 64, 128 and "
+             f"256)")
+    spilled = {k: v for k, v in hopper.items()
+               if "ILi256E" in k and (v["spill_store_bytes"] or v["spill_load_bytes"])}
+    if spilled:
+        fail(f"flash_fwd_hopper<256> spills: {spilled}")
     bwd_hopper = {k: v for k, v in _build.ptxas_report("flash_attention_bwd").items()
                   if "flash_bwd_dq_hopper" in k or "flash_bwd_dkv_hopper" in k}
     if len(bwd_hopper) != 4:
         fail(f"ptxas reports {len(bwd_hopper)} Hopper backward kernels, not 4 (dq and dk/dv at "
              f"head_dim 64 and 128)")
     wide = {k: v for k, v in _build.ptxas_report("flash_attention").items() if "ILi256E" in k}
-    if len(wide) != 2:
-        fail(f"ptxas reports {len(wide)} flash-attention kernels at head_dim 256, not 2 (bf16 "
-             f"and f32)")
+    if len(wide) != 3:
+        fail(f"ptxas reports {len(wide)} flash-attention kernels at head_dim 256, not 3 (Hopper, "
+             f"bf16 and f32)")
     ell_ptxas = {k: v for k, v in _build.ptxas_report("ell_to_dense").items()
                  if "ell_to_dense_tiled" in k}
     if len(ell_ptxas) != 2:
@@ -1160,7 +1186,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     seconds["wide_kernels"] = time.perf_counter() - t0
     dense = dense_serve_phase(dev)
-    wide_kernels[0]["launches"] = dense["gemma-7b"]["wide"]
+    wide_kernels[0]["launches"] = dense["gemma-7b"]["hopper"]
     wide_kernels[1]["launches"] = dense["h2o-danube-3-4b"]["hopper"]
     seconds["dense_serve"] = time.perf_counter() - t0 - sum(seconds.values())
     moe_serve_phase(dev)
@@ -3577,11 +3603,24 @@ def _wide_inputs(B, H, Hkv, S, D, dtype, dev, gen):
     return view(H), view(Hkv), view(Hkv)
 
 
-def _wide_mutants(cases: dict) -> dict:
+def _tma_refused(x):
+    """A copy of the (B, H, S, D) view ``x`` of (B, S, H, D) rows, each row
+    now 4 values longer than D: its head stride of D + 4 values (520 bytes
+    at D 256) is one TMA refuses, so the copy takes the ``mma.sync``
+    kernel."""
+    import torch
+
+    B, H, S, D = x.shape
+    rows = torch.empty((B, S, H, D + 4), dtype=x.dtype, device=x.device)[..., :D].transpose(1, 2)
+    return rows.copy_(x)
+
+
+def _wide_mutants(cases: dict) -> tuple[dict, dict]:
     """Run the unedited forward and each of WIDE_MUTANTS, built by
     :func:`_build_mutants`, on every case of the new shapes (``cases``:
     {(shape, dtype): (q, k, v, window, want)}); return each one's error
-    over the rule per case."""
+    over the rule per case, and the CUDA-event times, in turns, of the
+    unedited build and of the one without V's loads at gemma's shape."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
@@ -3595,16 +3634,25 @@ def _wide_mutants(cases: dict) -> dict:
             torch.cuda.synchronize()
             result[name][f"{shape}_{dtype_name}"] = _wide_err(out, want, dtype_name)["of_rule"]
             del out
+    q, k, v, window, _ = cases[("d256", "bfloat16")]
+    timed = ("shipped", "d256_hopper_skips_v_loads")
+    turns = {name: [] for name in timed}
+    for order in (timed, timed[::-1]):
+        for name in order:
+            turns[name].append(event_ms(
+                lambda lib=libs[name]: fa.launch(lib, q, k, v, True, window, 0, False),
+                calls=WIDE_TIMED_CALLS, groups=3))
     shutil.rmtree(out_dir, ignore_errors=True)
-    return result
+    return result, turns
 
 
 def wide_kernel_phase(dev) -> list:
     """Phase 26: the forward at the new head widths' serving shapes
     (WIDE_SHAPES) on the card against its plain version, in bf16 and
-    float32; the mutation check (WIDE_MUTANTS); CUDA-event times, in turns,
-    of the kernel and of ``scaled_dot_product_attention``, beside the
-    bound.  Returns the kernels-line entries of the two shapes (their
+    float32, and at head_dim 256 at strides TMA refuses (the ``mma.sync``
+    kernel); the mutation check (WIDE_MUTANTS); CUDA-event times, in turns,
+    of the kernel, of ``scaled_dot_product_attention`` and at 256 of
+    ``flash_fwd_bf16<256>``, beside the bound.  Returns the kernels-line entries of the two shapes (their
     launches filled in by phase 27)."""
     import torch
     import torch.nn.functional as F
@@ -3620,7 +3668,7 @@ def wide_kernel_phase(dev) -> list:
             name = str(dtype).removeprefix("torch.")
             q, k, v = _wide_inputs(B, H, Hkv, S, D, dtype, dev, gen)
             route = fa.route(q, k, v, window)
-            want_route = "f32" if dtype == torch.float32 else ("bf16" if D > 128 else "hopper")
+            want_route = "f32" if dtype == torch.float32 else "hopper"
             if route != want_route:
                 fail(f"the {shape} shape in {name} routes to {route}, not {want_route}")
             counts = (fa.hopper_launches, fa.wide_launches)
@@ -3636,7 +3684,22 @@ def wide_kernel_phase(dev) -> list:
                      f"{errs[name]}")
             cases[(shape, name)] = (q, k, v, window, want)
             del got
-        q, k, v, _, _ = cases[(shape, "bfloat16")]
+        q, k, v, _, want = cases[(shape, "bfloat16")]
+        if D > 128:  # the kept mma.sync kernel, on the same values at strides TMA refuses
+            qr, kr, vr = (_tma_refused(t) for t in (q, k, v))
+            route = fa.route(qr, kr, vr, window)
+            counts = (fa.hopper_launches, fa.wide_launches)
+            got = fa.flash_attention(qr, kr, vr, causal=True, window=window)
+            torch.cuda.synchronize()
+            moved = (fa.hopper_launches - counts[0], fa.wide_launches - counts[1])
+            if route != "bf16" or moved != (0, 1):
+                fail(f"the {shape} shape at strides TMA refuses took {route}, counts moved {moved}")
+            errs["bfloat16_tma_refused"] = _wide_err(got, want, "bfloat16")
+            if not errs["bfloat16_tma_refused"]["of_rule"] <= 1.0:
+                fail(f"flash_fwd_bf16<256> disagrees with its plain version: "
+                     f"{errs['bfloat16_tma_refused']}")
+            cases[(f"{shape}_tma_refused", "bfloat16")] = (qr, kr, vr, window, want)
+            del got
         if window is None:
             def library(q=q, k=k, v=v):
                 return F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
@@ -3655,19 +3718,27 @@ def wide_kernel_phase(dev) -> list:
         def plain(q=q, k=k, v=v, window=window):
             return ref.flash_attention_ref(q, k, v, causal=True, window=window)
 
-        turns = {"kernel": [], "library": []}
-        for order in (("kernel", "library"), ("library", "kernel")):
+        def previous(q=q, k=k, v=v):  # flash_fwd_bf16<256>, which gemma's prefill took before
+            return previous_kernel(q, k, v, False)
+
+        fns = {"kernel": kernel, "library": library}
+        if D > 128:
+            fns["previous"] = previous
+        turns = {key: [] for key in fns}
+        for order in (tuple(fns), tuple(reversed(fns))):
             for key in order:
-                turns[key].append(event_ms(kernel if key == "kernel" else library,
-                                           calls=WIDE_TIMED_CALLS, groups=3))
+                turns[key].append(event_ms(fns[key], calls=WIDE_TIMED_CALLS, groups=3))
         plain_ms = event_ms(plain, calls=1, groups=3)
         pairs = _visible_pairs(S, window)
         moved = (2 * B * H * S * D + 2 * B * Hkv * S * D) * 2  # q, k, v read; o written
         flop = 4 * B * H * D * pairs
         bytes_ms, ops_ms = moved / HBM_BYTES_PER_S * 1e3, flop / BF16_FLOP_PER_S * 1e3
-        kernel_name = "flash_fwd_bf16<256> (mma.sync)" if D > 128 else \
+        kernel_name = "flash_fwd_hopper<256>" if D > 128 else \
             "flash_fwd_hopper<128> (inner extent 120)"
         ms = statistics.mean(turns["kernel"])
+        bound_ms = max(bytes_ms, ops_ms)
+        previous_ms = {"previous_kernel": "flash_fwd_bf16<256> (mma.sync)",
+                       "previous_kernel_ms": statistics.mean(turns["previous"])} if D > 128 else {}
         entries[shape] = {
             "name": f"flash_attention_{shape}", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -3676,16 +3747,18 @@ def wide_kernel_phase(dev) -> list:
             "f32_max_abs_err": errs["float32"]["max_abs_err"],
             "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
             "library_ms": statistics.mean(turns["library"]),
-            "library": "scaled_dot_product_attention", "bound_ms": max(bytes_ms, ops_ms),
+            "library": "scaled_dot_product_attention", "bound_ms": bound_ms,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "bound_parts_ms": {"bytes": bytes_ms, "tensor_cores": ops_ms},
+            "bound_share": bound_ms / ms,
+            "library_over_kernel": statistics.mean(turns["library"]) / ms, **previous_ms,
             "shape": [B, H, Hkv, S, S, D], "window": window, "dtype": "bfloat16",
             "bytes": moved, "flop": flop}
         phase[shape] = {"shape": [B, H, Hkv, S, S, D], "window": window, "errors": errs,
                         "library_error": lib_err, "ms_turns": turns, "plain_ms": plain_ms,
-                        "bound_ms": entries[shape]["bound_ms"],
-                        "bound_by": entries[shape]["bound_by"], "kernel": kernel_name}
-    mutants = _wide_mutants(cases)
+                        "bound_ms": bound_ms, "bound_by": entries[shape]["bound_by"],
+                        "bound_share": bound_ms / ms, "kernel": kernel_name, **previous_ms}
+    mutants, v_loads = _wide_mutants(cases)
     for case, of_rule in mutants["shipped"].items():
         if not of_rule <= 1.0:
             fail(f"the unedited build fails the rule at {case}: {of_rule}")
@@ -3696,7 +3769,8 @@ def wide_kernel_phase(dev) -> list:
     torch.cuda.empty_cache()
     emit({"phase": "wide_kernels", "rule": {k: {"max_abs": a, "rms_of_rms_want": r}
                                              for k, (a, r) in WIDE_RULE.items()},
-          **phase, "mutants": mutants, "mutant_min": FLASH_MUTANT_MIN})
+          **phase, "mutants": mutants, "mutant_min": FLASH_MUTANT_MIN,
+          "d256_ms_with_and_without_v_loads": v_loads})
     return [entries["d256"], entries["d120"]]
 
 
@@ -3705,8 +3779,8 @@ def _serve_arch(dev, cfg, prompts, phase: str, extra: dict) -> dict:
     weights drawn there from a seeded generator, a warm-up serve of 2
     tokens at the same shapes, then WIDE_GEN tokens with the attention
     kernels' counts set to 0 just before and read just after: every
-    prefill layer through its kernel, the Hopper one at head_dim 64, 120
-    and 128, the mma.sync one past 128.  Emits the phase line; returns
+    prefill layer through the Hopper kernel, also counted as wide past
+    head_dim 128.  Emits the phase line; returns
     the launch counts."""
     import numpy as np
     import torch
@@ -3730,7 +3804,7 @@ def _serve_arch(dev, cfg, prompts, phase: str, extra: dict) -> dict:
     counts = {"flash_attention": fa.flash_attention.launches, "hopper": fa.hopper_launches,
               "wide": fa.wide_launches}
     L, D = cfg.num_layers, cfg.resolved_head_dim
-    want = {"flash_attention": L, "hopper": 0 if D > 128 else L, "wide": L if D > 128 else 0}
+    want = {"flash_attention": L, "hopper": L, "wide": L if D > 128 else 0}
     if counts != want:
         fail(f"{cfg.name}: one prefill of {L} layers launched {counts}, not {want}")
     B = prompts.shape[0]

@@ -21,38 +21,43 @@
 // the masks leave empty for every row of the block are not visited (the
 // TPU kernel runs them masked; the result is the same).  Three kernels,
 // chosen by the wrapper (kernels/flash_attention.py, route):
-//   - flash_fwd_hopper (bf16, head_dim 64, 120 or 128, every tensor TMA
-//     can address: the serving and training paths).  Head_dim 120
-//     (h2o-danube-3-4b) runs the 128 instantiation: its tensor maps have an
-//     inner extent of 120, so TMA fills columns 120-127 of every Q, K and
-//     V tile with zeros, which add nothing to Q.K^T, and the epilogue
-//     stores only the first 120 columns of O.  Persistent: one block of
-//     three warpgroups per SM walks work items of 128 query rows of one
-//     (batch, head), those with the most key tiles first.  Warpgroup 0 is
-//     the producer: its first thread loads each item's Q into one of two
-//     buffers and K and V tiles of 128 keys into a ring of stages (4 at
-//     head_dim 64, 2 at 128), all by TMA with the 128-byte swizzle, each
-//     load completing on a "full" mbarrier and each buffer freed by an
-//     "empty" one.  Warpgroups 1 and 2 consume 64 rows each: S = Q.K^T as
-//     wgmma m64n128k16 from shared memory (Q and K K-major), the online
-//     softmax in float32 in base 2 (the running max in scale.log2(e)
-//     units, one FFMA and one ex2.approx per score, the mask only on tiles
-//     that cross the causal diagonal, the window's edge or T), P rounded
-//     to bf16 in registers (the accumulator layout of S is the A layout of
-//     the next product), and O += P.V as wgmma with A from registers and V
-//     as a transposed (MN-major) B from shared memory.  Each tile's S
-//     product is issued with the last tile's P.V, so the softmax runs
-//     while the tensor cores finish P.V.  setmaxnreg moves registers from
-//     the producer to the consumers.
+//   - flash_fwd_hopper (bf16, head_dim 64, 120, 128 or 256, every tensor
+//     TMA can address: the serving and training paths, gemma-7b's prefill
+//     included).  Head_dim 120 (h2o-danube-3-4b) runs the 128
+//     instantiation: its tensor maps have an inner extent of 120, so TMA
+//     fills columns 120-127 of every Q, K and V tile with zeros, which add
+//     nothing to Q.K^T, and the epilogue stores only the first 120 columns
+//     of O.  Persistent: one block of three warpgroups per SM walks work
+//     items of 128 query rows of one (batch, head), those with the most key
+//     tiles first.  Warpgroup 0 is the producer: its first thread loads
+//     each item's Q into a buffer (two at head_dim 64 and 128, one at 256)
+//     and K and V tiles into a ring of stages (4 of 128 keys at head_dim
+//     64, 2 of 128 at 128, 2 of 64 at 256), all by TMA with the 128-byte
+//     swizzle, each load completing on a "full" mbarrier and each buffer
+//     freed by an "empty" one (a stage's K when its S product is done, its
+//     V when its P.V is).  Warpgroups 1 and 2 consume 64 rows each: S =
+//     Q.K^T as wgmma m64n128k16 (m64n64k16 at 256) from shared memory (Q
+//     and K K-major), the online softmax in float32 in base 2 (the running
+//     max in scale.log2(e) units, one FFMA and one ex2.approx per score,
+//     the mask only on tiles that cross the causal diagonal, the window's
+//     edge or T), P rounded to bf16 in registers (the accumulator layout
+//     of S is the A layout of the next product), and O += P.V as wgmma
+//     with A from registers and V as a transposed (MN-major) B from shared
+//     memory, at 256 one m64n256k16 across V's four 64-column panels, O's
+//     256 columns held in 128 registers a thread.  Each tile's S product
+//     is issued with the last tile's P.V, so the softmax runs while the
+//     tensor cores finish P.V.  setmaxnreg moves registers from the
+//     producer to the consumers (240 a consumer thread at 256).
 //   - flash_fwd_bf16 (other bf16 inputs: head_dim 16, 20 or 32 in the
-//     sweeps and the smoke configs, gemma-7b's 256, strides TMA refuses):
-//     64 query rows a block, 4 warps of mma.sync.m16n8k16, each owning 16
-//     rows, with K and V loaded by plain loads (16 bytes a thread where
-//     they allow) and head_dim padded with zeros to 32, 64, 128 or 256 in
-//     shared memory.  Up to 128 each warp keeps its Q fragments in
-//     registers; at 256 they would take 64 registers a thread beside O's
-//     128, so they are read from shared memory for each tile instead
-//     (mma_rows_smem), and the block holds 101,376 bytes of shared memory.
+//     sweeps and the smoke configs, 256 and every other width at strides
+//     TMA refuses): 64 query rows a block, 4 warps of mma.sync.m16n8k16,
+//     each owning 16 rows, with K and V loaded by plain loads (16 bytes a
+//     thread where they allow) and head_dim padded with zeros to 32, 64,
+//     128 or 256 in shared memory.  Up to 128 each warp keeps its Q
+//     fragments in registers; at 256 they would take 64 registers a thread
+//     beside O's 128, so they are read from shared memory for each tile
+//     instead (mma_rows_smem), and the block holds 101,376 bytes of shared
+//     memory.
 //   - flash_fwd_f32 (float32: tests and the card-against-CPU checks): the
 //     same tiling on CUDA cores, each thread owning 4 rows x 8 key columns
 //     of S and 4 rows x D/8 columns of the output, in full float32; at
@@ -75,6 +80,12 @@
 // 20.97 MB, which takes 6.26 us at 3.35 TB/s; the 131,328 causal pairs per
 // head cost 4 * 8 * 15 * 64 * 131,328 = 4.03 GFLOP, 4.08 us at 989 TFLOP/s
 // of bf16 tensor cores (H100 SXM data sheet, 700 W).  So bytes bound it.
+// At gemma-7b's prefill, q, k, v (4, 16, 4,608, 256) bf16, causal, the
+// products bound it: 0.696 TFLOP, 0.704 ms, against 0.180 ms of bytes.
+// Per 128-row item each 64-key tile brings 64 KB of K and V from L2 for
+// 8.4 MFLOP, so at the tensor cores' rate the SMs would read about 7.7
+// TB/s from L2; chip_smoke.py's phase 26 times the kernel without V's loads to
+// show what that traffic costs (PERF.md).
 // At the training shape, q (4, 15, 2048, 64) and k/v (4, 5, 2048, 64)
 // bf16, causal, the 2,098,176 pairs per head cost 32.2 GFLOP (32.6 us)
 // against 42.4 MB of bytes (12.7 us): operations bound it there, which is
@@ -397,35 +408,55 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32(const Params p) {
 namespace fwd_hopper {
 
 constexpr int kBlockM = 128;   // query rows per block: two consumer warpgroups of 64
-constexpr int kBlockN = 128;   // keys per tile
 constexpr int kThreads = 384;  // warpgroup 0 produces, 1 and 2 consume
 constexpr int kRowBytes = 128; // one swizzled row: 64 bf16 values
-constexpr int kProducerRegs = 40, kConsumerRegs = 232;  // 128 x 40 + 256 x 232 <= 65,536
 constexpr float kLog2e = 1.4426950408889634f, kLn2 = 0.6931471805599453f;
 constexpr int64_t kMaxItems = int64_t(1) << 30;  // item indices stay in int
 
-// Shared memory: two Q buffers (each kD / 64 panels of 128 rows) | K
-// stages | V stages | barriers.  Each panel is rows of 128 bytes; every
-// piece starts on a 1,024-byte boundary.  The second Q buffer lets the
-// producer load the next item's Q and tiles while the consumers finish
-// the last.  At least 116 KB, so that one block holds an SM and
-// setmaxnreg's hand-over of registers has them to give.
+// Shared memory: Q buffers (each kD / 64 panels of 128 rows) | K stages |
+// V stages | barriers.  Each panel is rows of 128 bytes; every piece starts
+// on a 1,024-byte boundary.  At head_dim 64 and 128: tiles of 128 keys and
+// two Q buffers, so that the producer loads the next item's Q and tiles
+// while the consumers finish the last.  At 256 a consumer thread holds O's
+// 128 float32 columns, so the key tile is 64 (S in 32 registers, P in 16),
+// and one Q buffer of 64 KB with 2 stages of 32 KB K and V tiles fill 193
+// KB.  At least 116 KB, so that one block holds an SM and setmaxnreg's
+// hand-over of registers has them to give: 128 x kProducerRegs + 256 x
+// kConsumerRegs <= 65,536.
 template <int kD>
 struct Layout {
-  static constexpr int kPanels = kD / 64;
+  static constexpr int kBlockN = kD == 256 ? 64 : 128;  // keys per tile
+  static constexpr int kQBuffers = kD == 256 ? 1 : 2;
   static constexpr int kStages = kD == 64 ? 4 : 2;
+  static constexpr int kProducerRegs = kD == 256 ? 24 : 40;
+  static constexpr int kConsumerRegs = kD == 256 ? 240 : 232;
+  static constexpr int kPanels = kD / 64;
   static constexpr int kQBytes = kBlockM * kD * 2;
   static constexpr int kTileBytes = kBlockN * kD * 2;  // one K or V tile
   static constexpr int kQPanel = kBlockM * kRowBytes;
   static constexpr int kKVPanel = kBlockN * kRowBytes;
-  static constexpr int kK = 2 * kQBytes;
+  static constexpr int kK = kQBuffers * kQBytes;
   static constexpr int kV = kK + kStages * kTileBytes;
   static constexpr int kBar = kV + kStages * kTileBytes;
-  static constexpr int kBars = 4 + 3 * kStages;  // Q full, free; K full, V full, free
+  static constexpr int kBars = 2 * kQBuffers + 4 * kStages;  // Q full, free; K and V full, free
   static constexpr int kSmem = kBar + 8 * kBars + 1024;  // + the base's alignment
   static_assert(kSmem > 116 * 1024 && kSmem <= 227 * 1024, "one block per SM");
+  static_assert(128 * kProducerRegs + 256 * kConsumerRegs <= 65536, "registers");
 };
 
+// S (+)= Q . K^T for 16 columns of a 64-row Q slice and a tile of kN keys
+template <int kN>
+__device__ __forceinline__ void qk(float (&s)[kN / 2], uint64_t da, uint64_t db, int scale_d);
+template <>
+__device__ __forceinline__ void qk<64>(float (&s)[32], uint64_t da, uint64_t db, int scale_d) {
+  hopper::wgmma_m64n64k16_ss(s, da, db, scale_d);
+}
+template <>
+__device__ __forceinline__ void qk<128>(float (&s)[64], uint64_t da, uint64_t db, int scale_d) {
+  hopper::wgmma_m64n128k16_ss(s, da, db, scale_d);
+}
+
+// O += P . V for 16 keys, V's kD columns in kD / 64 panels
 template <int kD>
 __device__ __forceinline__ void pv(float (&o)[kD / 2], const uint32_t (&a)[4], uint64_t db);
 template <>
@@ -436,18 +467,23 @@ template <>
 __device__ __forceinline__ void pv<128>(float (&o)[64], const uint32_t (&a)[4], uint64_t db) {
   hopper::wgmma_m64n128k16_rs_tb(o, a, db);
 }
+template <>
+__device__ __forceinline__ void pv<256>(float (&o)[128], const uint32_t (&a)[4], uint64_t db) {
+  hopper::wgmma_m64n256k16_rs_tb(o, a, db);
+}
 
 __host__ __device__ __forceinline__ int64_t work_items(const Params& p) {
   return int64_t((p.S + kBlockM - 1) / kBlockM) * p.B * p.H;
 }
 
-// One work item: 128 query rows of one (batch, head) and the key tiles
-// they see.  Item w is query tile n_q - 1 - w / (B H), the longest key
-// walks first, of batch x head w % (B H).
+// One work item: 128 query rows of one (batch, head) and the key tiles of
+// kBlockN keys they see.  Item w is query tile n_q - 1 - w / (B H), the
+// longest key walks first, of batch x head w % (B H).
 struct Work {
   int q0, b, h, hk, kt0, n_tiles;
 };
 
+template <int kBlockN>
 __device__ __forceinline__ Work work_item(const Params& p, int w) {
   const int bh = w % (p.B * p.H), n_q = (p.S + kBlockM - 1) / kBlockM;
   Work wk;
@@ -471,24 +507,28 @@ __global__ void __launch_bounds__(kThreads, 1)
                      const __grid_constant__ CUtensorMap tm_v, const Params p) {
   using L = Layout<kD>;
   using namespace hopper;
+  constexpr int kBlockN = L::kBlockN;
   extern __shared__ __align__(1024) unsigned char hopper_smem[];
   const uint32_t base = (smem_u32(hopper_smem) + 1023u) & ~1023u;
   const uint32_t sQ = base, sK = base + L::kK, sV = base + L::kV;
-  // barriers: per Q buffer Q full, Q free; per stage K full, V full, stage free
-  const uint32_t bar_q = base + L::kBar, bar_qe = bar_q + 16;
-  const uint32_t bar_k = bar_qe + 16, bar_v = bar_k + 8 * L::kStages;
-  const uint32_t bar_e = bar_v + 8 * L::kStages;
+  // barriers: per Q buffer Q full, Q free; per stage K full, K free, V
+  // full, V free.  A stage's K is freed when the tile's S product is done
+  // and its V when its P.V is, so the next K loads while P.V still reads V.
+  const uint32_t bar_q = base + L::kBar, bar_qe = bar_q + 8 * L::kQBuffers;
+  const uint32_t bar_k = bar_qe + 8 * L::kQBuffers, bar_ke = bar_k + 8 * L::kStages;
+  const uint32_t bar_v = bar_ke + 8 * L::kStages, bar_ve = bar_v + 8 * L::kStages;
   const int n_items = static_cast<int>(work_items(p));
 
   if (threadIdx.x == 0) {
-    for (int qb = 0; qb < 2; ++qb) {
+    for (int qb = 0; qb < L::kQBuffers; ++qb) {
       mbar_init(bar_q + 8 * qb, 1);
       mbar_init(bar_qe + 8 * qb, 2 * 128);  // every consumer thread frees Q and the stages
     }
     for (int s = 0; s < L::kStages; ++s) {
       mbar_init(bar_k + 8 * s, 1);
+      mbar_init(bar_ke + 8 * s, 2 * 128);
       mbar_init(bar_v + 8 * s, 1);
-      mbar_init(bar_e + 8 * s, 2 * 128);
+      mbar_init(bar_ve + 8 * s, 2 * 128);
     }
     fence_barrier_init();
   }
@@ -496,17 +536,17 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   if (threadIdx.x < 128) {
     // ------------------------------------------------------ producer
-    regs_dealloc<kProducerRegs>();
+    regs_dealloc<L::kProducerRegs>();
     if (threadIdx.x == 0) {
       tma_prefetch(&tm_q);
       tma_prefetch(&tm_k);
       tma_prefetch(&tm_v);
       int it = 0, qn = 0;  // tiles and Q loads so far: the ring's and Q's phases
       for (int r = 0, w; (w = item_of_round(r)) < n_items; ++r) {
-        const Work wk = work_item(p, w);
+        const Work wk = work_item<kBlockN>(p, w);
         if (wk.n_tiles == 0) continue;
-        const int qb = qn & 1;  // Q buffer
-        mbar_wait(bar_qe + 8 * qb, ((qn >> 1) & 1) ^ 1);  // each buffer's first round is free
+        const int qb = qn % L::kQBuffers;  // Q buffer; each buffer's first round is free
+        mbar_wait(bar_qe + 8 * qb, ((qn / L::kQBuffers) & 1) ^ 1);
         ++qn;
         mbar_expect_tx(bar_q + 8 * qb, L::kQBytes);
 #pragma unroll
@@ -515,13 +555,15 @@ __global__ void __launch_bounds__(kThreads, 1)
                       wk.q0, wk.h, wk.b);
         for (int i = 0; i < wk.n_tiles; ++i, ++it) {
           const int s = it % L::kStages;
+          const uint32_t free_parity = ((it / L::kStages) & 1) ^ 1;
           const int k0 = wk.kt0 + i * kBlockN;
-          mbar_wait(bar_e + 8 * s, ((it / L::kStages) & 1) ^ 1);
+          mbar_wait(bar_ke + 8 * s, free_parity);
           mbar_expect_tx(bar_k + 8 * s, L::kTileBytes);
 #pragma unroll
           for (int pn = 0; pn < L::kPanels; ++pn)
             tma_load_4d(sK + s * L::kTileBytes + pn * L::kKVPanel, &tm_k, bar_k + 8 * s, 64 * pn,
                         k0, wk.hk, wk.b);
+          mbar_wait(bar_ve + 8 * s, free_parity);
           mbar_expect_tx(bar_v + 8 * s, L::kTileBytes);
 #pragma unroll
           for (int pn = 0; pn < L::kPanels; ++pn)
@@ -532,7 +574,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
   } else {
     // ------------------------------------------------------ consumers
-    regs_alloc<kConsumerRegs>();
+    regs_alloc<L::kConsumerRegs>();
     const int c = threadIdx.x / 128 - 1;  // rows [64c, 64c + 64) of each item
     const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
     const int g = lane / 4, t = lane % 4;
@@ -541,7 +583,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
     float o[kD / 2];                 // O of this thread's two rows
     float m[2], l[2];                // running max (base 2), this thread's part of the sum
-    float sc[64];                    // S of the newest tile, then its P in float32
+    float sc[kBlockN / 2];           // S of the newest tile, then its P in float32
     uint32_t pa[kBlockN / 16][4];    // P of the tile before, in bf16: the A of P.V
     int64_t qa_lo = 0, qa_hi = 0;    // the positions of the item's first and last valid row
     uint32_t sQc = sQ;               // the item's Q buffer
@@ -550,17 +592,18 @@ __global__ void __launch_bounds__(kThreads, 1)
     auto issue_s = [&](int s) {
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < kD / 16; ++kk) {
+      for (int kk = 0; kk < kD / 16; ++kk) {  // 16 columns of Q and K a step
         const uint32_t col = (kk % 4) * 32;
         const uint64_t da = desc_sw128(sQc + (kk / 4) * L::kQPanel + c * 64 * kRowBytes + col,
                                        16, 8 * kRowBytes);
         const uint64_t db = desc_sw128(sK + s * L::kTileBytes + (kk / 4) * L::kKVPanel + col,
                                        16, 8 * kRowBytes);
-        wgmma_m64n128k16_ss(sc, da, db, kk > 0);
+        qk<kBlockN>(sc, da, db, kk > 0);
       }
       wgmma_commit();
     };
-    // O += P V of stage s: V's rows are B's K axis (MN-major), 16 keys a step
+    // O += P V of stage s: V's rows are B's K axis (MN-major), 16 keys a
+    // step, its kD columns in panels L::kKVPanel bytes apart
     auto issue_pv = [&](int s) {
       fence_regs(o);
       wgmma_fence();
@@ -573,8 +616,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     };
     // mask (only where the tile crosses T, the causal diagonal or the
     // window's edge) and online softmax in base 2 of the tile at k0; a
-    // row's 128 scores live in the 4 lanes of a quad.  Returns each row's
-    // rescale factor of O in alpha.
+    // row's kBlockN scores live in the 4 lanes of a quad.  Returns each
+    // row's rescale factor of O in alpha.
     auto softmax = [&](int k0, float (&alpha)[2]) {
       fence_regs(sc);
       const bool inside = k0 + kBlockN <= p.T && (!p.causal || k0 + kBlockN - 1 <= qa_lo) &&
@@ -594,7 +637,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           lo[ri] = (p.has_window ? clamp_col<kBlockN>(d - p.window) : -1) - 2 * t;
         }
 #pragma unroll
-        for (int j = 0; j < 16; ++j) {
+        for (int j = 0; j < kBlockN / 8; ++j) {
 #pragma unroll
           for (int x = 0; x < 4; ++x) {
             const int col = 8 * j + x % 2;  // less 2t
@@ -607,7 +650,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         // four chains each of maxima and of sums: shorter dependences
         float mq[4] = {-CUDART_INF_F, -CUDART_INF_F, -CUDART_INF_F, -CUDART_INF_F};
 #pragma unroll
-        for (int j = 0; j < 16; ++j) {
+        for (int j = 0; j < kBlockN / 8; ++j) {
           mq[j % 4] = fmaxf(mq[j % 4], fmaxf(sc[4 * j + 2 * ri], sc[4 * j + 2 * ri + 1]));
         }
         float mx = fmaxf(fmaxf(mq[0], mq[1]), fmaxf(mq[2], mq[3]));
@@ -618,7 +661,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         alpha[ri] = ex2(m[ri] - m_use);
         float sq[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-        for (int j = 0; j < 16; ++j) {
+        for (int j = 0; j < kBlockN / 8; ++j) {
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             float& x = sc[4 * j + 2 * ri + e];
@@ -643,7 +686,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
     int it = 0, qn = 0;  // tiles and Q loads so far, as the producer counts them
     for (int r = 0, w; (w = item_of_round(r)) < n_items; ++r) {
-      const Work wk = work_item(p, w);
+      const Work wk = work_item<kBlockN>(p, w);
       const int row0 = wk.q0 + 64 * c;
       qa_lo = p.q_offset + row0;
       qa_hi = p.q_offset + min(row0 + 64, p.S) - 1;
@@ -656,14 +699,15 @@ __global__ void __launch_bounds__(kThreads, 1)
       // of S_i overlaps P_{i-1} V_{i-1} on the tensor cores.
       if (wk.n_tiles > 0) {
         float alpha[2];
-        const int qb = qn & 1;
+        const int qb = qn % L::kQBuffers;
         sQc = sQ + qb * L::kQBytes;
-        mbar_wait(bar_q + 8 * qb, (qn >> 1) & 1);
+        mbar_wait(bar_q + 8 * qb, (qn / L::kQBuffers) & 1);
         ++qn;
         int s = it % L::kStages;
         mbar_wait(bar_k + 8 * s, (it / L::kStages) & 1);
         issue_s(s);
         wgmma_wait<0>();
+        mbar_arrive(bar_ke + 8 * s);
         softmax(wk.kt0, alpha);
         pack_p();
         for (int i = 1; i < wk.n_tiles; ++i) {
@@ -674,10 +718,11 @@ __global__ void __launch_bounds__(kThreads, 1)
           issue_s(s);
           issue_pv(s_prev);
           wgmma_wait<1>();  // S_i is done, P_{i-1} V_{i-1} may still run
+          mbar_arrive(bar_ke + 8 * s);
           softmax(wk.kt0 + i * kBlockN, alpha);
           wgmma_wait<0>();
           fence_regs(o);
-          mbar_arrive(bar_e + 8 * s_prev);
+          mbar_arrive(bar_ve + 8 * s_prev);
 #pragma unroll
           for (int i2 = 0; i2 < kD / 2; ++i2) o[i2] *= alpha[(i2 / 2) % 2];
           pack_p();
@@ -687,7 +732,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         issue_pv(s);
         wgmma_wait<0>();
         fence_regs(o);
-        mbar_arrive(bar_e + 8 * s);
+        mbar_arrive(bar_ve + 8 * s);
         ++it;
       }
 
@@ -723,10 +768,11 @@ template <int kD>
 int launch_hopper(const Params& p, cudaStream_t stream) {
   CUtensorMap tm_q, tm_k, tm_v;
   using hopper::encode_bhsd;
+  constexpr int kN = Layout<kD>::kBlockN;
   const int extent = p.D;  // the maps' inner extent: TMA fills columns extent..kD-1 with zeros
   int err = encode_bhsd(&tm_q, p.q, p.B, p.H, p.S, extent, p.q_sb, p.q_sh, p.q_ss, kBlockM);
-  if (err == 0) err = encode_bhsd(&tm_k, p.k, p.B, p.Hkv, p.T, extent, p.k_sb, p.k_sh, p.k_st, kBlockN);
-  if (err == 0) err = encode_bhsd(&tm_v, p.v, p.B, p.Hkv, p.T, extent, p.v_sb, p.v_sh, p.v_st, kBlockN);
+  if (err == 0) err = encode_bhsd(&tm_k, p.k, p.B, p.Hkv, p.T, extent, p.k_sb, p.k_sh, p.k_st, kN);
+  if (err == 0) err = encode_bhsd(&tm_v, p.v, p.B, p.Hkv, p.T, extent, p.v_sb, p.v_sh, p.v_st, kN);
   if (err != 0) return err;
   static int sms[hopper::kMaxDevices] = {};
   void* args[] = {&tm_q, &tm_k, &tm_v, const_cast<Params*>(&p)};
@@ -789,6 +835,7 @@ int forward_hopper(const Params& p, int dtype, cudaStream_t s) {
   }
   if (p.D == 64) return fwd_hopper::launch_hopper<64>(p, s);
   if (p.D == 120 || p.D == 128) return fwd_hopper::launch_hopper<128>(p, s);
+  if (p.D == 256) return fwd_hopper::launch_hopper<256>(p, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -799,8 +846,8 @@ int forward_hopper(const Params& p, int dtype, cudaStream_t s) {
 // lse: (B*H, S) float32, contiguous, or null (serving: not written).
 // flash_attention_fwd launches flash_fwd_f32 or flash_fwd_bf16 (D up to
 // 256); flash_attention_fwd_hopper launches flash_fwd_hopper, which takes
-// bf16 with D 64, 120 or 128, q, k and v 16-byte aligned with strides of 16-byte
-// multiples on every axis longer than 1, and at most 2**30 blocks of 128
+// bf16 with D 64, 120, 128 or 256, q, k and v 16-byte aligned with strides
+// of 16-byte multiples on every axis longer than 1, and at most 2**30 blocks of 128
 // query rows (ceil(S / 128) x B x H).
 // Each returns a cudaError_t: 0 when the launch was taken; 1
 // (cudaErrorInvalidValue) for an input its kernels do not take or a tensor

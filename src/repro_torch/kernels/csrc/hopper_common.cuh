@@ -1,17 +1,17 @@
 // Hopper (sm_90a) building blocks in PTX for the port's kernels: mbarriers,
 // TMA tile loads from a tensor map and stores to one (bulk groups), wgmma
 // shared-memory descriptors for the 128-byte swizzle, the warpgroup
-// products the flash-attention kernels use, the persistent blocks' order
-// of work items, setmaxnreg, ex2.approx, and the host-side tensor-map
-// encoding of swizzled rank-4 bf16 tiles and plain rank-3 boxes
-// (the driver's cuTensorMapEncodeTiled, reached through the runtime's
-// cudaGetDriverEntryPointByVersion so that nothing links libcuda).
+// products the flash-attention kernels use (n64, n128 and n256), the
+// persistent blocks' order of work items, setmaxnreg, ex2.approx, and the
+// host-side tensor-map encoding of swizzled rank-4 bf16 tiles and plain
+// rank-3 boxes (the driver's cuTensorMapEncodeTiled, reached through the
+// runtime's cudaGetDriverEntryPointByVersion so that nothing links libcuda).
 //
 // Shared-memory tiles are rows of 128 bytes (64 bf16 values) written by
 // TMA with CU_TENSOR_MAP_SWIZZLE_128B: within each 1,024-byte atom of 8
 // rows, 16-byte chunk j of row r lands at chunk j ^ (r % 8).  A wider row
-// (head_dim 128) is kept as two such panels.  Every atom starts on a
-// 1,024-byte boundary, so the descriptors' base offset is 0.
+// (head_dim 128 or 256) is kept as two or four such panels.  Every atom
+// starts on a 1,024-byte boundary, so the descriptors' base offset is 0.
 #pragma once
 
 #include <cuda.h>
@@ -155,6 +155,9 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
       "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
 #define HOPPER_D32 HOPPER_D8(0), HOPPER_D8(8), HOPPER_D8(16), HOPPER_D8(24)
 #define HOPPER_D64 HOPPER_D32, HOPPER_D8(32), HOPPER_D8(40), HOPPER_D8(48), HOPPER_D8(56)
+#define HOPPER_D128                                                                   \
+  HOPPER_D64, HOPPER_D8(64), HOPPER_D8(72), HOPPER_D8(80), HOPPER_D8(88), HOPPER_D8(96), \
+      HOPPER_D8(104), HOPPER_D8(112), HOPPER_D8(120)
 #define HOPPER_R32                                                                    \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "          \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
@@ -163,6 +166,16 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
   "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
   "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+
+#define HOPPER_R128                                                                   \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, " \
+  "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, " \
+  "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, " \
+  "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, " \
+  "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}"
 
 // d (+)= A . B for a 64 x 128 float32 tile, k = 16: A (64 x 16) and B
 // (128 x 16) both K-major in shared memory.  scale_d 0 overwrites d.
@@ -213,11 +226,25 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs_tb(float (&d)[64], const uin
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// The same for a 64 x 256 tile (head_dim 256's O): B is V's 16 keys across
+// four 64-column panels, `lbo` bytes apart in the descriptor.
+__device__ __forceinline__ void wgmma_m64n256k16_rs_tb(float (&d)[128], const uint32_t (&a)[4],
+                                                       uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " HOPPER_R128
+      ", {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : HOPPER_D128
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 #undef HOPPER_D8
 #undef HOPPER_D32
 #undef HOPPER_D64
+#undef HOPPER_D128
 #undef HOPPER_R32
 #undef HOPPER_R64
+#undef HOPPER_R128
 
 // ------------------------------------------------------------- the rest
 // The work items of a persistent block: round r of gridDim.x items goes

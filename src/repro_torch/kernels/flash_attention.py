@@ -10,18 +10,19 @@ online softmax in float32; K and V stay at their kv-head width (GQA by
 head index).  Three kernels, chosen by :func:`route` from the inputs'
 type, head_dim, base addresses and strides alone (never by trying one):
 
-- ``"hopper"``: bfloat16 with head_dim 64, 120 or 128, q, k and v each
-  at a 16-byte-aligned address with every stride of an axis longer than 1
-  a multiple of 16 bytes (what TMA takes), and at most 2**30 blocks of
-  128 query rows (ceil(S / 128) x B x H).  Every path shape of
+- ``"hopper"``: bfloat16 with head_dim 64, 120, 128 or 256, q, k and v
+  each at a 16-byte-aligned address with every stride of an axis longer
+  than 1 a multiple of 16 bytes (what TMA takes), and at most 2**30
+  blocks of 128 query rows (ceil(S / 128) x B x H).  Every path shape of
   smollm-360m, phi3-medium-14b, h2o-danube-3-4b (head_dim 120, run as 128
-  with the columns past 120 zero-filled by TMA), mixtral-8x7b and
-  phi3.5-moe is one.  Persistent blocks, TMA loads into an mbarrier ring,
-  ``wgmma`` products, a producer warp and two consumer warpgroups (see
-  the source).
+  with the columns past 120 zero-filled by TMA), gemma-7b (256: 64-key
+  tiles, O's 256 columns in registers), mixtral-8x7b and phi3.5-moe is
+  one.  Persistent blocks, TMA loads into an mbarrier ring, ``wgmma``
+  products, a producer warp and two consumer warpgroups (see the source).
 - ``"bf16"``: every other bfloat16 input (head_dim 16, 20 or 32 in the
-  sweeps and the smoke configs; gemma-7b's 256; strides TMA refuses):
-  ``mma.sync`` on 64-row tiles, head_dim padded to 32, 64, 128 or 256.
+  sweeps and the smoke configs; widths between 129 and 255; any width at
+  strides TMA refuses, 256 included): ``mma.sync`` on 64-row tiles,
+  head_dim padded to 32, 64, 128 or 256.
 - ``"f32"``: float32, on the CUDA cores in full float32.
 
 The plain version is :func:`repro_torch.kernels.ref.flash_attention_ref`.
@@ -34,9 +35,9 @@ the last axis must be contiguous.  The output has the memory layout of
 count the launches through each entry point, whichever kernel they take;
 the module's ``hopper_launches`` counts the launches of the Hopper
 kernel through either, and ``wide_launches`` the launches at head_dim
-over 128 (the ``mma.sync`` kernel in bfloat16, gemma-7b's path; the f32
-kernel in float32), so a run can show which route its path took.  A wrapper adds one where it launches and nowhere
-else.  The backward kernels stop at head_dim 128
+over 128 through any kernel (gemma-7b's prefill counts in both), so a run
+can show which route its path took.  A wrapper adds one where it
+launches and nowhere else.  The backward kernels stop at head_dim 128
 (:mod:`.flash_attention_bwd`, ROADMAP.md queue C #10).
 """
 from __future__ import annotations
@@ -55,13 +56,13 @@ __all__ = ["flash_attention", "flash_attention_fwd_lse", "route", "MAX_HEAD_DIM"
            "HOPPER_HEAD_DIMS"]
 
 MAX_HEAD_DIM = 256
-HOPPER_HEAD_DIMS = (64, 120, 128)  # 120 runs as 128, its last 8 columns zero-filled
+HOPPER_HEAD_DIMS = (64, 120, 128, 256)  # 120 runs as 128, its last 8 columns zero-filled
 HOPPER_MAX_ITEMS = 2**30  # blocks of 128 query rows: the kernel's work items
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _DIMS, _STRIDES = ctypes.c_int64 * 6, ctypes.c_int64 * 12  # (B, H, Hkv, S, T, D); q, k, v, o
 
 hopper_launches = 0  # launches of the Hopper kernel, through either entry point
-wide_launches = 0  # launches at head_dim over 128 (the mma.sync kernel), through either
+wide_launches = 0  # launches at head_dim over 128 (any kernel), through either
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:

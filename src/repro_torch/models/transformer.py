@@ -23,9 +23,9 @@ reference's ``jax.checkpoint`` of each layer); ``"dots"`` raises
 
 Dense family: attention over a full sequence runs through
 :func:`.layers.attention`, so on the card it is a flash-attention kernel
-(the Hopper kernel at head_dim 64, 120 and 128, the ``mma.sync`` kernel
-at gemma's 256): the forward in serving, the forward with lse, dq and
-dk/dv kernels under autograd in training.  Decode attention is plain
+(the Hopper kernel at head_dim 64, 120, 128 and gemma's 256): the forward
+in serving, the forward with lse, dq and dk/dv kernels under autograd in
+training.  Decode attention is plain
 tensor code (float32 scores and softmax), as it is plain jnp in the
 reference: the kernel has no per-slot ``start`` mask.  The cache is
 updated in place.

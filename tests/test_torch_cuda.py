@@ -616,11 +616,11 @@ def test_training_kernels_refuse_what_they_do_not_take():
 
 
 # ------------------------------------------ flash attention, the Hopper route
-# bf16 with head_dim 64 or 128 and strides TMA takes goes to the TMA +
-# wgmma kernel: S and T off its 128-row tiles (200, 1,000), T > S with
-# q_offset, window 48, non-causal, GQA 15:5 and MQA, each at head_dim 64
-# and 128; the last case's rows past T + 47 see no key.  (B, H, Hkv, S,
-# T, causal, window, q_offset)
+# bf16 with head_dim 64, 120, 128 or 256 and strides TMA takes goes to the
+# TMA + wgmma kernel: S and T off its 128-row tiles and its 64- and 128-key
+# tiles (200, 300, 1,000), T > S with q_offset, window 48, non-causal, GQA
+# 15:5, 8:2 and MQA, each at every Hopper head_dim; the last case's rows
+# past T + 47 see no key.  (B, H, Hkv, S, T, causal, window, q_offset)
 HOPPER_CASES = [
     (1, 15, 5, 200, 200, True, None, 0),
     (1, 6, 2, 1000, 1000, True, None, 0),
@@ -628,6 +628,7 @@ HOPPER_CASES = [
     (1, 4, 4, 200, 1000, True, 48, 800),
     (1, 15, 5, 1000, 1000, False, None, 0),
     (2, 6, 1, 200, 200, True, 48, 0),
+    (1, 8, 2, 300, 300, True, None, 0),
     (1, 4, 2, 1000, 200, False, 48, 0),
 ]
 
@@ -661,7 +662,7 @@ def _rows_with_keys(S, T, causal, window, q_offset, device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [64, 120, 128])
+@pytest.mark.parametrize("D", [64, 120, 128, 256])
 @pytest.mark.parametrize("B,H,Hkv,S,T,causal,window,q_offset", HOPPER_CASES)
 def test_hopper_kernel_matches_plain_version(B, H, Hkv, S, T, causal, window, q_offset, D):
     """Both entry points (the training one where q_offset is 0) through the
@@ -688,7 +689,7 @@ def test_hopper_kernel_matches_plain_version(B, H, Hkv, S, T, causal, window, q_
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [64, 120, 128])
+@pytest.mark.parametrize("D", [64, 120, 128, 256])
 def test_hopper_kernel_takes_strided_bshd_views(D):
     """The model's (B, S, H, D) projections, k and v sliced from one tensor
     (strided in the head axis too), through the Hopper kernel; the outputs
@@ -734,16 +735,16 @@ def test_other_bf16_inputs_keep_the_mma_sync_kernel():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("shape", list(chip_smoke.WIDE_SHAPES))
 def test_the_new_head_widths_serving_shapes_match_plain_version(shape, dtype):
-    """gemma-7b's prefill attention (head_dim 256: the mma.sync kernel in
-    bf16) and h2o-danube-3-4b's (head_dim 120, window 4,096: the Hopper
-    kernel), at batch 4 of 4,608 tokens as the model's (B, S, H, D) views,
-    against the plain version within chip_smoke.py's WIDE_RULE."""
+    """gemma-7b's prefill attention (head_dim 256) and h2o-danube-3-4b's
+    (head_dim 120, window 4,096), both through the Hopper kernel in bf16,
+    at batch 4 of 4,608 tokens as the model's (B, S, H, D) views, against
+    the plain version within chip_smoke.py's WIDE_RULE."""
     dev = _card()
     torch.backends.cuda.matmul.allow_tf32 = False
     B, H, Hkv, S, D, window = chip_smoke.WIDE_SHAPES[shape]
     gen = torch.Generator(device=dev).manual_seed(3)
     q, k, v = chip_smoke._wide_inputs(B, H, Hkv, S, D, dtype, dev, gen)
-    want_route = "f32" if dtype == torch.float32 else ("bf16" if D > 128 else "hopper")
+    want_route = "f32" if dtype == torch.float32 else "hopper"
     assert flash_attention.route(q, k, v, window) == want_route
     n = (flash_attention.hopper_launches, flash_attention.wide_launches)
     got = ops.flash_attention(q, k, v, causal=True, window=window)
@@ -757,17 +758,46 @@ def test_the_new_head_widths_serving_shapes_match_plain_version(shape, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["row_stride_520B", "base_8B"])
+def test_mma_sync_kernel_keeps_head_dim_256_where_tma_refuses(shape):
+    """gemma-7b's head_dim at strides TMA refuses (rows of 260 values) or
+    at a base 8 bytes off 16 launches flash_fwd_bf16<256>: the wide count
+    moves, the Hopper count does not; within WIDE_RULE of the plain
+    version, causal with GQA 8:2 and S, T off the tiles."""
+    dev = _card()
+    B, H, Hkv, S = 1, 8, 2, 300
+    g = torch.Generator(device=dev).manual_seed(11)
+    if shape == "row_stride_520B":
+        x = torch.randn((B, H + 2 * Hkv, S, 260), generator=g, device=dev).to(torch.bfloat16)
+        q, k, v = x[:, :H, :, :256], x[:, H:H + Hkv, :, :256], x[:, H + Hkv:, :, :256]
+    else:
+        n = B * (H + 2 * Hkv) * S * 256
+        x = torch.randn((n + 4,), generator=g, device=dev).to(torch.bfloat16)[4:]
+        x = x.view(B, H + 2 * Hkv, S, 256)
+        q, k, v = x[:, :H], x[:, H:H + Hkv], x[:, H + Hkv:]
+    assert flash_attention.route(q, k, v) == "bf16"
+    n = (flash_attention.hopper_launches, flash_attention.wide_launches)
+    got = ops.flash_attention(q, k, v, causal=True)
+    want = ref.flash_attention_ref(*(t.contiguous() for t in (q, k, v)), causal=True)
+    torch.cuda.synchronize()
+    assert (flash_attention.hopper_launches, flash_attention.wide_launches) == (n[0], n[1] + 1)
+    err = chip_smoke._wide_err(got, want, "bfloat16")
+    assert err["of_rule"] <= 1.0, err
+
+
+@pytest.mark.cuda
 def test_training_at_head_dim_256_raises_naming_its_item():
     """The forward takes head_dim 256 with a gradient (the forward with
-    lse); the backward refuses it, naming ROADMAP.md queue C #10, and
-    launches nothing."""
+    lse, through the Hopper kernel); the backward refuses it, naming
+    ROADMAP.md queue C #10, and launches nothing."""
     from repro_torch.kernels import flash_attention_bwd as fab
 
     dev = _card()
     q, k, v = (t.requires_grad_() for t in _fa_inputs(1, 2, 2, 64, 64, 256, torch.bfloat16, dev))
-    n = flash_attention.flash_attention_fwd_lse.launches
+    n = (flash_attention.flash_attention_fwd_lse.launches, flash_attention.hopper_launches)
     out = ops.flash_attention(q, k, v, causal=True)
-    assert flash_attention.flash_attention_fwd_lse.launches == n + 1
+    assert (flash_attention.flash_attention_fwd_lse.launches,
+            flash_attention.hopper_launches) == (n[0] + 1, n[1] + 1)
     counts = (fab.flash_attention_bwd_dq.launches, fab.flash_attention_bwd_dkv.launches)
     with pytest.raises(ValueError, match="queue C #10"):
         out.float().square().sum().backward()

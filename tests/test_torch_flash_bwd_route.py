@@ -107,15 +107,15 @@ def test_route_raises_where_the_kernels_do(case, err):
 def test_head_dim_120_takes_the_mma_sync_backward_and_256_is_refused():
     """danube's head_dim 120 goes to the Hopper forward but to the
     mma.sync backward kernels (the Hopper ones are built at 64 and 128);
-    gemma's 256, which the forward takes, the backward refuses, naming the
-    open fault."""
+    gemma's 256, which the Hopper forward takes, the backward refuses,
+    naming the open fault."""
     q, k, v = _bshd_views(4, 2048, 32, 8, 120)
     assert fa.route(q, k, v) == "hopper"
     for dout in _douts(q):
         assert fab.route(q, k, v, dout) == "bf16"
         assert fab.route(*(t.float() for t in (q, k, v, dout))) == "f32"
     q, k, v = _bshd_views(1, 64, 16, 16, 256, device="meta")
-    assert fa.route(q, k, v) == "bf16"
+    assert fa.route(q, k, v) == "hopper"
     for dout in _douts(q):
         with pytest.raises(ValueError, match="queue C #10"):
             fab.route(q, k, v, dout)

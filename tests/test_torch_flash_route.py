@@ -48,20 +48,29 @@ def _misaligned_base():
     return x, x[:, :1], x[:, :1]
 
 
+def _d256_row_stride():
+    """gemma-7b's head_dim inside rows of 260 values: a 520-byte row stride,
+    which TMA refuses."""
+    x = torch.empty((1, 4, 64, 260), dtype=torch.bfloat16)[..., :256]
+    return x, x[:, :2], x[:, 2:]
+
+
 @pytest.mark.parametrize("make,want", [
     (lambda: _bshd_views(2, 37, 3, 1, 20), "bf16"),  # the smoke config's head_dim
     (lambda: _bshd_views(1, 64, 2, 2, 16), "bf16"),  # the sweeps'
     (lambda: _bshd_views(2, 64, 4, 2, 32), "bf16"),
     (lambda: _bshd_views(2, 64, 4, 2, 96), "bf16"),  # under 128, not a TMA panel width
-    (lambda: _bshd_views(4, 512, 16, 16, 256), "bf16"),  # gemma-7b's head_dim
+    (lambda: _bshd_views(4, 512, 16, 16, 256), "hopper"),  # gemma-7b's head_dim
+    (_d256_row_stride, "bf16"),  # 256 at strides TMA refuses
     (lambda: _bshd_views(1, 64, 4, 2, 160), "bf16"),  # padded to 256
+    (lambda: _bshd_views(1, 64, 4, 2, 200), "bf16"),
     (lambda: _bshd_views(1, 40, 32, 8, 120, dtype=torch.float32), "f32"),
     (lambda: _bshd_views(8, 512, 15, 5, 64, dtype=torch.float32), "f32"),
     (lambda: _bshd_views(1, 40, 2, 2, 128, dtype=torch.float32), "f32"),
     (_misaligned_row_stride, "bf16"),
     (_misaligned_base, "bf16"),
-], ids=["d20", "d16", "d32", "d96", "d256", "d160", "f32-d120", "f32-d64", "f32-d128",
-        "row-stride-136B", "base-8B"])
+], ids=["d20", "d16", "d32", "d96", "d256", "d256-row-stride-520B", "d160", "d200", "f32-d120",
+        "f32-d64", "f32-d128", "row-stride-136B", "base-8B"])
 def test_other_inputs_keep_their_kernels(make, want):
     assert fa.route(*make()) == want
 
@@ -119,8 +128,8 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
 
 def test_the_served_configs_take_their_kernels():
     """Every registered attention config's prefill views: the Hopper kernel
-    at head_dim 64, 120 and 128, the mma.sync kernel at gemma-7b's 256; in
-    float32 (the card-against-CPU checks) the f32 kernel."""
+    at head_dim 64, 120, 128 and gemma-7b's 256; in float32 (the
+    card-against-CPU checks) the f32 kernel."""
     from repro_torch.configs import ARCHS, get_config
 
     for arch in ARCHS:
@@ -129,8 +138,7 @@ def test_the_served_configs_take_their_kernels():
             continue
         views = _bshd_views(4, 4608, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim,
                             device="meta")
-        want = "bf16" if cfg.resolved_head_dim == 256 else "hopper"
-        assert fa.route(*views, cfg.sliding_window) == want, arch
+        assert fa.route(*views, cfg.sliding_window) == "hopper", arch
         f32 = _bshd_views(1, 64, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim,
                           dtype=torch.float32, device="meta")
         assert fa.route(*f32, cfg.sliding_window) == "f32", arch
