@@ -364,7 +364,14 @@ LM serving of the other registered configs (slice 14), after phase 18:
    ``scaled_dot_product_attention`` (at 120 with the kv heads expanded and
    the window as a mask, made outside the timing), at 256 also of
    ``flash_fwd_bf16<256>`` on the same inputs (``previous_kernel``), the
-   plain version's, the bound and the kernel's share of it;
+   plain version's, the bound and the kernel's share of it; then
+   (``family_kernels``) the same at the prefill shapes of phases 29-30
+   (FAMILY_SHAPES): whisper-large-v3's encoder, q, k, v (8, 20, 1,500,
+   64), non-causal, and internvl2-26b's prefill, q (4, 48, 4,608, 128)
+   over k, v (4, 8, 4,608, 128), causal, in bf16 through the Hopper
+   kernel, within WIDE_RULE of the plain version (run one batch row at a
+   time), timed in turns with SDPA, beside the bound (bytes, tensor cores
+   and exponentials);
 27. dense_serve: phi3-medium-14b (40 layers, head_dim 128), h2o-danube-3-4b
    (24 layers, head_dim 120, window 4,096) and gemma-7b (28 layers,
    head_dim 256) at full width and depth, each first at 2 layers in
@@ -387,6 +394,28 @@ LM serving of the other registered configs (slice 14), after phase 18:
    then ``SlotBatcher`` at mixtral's width with 2 layers in float32, 8
    requests over 4 slots: every request equals its standalone serve
    except across ties.
+
+LM serving of the encdec and vlm families (slice 16), after phase 28:
+
+29. encdec_serve: whisper-large-v3 at full width and depth (32 encoder and
+   32 decoder layers, d_model 1,280, 20 heads of 64), first at 2 + 2
+   layers in float32 on the card against the CPU over 1,500 frames
+   (the prefill's BOS logits and 4 decode steps, as phase 27), then in
+   bf16, weights drawn on the card from a seed, ``serve_batch`` of 8
+   requests of 1,500 frames (the frontend's stub: random frame
+   embeddings) and 64 greedy tokens after a warm-up serve of 2, the
+   attention counts set to 0 just before and read just after: each of
+   the 32 encoder layers' non-causal attention through the Hopper kernel
+   (the decoder's prefill is one step at BOS, plain); time to first
+   token, decode ms per step, peak memory, the route and the traced
+   prefill and decode step, as phase 27;
+30. vlm_serve: internvl2-26b at full width and depth (48 layers, d_model
+   6,144, 48 heads of 128 over 8), first at 2 layers in float32 on the
+   card against the CPU (256 patch embeddings and 64 tokens), then in
+   bf16 ``serve_batch`` of 4 requests of 256 patch embeddings (the
+   frontend's stub) and 4,352 tokens, 4,608 positions, and 32 greedy
+   tokens at positions 4,608 on: every layer's prefill attention through
+   the Hopper kernel; as phase 29.
 
 Then the kernels line (one entry per kernel), the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.  Any failure
@@ -607,6 +636,21 @@ WIDE_SHAPES = {"d256": (4, 16, 16, 4608, 256, None), "d120": (4, 32, 8, 4608, 12
 # once (an error of about 2**-9 of rms(want)) and P as an operand
 WIDE_RULE = {"float32": (3e-5, 2**-12), "bfloat16": (3e-2, 2**-7)}
 WIDE_TIMED_CALLS = 10
+# LM serving of the encdec and vlm families (phases 29-30): whisper-large-v3
+# over 8 requests of 1,500 frames (its encoder's 30 s window, cross_len),
+# 64 new tokens; internvl2-26b over 4 requests of 256 patch embeddings and
+# 4,352 tokens (the 4,608 positions of phases 27-28), 32 new tokens
+ENCDEC_ARCH, VLM_ARCH = "whisper-large-v3", "internvl2-26b"
+ENCDEC_BATCH, ENCDEC_GEN = 8, 64
+VLM_BATCH, VLM_TEXT = 4, 4352
+# the card against the CPU in float32: whisper at 2 + 2 layers over 1,500
+# frames, internvl2 at 2 layers over its 256 patches and WIDE_CPU_PROMPT tokens
+FAMILY_CPU_LAYERS = 2
+# the forward at those prefills' shapes, (B, H, Hkv, S, D, causal), timed in
+# phase 26: whisper's encoder (non-causal self-attention over the frames)
+# and internvl2's prefill
+FAMILY_SHAPES = {"whisper_encoder": (8, 20, 20, 1500, 64, False),
+                 "internvl2_prefill": (4, 48, 8, 4608, 128, True)}
 # the mutation check at the new shapes: edited copies of
 # csrc/flash_attention.cu, each of which must fail WIDE_RULE at one of
 # wide_kernel_phase's cases FLASH_MUTANT_MIN times over: the mma.sync
@@ -1184,6 +1228,8 @@ def main() -> None:
     t0 = time.perf_counter()
     wide_kernels = wide_kernel_phase(dev)
     torch.cuda.empty_cache()
+    family_kernels = family_kernel_phase(dev, float(max_sm_mhz) * 1e6)
+    torch.cuda.empty_cache()
     seconds["wide_kernels"] = time.perf_counter() - t0
     dense = dense_serve_phase(dev)
     wide_kernels[0]["launches"] = dense["gemma-7b"]["hopper"]
@@ -1192,6 +1238,14 @@ def main() -> None:
     moe_serve_phase(dev)
     torch.cuda.empty_cache()
     seconds["moe_serve"] = time.perf_counter() - t0 - sum(seconds.values())
+
+    # 29-30. the encdec and vlm families served at full width and depth
+    family_kernels[0]["launches"] = encdec_serve_phase(dev)["hopper"]
+    torch.cuda.empty_cache()
+    seconds["encdec_serve"] = time.perf_counter() - t0 - sum(seconds.values())
+    family_kernels[1]["launches"] = vlm_serve_phase(dev)["hopper"]
+    torch.cuda.empty_cache()
+    seconds["vlm_serve"] = time.perf_counter() - t0 - sum(seconds.values())
     emit({"phase": "other_configs_seconds", **seconds,
           "script_seconds_so_far": time.perf_counter() - script_t0})
 
@@ -1336,7 +1390,7 @@ def main() -> None:
                 "write_floor_ms", "trace_ms_per_launch", "host_us_per_call", "bytes", "fig5_shape")
     emit({"phase": "script_seconds", "seconds": time.perf_counter() - script_t0})
     emit({"kernels": [{k: kernel[k] for k in ell_keys}, lm_kernel, *wide_kernels,
-                      *train_kernels, ssm_kernel]})
+                      *family_kernels, *train_kernels, ssm_kernel]})
     print(smi)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
@@ -3774,14 +3828,24 @@ def wide_kernel_phase(dev) -> list:
     return [entries["d256"], entries["d120"]]
 
 
-def _serve_arch(dev, cfg, prompts, phase: str, extra: dict) -> dict:
-    """Serve ``prompts`` with ``cfg`` at full width on the card in bf16:
-    weights drawn there from a seeded generator, a warm-up serve of 2
-    tokens at the same shapes, then WIDE_GEN tokens with the attention
+def _prefill_len(cfg, prompt_len: int, inputs: dict) -> int:
+    """The rows of the prefill's attention: the encoder's frames for
+    encdec, the image prefix and the prompt for vlm, else the prompt."""
+    if cfg.family == "encdec":
+        return inputs["frames"].shape[1]
+    return prompt_len + (cfg.num_patches if cfg.family == "vlm" else 0)
+
+
+def _serve_arch(dev, cfg, prompts, phase: str, extra: dict, *, inputs=None,
+                gen: int = WIDE_GEN) -> dict:
+    """Serve ``prompts`` (with ``inputs``, the vlm's ``patch_embeds`` or
+    encdec's ``frames``, numpy) with ``cfg`` at full width on the card in
+    bf16: weights drawn there from a seeded generator, a warm-up serve of
+    2 tokens at the same shapes, then ``gen`` tokens with the attention
     kernels' counts set to 0 just before and read just after: every
-    prefill layer through the Hopper kernel, also counted as wide past
-    head_dim 128.  Emits the phase line; returns
-    the launch counts."""
+    prefill attention layer (encdec: every encoder layer) through the
+    Hopper kernel, also counted as wide past head_dim 128.  Emits the
+    phase line; returns the launch counts."""
     import numpy as np
     import torch
 
@@ -3789,35 +3853,37 @@ def _serve_arch(dev, cfg, prompts, phase: str, extra: dict) -> dict:
     from repro_torch.launch.serve import serve_batch
     from repro_torch.models import Model
 
+    inputs = inputs or {}
     model = Model(cfg)
     t0 = time.perf_counter()
     params = model.init(generator=torch.Generator(device=dev).manual_seed(0), device=dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     weights = sum(p.numel() for p in params.parameters())
-    serve_batch(model, prompts, 2, params=params, device=dev)
+    serve_batch(model, prompts, 2, extra=inputs, params=params, device=dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     timings = {}
     fa.flash_attention.launches = fa.hopper_launches = fa.wide_launches = 0
-    toks = serve_batch(model, prompts, WIDE_GEN, params=params, device=dev, timings=timings)
+    toks = serve_batch(model, prompts, gen, extra=inputs, params=params, device=dev,
+                       timings=timings)
     counts = {"flash_attention": fa.flash_attention.launches, "hopper": fa.hopper_launches,
               "wide": fa.wide_launches}
     L, D = cfg.num_layers, cfg.resolved_head_dim
     want = {"flash_attention": L, "hopper": L, "wide": L if D > 128 else 0}
     if counts != want:
-        fail(f"{cfg.name}: one prefill of {L} layers launched {counts}, not {want}")
+        fail(f"{cfg.name}: one prefill of {L} attention layers launched {counts}, not {want}")
     B = prompts.shape[0]
-    if toks.shape != (B, WIDE_GEN) or not ((toks >= 0) & (toks < cfg.vocab_size)).all():
+    if toks.shape != (B, gen) or not ((toks >= 0) & (toks < cfg.vocab_size)).all():
         fail(f"{cfg.name}: serve_batch gave tokens of shape {toks.shape} outside the vocabulary")
-    views = [torch.empty((B, prompts.shape[1], h, D), dtype=torch.bfloat16,
-                         device="meta").transpose(1, 2)
+    S = _prefill_len(cfg, prompts.shape[1], inputs)
+    views = [torch.empty((B, S, h, D), dtype=torch.bfloat16, device="meta").transpose(1, 2)
              for h in (cfg.num_heads, cfg.num_kv_heads, cfg.num_kv_heads)]
-    trace = _trace_prefill_and_decode(model, params, prompts)
+    trace = _trace_prefill_and_decode(model, params, prompts, inputs, gen)
     line = {"phase": phase, "arch": cfg.name, "layers": L, "d_model": cfg.d_model,
             "heads": [cfg.num_heads, cfg.num_kv_heads, D], "window": cfg.sliding_window,
             "weights": weights, "init_s": init_s, "dtype": cfg.compute_dtype, "batch": B,
-            "prompt": prompts.shape[1], "gen": WIDE_GEN,
+            "prompt": prompts.shape[1], "prefill_rows": S, "gen": gen,
             "time_to_first_token_ms": timings["prefill_s"] * 1e3,
             "decode_ms_per_step": timings["decode_s"] / timings["decode_steps"] * 1e3,
             "decode_tokens_per_s": B * timings["decode_steps"] / timings["decode_s"],
@@ -3854,17 +3920,23 @@ def _device_time(prof) -> dict:
             "top_kernels": [[e.key[:80], e.count, e.self_device_time_total / 1e3] for e in top]}
 
 
-def _trace_prefill_and_decode(model, params, prompts) -> dict:
-    """One prefill of ``prompts`` and one decode step under
-    ``torch.profiler``, after the counts were read: each one's device
-    kernel time by kind and its longest kernels."""
+def _trace_prefill_and_decode(model, params, prompts, inputs: dict, gen: int) -> dict:
+    """One prefill of ``prompts`` (and ``inputs``, as ``serve_batch``
+    takes them) and its first decode step under ``torch.profiler``, after
+    the counts were read: each one's device kernel time by kind and its
+    longest kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.launch.serve import decode_span
+
     B, P = prompts.shape
     dev = params.embed.device
-    cache = model.init_cache(B, P + WIDE_GEN, device=dev)
-    batch = {"tokens": torch.from_numpy(prompts.astype("int64")).to(dev)}
+    max_len, start = decode_span(model.cfg, P, gen)
+    cache = model.init_cache(B, max_len, device=dev)
+    cd = getattr(torch, model.cfg.compute_dtype)
+    batch = {"tokens": torch.from_numpy(prompts.astype("int64")).to(dev),
+             **{k: torch.from_numpy(v).to(device=dev, dtype=cd) for k, v in inputs.items()}}
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         logits, cache = model.prefill(params, batch, cache)
@@ -3873,7 +3945,7 @@ def _trace_prefill_and_decode(model, params, prompts) -> dict:
     tok = logits.argmax(-1)
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        model.decode(params, tok, cache, P)
+        model.decode(params, tok, cache, start)
         torch.cuda.synchronize()
     decode = {**_device_time(prof), "wall_ms_traced": (time.perf_counter() - t0) * 1e3}
     del cache
@@ -3894,28 +3966,38 @@ def _routing_spy(seen: list):
     return spy
 
 
-def _wide_vs_cpu(dev, cfg, layers: int, prompt_len: int, moe_routing: bool) -> dict:
-    """``cfg`` at full width with ``layers`` layers in float32, the same
-    weights (drawn on the card from one seed, a copy moved to the CPU) on
-    the card and on the CPU: a prefill of ``prompt_len`` tokens and
-    WIDE_CPU_DECODE greedy steps, logits within CPU_RTOL / CPU_ATOL,
-    greedy tokens equal except across ties; with ``moe_routing`` each MoE
-    layer's expert choices equal wherever the router's k-th and (k+1)-th
-    probabilities lie more than MOE_ROUTER_TIE apart."""
+def _wide_vs_cpu(dev, cfg, layers: int, prompt_len: int, moe_routing: bool,
+                 inputs: dict | None = None) -> dict:
+    """``cfg`` at full width with ``layers`` layers (encdec: ``layers``
+    encoder and decoder layers) in float32, the same weights (drawn on the
+    card from one seed, a copy moved to the CPU) on the card and on the
+    CPU: a prefill of ``prompt_len`` tokens (with ``inputs``, the vlm's
+    ``patch_embeds`` or encdec's ``frames``, numpy, batch 1) and
+    WIDE_CPU_DECODE greedy steps at the model's positions, logits within
+    CPU_RTOL / CPU_ATOL, greedy tokens equal except across ties; with
+    ``moe_routing`` each MoE layer's expert choices equal wherever the
+    router's k-th and (k+1)-th probabilities lie more than MOE_ROUTER_TIE
+    apart."""
     import numpy as np
     import torch
 
+    from repro_torch.launch.serve import decode_span
     from repro_torch.models import Model
     from repro_torch.models import transformer as tr
 
     cfg32 = dataclasses.replace(cfg, num_layers=layers, param_dtype="float32",
                                 compute_dtype="float32")
+    if cfg.family == "encdec":
+        cfg32 = dataclasses.replace(cfg32, decoder_layers=layers)
     model = Model(cfg32)
     t0 = time.perf_counter()
     lm_cpu = model.init(generator=torch.Generator(device=dev).manual_seed(1), device="cpu")
     lm_card = model.init(generator=torch.Generator(device=dev).manual_seed(1), device=dev)
     prompt = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab_size, (1, prompt_len)))
-    max_len = prompt_len + WIDE_CPU_DECODE
+    extras = {k: torch.from_numpy(np.asarray(v, np.float32)) for k, v in (inputs or {}).items()}
+    batches = {"cpu": {"tokens": prompt, **extras},
+               "card": {k: t.to(dev) for k, t in {"tokens": prompt, **extras}.items()}}
+    max_len, start = decode_span(cfg32, prompt_len, WIDE_CPU_DECODE + 1)
     caches = {"cpu": model.init_cache(1, max_len, device="cpu"),
               "card": model.init_cache(1, max_len, device=dev)}
     seen = {"cpu": [], "card": []}
@@ -3925,15 +4007,14 @@ def _wide_vs_cpu(dev, cfg, layers: int, prompt_len: int, moe_routing: bool) -> d
             if moe_routing:
                 tr.moe_apply = _routing_spy(seen[side])
             return fn()
-        want, _ = run("cpu", lambda: model.prefill(lm_cpu, {"tokens": prompt}, caches["cpu"]))
-        got, _ = run("card", lambda: model.prefill(lm_card, {"tokens": prompt.to(dev)},
-                                                   caches["card"]))
+        want, _ = run("cpu", lambda: model.prefill(lm_cpu, batches["cpu"], caches["cpu"]))
+        got, _ = run("card", lambda: model.prefill(lm_card, batches["card"], caches["card"]))
         steps = [(got.cpu(), want)]
         tok = want.argmax(-1)
         for i in range(WIDE_CPU_DECODE):
-            want, _ = run("cpu", lambda: model.decode(lm_cpu, tok, caches["cpu"], prompt_len + i))
+            want, _ = run("cpu", lambda: model.decode(lm_cpu, tok, caches["cpu"], start + i))
             got, _ = run("card", lambda: model.decode(lm_card, tok.to(dev), caches["card"],
-                                                      prompt_len + i))
+                                                      start + i))
             steps.append((got.cpu(), want))
             tok = want.argmax(-1)
     finally:
@@ -3951,6 +4032,7 @@ def _wide_vs_cpu(dev, cfg, layers: int, prompt_len: int, moe_routing: bool) -> d
                 fail(f"{cfg.name}: greedy tokens differ off a tie: card {gt}, CPU {wt}")
             ties += 1
     line = {"layers": layers, "dtype": "float32", "prompt": prompt_len,
+            "inputs": {k: list(t.shape) for k, t in extras.items()},
             "decode_steps": WIDE_CPU_DECODE, "max_abs_err": err,
             "max_abs_logit": max(w.abs().max().item() for _, w in steps),
             "rtol": CPU_RTOL, "atol": CPU_ATOL, "greedy_ties": ties,
@@ -3969,7 +4051,7 @@ def _wide_vs_cpu(dev, cfg, layers: int, prompt_len: int, moe_routing: bool) -> d
             fail(f"{cfg.name}: routing recorded {len(seen['cpu'])} times, {compared} compared")
         line["routing"] = {"tokens_compared": compared, "near_ties_skipped": near,
                            "tie": MOE_ROUTER_TIE}
-    del lm_cpu, lm_card, caches
+    del lm_cpu, lm_card, caches, batches
     torch.cuda.empty_cache()
     return line
 
@@ -4047,6 +4129,141 @@ def moe_serve_phase(dev) -> None:
           "seconds": batch_s, "ties": diverged})
     del lm, batcher
     torch.cuda.empty_cache()
+
+def family_kernel_phase(dev, sm_clock_hz: float) -> list:
+    """Phase 26, the new families' shapes (FAMILY_SHAPES): the forward on
+    the model's strided (B, S, H, D) views in bf16 through the Hopper
+    kernel (one ``hopper_launches`` each) against its plain version within
+    WIDE_RULE, and CUDA-event times, in turns, of the kernel and of
+    ``scaled_dot_product_attention`` beside the bound.  The plain version
+    runs one batch row at a time (internvl2's scores at once would take 16
+    GB a copy).  Returns the kernels-line entries (their launches filled
+    in by phases 29-30)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    entries, phase = [], {}
+    for shape, (B, H, Hkv, S, D, causal) in FAMILY_SHAPES.items():
+        q, k, v = _wide_inputs(B, H, Hkv, S, D, torch.bfloat16, dev, gen)
+        route = fa.route(q, k, v, None)
+        if route != "hopper":
+            fail(f"the {shape} shape routes to {route}, not hopper")
+        before = fa.hopper_launches
+        got = fa.flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        if fa.hopper_launches != before + 1:
+            fail(f"the {shape} shape moved the Hopper count by {fa.hopper_launches - before}")
+
+        def plain(q=q, k=k, v=v, causal=causal):
+            return torch.cat([ref.flash_attention_ref(q[b:b + 1], k[b:b + 1], v[b:b + 1],
+                                                      causal=causal) for b in range(q.shape[0])])
+        want = plain()
+        err = _wide_err(got, want, "bfloat16")
+        if not err["of_rule"] <= 1.0:
+            fail(f"flash_attention disagrees with its plain version at {shape}: {err}")
+        del got
+
+        def kernel(q=q, k=k, v=v, causal=causal):
+            return fa.flash_attention(q, k, v, causal=causal)
+
+        def library(q=q, k=k, v=v, causal=causal):
+            return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                                  enable_gqa=H != Hkv)
+        lib_err = _wide_err(library(), want, "bfloat16")
+        del want
+        fns = {"kernel": kernel, "library": library}
+        turns = {key: [] for key in fns}
+        for order in (tuple(fns), tuple(reversed(fns))):
+            for key in order:
+                turns[key].append(event_ms(fns[key], calls=WIDE_TIMED_CALLS, groups=3))
+        plain_ms = event_ms(plain, calls=1, groups=3)
+        pairs = B * H * (_visible_pairs(S, None) if causal else S * S)
+        moved = (2 * B * H * S * D + 2 * B * Hkv * S * D) * 2  # q, k, v read; o written
+        flop = 4 * D * pairs
+        bytes_ms, ops_ms = moved / HBM_BYTES_PER_S * 1e3, flop / BF16_FLOP_PER_S * 1e3
+        exp_ms = pairs / (SFU_EXP2_PER_CLOCK_PER_SM * sms * sm_clock_hz) * 1e3  # one per pair
+        ms = statistics.mean(turns["kernel"])
+        library_ms = statistics.mean(turns["library"])
+        bound_ms = max(bytes_ms, ops_ms, exp_ms)
+        bound_by = "bytes" if bytes_ms >= max(ops_ms, exp_ms) else "operations"
+        kernel_name = f"flash_fwd_hopper<{D}>"
+        parts = {"bytes": bytes_ms, "tensor_cores": ops_ms, "exponentials": exp_ms}
+        entries.append({
+            "name": f"flash_attention_{shape}", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:86", "kernel": kernel_name,
+            "launches": None, "max_abs_err": err["max_abs_err"], "ms": ms, "kernel_ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "library": "scaled_dot_product_attention", "bound_ms": bound_ms,
+            "bound_by": bound_by, "bound_parts_ms": parts, "bound_share": bound_ms / ms,
+            "library_over_kernel": library_ms / ms, "shape": [B, H, Hkv, S, S, D],
+            "causal": causal, "dtype": "bfloat16", "bytes": moved, "flop": flop,
+            "visible_pairs": pairs})
+        phase[shape] = {"shape": [B, H, Hkv, S, S, D], "causal": causal, "error": err,
+                        "library_error": lib_err, "ms_turns": turns, "plain_ms": plain_ms,
+                        "plain": "one batch row at a time", "bound_ms": bound_ms,
+                        "bound_by": bound_by, "bound_parts_ms": parts,
+                        "bound_share": bound_ms / ms, "kernel": kernel_name}
+        del q, k, v
+        torch.cuda.empty_cache()
+    emit({"phase": "family_kernels", "rule": {"max_abs": WIDE_RULE["bfloat16"][0],
+                                              "rms_of_rms_want": WIDE_RULE["bfloat16"][1]},
+          **phase})
+    return entries
+
+
+def encdec_serve_phase(dev) -> dict:
+    """Phase 29: whisper-large-v3 at full width and depth (32 encoder and
+    32 decoder layers), first at FAMILY_CPU_LAYERS + FAMILY_CPU_LAYERS in
+    float32 on the card against the CPU over cross_len frames, then
+    ``serve_batch`` of ENCDEC_BATCH requests of cross_len frames and
+    ENCDEC_GEN tokens in bf16: every encoder layer's attention through the
+    Hopper kernel, non-causal.  Returns the prefill's launch counts."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(ENCDEC_ARCH)
+    rng = np.random.default_rng(7)
+    cpu_frames = rng.normal(0, 1, (1, cfg.cross_len, cfg.d_model)).astype(np.float32)
+    vs_cpu = _wide_vs_cpu(dev, cfg, FAMILY_CPU_LAYERS, cfg.cross_len, False,
+                          {"frames": cpu_frames})
+    frames = rng.normal(0, 1, (ENCDEC_BATCH, cfg.cross_len, cfg.d_model)).astype(np.float32)
+    # the prompt's tokens are not read (the decoder starts at BOS), as in the reference
+    prompts = rng.integers(0, cfg.vocab_size, (ENCDEC_BATCH, cfg.cross_len)).astype(np.int32)
+    return _serve_arch(dev, cfg, prompts, "encdec_serve", {
+        "decoder_layers": cfg.decoder_layers, "frames": [ENCDEC_BATCH, cfg.cross_len],
+        "vs_cpu": vs_cpu}, inputs={"frames": frames}, gen=ENCDEC_GEN)
+
+
+def vlm_serve_phase(dev) -> dict:
+    """Phase 30: internvl2-26b at full width and depth (48 layers), first
+    at FAMILY_CPU_LAYERS layers in float32 on the card against the CPU
+    (its 256 patch embeddings and WIDE_CPU_PROMPT tokens), then
+    ``serve_batch`` of VLM_BATCH requests of 256 patch embeddings and
+    VLM_TEXT tokens and WIDE_GEN tokens in bf16: every layer's prefill
+    attention through the Hopper kernel over the 4,608 positions.  Returns
+    the prefill's launch counts."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(VLM_ARCH)
+    rng = np.random.default_rng(8)
+    cpu_patches = rng.normal(0, 1, (1, cfg.num_patches, cfg.d_model)).astype(np.float32)
+    vs_cpu = _wide_vs_cpu(dev, cfg, FAMILY_CPU_LAYERS, WIDE_CPU_PROMPT, False,
+                          {"patch_embeds": cpu_patches})
+    patches = rng.normal(0, 1, (VLM_BATCH, cfg.num_patches, cfg.d_model)).astype(np.float32)
+    prompts = rng.integers(0, cfg.vocab_size, (VLM_BATCH, VLM_TEXT)).astype(np.int32)
+    return _serve_arch(dev, cfg, prompts, "vlm_serve", {
+        "patches": [VLM_BATCH, cfg.num_patches], "vs_cpu": vs_cpu},
+        inputs={"patch_embeds": patches})
+
 
 if __name__ == "__main__":
     main()

@@ -18,6 +18,8 @@ ARCHS = [
     "phi3-medium-14b",
     "smollm-360m",
     "h2o-danube-3-4b",
+    "whisper-large-v3",
+    "internvl2-26b",
 ]
 
 _MODULES = {
@@ -28,12 +30,12 @@ _MODULES = {
     "phi3-medium-14b": "phi3_medium_14b",
     "smollm-360m": "smollm_360m",
     "h2o-danube-3-4b": "h2o_danube_3_4b",
+    "whisper-large-v3": "whisper_large_v3",
+    "internvl2-26b": "internvl2_26b",
 }
 
-# the JAX package's other ids, by the ROADMAP.md item that ports their family
+# the JAX package's other id, by the ROADMAP.md item that ports its family
 _NOT_PORTED = {
-    "internvl2-26b": "queue A #10 (the vlm family)",
-    "whisper-large-v3": "queue A #10 (the encdec family)",
     "jamba-1.5-large-398b": "queue A #13 (the hybrid family, which needs four cards)",
 }
 

@@ -1,7 +1,8 @@
 """Parameters and optimizer state of the JAX package, as the port's.
 
 The LM: ``repro``'s params tree (numpy leaves, blocks stacked on a leading
-layer axis) becomes the port's :class:`~repro_torch.models.transformer.LM`,
+layer axis) becomes the port's :class:`~repro_torch.models.transformer.LM`
+(or, for the encdec family, :class:`~repro_torch.models.encdec.EncDec`),
 one block per layer, each weight in its own layout (:func:`lm_from_jax`);
 ``repro``'s LM train state (params, AdamW moments, count and step) becomes
 the port's (:func:`train_state_from_jax`).
@@ -22,6 +23,7 @@ import numpy as np
 import torch
 
 from .models.config import ModelConfig
+from .models.encdec import EncDec
 from .models.transformer import LM, Block, check_family
 from .train.optimizer import AdamWState
 from .train.probe import TASKS, AdamState, LinearHead, ProbeHeads
@@ -117,9 +119,64 @@ def _ffn_shapes(cfg: ModelConfig) -> tuple[str, dict]:
     return "mlp", mlp
 
 
-def lm_from_jax(params_np: Mapping, cfg: ModelConfig, *, device="cuda") -> LM:
-    """``repro``'s LM params tree (dense, moe or ssm family) as numpy
-    arrays -> the port's LM.
+def _norm_shapes(cfg: ModelConfig, L: int = 0) -> dict:
+    """A norm's shapes, stacked over ``L`` layers where L > 0."""
+    lead = (L,) if L else ()
+    keys = ("scale",) if cfg.norm == "rmsnorm" else ("scale", "bias")
+    return {k: (*lead, cfg.d_model) for k in keys}
+
+
+def _attn_shapes(cfg: ModelConfig, L: int) -> dict:
+    d, hq, hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    return {"wq": (L, d, hq, hd), "wk": (L, d, hkv, hd), "wv": (L, d, hkv, hd),
+            "wo": (L, hq, hd, d)}
+
+
+def _blocks(stacked: Mapping, groups: Mapping, L: int, wdt: torch.dtype, device) -> list[Block]:
+    """One :class:`Block` per layer of the stacked tree ``stacked``: each
+    group of ``groups`` sliced at the layer; the norms, and the ssm's
+    ``dt_bias``, ``A_log`` and ``D``, float32, the rest ``wdt``."""
+    def layer(group: str, i: int) -> dict:
+        def dtype(k: str) -> torch.dtype:
+            if group.startswith("norm") or (group == "ssm" and k in _SSM_FLOAT32):
+                return torch.float32
+            return wdt
+
+        return {k: _tensor(np.asarray(a)[i], dtype(k), device) for k, a in stacked[group].items()}
+
+    return [Block(**{g: layer(g, i) for g in groups}) for i in range(L)]
+
+
+def _encdec_from_jax(params_np: Mapping, cfg: ModelConfig, device) -> EncDec:
+    L, Ld = cfg.num_layers, cfg.decoder_layers
+
+    def mlp(n: int) -> dict:
+        shapes = {"w_in": (n, cfg.d_model, cfg.d_ff), "w_out": (n, cfg.d_ff, cfg.d_model)}
+        if cfg.act in ("swiglu", "geglu"):
+            shapes["w_gate"] = (n, cfg.d_model, cfg.d_ff)
+        return shapes
+
+    enc = {"norm1": _norm_shapes(cfg, L), "attn": _attn_shapes(cfg, L),
+           "norm2": _norm_shapes(cfg, L), "mlp": mlp(L)}
+    dec = {"norm1": _norm_shapes(cfg, Ld), "self_attn": _attn_shapes(cfg, Ld),
+           "norm_x": _norm_shapes(cfg, Ld), "cross_attn": _attn_shapes(cfg, Ld),
+           "norm2": _norm_shapes(cfg, Ld), "mlp": mlp(Ld)}
+    _expect(params_np, {"embed": (cfg.vocab_size, cfg.d_model), "enc_final_norm": _norm_shapes(cfg),
+                        "dec_final_norm": _norm_shapes(cfg), "enc_blocks": enc,
+                        "dec_blocks": dec}, "params")
+    wdt = getattr(torch, cfg.param_dtype)
+
+    def norm(name: str) -> dict:
+        return {k: _tensor(a, torch.float32, device) for k, a in params_np[name].items()}
+
+    return EncDec(cfg, _tensor(params_np["embed"], wdt, device), norm("enc_final_norm"),
+                  norm("dec_final_norm"), _blocks(params_np["enc_blocks"], enc, L, wdt, device),
+                  _blocks(params_np["dec_blocks"], dec, Ld, wdt, device))
+
+
+def lm_from_jax(params_np: Mapping, cfg: ModelConfig, *, device="cuda"):
+    """``repro``'s params tree as numpy arrays -> the port's LM (dense,
+    moe, ssm or vlm family) or EncDec (encdec).
 
     The tree is ``embed`` (vocab, d), ``lm_head`` (d, vocab) unless the
     embeddings are tied, ``final_norm``, and ``blocks/sub_0``, each leaf
@@ -127,45 +184,34 @@ def lm_from_jax(params_np: Mapping, cfg: ModelConfig, *, device="cuda") -> LM:
     ``norm2`` and ``mlp`` {w_in, w_gate, w_out}; moe the same with ``moe``
     {router (d, E), w_in, w_gate (E, d, ff), w_out (E, ff, d)} in place of
     ``mlp``; ssm ``norm1`` and ``ssm`` {w_in, w_conv, w_x, w_dt, dt_bias,
-    A_log, D, w_out}.  Each layer becomes one block; each weight keeps its
-    layout (``wq`` stays (d, heads, head_dim)) and takes
+    A_log, D, w_out}; vlm the dense tree.  The encdec tree is ``embed``
+    (tied), ``enc_final_norm``, ``dec_final_norm``, ``enc_blocks`` {norm1,
+    attn, norm2, mlp {w_in, w_out}} stacked (num_layers, ...) and
+    ``dec_blocks`` {norm1, self_attn, norm_x, cross_attn, norm2, mlp}
+    stacked (decoder_layers, ...).  Each layer becomes one block; each
+    weight keeps its layout (``wq`` stays (d, heads, head_dim)) and takes
     ``cfg.param_dtype``, the norms and the ssm's ``dt_bias``, ``A_log``
     and ``D`` float32, as in the reference.  Raises ``ValueError`` on a
     missing or extra key or a wrong shape.
     """
     check_family(cfg)
-    L, d, hq, hkv, hd = (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
-                         cfg.resolved_head_dim)
-    norm = {"scale": (d,)} if cfg.norm == "rmsnorm" else {"scale": (d,), "bias": (d,)}
-    stacked_norm = {k: (L, *s) for k, s in norm.items()}
+    if cfg.family == "encdec":
+        return _encdec_from_jax(params_np, cfg, device)
+    L, d = cfg.num_layers, cfg.d_model
     if cfg.family == "ssm":
-        layer_shapes = {"norm1": stacked_norm, "ssm": _ssm_shapes(cfg)}
+        layer_shapes = {"norm1": _norm_shapes(cfg, L), "ssm": _ssm_shapes(cfg)}
     else:
         ffn, ffn_shapes = _ffn_shapes(cfg)
-        layer_shapes = {
-            "norm1": stacked_norm,
-            "attn": {"wq": (L, d, hq, hd), "wk": (L, d, hkv, hd), "wv": (L, d, hkv, hd),
-                     "wo": (L, hq, hd, d)},
-            "norm2": stacked_norm, ffn: ffn_shapes,
-        }
-    shapes = {"embed": (cfg.vocab_size, d), "final_norm": norm,
+        layer_shapes = {"norm1": _norm_shapes(cfg, L), "attn": _attn_shapes(cfg, L),
+                        "norm2": _norm_shapes(cfg, L), ffn: ffn_shapes}
+    shapes = {"embed": (cfg.vocab_size, d), "final_norm": _norm_shapes(cfg),
               "blocks": {"sub_0": layer_shapes}}
     if not cfg.tie_embeddings:
         shapes["lm_head"] = (d, cfg.vocab_size)
     _expect(params_np, shapes, "params")
 
     wdt = getattr(torch, cfg.param_dtype)
-    sub = params_np["blocks"]["sub_0"]
-
-    def layer(group: str, i: int) -> dict:
-        def dtype(k: str) -> torch.dtype:
-            if group.startswith("norm") or (group == "ssm" and k in _SSM_FLOAT32):
-                return torch.float32
-            return wdt
-
-        return {k: _tensor(np.asarray(a)[i], dtype(k), device) for k, a in sub[group].items()}
-
-    blocks = [Block(**{g: layer(g, i) for g in layer_shapes}) for i in range(L)]
+    blocks = _blocks(params_np["blocks"]["sub_0"], layer_shapes, L, wdt, device)
     final_norm = {k: _tensor(a, torch.float32, device) for k, a in params_np["final_norm"].items()}
     lm_head = None if cfg.tie_embeddings else _tensor(params_np["lm_head"], wdt, device)
     return LM(cfg, _tensor(params_np["embed"], wdt, device), final_norm, blocks, lm_head)

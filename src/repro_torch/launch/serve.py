@@ -7,16 +7,28 @@ device, the port of ``repro.launch.serve``::
       --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \
       --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-large-v3 \
+      --smoke --device cpu
 
 ``--arch`` takes any id of :data:`repro_torch.configs.ARCHS`: the dense
 smollm-360m, phi3-medium-14b, h2o-danube-3-4b and gemma-7b, the moe
-mixtral-8x7b and phi3.5-moe-42b-a6.6b, the ssm falcon-mamba-7b.  One
-prefill for the whole batch, then shared decode steps.  On the card the
-prefill's attention is a flash-attention kernel of the port's own (the
-Hopper one at head_dim 64, 120 and 128, the ``mma.sync`` one at gemma's
-256), and falcon-mamba-7b's selective scan the Hopper scan kernel; the
-MoE layers' dispatch and experts are plain products, as in the
-reference; decode runs no kernel of the port's own.
+mixtral-8x7b and phi3.5-moe-42b-a6.6b, the ssm falcon-mamba-7b, the vlm
+internvl2-26b and the encdec whisper-large-v3.  One prefill for the
+whole batch, then shared decode steps.  On the card the prefill's
+attention (whisper's: the encoder's, non-causal) is the port's Hopper
+flash-attention kernel, ``flash_fwd_hopper`` (head_dim 64, 120, 128 and
+gemma's 256), and falcon-mamba-7b's selective scan the Hopper scan
+kernel; the MoE layers' dispatch and experts are plain products, as in
+the reference; decode runs no kernel of the port's own.
+
+The vlm and encdec families take extra inputs (``extra``): the image
+prefix ``patch_embeds`` (B, num_patches, d) or the audio ``frames`` (B,
+n_frames, d), stubs of their frontends drawn from the seed as the
+reference's ``main`` draws them.  The positions are the model's own
+(ROADMAP.md queue C #20): vlm decodes after the prefix and the prompt,
+at ``num_patches + P + i``; encdec decodes after its BOS token, at ``1 +
+i``, with a self cache of ``gen_len`` and the prompt's tokens unused.
+The reference's launcher decodes every family at ``P + i``.
 """
 from __future__ import annotations
 
@@ -31,7 +43,7 @@ from ..configs import get_config, smoke_config
 from ..models import Model
 from ..train.step import make_serve_steps
 
-__all__ = ["serve_batch", "main"]
+__all__ = ["decode_span", "serve_batch", "main"]
 
 
 def _sync(device: torch.device) -> None:
@@ -39,11 +51,23 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def decode_span(cfg, prompt_len: int, gen_len: int) -> tuple[int, int]:
+    """(the cache's length, the position of the first decode step) for
+    ``gen_len`` tokens after a prompt of ``prompt_len``: the vlm's image
+    prefix comes before the prompt, and encdec's decoder starts at its
+    BOS token, position 0, whatever the prompt."""
+    if cfg.family == "encdec":
+        return gen_len, 1
+    start = prompt_len + (cfg.num_patches if cfg.family == "vlm" else 0)
+    return start + gen_len, start
+
+
 def serve_batch(
     model: Model,
     prompts: np.ndarray,  # (B, P) int32
     gen_len: int,
     *,
+    extra: Optional[dict] = None,
     params=None,
     generator: Optional[torch.Generator] = None,
     device="cuda",
@@ -51,20 +75,26 @@ def serve_batch(
 ) -> np.ndarray:
     """Greedy continuations (B, gen_len) of ``prompts``.
 
-    ``params`` is an LM module (e.g. weights carried over from the JAX
-    package by :func:`repro_torch.convert.lm_from_jax`); without it the
-    weights are drawn by ``model.init(generator)``.  ``timings``, when
-    given, receives ``prefill_s`` (to the first token on the host),
-    ``decode_s`` and ``decode_steps``: host clocks around work that ends
-    in a synchronise.
+    ``extra`` holds the vlm's ``patch_embeds`` or encdec's ``frames`` as
+    numpy arrays, cast to the compute type on the way in.  ``params`` is
+    the model's module (e.g. weights carried over from the JAX package by
+    :func:`repro_torch.convert.lm_from_jax`); without it the weights are
+    drawn by ``model.init(generator)``.  ``timings``, when given,
+    receives ``prefill_s`` (to the first token on the host), ``decode_s``
+    and ``decode_steps``: host clocks around work that ends in a
+    synchronise.
     """
     device = torch.device(device)
     B, P = prompts.shape
     if params is None:
         params = model.init(generator=generator, device=device)
     prefill_step, decode_step = make_serve_steps(model)
-    cache = model.init_cache(B, max_len=P + gen_len, device=device)
+    max_len, start = decode_span(model.cfg, P, gen_len)
+    cache = model.init_cache(B, max_len=max_len, device=device)
     batch = {"tokens": torch.from_numpy(np.asarray(prompts, np.int64)).to(device)}
+    cd = getattr(torch, model.cfg.compute_dtype)
+    for name, value in (extra or {}).items():
+        batch[name] = torch.from_numpy(np.asarray(value, np.float32)).to(device=device, dtype=cd)
     _sync(device)
     t0 = time.perf_counter()
     logits, cache = prefill_step(params, batch, cache)
@@ -75,7 +105,7 @@ def serve_batch(
     out = [tok]
     t0 = time.perf_counter()
     for i in range(gen_len - 1):
-        tok, logits, cache = decode_step(params, tok, cache, P + i)
+        tok, logits, cache = decode_step(params, tok, cache, start + i)
         out.append(tok)
     toks = torch.stack(out, dim=1).cpu().numpy()  # synchronises
     decode_s = time.perf_counter() - t0
@@ -101,7 +131,14 @@ def main(argv=None) -> int:
     model = Model(cfg)
     rng = np.random.default_rng(0)
     prompts = rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len)).astype(np.int32)
-    toks = serve_batch(model, prompts, args.gen, device=args.device)
+    extra = {}
+    if cfg.family == "vlm":
+        extra["patch_embeds"] = rng.normal(
+            0, 1, (args.batch, cfg.num_patches, cfg.d_model)).astype(np.float32)
+    if cfg.family == "encdec":
+        extra["frames"] = rng.normal(
+            0, 1, (args.batch, args.prompt_len, cfg.d_model)).astype(np.float32)
+    toks = serve_batch(model, prompts, args.gen, extra=extra, device=args.device)
     print(f"[serve] generated shape {toks.shape}; first row: {toks[0][:16].tolist()}")
     return 0
 

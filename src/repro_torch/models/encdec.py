@@ -1,0 +1,284 @@
+"""Encoder-decoder backbone (whisper-large-v3's shape): the port of
+``repro.models.encdec``.
+
+The audio frontend (log-mel and the convolutions) is a stub, as in the
+reference: the encoder takes precomputed frame embeddings (B, S_frames,
+d_model).  Sinusoidal positions on both stacks, computed in float32 and
+cast to the compute type, as the reference does.  The weights keep the
+reference's layouts and initial scales; the embedding is tied to the
+output head.
+
+Entry points, as in the reference:
+
+  encode             -- frames -> encoder states (B, S, d)
+  forward_encdec     -- teacher-forced logits (B, S, vocab), differentiable
+  init_decoder_cache -- self_k/self_v (L, B, max_len, kv, hd) and
+                        cross_k/cross_v (L, B, cross_len, kv, hd)
+  prefill_encdec     -- encode, project each decoder layer's cross K/V
+                        into the cache (truncated or zero-padded to its
+                        cross_len)
+  decode_encdec      -- one decoder step at position ``pos``
+
+Attention over full sequences (the encoder's, the teacher-forced
+decoder's causal self-attention and its cross-attention) runs through
+:func:`.layers.attention`, so on the card it is the flash-attention
+kernel, non-causal where the reference's is.  The reference switches to
+``chunked_attention`` past 4,096 queries or 8,192 keys, which computes
+the same function (the kernel takes both branches) except where it pads
+the keys to a multiple of 1,024 without a causal mask: it then attends
+the zero padding too (ROADMAP.md queue C #21), and the port does not.
+Decode's self-
+and cross-attention are plain tensor code (float32 scores and softmax),
+as they are plain jnp in the reference.  The caches are written in
+place.
+
+One deliberate difference (ROADMAP.md queue C #20): the reference's
+``dynamic_update_slice`` clamps a decode position at or past the self
+cache's length to its last slot and goes on; :func:`decode_encdec`
+raises ``ValueError`` there.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from ..precision import full_float32_matmul
+from .config import ModelConfig
+from .layers import apply_norm, attention, cached_attention, dense_init, einsum, mlp_apply
+from .transformer import Block, _Params, _dtype, _norm_init, _param
+
+__all__ = [
+    "EncDec",
+    "init_encdec",
+    "encode",
+    "forward_encdec",
+    "init_decoder_cache",
+    "prefill_encdec",
+    "decode_encdec",
+]
+
+
+def _sinusoid_at(positions: torch.Tensor, d: int, dtype: torch.dtype) -> torch.Tensor:
+    """(len(positions), d): [sin | cos] of position x 10000**(-2i/d), in
+    float32, then cast to ``dtype``."""
+    pos = positions.float()[:, None]
+    dim = torch.arange(0, d, 2, dtype=torch.float32, device=positions.device)[None, :]
+    inv = torch.exp(-math.log(10000.0) * dim / d)
+    ang = pos * inv
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
+
+
+def _sinusoid(S: int, d: int, dtype: torch.dtype, device) -> torch.Tensor:
+    return _sinusoid_at(torch.arange(S, device=device), d, dtype)
+
+
+class EncDec(nn.Module):
+    """``embed`` (vocab, d), tied to the output head; ``enc_final_norm``,
+    ``dec_final_norm``; ``enc_blocks``, one :class:`~.transformer.Block`
+    per encoder layer (``norm1``, ``attn``, ``norm2``, ``mlp``), and
+    ``dec_blocks``, one per decoder layer (``norm1``, ``self_attn``,
+    ``norm_x``, ``cross_attn``, ``norm2``, ``mlp``)."""
+
+    def __init__(self, cfg: ModelConfig, embed: torch.Tensor, enc_final_norm: dict,
+                 dec_final_norm: dict, enc_blocks: list[Block], dec_blocks: list[Block]):
+        super().__init__()
+        if cfg.family != "encdec":
+            raise ValueError(f"{cfg.name}: EncDec takes the encdec family, not {cfg.family!r}")
+        if len(enc_blocks) != cfg.num_layers or len(dec_blocks) != cfg.decoder_layers:
+            raise ValueError(f"{cfg.name}: {cfg.num_layers} + {cfg.decoder_layers} layers, got "
+                             f"{len(enc_blocks)} + {len(dec_blocks)} blocks")
+        self.cfg = cfg
+        self.embed = _param(embed)
+        self.enc_final_norm = _Params(**enc_final_norm)
+        self.dec_final_norm = _Params(**dec_final_norm)
+        self.enc_blocks = nn.ModuleList(enc_blocks)
+        self.dec_blocks = nn.ModuleList(dec_blocks)
+
+
+def init_encdec(cfg: ModelConfig, *, generator: Optional[torch.Generator] = None,
+                device="cuda") -> EncDec:
+    """Random weights with the reference's scales: N(0, 1) times 0.02 for
+    the embedding, 1/sqrt(heads x head_dim) for each ``wo`` and
+    1/sqrt(fan-in) for every other matrix; norms at one (scale) and zero
+    (bias).  Drawn in float32 from ``generator`` (a CPU generator seeded 0
+    by default) on its device, embedding first, then the encoder's layers
+    and the decoder's in order, then cast to ``param_dtype`` on
+    ``device``."""
+    cfg.validate()
+    gen = generator if generator is not None else torch.Generator().manual_seed(0)
+    d, hq, hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    dt = _dtype(cfg.param_dtype)
+
+    def w(shape, scale=None):
+        return dense_init(shape, dt, gen, device, scale)
+
+    def attn():
+        return {"wq": w((d, hq, hd)), "wk": w((d, hkv, hd)), "wv": w((d, hkv, hd)),
+                "wo": w((hq, hd, d), 1.0 / math.sqrt(hq * hd))}
+
+    def mlp():
+        if cfg.act in ("swiglu", "geglu"):
+            return {"w_in": w((d, cfg.d_ff)), "w_gate": w((d, cfg.d_ff)),
+                    "w_out": w((cfg.d_ff, d))}
+        return {"w_in": w((d, cfg.d_ff)), "w_out": w((cfg.d_ff, d))}
+
+    def norm():
+        return _norm_init(d, cfg.norm, device)
+
+    embed = w((cfg.vocab_size, d), 0.02)
+    enc = [Block(norm1=norm(), attn=attn(), norm2=norm(), mlp=mlp())
+           for _ in range(cfg.num_layers)]
+    dec = [Block(norm1=norm(), self_attn=attn(), norm_x=norm(), cross_attn=attn(),
+                 norm2=norm(), mlp=mlp())
+           for _ in range(cfg.decoder_layers)]
+    return EncDec(cfg, embed, norm(), norm(), enc, dec)
+
+
+def _proj_qkv(p: dict, x: torch.Tensor):
+    return (einsum("bsd,dhk->bshk", x, p["wq"]), einsum("bsd,dhk->bshk", x, p["wk"]),
+            einsum("bsd,dhk->bshk", x, p["wv"]))
+
+
+def _layers(blocks: nn.ModuleList, cfg: ModelConfig, h: torch.Tensor, layer, *args):
+    """``h`` through ``layer(blk, cfg, h, *args)`` for each block; under
+    autograd with ``cfg.remat == "full"`` each layer's activations are
+    recomputed in the backward, as the reference's ``jax.checkpoint``."""
+    if cfg.remat not in ("none", "full"):
+        raise NotImplementedError(
+            f"remat={cfg.remat!r} is not ported yet (ROADMAP.md queue A #7); use 'none' or 'full'"
+        )
+    remat = cfg.remat == "full" and torch.is_grad_enabled()
+    for blk in blocks:
+        if remat:  # no dropout or other draws inside: no RNG state to stash
+            h = checkpoint(layer, blk, cfg, h, *args, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            h = layer(blk, cfg, h, *args)
+    return h
+
+
+def _enc_layer(blk: Block, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
+    q, k, v = _proj_qkv(blk.attn.p, apply_norm(h, blk.norm1.p, cfg.norm))
+    o = attention(q, k, v, causal=False)
+    h = h + einsum("bshk,hkd->bsd", o, blk.attn.wo)
+    return h + mlp_apply(blk.mlp.p, apply_norm(h, blk.norm2.p, cfg.norm), cfg.act)
+
+
+def _dec_layer(blk: Block, cfg: ModelConfig, h: torch.Tensor,
+               enc_out: torch.Tensor) -> torch.Tensor:
+    q, k, v = _proj_qkv(blk.self_attn.p, apply_norm(h, blk.norm1.p, cfg.norm))
+    o = attention(q, k, v, causal=True)
+    h = h + einsum("bshk,hkd->bsd", o, blk.self_attn.wo)
+    cross = blk.cross_attn.p
+    qx = einsum("bsd,dhk->bshk", apply_norm(h, blk.norm_x.p, cfg.norm), cross["wq"])
+    kx = einsum("bsd,dhk->bshk", enc_out, cross["wk"])
+    vx = einsum("bsd,dhk->bshk", enc_out, cross["wv"])
+    ox = attention(qx, kx, vx, causal=False)
+    h = h + einsum("bshk,hkd->bsd", ox, cross["wo"])
+    return h + mlp_apply(blk.mlp.p, apply_norm(h, blk.norm2.p, cfg.norm), cfg.act)
+
+
+def _encode(m: EncDec, frames: torch.Tensor) -> torch.Tensor:
+    cfg = m.cfg
+    h = frames.to(device=m.embed.device, dtype=_dtype(cfg.compute_dtype))
+    h = h + _sinusoid(h.shape[1], cfg.d_model, h.dtype, h.device)[None]
+    h = _layers(m.enc_blocks, cfg, h, _enc_layer)
+    return apply_norm(h, m.enc_final_norm.p, cfg.norm)
+
+
+@full_float32_matmul()
+def encode(m: EncDec, frames: torch.Tensor) -> torch.Tensor:
+    """frames: precomputed (B, S, d_model) embeddings (the frontend stub)
+    -> the encoder's states (B, S, d_model) in the compute type."""
+    return _encode(m, frames)
+
+
+def _logits(m: EncDec, h: torch.Tensor) -> torch.Tensor:
+    cfg = m.cfg
+    h = apply_norm(h, m.dec_final_norm.p, cfg.norm)
+    logits = einsum("bsd,vd->bsv", h, m.embed.to(_dtype(cfg.compute_dtype)))
+    return logits.to(_dtype(cfg.logit_dtype))
+
+
+@full_float32_matmul()
+def forward_encdec(m: EncDec, frames: torch.Tensor, tokens: torch.Tensor, *,
+                   return_aux: bool = False):
+    """Training: the encoder over ``frames`` (B, S_frames, d), the decoder
+    teacher-forced over ``tokens`` (B, S) -> logits (B, S, vocab) in
+    ``logit_dtype``; with ``return_aux`` also the reference's aux losses,
+    float32 zeros."""
+    cfg = m.cfg
+    enc_out = _encode(m, frames)
+    h = m.embed[tokens.long()].to(_dtype(cfg.compute_dtype))
+    h = h + _sinusoid(h.shape[1], cfg.d_model, h.dtype, h.device)[None]
+    h = _layers(m.dec_blocks, cfg, h, _dec_layer, enc_out)
+    logits = _logits(m, h)
+    if not return_aux:
+        return logits
+    zero = torch.zeros((), dtype=torch.float32, device=logits.device)
+    return logits, {"lb_loss": zero, "z_loss": zero.clone()}
+
+
+def init_decoder_cache(cfg: ModelConfig, batch: int, max_len: int, *, device="cuda") -> dict:
+    """The decoder's self-attention cache ``self_k``/``self_v`` (layers,
+    batch, max_len, kv_heads, head_dim) and the projected encoder states
+    ``cross_k``/``cross_v`` (layers, batch, cross_len, kv_heads,
+    head_dim), zeros in ``compute_dtype``."""
+    hd, hkv, L = cfg.resolved_head_dim, cfg.num_kv_heads, cfg.decoder_layers
+    cd = _dtype(cfg.compute_dtype)
+
+    def zeros(n):
+        return torch.zeros((L, batch, n, hkv, hd), dtype=cd, device=device)
+
+    return {"self_k": zeros(max_len), "self_v": zeros(max_len),
+            "cross_k": zeros(cfg.cross_len), "cross_v": zeros(cfg.cross_len)}
+
+
+@torch.no_grad()
+@full_float32_matmul()
+def prefill_encdec(m: EncDec, frames: torch.Tensor, cache: dict) -> dict:
+    """Serving prefill: encode ``frames`` and project each decoder layer's
+    cross-attention K and V into the cache, in place.  Encoder states past
+    the cache's cross length are dropped; a shorter encoding is padded with
+    zero states (whose K and V are then zero too)."""
+    enc_out = _encode(m, frames)
+    Sc = cache["cross_k"].shape[2]
+    S = enc_out.shape[1]
+    enc_c = enc_out[:, :Sc] if S >= Sc else F.pad(enc_out, (0, 0, 0, Sc - S))
+    for i, blk in enumerate(m.dec_blocks):
+        cache["cross_k"][i].copy_(einsum("bsd,dhk->bshk", enc_c, blk.cross_attn.wk))
+        cache["cross_v"][i].copy_(einsum("bsd,dhk->bshk", enc_c, blk.cross_attn.wv))
+    return cache
+
+
+@torch.no_grad()
+@full_float32_matmul()
+def decode_encdec(m: EncDec, token: torch.Tensor, cache: dict,
+                  pos: int) -> tuple[torch.Tensor, dict]:
+    """One decoder step: ``token`` (B,) at position ``pos`` against the self
+    cache (keys at positions 0..pos) and the whole cross cache -> next-token
+    logits (B, vocab); the self cache is written in place.  Raises
+    ``ValueError`` for a position outside the self cache (the reference
+    clamps it; ROADMAP.md queue C #20)."""
+    cfg = m.cfg
+    sk, sv, ck, cv = (cache[k] for k in ("self_k", "self_v", "cross_k", "cross_v"))
+    W = sk.shape[2]
+    if not 0 <= pos < W:
+        raise ValueError(f"{cfg.name}: decode position {pos} outside the self cache of {W}")
+    h = m.embed[token.long()[:, None]].to(_dtype(cfg.compute_dtype))
+    h = h + _sinusoid_at(torch.full((1,), pos, device=h.device), cfg.d_model, h.dtype)[None]
+    valid = (torch.arange(W, device=h.device) <= pos)[None]
+    for i, blk in enumerate(m.dec_blocks):
+        q, k, v = _proj_qkv(blk.self_attn.p, apply_norm(h, blk.norm1.p, cfg.norm))
+        sk[i][:, pos] = k[:, 0]
+        sv[i][:, pos] = v[:, 0]
+        h = h + einsum("bshk,hkd->bsd", cached_attention(q, sk[i], sv[i], valid), blk.self_attn.wo)
+        qx = einsum("bsd,dhk->bshk", apply_norm(h, blk.norm_x.p, cfg.norm), blk.cross_attn.wq)
+        h = h + einsum("bshk,hkd->bsd", cached_attention(qx, ck[i], cv[i], None), blk.cross_attn.wo)
+        h = h + mlp_apply(blk.mlp.p, apply_norm(h, blk.norm2.p, cfg.norm), cfg.act)
+    return _logits(m, h)[:, 0], cache

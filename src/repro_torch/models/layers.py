@@ -27,6 +27,7 @@ __all__ = [
     "apply_rope",
     "apply_rope_tables",
     "attention",
+    "cached_attention",
     "mlp_apply",
     "silu",
     "gelu",
@@ -130,6 +131,19 @@ def attention(
     o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                             causal=causal, window=window, q_offset=q_offset)
     return o.transpose(1, 2)
+
+
+def cached_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     valid: Optional[torch.Tensor]) -> torch.Tensor:
+    """Decode's attention, plain tensor code as the reference's: one query
+    row (B, 1, Hq, D) over cached (B, T, Hkv, D) keys and values, float32
+    scores and softmax, P cast to q's type; ``valid`` (1 or B, T) bool
+    masks keys out (None: every key)."""
+    ke, ve = _expand_kv(k, q.shape[2]), _expand_kv(v, q.shape[2])
+    s = torch.einsum("bshd,bthd->bhst", q.float(), ke.float()) * (1.0 / math.sqrt(q.shape[-1]))
+    if valid is not None:
+        s = s.masked_fill(~valid[:, None, None, :], -1e30)
+    return einsum("bhst,bthd->bshd", torch.softmax(s, dim=-1).to(q.dtype), ve)
 
 
 # ----------------------------------------------------------------- MLP

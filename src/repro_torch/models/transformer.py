@@ -1,4 +1,4 @@
-"""Decoder-only LM, dense, moe and ssm families: the port of
+"""Decoder-only LM, dense, moe, ssm and vlm families: the port of
 ``repro.models.transformer``.
 
 The model is an ``nn.Module`` with one submodule per layer (the reference
@@ -48,11 +48,20 @@ place; positions, ``pos_offset`` and ``start`` do not apply.  Only the
 forward without a gradient is ported: ``forward_lm`` with a gradient
 raises ``NotImplementedError`` (ROADMAP.md queue A #9).
 
+Vlm family (internvl2): the dense layer behind an image prefix.
+``forward_lm`` and ``prefill_lm`` take ``patch_embeds`` (B, num_patches,
+d), cast to the compute type and placed ahead of the (scaled) token
+embeddings, so RoPE, the causal mask and the cache run over
+``pos_offset + arange(num_patches + S)``; without them a vlm call raises
+the reference's ``ValueError``.  The logits cover the prefix too, as the
+reference's ``forward_lm`` does (``Model.forward`` drops them).  The
+encoder-decoder family (whisper) is :mod:`.encdec`; :class:`LM` refuses
+it.
+
 Dropped from the reference: the sharding annotations (``constrain_act``)
 and the one-hot embedding under a sharding context (a gather always).
-The families ``encdec`` and ``vlm`` raise ``NotImplementedError``
-(ROADMAP.md queue A #10), ``hybrid`` too (queue A #13: jamba needs four
-cards).
+The ``hybrid`` family raises ``NotImplementedError`` (ROADMAP.md queue A
+#13: jamba needs four cards).
 """
 from __future__ import annotations
 
@@ -67,10 +76,10 @@ from torch.utils.checkpoint import checkpoint
 from ..precision import full_float32_matmul
 from .config import ModelConfig
 from .layers import (
-    _expand_kv,
     apply_norm,
     apply_rope_tables,
     attention,
+    cached_attention,
     dense_init,
     einsum,
     mlp_apply,
@@ -91,17 +100,20 @@ __all__ = [
 ]
 
 
-_FAMILIES = ("dense", "moe", "ssm")
-# the ROADMAP.md item that ports each other family
-_NOT_PORTED = {"encdec": "#10", "vlm": "#10", "hybrid": "#13"}
+_FAMILIES = ("dense", "moe", "ssm", "vlm", "encdec")  # encdec: models/encdec.py
 
 
 def check_family(cfg: ModelConfig) -> None:
     if cfg.family not in _FAMILIES:
-        item = _NOT_PORTED.get(cfg.family, "#10")
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet (ROADMAP.md queue A {item})"
+            f"{cfg.name}: the {cfg.family!r} family is not ported yet (ROADMAP.md queue A #13)"
         )
+
+
+def _check_decoder_only(cfg: ModelConfig) -> None:
+    check_family(cfg)
+    if cfg.family == "encdec":
+        raise ValueError(f"{cfg.name}: the encdec family is models/encdec.py's, not the LM's")
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
@@ -146,7 +158,7 @@ class LM(nn.Module):
     def __init__(self, cfg: ModelConfig, embed: torch.Tensor, final_norm: dict,
                  blocks: list[Block], lm_head: Optional[torch.Tensor] = None):
         super().__init__()
-        check_family(cfg)
+        _check_decoder_only(cfg)
         if len(blocks) != cfg.num_layers:
             raise ValueError(f"{cfg.name}: {cfg.num_layers} layers, got {len(blocks)} blocks")
         if (lm_head is None) != cfg.tie_embeddings:
@@ -176,7 +188,7 @@ def init_lm(cfg: ModelConfig, *, generator: Optional[torch.Generator] = None,
     ``param_dtype`` on ``device``; a generator on the card draws a
     full-size model there."""
     cfg.validate()
-    check_family(cfg)
+    _check_decoder_only(cfg)
     gen = generator if generator is not None else torch.Generator().manual_seed(0)
     d, hq, hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     dt = _dtype(cfg.param_dtype)
@@ -237,6 +249,21 @@ def _embed(lm: LM, tokens: torch.Tensor) -> torch.Tensor:
     return h
 
 
+def _embed_prompt(lm: LM, tokens: torch.Tensor,
+                  patch_embeds: Optional[torch.Tensor]) -> torch.Tensor:
+    """A prompt's embeddings (B, S, d) in the compute type; in the vlm
+    family ``patch_embeds`` (B, num_patches, d) ahead of them (other
+    families ignore it, as the reference does)."""
+    h = _embed(lm, tokens)
+    cfg = lm.cfg
+    if cfg.family == "vlm":
+        if patch_embeds is None:
+            raise ValueError(f"{cfg.name}: vlm family requires patch_embeds")
+        # image prefix: [patches || text]  (the frontend is a stub, as in the reference)
+        h = torch.cat([patch_embeds.to(device=h.device, dtype=h.dtype), h], dim=1)
+    return h
+
+
 def _logits(lm: LM, h: torch.Tensor) -> torch.Tensor:
     cfg = lm.cfg
     h = apply_norm(h, lm.final_norm.p, cfg.norm)
@@ -278,8 +305,10 @@ def _no_gradient(lm: LM, what: str, item: str) -> None:
 
 
 @full_float32_matmul()
-def forward_lm(lm: LM, tokens: torch.Tensor, *, return_aux: bool = False):
-    """Full-sequence logits (B, S, vocab) in ``logit_dtype``; with
+def forward_lm(lm: LM, tokens: torch.Tensor, *, return_aux: bool = False,
+               patch_embeds: Optional[torch.Tensor] = None):
+    """Full-sequence logits (B, S, vocab) in ``logit_dtype`` ((B,
+    num_patches + S, vocab) in the vlm family, after ``patch_embeds``); with
     ``return_aux``, ``(logits, {"lb_loss", "z_loss"})``, the MoE layers'
     aux losses summed over the layers (float32 zeros without MoE layers),
     as the reference returns them.  Under autograd with ``cfg.remat ==
@@ -299,7 +328,7 @@ def forward_lm(lm: LM, tokens: torch.Tensor, *, return_aux: bool = False):
         raise NotImplementedError(
             f"remat={cfg.remat!r} is not ported yet (ROADMAP.md queue A #7); use 'none' or 'full'"
         )
-    h = _embed(lm, tokens)
+    h = _embed_prompt(lm, tokens, patch_embeds)
     rope = _rope(cfg, torch.arange(h.shape[1], device=h.device))
     remat = cfg.remat == "full" and torch.is_grad_enabled()
     for blk in lm.blocks:
@@ -336,7 +365,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device="cuda") -> 
     ``compute_dtype`` and the scan states (layers, batch, d_inner,
     d_state) in float32, whatever ``max_len``.  Every buffer has the batch
     axis at position 1; layer i's buffers are ``[i]`` views."""
-    check_family(cfg)
+    _check_decoder_only(cfg)
     if cfg.family == "ssm":  # one layer's state (shapes only), stacked over the layers
         layer = ssm_state_init(cfg, batch, device="meta")
         return {"sub_0": {k: torch.zeros((cfg.num_layers, *t.shape), dtype=t.dtype, device=device)
@@ -380,14 +409,7 @@ def _attn_decode(p: dict, cfg: ModelConfig, x: torch.Tensor, k_cache: torch.Tens
         k = apply_rope_tables(k, *rope)
     k_cache[:, slot] = k[:, 0]
     v_cache[:, slot] = v[:, 0]
-    D = q.shape[-1]
-    ke = _expand_kv(k_cache, q.shape[2])
-    ve = _expand_kv(v_cache, q.shape[2])
-    s = torch.einsum("bshd,bthd->bhst", q.float(), ke.float()) * (1.0 / math.sqrt(D))
-    s = s.masked_fill(~valid[:, None, None, :], -1e30)
-    pr = torch.softmax(s, dim=-1).to(q.dtype)
-    o = einsum("bhst,bthd->bshd", pr, ve)
-    return einsum("bshk,hkd->bsd", o, p["wo"])
+    return einsum("bshk,hkd->bsd", cached_attention(q, k_cache, v_cache, valid), p["wo"])
 
 
 def _ssm_layers(lm: LM, h: torch.Tensor, cache: dict, mixer) -> torch.Tensor:
@@ -431,21 +453,23 @@ def decode_lm(lm: LM, token: torch.Tensor, cache: dict, pos: int,
 
 @torch.no_grad()
 @full_float32_matmul()
-def prefill_lm(lm: LM, tokens: torch.Tensor, cache: dict,
-               pos_offset: int = 0) -> tuple[torch.Tensor, dict]:
+def prefill_lm(lm: LM, tokens: torch.Tensor, cache: dict, pos_offset: int = 0,
+               patch_embeds: Optional[torch.Tensor] = None) -> tuple[torch.Tensor, dict]:
     """Run the prompt (B, S) through the model, filling the cache in place.
 
     Returns (last-position logits (B, vocab), cache).  ``pos_offset``
     places the prompt at absolute positions [offset, offset+S): RoPE and
     ring slots follow, so a continuous-batching scheduler can align a
-    joining request with the shared decode position.  A cache shorter
-    than the prompt (a sliding-window ring) keeps its last W tokens.  The
+    joining request with the shared decode position.  In the vlm family
+    the prompt is ``patch_embeds`` then the tokens, num_patches + S
+    positions.  A cache shorter than the prompt (a sliding-window ring)
+    keeps its last W positions.  The
     ssm family continues each layer's convolution window and scan state
     from the cache (zeros in a fresh one) and has no positions: there
     ``pos_offset`` does not apply.
     """
     cfg = lm.cfg
-    h = _embed(lm, tokens)
+    h = _embed_prompt(lm, tokens, patch_embeds)
     if cfg.family == "ssm":
         h = _ssm_layers(lm, h, cache, ssm_apply)
         return _logits(lm, h[:, -1:, :])[:, 0], cache

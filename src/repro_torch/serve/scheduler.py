@@ -19,6 +19,13 @@ the P positions behind the cursor):
   window and scan state overwrite the slot's wholesale at admission, and
   ``pos_offset`` and ``start`` do not apply to them.
 
+Decoder-only text families only, as in the reference: the encdec family
+(whisper) is refused at construction with the reference's
+``ValueError``, and a vlm request (internvl2) fails at its first prefill
+with the reference's ``KeyError('patch_embeds')``: a request holds only
+its prompt tokens, and the reference's batcher has no image prefix
+either.
+
 The moe family (mixtral, phi3.5-moe) batches as the dense one: a decode
 step routes each slot's token in a dispatch group of its own (G = B, one
 token a group), so a slot's experts and gates do not depend on the other
@@ -67,6 +74,8 @@ class SlotBatcher:
 
     def __init__(self, model: Model, params, *, batch_slots: int, max_len: int,
                  eos_id: Optional[int] = None):
+        if model.cfg.family == "encdec":
+            raise ValueError("continuous batching supports decoder-only families")
         self.model = model
         self.params = params
         self.device = params.embed.device

@@ -1,7 +1,8 @@
 """Train-state, train-step and serve-step factories: the port of
-``repro.train.step``; the train step for the dense family (the moe and
-ssm families raise in their forward under a gradient, ROADMAP.md queue A
-#17 and #9), the serve steps for every ported family.
+``repro.train.step``; the train step for the dense, vlm and encdec
+families (the moe and ssm families raise in their forward under a
+gradient, ROADMAP.md queue A #17 and #9), the serve steps for every
+ported family.
 
 ``make_train_step`` builds ``(state, batch) -> (state, metrics)`` with:
 
@@ -83,8 +84,9 @@ def make_train_step(
     z_loss_weight: float = 1e-4,
 ) -> Callable[[TrainState, dict], tuple[TrainState, dict]]:
     """``batch`` holds ``tokens`` and ``labels`` (B, S) and optionally
-    ``mask`` (B, S), on the params' device; B divisible by
-    ``num_microbatches``."""
+    ``mask`` (B, S), with ``patch_embeds`` (vlm) or ``frames`` (encdec)
+    as :class:`~repro_torch.models.Model` takes them, on the params'
+    device; B divisible by ``num_microbatches``."""
 
     def loss_fn(lm, batch: dict):
         logits = model.forward(lm, batch)
@@ -132,9 +134,10 @@ def make_train_step(
 
 
 def make_serve_steps(model: Model) -> tuple[Callable, Callable]:
-    """Returns (prefill_step, decode_step) for any ported family (dense,
-    moe or ssm).  ``decode_step`` gives the greedy next token (int32), the logits
-    and the cache."""
+    """Returns (prefill_step, decode_step) for any ported family: dense,
+    moe, ssm, vlm or encdec.  ``prefill_step`` passes the batch through
+    whole (``tokens``, and ``patch_embeds`` or ``frames``); ``decode_step``
+    gives the greedy next token (int32), the logits and the cache."""
 
     def prefill_step(params, batch: dict, cache):
         return model.prefill(params, batch, cache)

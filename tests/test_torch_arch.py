@@ -1,8 +1,9 @@
 """Per-architecture smoke tests of the port, the counterpart of
-``tests/test_arch_smoke.py`` for the ids the port registers: the full
-configs and their parameter counts against the JAX package's, and each
-smoke config's forward, prefill and decode on the CPU (shapes, finite
-values, decode tracking the forward)."""
+``tests/test_arch_smoke.py`` for the ids the port registers (all but
+jamba): the full configs and their parameter counts against the JAX
+package's, and each smoke config's forward, prefill and decode on the CPU
+(shapes, finite values, decode tracking the forward), the vlm's with its
+image prefix and the encdec's with its frames."""
 import dataclasses
 
 import jax
@@ -17,6 +18,7 @@ from repro.models import Model as RefModel
 from repro.models import active_param_count as ref_active_param_count
 from repro.models import param_count as ref_param_count
 from repro_torch.configs import ARCHS, get_config, smoke_config
+from repro_torch.launch.serve import decode_span
 from repro_torch.models import Model, active_param_count, param_count
 from repro_torch.train.optimizer import AdamWConfig
 from repro_torch.train.step import make_train_state, make_train_step
@@ -25,16 +27,17 @@ from repro_torch.train.step import make_train_state, make_train_step
 # 12% for the embedding and norm bookkeeping)
 _EXPECT_B = {"falcon-mamba-7b": 7.3, "mixtral-8x7b": 46.7, "phi3.5-moe-42b-a6.6b": 42.0,
              "gemma-7b": 8.5, "phi3-medium-14b": 14.0, "smollm-360m": 0.36,
-             "h2o-danube-3-4b": 4.0}
+             "h2o-danube-3-4b": 4.0, "internvl2-26b": 20.0, "whisper-large-v3": 1.55}
 _EXPECT_ACTIVE_B = {"mixtral-8x7b": 12.9, "phi3.5-moe-42b-a6.6b": 6.6}
 # the families whose training is not ported, and the ROADMAP.md item that ports it
 _NO_TRAINING = {"moe": "queue A #17", "ssm": "queue A #9"}
 
 
 def test_the_port_registers_every_reference_id_but_three():
+    """Named when three ids waited; since the encdec and vlm families were
+    ported only jamba does (ROADMAP.md queue A #13)."""
     assert set(ARCHS) <= set(REF_ARCHS)
-    assert set(REF_ARCHS) - set(ARCHS) == {"internvl2-26b", "jamba-1.5-large-398b",
-                                           "whisper-large-v3"}
+    assert set(REF_ARCHS) - set(ARCHS) == {"jamba-1.5-large-398b"}
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -75,26 +78,42 @@ def _tokens(cfg, B, S, seed=0):
     return torch.from_numpy(np.random.default_rng(seed).integers(0, cfg.vocab_size, (B, S)))
 
 
+def _batch(cfg, B, S, seed=0) -> dict:
+    """``tokens`` (B, S), with the vlm's ``patch_embeds`` (B, num_patches,
+    d) or encdec's ``frames`` (B, S, d), as ``launch/serve.py``'s main
+    draws them."""
+    batch = {"tokens": _tokens(cfg, B, S, seed)}
+    rng = np.random.default_rng(seed + 1)
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = torch.from_numpy(
+            rng.normal(0, 1, (B, cfg.num_patches, cfg.d_model)).astype(np.float32))
+    if cfg.family == "encdec":
+        batch["frames"] = torch.from_numpy(rng.normal(0, 1, (B, S, cfg.d_model)).astype(np.float32))
+    return batch
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_smoke_forward_prefill_and_decode(arch):
     cfg = smoke_config(arch)
     model = Model(cfg)
     lm = model.init(generator=torch.Generator().manual_seed(0), device="cpu")
     B, S = 2, 32
-    tokens = _tokens(cfg, B, S)
+    batch = _batch(cfg, B, S)
     with torch.no_grad():
-        logits, aux = model.forward(lm, {"tokens": tokens}, return_aux=True)
+        logits, aux = model.forward(lm, batch, return_aux=True)
     assert logits.shape == (B, S, cfg.vocab_size) and logits.dtype == torch.float32
     assert bool(torch.isfinite(logits).all())
     assert set(aux) == {"lb_loss", "z_loss"}
     assert (float(aux["lb_loss"]) > 0) == (cfg.family == "moe")
 
-    cache = model.init_cache(B, max_len=S // 2 + 4, device="cpu")
-    logits, cache = model.prefill(lm, {"tokens": tokens[:, :S // 2]}, cache)
+    max_len, start = decode_span(cfg, S // 2, 4)  # the prefill's token, 2 steps, a spare slot
+    cache = model.init_cache(B, max_len=max_len, device="cpu")
+    prompt = {**batch, "tokens": batch["tokens"][:, :S // 2]}
+    logits, cache = model.prefill(lm, prompt, cache)
     assert logits.shape == (B, cfg.vocab_size)
     tok = logits.argmax(-1)
     for i in range(2):
-        logits, cache = model.decode(lm, tok, cache, S // 2 + i)
+        logits, cache = model.decode(lm, tok, cache, start + i)
         assert logits.shape == (B, cfg.vocab_size) and bool(torch.isfinite(logits).all())
         tok = logits.argmax(-1)
 
@@ -108,8 +127,8 @@ def test_train_step_or_its_item(arch):
     state = make_train_state(model, AdamWConfig(lr=1e-3), device="cpu",
                              generator=torch.Generator().manual_seed(1))
     step = make_train_step(model, AdamWConfig(lr=1e-3))
-    tokens = _tokens(cfg, 2, 32, seed=2)
-    batch = {"tokens": tokens, "labels": tokens}
+    batch = _batch(cfg, 2, 32, seed=2)
+    batch["labels"] = batch["tokens"]
     if cfg.family in _NO_TRAINING:
         with pytest.raises(NotImplementedError, match=f"ROADMAP.md {_NO_TRAINING[cfg.family]}"):
             step(state, batch)

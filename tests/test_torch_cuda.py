@@ -1,6 +1,7 @@
 """The port's Hopper kernels against their plain PyTorch versions on a card,
-and the serving paths' prefill and decode (smollm-360m's and falcon-mamba's
-widths) on the card against the same on the CPU.
+and the serving paths' prefill and decode (smollm-360m's, falcon-mamba's
+and the other registered configs' widths, the encdec and vlm families'
+among them) on the card against the same on the CPU.
 
 Marked ``cuda``; each test skips where ``torch.cuda.is_available()`` is
 false.  Imports no JAX, so it runs on a machine that has only PyTorch:
@@ -755,6 +756,73 @@ def test_the_new_head_widths_serving_shapes_match_plain_version(shape, dtype):
     assert got.stride() == q.stride()
     err = chip_smoke._wide_err(got, want, str(dtype).removeprefix("torch."))
     assert err["of_rule"] <= 1.0, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(chip_smoke.FAMILY_SHAPES))
+def test_the_new_families_prefill_shapes_match_plain_version(shape):
+    """whisper-large-v3's encoder attention (20 heads of 64 over 1,500
+    frames, non-causal) and internvl2-26b's prefill attention (48 heads of
+    128 over 8, 4,608 positions, causal) at batch 1, as the model's (B, S,
+    H, D) views in bf16, through the Hopper kernel (one launch each),
+    against the plain version within HOPPER_RMS_RULE."""
+    dev = _card()
+    _, H, Hkv, S, D, causal = chip_smoke.FAMILY_SHAPES[shape]
+    gen = torch.Generator(device=dev).manual_seed(4)
+    q, k, v = chip_smoke._wide_inputs(1, H, Hkv, S, D, torch.bfloat16, dev, gen)
+    assert flash_attention.route(q, k, v) == "hopper"
+    n = flash_attention.hopper_launches
+    got = ops.flash_attention(q, k, v, causal=causal)
+    want = ref.flash_attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.hopper_launches == n + 1
+    assert got.stride() == q.stride()
+    _assert_hopper_close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["whisper-large-v3", "internvl2-26b"])
+def test_new_families_prefill_and_decode_on_the_card_match_the_cpu(arch):
+    """The encdec and vlm families at their full head widths (20 of 64;
+    48 of 128 over 8) with d_model, d_ff, the vocabulary, whisper's cross
+    length and internvl2's patches narrowed, 2 layers (2 + 2), float32:
+    the same weights on the card and on the CPU, a prefill (whisper: its
+    frames, then BOS; internvl2: 16 patch embeddings and 24 tokens) and 4
+    decode steps at the model's positions, every prefill attention layer
+    through the kernel."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import decode_span
+    from repro_torch.models import Model
+
+    dev = _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(arch), num_layers=2, decoder_layers=2, d_model=256,
+                              d_ff=512, vocab_size=1024, cross_len=40, num_patches=16,
+                              param_dtype="float32", compute_dtype="float32")
+    model = Model(cfg)
+    m_cpu = model.init(generator=torch.Generator().manual_seed(0), device="cpu")
+    m_gpu = model.init(generator=torch.Generator().manual_seed(0), device=dev)
+    g = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 24), generator=g)}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.randn((2, cfg.cross_len, cfg.d_model), generator=g)
+    else:
+        batch["patch_embeds"] = torch.randn((2, cfg.num_patches, cfg.d_model), generator=g)
+    max_len, start = decode_span(cfg, 24, 5)
+    caches = [model.init_cache(2, max_len, device=d) for d in ("cpu", dev)]
+    before = flash_attention.flash_attention.launches
+    want, _ = model.prefill(m_cpu, batch, caches[0])
+    got, _ = model.prefill(m_gpu, {k: t.to(dev) for k, t in batch.items()}, caches[1])
+    assert flash_attention.flash_attention.launches == before + cfg.num_layers
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    tok = want.argmax(-1)
+    for i in range(4):
+        want, _ = model.decode(m_cpu, tok, caches[0], start + i)
+        got, _ = model.decode(m_gpu, tok.to(dev), caches[1], start + i)
+        torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+        tok = want.argmax(-1)
 
 
 @pytest.mark.cuda

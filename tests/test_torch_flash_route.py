@@ -128,15 +128,18 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
 
 def test_the_served_configs_take_their_kernels():
     """Every registered attention config's prefill views: the Hopper kernel
-    at head_dim 64, 120, 128 and gemma-7b's 256; in float32 (the
-    card-against-CPU checks) the f32 kernel."""
+    at head_dim 64, 120, 128 and gemma-7b's 256 (whisper-large-v3's
+    encoder over 8 x 1,500 frames, internvl2-26b's 256 patches and 4,352
+    tokens among them); in float32 (the card-against-CPU checks) the f32
+    kernel."""
     from repro_torch.configs import ARCHS, get_config
 
     for arch in ARCHS:
         cfg = get_config(arch)
         if cfg.num_heads == 0:
             continue
-        views = _bshd_views(4, 4608, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim,
+        B, S = (8, cfg.cross_len) if cfg.family == "encdec" else (4, 4608)
+        views = _bshd_views(B, S, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim,
                             device="meta")
         assert fa.route(*views, cfg.sliding_window) == "hopper", arch
         f32 = _bshd_views(1, 64, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim,

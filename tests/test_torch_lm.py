@@ -137,8 +137,8 @@ SMOKE_IDS = {"mixtral_smoke": "mixtral-8x7b", "phi35moe_smoke": "phi3.5-moe-42b-
              "danube_smoke": "h2o-danube-3-4b"}
 # full head width at 2 layers, with d_model, d_ff and the vocabulary
 # narrowed: danube's 32 heads of 120 over 8 kv heads (the Hopper kernel's
-# zero-padded width on the card) and gemma's 16 heads of 256 (the widest
-# mma.sync kernel)
+# zero-padded width on the card) and gemma's 16 heads of 256 (the Hopper
+# kernel's widest instantiation, flash_fwd_hopper<256>)
 HEAD_CUTS = {"danube_d120": ("h2o-danube-3-4b", dict(d_model=256, d_ff=512, vocab_size=512)),
              "gemma_d256": ("gemma-7b", dict(d_model=256, d_ff=512, vocab_size=512))}
 
@@ -238,14 +238,19 @@ def test_init_draws_the_reference_scales():
 
 
 def test_other_families_and_archs_are_refused():
-    for arch, item in (("jamba-1.5-large-398b", "queue A #13"), ("whisper-large-v3", "queue A #10"),
-                       ("internvl2-26b", "queue A #10")):
-        with pytest.raises(KeyError, match=f"ROADMAP.md {item}"):
-            get_config(arch)
-        with pytest.raises(KeyError, match="ROADMAP"):
-            smoke_config(arch)
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
-            tr.init_lm(ref_smoke_config(arch), device="cpu")
+    """jamba (the hybrid family) waits for queue A #13; the decoder-only LM
+    refuses the encdec family, which is models/encdec.py's."""
+    arch = "jamba-1.5-large-398b"
+    with pytest.raises(KeyError, match="ROADMAP.md queue A #13"):
+        get_config(arch)
+    with pytest.raises(KeyError, match="ROADMAP"):
+        smoke_config(arch)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A #13"):
+        tr.init_lm(ref_smoke_config(arch), device="cpu")
+    for make in (lambda c: tr.init_lm(c, device="cpu"),
+                 lambda c: tr.init_cache(c, 1, 8, device="cpu")):
+        with pytest.raises(ValueError, match="encdec"):
+            make(smoke_config("whisper-large-v3"))
 
 
 def test_forward_returns_the_reference_aux_losses():

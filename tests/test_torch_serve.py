@@ -1,11 +1,15 @@
 """The serving slice as a whole, port against the JAX package on the CPU:
 ``serve_batch`` and the continuous batcher on the same prompts (numpy,
 seeded) and the same weights (drawn by ``repro``, carried over by
-``convert.lm_from_jax``), and the batcher's admission contract."""
+``convert.lm_from_jax``), and the batcher's admission contract; for the
+vlm and encdec families ``serve_batch`` against the reference's model
+driven at their positions, where the reference's launcher differs
+(ROADMAP.md queue C #20)."""
 import dataclasses
 import threading
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -14,6 +18,7 @@ from repro.configs import smoke_config as ref_smoke_config
 from repro.launch.serve import serve_batch as ref_serve_batch
 from repro.models import Model as RefModel
 from repro.serve.scheduler import ContinuousBatcher
+from repro.train.step import make_serve_steps as ref_make_serve_steps
 from repro_torch import convert
 from repro_torch.configs import smoke_config
 from repro_torch.launch import serve
@@ -203,8 +208,128 @@ def test_rids_account_for_completed_requests():
     assert [r.rid for r in batcher.run()] == [0, 1, 2, 99]
 
 
+# ------------------------------------------------ the vlm and encdec families
+
+FAMILY_ARCHS = ["internvl2-26b", "whisper-large-v3"]
+
+
+def _extra(cfg, B, seed):
+    """The frontends' stubs: the vlm's patch embeddings, or encdec's frames
+    of ``cross_len`` rows (fewer would leave zero states in the cross
+    cache, which the teacher-forced forward does not attend)."""
+    rng = np.random.default_rng(seed)
+    rows = cfg.num_patches if cfg.family == "vlm" else cfg.cross_len
+    key = "patch_embeds" if cfg.family == "vlm" else "frames"
+    return {key: rng.normal(0, 1, (B, rows, cfg.d_model)).astype(np.float32)}
+
+
+def _reference_greedy(jmodel, jparams, prompts, extra, gen_len, max_len, start):
+    """The reference's Model driven greedily through its serve steps,
+    jitted as its launcher jits them: a prefill, then decode steps at
+    ``start + i``; the tokens (B, gen_len) and each step's logits."""
+    prefill_step, decode_step = ref_make_serve_steps(jmodel)
+    cache = jmodel.init_cache(prompts.shape[0], max_len)
+    batch = {"tokens": jnp.asarray(prompts), **{k: jnp.asarray(v) for k, v in extra.items()}}
+    logits, cache = jax.jit(prefill_step)(jparams, batch, cache)
+    tok = jnp.argmax(logits, -1).astype(jnp.int32)
+    toks, lgs = [np.asarray(tok)], [np.asarray(logits)]
+    decode = jax.jit(decode_step, donate_argnums=(2,))
+    for i in range(gen_len - 1):
+        tok, logits, cache = decode(jparams, tok, cache, jnp.asarray(start + i, jnp.int32))
+        toks.append(np.asarray(tok))
+        lgs.append(np.asarray(logits))
+    return np.stack(toks, axis=1), lgs
+
+
+def _right_span(cfg, P, gen_len):
+    """(cache length, first decode position): after the image prefix and
+    the prompt for vlm; after the BOS token for encdec."""
+    if cfg.family == "encdec":
+        return gen_len, 1
+    return cfg.num_patches + P + gen_len, cfg.num_patches + P
+
+
+@pytest.fixture(scope="module", params=FAMILY_ARCHS)
+def family_pair(request):
+    ref_cfg, cfg = _configs(True, request.param)
+    jmodel = RefModel(ref_cfg)
+    jparams, _ = jmodel.init(jax.random.PRNGKey(0))
+    lm = convert.lm_from_jax(jax.tree.map(np.asarray, jparams), cfg, device="cpu")
+    return cfg, jmodel, jparams, Model(cfg), lm
+
+
+def test_serve_batch_of_new_families_matches_reference_model(family_pair):
+    """The port's serve_batch equals a greedy loop over the reference's
+    Model.prefill and decode at the model's positions (vlm: num_patches +
+    P + i; encdec: 1 + i), float32."""
+    cfg, jmodel, jparams, model, lm = family_pair
+    B, P, gen = 3, 10, 8
+    prompts = np.random.default_rng(20).integers(0, cfg.vocab_size, (B, P)).astype(np.int32)
+    extra = _extra(cfg, B, seed=21)
+    timings = {}
+    got = serve.serve_batch(model, prompts, gen, extra=extra, params=lm, device="cpu",
+                            timings=timings)
+    assert got.shape == (B, gen) and timings["decode_steps"] == gen - 1
+    assert serve.decode_span(cfg, P, gen) == _right_span(cfg, P, gen)
+    want, lgs = _reference_greedy(jmodel, jparams, prompts, extra, gen, *_right_span(cfg, P, gen))
+    for b in range(B):
+        _assert_matches(got[b].tolist(), want[b].tolist(), [lg[b] for lg in lgs], TIE_F32, b)
+
+
+def test_reference_launcher_decodes_the_new_families_at_text_positions(family_pair):
+    """ROADMAP.md queue C #20: the reference's serve_batch sizes the cache
+    P + gen_len and decodes at P + i for every family.  Its tokens are the
+    greedy loop's at those positions; there the first decode step's logits
+    are off the teacher-forced forward's (by 3.0 and 0.36 at these smoke
+    configs), where the model's own positions give them within float32
+    rounding."""
+    cfg, jmodel, jparams, _, _ = family_pair
+    B, P, gen = 3, 10, 8
+    prompts = np.random.default_rng(22).integers(0, cfg.vocab_size, (B, P)).astype(np.int32)
+    extra = _extra(cfg, B, seed=23)
+    launched = ref_serve_batch(jmodel, prompts, gen, extra=extra)
+    at_text, lgs_text = _reference_greedy(jmodel, jparams, prompts, extra, gen, P + gen, P)
+    np.testing.assert_array_equal(launched, at_text)
+    _, lgs_right = _reference_greedy(jmodel, jparams, prompts, extra, gen,
+                                     *_right_span(cfg, P, gen))
+    tok0 = at_text[:, 0]  # the prefill's token: the same at both positions
+    if cfg.family == "vlm":
+        tokens = np.concatenate([prompts, tok0[:, None]], axis=1)
+        teacher, _ = jmodel.forward(jparams, {"tokens": jnp.asarray(tokens),
+                                              "patch_embeds": jnp.asarray(extra["patch_embeds"])})
+        want = np.asarray(teacher)[:, P]
+    else:
+        tokens = np.stack([np.zeros(B, np.int32), tok0], axis=1)  # BOS, then the first token
+        teacher, _ = jmodel.forward(jparams, {"tokens": jnp.asarray(tokens),
+                                              "frames": jnp.asarray(extra["frames"])})
+        want = np.asarray(teacher)[:, 1]
+    np.testing.assert_allclose(lgs_right[1], want, atol=1e-4, rtol=1e-4)
+    assert np.abs(lgs_text[1] - want).max() > 100 * TIE_F32
+
+
+def test_batcher_refuses_the_new_families_as_the_reference(family_pair):
+    """Decoder-only text families only: encdec is refused at construction
+    with the reference's ValueError; a vlm request fails at its first
+    prefill with the reference's KeyError (the batch holds no image
+    prefix)."""
+    cfg, jmodel, jparams, model, lm = family_pair
+    prompt = np.arange(6, dtype=np.int32)
+    if cfg.family == "encdec":
+        with pytest.raises(ValueError, match="decoder-only") as want:
+            ContinuousBatcher(jmodel, jparams, batch_slots=2, max_len=32)
+        with pytest.raises(ValueError) as got:
+            SlotBatcher(model, lm, batch_slots=2, max_len=32)
+        assert str(got.value) == str(want.value)
+        return
+    for batcher in (ContinuousBatcher(jmodel, jparams, batch_slots=2, max_len=32),
+                    SlotBatcher(model, lm, batch_slots=2, max_len=32)):
+        batcher.submit(prompt, 3)
+        with pytest.raises(KeyError, match="patch_embeds"):
+            batcher.step()
+
+
 @pytest.mark.parametrize("arch", [None, "mixtral-8x7b", "phi3.5-moe-42b-a6.6b", "gemma-7b",
-                                  "phi3-medium-14b", "h2o-danube-3-4b"],
+                                  "phi3-medium-14b", "h2o-danube-3-4b", *FAMILY_ARCHS],
                          ids=lambda a: a or "default")
 def test_serve_main_runs_the_smoke_config_on_the_cpu(capsys, arch):
     argv = [] if arch is None else ["--arch", arch]
