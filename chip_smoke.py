@@ -12,9 +12,11 @@ nothing of JAX or of the JAX package.  Phases, each printing one JSON line:
    ``sm_90a``, all started together; the registers and spill bytes of the
    Hopper flash-attention kernels (``flash_fwd_hopper`` at head_dim 64,
    128 and 256, which must not spill at 256; ``flash_bwd_dq_hopper`` and
-   ``flash_bwd_dkv_hopper`` at 64 and 128), of the forward's three kernels
+   ``flash_bwd_dkv_hopper`` at 64, 128 and 256, which must not spill at
+   256), of the forward's three kernels
    at head_dim 256 (``flash_fwd_hopper``, ``flash_fwd_bf16`` and
-   ``flash_fwd_f32``), and the registers, shared memory and spill bytes of
+   ``flash_fwd_f32``) and the backward's six there (dq and dk/dv on the
+   three routes), and the registers, shared memory and spill bytes of
    ``ell_to_dense``'s tiled kernel (identity and ``log1p`` epilogues) from
    ``ptxas -v``;
 
@@ -23,7 +25,8 @@ The cell-training path (slice 1):
 3. data: a Tahoe-like dataset at Tahoe-100M's width, 62,710 genes (14
    plates, 32,768 cells = two fetches of 64 x 256, 2,048 counts per cell,
    seed 0), generated under ``build/chip_smoke_data`` in the checkout or
-   reused when its manifest matches;
+   reused when its manifest matches; the generation runs in a process of
+   its own while phases 31-33 run, and this phase waits for it;
 4. kernel: ``ell_to_dense``'s tiled kernel, with and without its fused
    ``log1p``, on the card against its plain PyTorch version (followed by
    ``log1p_``): the JAX package's sweep with duplicate columns (atol 1e-6,
@@ -417,12 +420,54 @@ LM serving of the encdec and vlm families (slice 16), after phase 28:
    tokens at positions 4,608 on: every layer's prefill attention through
    the Hopper kernel; as phase 29.
 
+LM training at head_dim 256 and in the MoE family (slice 17), after phase
+30, through phase 13's corpus:
+
+31. wide_train_kernels: the forward with lse, dq and dk/dv at gemma-7b's
+   training shape, q, k, v and dO (4, 16, 2,048, 256) bf16, causal, as
+   the model's strided (B, S, H, D) views, against their plain versions
+   by phase 11's training rule (and the sweep's bf16 tolerance), all three
+   through the Hopper kernels (``hopper_launches`` of each entry point + 1,
+   ``wide_launches`` + 1); the backward's sweep at head_dim 256
+   (WIDE_BWD_SWEEP x BWD_MASKS: GQA, T != S, a window) in float32 and bf16
+   within BWD_TOL, bf16 through the Hopper kernels and, copied into rows of
+   260 values (a stride TMA refuses), through the ``mma.sync`` ones; the
+   mutation check: three edited copies of ``csrc/flash_attention_bwd.cu``
+   (BWD256_MUTANTS) must each fail the training rule FLASH_MUTANT_MIN
+   times over; CUDA-event times in turns of the three kernels and of
+   SDPA's forward and backward (its kernels named as phase 11 names
+   them), the plain versions', the bounds (bytes, tensor cores,
+   exponentials) and each kernel's share of its bound;
+32. gemma_train: gemma-7b at full width and GEMMA_TRAIN_LAYERS of its 28
+   layers (``reduced``), first one forward and backward through the train
+   step's loss (``make_loss_fn``) at 2 layers in float32, 1 x 256 tokens,
+   on the card and on the CPU from the same weights: the loss within
+   CPU_LOSS_RTOL, the gradient norm and every gradient within
+   CPU_GNORM_RTOL (phase 12's rule); then ``train_loop`` in bf16 with
+   ``remat="full"``, batch 4 x 2,048, AdamW, 2 warm-up and 10 timed steps,
+   the weights drawn on the card from a seed, with the attention kernels'
+   counts set to 0 just before and read just after (12 forwards with lse,
+   6 dq and 6 dk/dv a step, all through the Hopper kernels at head_dim
+   256); the loss finite and falling; step ms, tokens/s, peak memory and
+   each step's metrics; one more step under ``torch.profiler``: device
+   kernel ms by kind (attention forward and backward, matrix products, the
+   rest);
+33. moe_train: mixtral-8x7b's training kernels at its shape (q (4, 32,
+   2,048, 128) over k, v (4, 8, 2,048, 128), causal, window 4,096) against
+   their plain versions and timed in turns with SDPA, beside the bounds
+   and ``ptxas``'s spill of ``flash_bwd_dkv_hopper<128>``; then as phase 32
+   at MIXTRAL_TRAIN_LAYERS of its 32 layers (1 layer against the CPU, the
+   router's aux losses held too), each step's ``moe_lb_loss`` and
+   ``z_loss`` printed (4 forwards with lse, 2 dq and 2 dk/dv a step at
+   head_dim 128).
+
 Then the kernels line (one entry per kernel), the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.  Any failure
 exits non-zero before it.
 """
 from __future__ import annotations
 
+import atexit
 import copy
 import dataclasses
 import json
@@ -680,6 +725,37 @@ WIDE_MUTANTS = {
                                         "if (8 * j >= p.D - 8) break;"),
     "f32_qk_skips_last_column": ("for (int d = 0; d < p.D; ++d) {",
                                  "for (int d = 0; d < p.D - 1; ++d) {"),
+}
+# LM training at head_dim 256 and in the MoE family (phases 31-33):
+# gemma-7b at GEMMA_TRAIN_LAYERS of its 28 layers (the full depth's bf16
+# weights and gradients and float32 AdamW moments need 102 GB) and
+# mixtral-8x7b at MIXTRAL_TRAIN_LAYERS of its 32 (the full depth's bf16
+# weights alone exceed the card), both at full width, batch TRAIN_BATCH x
+# TRAIN_SEQ through phase 13's corpus
+GEMMA_ARCH, MIXTRAL_ARCH = "gemma-7b", "mixtral-8x7b"
+GEMMA_TRAIN_LAYERS, MIXTRAL_TRAIN_LAYERS = 6, 2
+WIDE_TRAIN_WARMUP, WIDE_TRAIN_STEPS = 2, 10
+# the card against the CPU in float32: layers at full width, 1 x 256 tokens
+WIDE_TRAIN_CPU_LAYERS = {GEMMA_ARCH: 2, MIXTRAL_ARCH: 1}
+WIDE_TRAIN_CPU_SEQ = 256
+# the backward's sweep at head_dim 256, (B, H, Hkv, S, T, D): one kv head
+# a query head, GQA 2:1 over an uneven S, 4:1 with T > S and with T < S
+WIDE_BWD_SWEEP = [(1, 2, 2, 64, 64, 256), (2, 4, 2, 130, 130, 256), (1, 8, 2, 96, 160, 256),
+                  (1, 4, 1, 200, 120, 256)]
+# the mutation check of the backward at head_dim 256: edited copies of
+# csrc/flash_attention_bwd.cu, each of which must fail the training rule
+# FLASH_MUTANT_MIN times over at gemma's training shape: dK without the
+# delta of dS (the dS side of the split dk/dv kernel), dQ without the
+# second 16-key step of each 32-key tile, P^T's causal mask seeing one
+# query too many (a key counted by the query just before it)
+BWD256_MUTANTS = {
+    "d256_dkv_drops_delta": ("st[i] = buf[128 * i + x] * (st[i] - (e % 2 ? dl.y : dl.x));",
+                             "st[i] = buf[128 * i + x] * st[i];"),
+    "d256_dq_skips_last_key_step": ("for (int kk = 0; kk < kN / 16; ++kk) {",
+                                    "for (int kk = 0; kk < kN / 16 - 1; ++kk) {"),
+    "d256_dkv_diagonal_off_by_one": (
+        "-kTileQ : hopper::clamp_col<kTileQ>(d - 1) - 2 * t;",
+        "-kTileQ : hopper::clamp_col<kTileQ>(d - 2) - 2 * t;"),
 }
 
 
@@ -1148,6 +1224,19 @@ def ell_kernel_phase(dev, vals, cols) -> dict:
             "mutants": mutants}
 
 
+def _start_data(root: str) -> subprocess.Popen:
+    """Start generating phase 3's store (``generate_tahoe_like(root,
+    **DATA)``, numpy on one core) in a process of its own; it is ended if
+    this script exits before waiting for it."""
+    code = ("import json, sys; sys.path.insert(0, sys.argv[1]); "
+            "from repro_torch.data import generate_tahoe_like; "
+            "generate_tahoe_like(sys.argv[2], **json.loads(sys.argv[3]))")
+    proc = subprocess.Popen([sys.executable, "-c", code, os.path.join(HERE, "src"), root,
+                             json.dumps(DATA)], stdout=subprocess.DEVNULL)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc
+
+
 def main() -> None:
     import torch
 
@@ -1197,13 +1286,21 @@ def main() -> None:
         fail(f"flash_fwd_hopper<256> spills: {spilled}")
     bwd_hopper = {k: v for k, v in _build.ptxas_report("flash_attention_bwd").items()
                   if "flash_bwd_dq_hopper" in k or "flash_bwd_dkv_hopper" in k}
-    if len(bwd_hopper) != 4:
-        fail(f"ptxas reports {len(bwd_hopper)} Hopper backward kernels, not 4 (dq and dk/dv at "
-             f"head_dim 64 and 128)")
+    if len(bwd_hopper) != 6:
+        fail(f"ptxas reports {len(bwd_hopper)} Hopper backward kernels, not 6 (dq and dk/dv at "
+             f"head_dim 64, 128 and 256)")
+    spilled = {k: v for k, v in bwd_hopper.items()
+               if "ILi256E" in k and (v["spill_store_bytes"] or v["spill_load_bytes"])}
+    if spilled:
+        fail(f"the Hopper backward kernels spill at head_dim 256: {spilled}")
     wide = {k: v for k, v in _build.ptxas_report("flash_attention").items() if "ILi256E" in k}
     if len(wide) != 3:
         fail(f"ptxas reports {len(wide)} flash-attention kernels at head_dim 256, not 3 (Hopper, "
              f"bf16 and f32)")
+    wide_bwd = {k: v for k, v in _build.ptxas_report("flash_attention_bwd").items() if "ILi256E" in k}
+    if len(wide_bwd) != 6:
+        fail(f"ptxas reports {len(wide_bwd)} backward kernels at head_dim 256, not 6 (dq and dk/dv "
+             f"on the Hopper, bf16 and f32 routes)")
     ell_ptxas = {k: v for k, v in _build.ptxas_report("ell_to_dense").items()
                  if "ell_to_dense_tiled" in k}
     if len(ell_ptxas) != 2:
@@ -1211,10 +1308,12 @@ def main() -> None:
              f"log1p epilogues)")
     emit({"phase": "build", "seconds": seconds, "built": built, "flash_fwd_hopper_ptxas": hopper,
           "flash_fwd_head_dim_256_ptxas": wide, "flash_bwd_hopper_ptxas": bwd_hopper,
+          "flash_bwd_head_dim_256_ptxas": wide_bwd,
           "ell_to_dense_tiled_ptxas": ell_ptxas})
 
     # before any of the port's kernels runs (see sdpa_backward_kernels)
     sdpa_bwd_kernels = sdpa_backward_kernels(dev, (TRAIN_BATCH, TRAIN_SEQ, *FULL_WIDTH[2:]))
+    sdpa_bwd_kernels_256 = sdpa_backward_kernels(dev, (TRAIN_BATCH, TRAIN_SEQ, 16, 16, 256))
     lm_kernel = lm_phases(dev, float(max_sm_mhz) * 1e6)
     torch.cuda.empty_cache()
     train_kernels = train_phases(dev, float(max_sm_mhz) * 1e6, sdpa_bwd_kernels)
@@ -1246,15 +1345,35 @@ def main() -> None:
     family_kernels[1]["launches"] = vlm_serve_phase(dev)["hopper"]
     torch.cuda.empty_cache()
     seconds["vlm_serve"] = time.perf_counter() - t0 - sum(seconds.values())
+
+    # phase 3's store is generated on one host core while phases 31-33,
+    # whose times are the card's, run
+    root = os.path.join(HERE, "build", "chip_smoke_data")
+    data_t0 = time.perf_counter()
+    data_proc = _start_data(root)
+
+    # 31-33. training at head_dim 256 (gemma-7b) and in the MoE family
+    #        (mixtral-8x7b): the backward kernels at 256, then both trained
+    wide_train = wide_train_kernel_phase(dev, float(max_sm_mhz) * 1e6, sdpa_bwd_kernels_256)
+    seconds["wide_train_kernels"] = time.perf_counter() - t0 - sum(seconds.values())
+    gemma_launches = gemma_train_phase(dev)
+    for key in ("dq", "dkv"):
+        wide_train[key]["launches"] = gemma_launches[key]
+    seconds["gemma_train"] = time.perf_counter() - t0 - sum(seconds.values())
+    moe_train_phase(dev, float(max_sm_mhz) * 1e6)
+    torch.cuda.empty_cache()
+    seconds["moe_train"] = time.perf_counter() - t0 - sum(seconds.values())
     emit({"phase": "other_configs_seconds", **seconds,
           "script_seconds_so_far": time.perf_counter() - script_t0})
 
     # 3. data
-    root = os.path.join(HERE, "build", "chip_smoke_data")
     t0 = time.perf_counter()
-    generate_tahoe_like(root, **DATA)
+    if data_proc.wait() != 0:
+        fail(f"generating the store under {root} exited {data_proc.returncode}")
+    generate_tahoe_like(root, **DATA)  # the store just written: its manifest matches
     store = load_tahoe_like(root)
-    emit({"phase": "data", "seconds": time.perf_counter() - t0, "cells": len(store),
+    emit({"phase": "data", "seconds": time.perf_counter() - data_t0,
+          "waited_after_phases_31_33_s": time.perf_counter() - t0, "cells": len(store),
           "genes": store.n_var, "plates": len(store.shards),
           "fetches_per_epoch": math.ceil(len(store) / (BATCH * FETCH_FACTOR))})
 
@@ -1390,7 +1509,8 @@ def main() -> None:
                 "write_floor_ms", "trace_ms_per_launch", "host_us_per_call", "bytes", "fig5_shape")
     emit({"phase": "script_seconds", "seconds": time.perf_counter() - script_t0})
     emit({"kernels": [{k: kernel[k] for k in ell_keys}, lm_kernel, *wide_kernels,
-                      *family_kernels, *train_kernels, ssm_kernel]})
+                      *family_kernels, *train_kernels, wide_train["dq"], wide_train["dkv"],
+                      ssm_kernel]})
     print(smi)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
@@ -1806,13 +1926,7 @@ def train_phases(dev, sm_clock_hz: float, sdpa_bwd_kernels: list) -> list:
     del qg, kg, vg, o_sdpa
 
     pairs = S * (S + 1) // 2
-    qb, kb = q.numel() * 2, k.numel() * 2  # bf16 bytes of q (= dO, o, dq) and of k (= v, dk, dv)
-    rows = B * H * S * 4  # float32 bytes of lse (= delta)
-    work = {  # (bytes, flop): inputs read once, outputs written once
-        "fwd": (qb + 2 * kb + qb + rows, 4 * B * H * D * pairs),
-        "dq": (qb + 2 * kb + qb + 2 * rows + qb, 6 * B * H * D * pairs),
-        "dkv": (qb + 2 * kb + qb + 2 * rows + 2 * kb, 8 * B * H * D * pairs),
-    }
+    work = _attention_work(B, H, Hkv, S, D, pairs)
     src = "src/repro_torch/kernels/csrc/"
     sdpa_bwd_name = "scaled_dot_product_attention backward alone (dq, dk and dv in one call)"
     meta = {
@@ -4263,6 +4377,468 @@ def vlm_serve_phase(dev) -> dict:
     return _serve_arch(dev, cfg, prompts, "vlm_serve", {
         "patches": [VLM_BATCH, cfg.num_patches], "vs_cpu": vs_cpu},
         inputs={"patch_embeds": patches})
+
+
+def _attention_work(B, H, Hkv, S, D, pairs: int) -> dict:
+    """(bytes, flop) of the training attention kernels over ``pairs``
+    visible (query, key) pairs per query head, bf16: each input read once,
+    each output written once (phase 11's reckoning)."""
+    qb, kb = B * H * S * D * 2, B * Hkv * S * D * 2  # q (= dO, o, dq) and k (= v, dk, dv)
+    rows = B * H * S * 4  # float32 lse (= delta)
+    return {"fwd": (qb + 2 * kb + qb + rows, 4 * B * H * D * pairs),
+            "dq": (qb + 2 * kb + qb + 2 * rows + qb, 6 * B * H * D * pairs),
+            "dkv": (qb + 2 * kb + qb + 2 * rows + 2 * kb, 8 * B * H * D * pairs)}
+
+
+def _time_training_attention(q, k, v, dout, lse, delta, window, out) -> dict:
+    """CUDA-event ms per call, in turns (the order, then reversed), of the
+    forward with lse, dq and dk/dv kernels and of SDPA's forward and its
+    backward alone (``autograd.grad`` over one saved forward) on these
+    inputs; then the plain versions'."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fab
+    from repro_torch.kernels import ref
+
+    qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    o_sdpa = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True, enable_gqa=True)
+    fns = {  # the kernels' inputs need no gradient: only SDPA's backward records a graph
+        "fwd": lambda: fa.flash_attention_fwd_lse(q, k, v, causal=True, window=window),
+        "dq": lambda: fab.flash_attention_bwd_dq(q, k, v, dout, lse, delta, window=window),
+        "dkv": lambda: fab.flash_attention_bwd_dkv(q, k, v, dout, lse, delta, window=window),
+        "sdpa_fwd": lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                           enable_gqa=True),
+        "sdpa_bwd": lambda: torch.autograd.grad(o_sdpa, (qg, kg, vg), dout, retain_graph=True),
+    }
+    turns = {key: [] for key in fns}
+    for order in (tuple(fns), tuple(reversed(fns))):
+        for key in order:
+            turns[key].append(event_ms(fns[key], calls=WIDE_TIMED_CALLS, groups=3))
+    plain = {"fwd": event_ms(lambda: ref.flash_attention_fwd_lse_ref(q, k, v, causal=True,
+                                                                     window=window), 1, 3),
+             "bwd": event_ms(lambda: ref.flash_attention_bwd_ref(q, k, v, out, lse, dout,
+                                                                 causal=True, window=window), 1, 3)}
+    del qg, kg, vg, o_sdpa
+    return {"turns": turns, "ms": {key: statistics.mean(t) for key, t in turns.items()},
+            "plain_ms": plain}
+
+
+def _bwd256_mutants(q, k, v, dout, lse, delta, wants) -> dict:
+    """Run the unedited backward and each of BWD256_MUTANTS, built by
+    :func:`_build_mutants`, on gemma's training inputs; each one's dq, dk
+    and dv errors over the training rule, as :func:`_bwd_mutants` gives
+    them at head_dim 64."""
+    import torch
+
+    from repro_torch.kernels import flash_attention_bwd as fab
+
+    libs, out_dir = _build_mutants("flash_attention_bwd", BWD256_MUTANTS, fab.bind)
+    result = {}
+    for name, lib in libs.items():
+        (dq,), kq = fab.launch(lib, False, q, k, v, dout, lse, delta, True, None)
+        (dk, dv), kkv = fab.launch(lib, True, q, k, v, dout, lse, delta, True, None)
+        torch.cuda.synchronize()
+        if kq != "hopper" or kkv != "hopper":
+            fail(f"the head_dim 256 mutation check ran the {kq} and {kkv} kernels")
+        result[name] = {n: tuple(x if math.isfinite(x) else 1e30 for x in _rms_err(g, w))
+                        for n, g, w in zip(("dq", "dk", "dv"), (dq, dk, dv), wants)}
+        del dq, dk, dv
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return result
+
+
+def wide_train_kernel_phase(dev, sm_clock_hz: float, sdpa_bwd_kernels: list) -> dict:
+    """Phase 31: the training attention kernels at gemma-7b's training
+    shape, q, k, v and dO (4, 16, 2,048, 256) bf16, causal, as the model's
+    strided (B, S, H, D) views, against their plain versions by phase 11's
+    training rule, all three through the Hopper kernels; the backward
+    sweep at head_dim 256 (WIDE_BWD_SWEEP x BWD_MASKS) in bf16 (the Hopper
+    kernels, and the ``mma.sync`` ones at a stride TMA refuses) and in
+    float32, within BWD_TOL; the mutation check (BWD256_MUTANTS); CUDA-event
+    times in turns with SDPA's forward and backward, the plain versions'
+    and the bounds.  Returns the kernels-line entries of dq and dk/dv
+    (their launches filled in by phase 32)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fab
+    from repro_torch.kernels import ref
+
+    cfg = get_config(GEMMA_ARCH)
+    B, S, H, Hkv, D = TRAIN_BATCH, TRAIN_SEQ, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    gen = torch.Generator().manual_seed(31)
+    worst, routes = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).removeprefix("torch.")
+        for b, h, hkv, s, t, d in WIDE_BWD_SWEEP:
+            x = [torch.randn(shape, generator=gen).to(dev, dtype)
+                 for shape in ((b, h, s, d), (b, hkv, t, d), (b, hkv, t, d), (b, h, s, d))]
+            variants = {name: x}
+            if dtype == torch.bfloat16:
+                variants[f"{name}_tma_refused"] = [_tma_refused(t_) for t_ in x]
+            for key, (q, k, v, dout) in variants.items():
+                route = fab.route(q, k, v, dout)
+                want_route = {"float32": "f32", "bfloat16": "hopper",
+                              "bfloat16_tma_refused": "bf16"}[key]
+                if route != want_route:
+                    fail(f"the head_dim 256 sweep's {key} inputs route to {route}, not {want_route}")
+                routes[key] = route
+                for causal, window in BWD_MASKS:
+                    errs, _ = attention_errors(q, k, v, dout, causal, window,
+                                               lambda g, w: _scaled_err(g, w, *BWD_TOL[name]))
+                    for kern, e in errs.items():
+                        old = worst.get((kern, key), (0.0, 0.0))
+                        worst[(kern, key)] = (max(old[0], e[0]), max(old[1], e[1]))
+            del x, variants
+    bad = {f"{k}/{n}": e for (k, n), e in worst.items() if not e[1] <= 1.0}
+    if bad:
+        fail(f"training attention kernels disagree with their plain versions at head_dim 256: {bad}")
+
+    bf = torch.bfloat16
+    q, k, v = (torch.randn((B, S, n, D), generator=gen).to(dev, bf).transpose(1, 2)
+               for n in (H, Hkv, Hkv))
+    dout = torch.randn((B, H, S, D), generator=gen).to(dev, bf)
+    counts = (fa.hopper_launches, fa.wide_launches, fab.flash_attention_bwd_dq.hopper_launches,
+              fab.flash_attention_bwd_dkv.hopper_launches)
+    path, (out, lse, delta) = attention_errors(q, k, v, dout, True, None, _rms_err)
+    moved = (fa.hopper_launches - counts[0], fa.wide_launches - counts[1],
+             fab.flash_attention_bwd_dq.hopper_launches - counts[2],
+             fab.flash_attention_bwd_dkv.hopper_launches - counts[3])
+    if moved != (1, 1, 1, 1):
+        fail(f"gemma's training shape moved the Hopper (forward, wide, dq, dk/dv) counts by {moved}")
+    if not all(e[1] <= 1.0 for e in path.values()):
+        fail(f"training attention kernels disagree with their plain versions at gemma's training "
+             f"shape: {path}")
+    path_sweep_tol, _ = attention_errors(q, k, v, dout, True, None,
+                                         lambda g, w: _scaled_err(g, w, *BWD_TOL["bfloat16"]))
+    if not all(e[1] <= 1.0 for e in path_sweep_tol.values()):
+        fail(f"training attention kernels exceed the sweep's bf16 tolerance at gemma's training "
+             f"shape: {path_sweep_tol}")
+    wants = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=True)
+    mutants = _bwd256_mutants(q, k, v, dout, lse, delta, wants)
+    del wants
+    failing = {n: max(e[1] for e in errs.values()) for n, errs in mutants.items()}
+    weak = {n: r for n, r in failing.items() if n != "shipped" and not r >= FLASH_MUTANT_MIN}
+    if weak:
+        fail(f"mutants of the head_dim 256 backward pass the rule with less than "
+             f"{FLASH_MUTANT_MIN}x: {weak}")
+    if not failing["shipped"] <= 1.0:
+        fail(f"the unedited backward built as a mutant fails the rule at head_dim 256: "
+             f"{mutants['shipped']}")
+    timed = _time_training_attention(q, k, v, dout, lse, delta, None, out)
+    ms = timed["ms"]
+    pairs = S * (S + 1) // 2
+    work = _attention_work(B, H, Hkv, S, D, pairs)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    exp_ms = B * H * pairs / (SFU_EXP2_PER_CLOCK_PER_SM * sms * sm_clock_hz) * 1e3
+    bounds = {}
+    for key, (nbytes, flop) in work.items():
+        bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flop / BF16_FLOP_PER_S * 1e3
+        bounds[key] = {"bound_ms": max(bytes_ms, ops_ms),
+                       "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                       "bound_parts_ms": {"bytes": bytes_ms, "tensor_cores": ops_ms,
+                                          "exponentials": exp_ms},
+                       "bytes": nbytes, "flop": flop}
+    src = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
+    sdpa_bwd_name = "scaled_dot_product_attention backward alone (dq, dk and dv in one call)"
+    entries = {}
+    for key, name, replaces, kernel in (
+            ("dq", "flash_attention_bwd_dq_d256", "src/repro/kernels/flash_attention_bwd.py:81",
+             "flash_bwd_dq_hopper<256>"),
+            ("dkv", "flash_attention_bwd_dkv_d256", "src/repro/kernels/flash_attention_bwd.py:115",
+             "flash_bwd_dkv_hopper<256>")):
+        err = max(path[key][0], *(e[0] for (kern, _), e in worst.items() if kern == key))
+        entries[key] = {
+            "name": name, "route": "cuda", "source": src, "replaces": replaces, "kernel": kernel,
+            "launches": None, "max_abs_err": err, "ms": ms[key], "kernel_ms": ms[key],
+            "plain_ms": timed["plain_ms"]["bwd"],
+            "plain": "flash_attention_bwd_ref (dq, dk and dv in one call)",
+            "library_ms": ms["sdpa_bwd"], "library": sdpa_bwd_name,
+            **bounds[key], "bound_share": bounds[key]["bound_ms"] / ms[key],
+            "shape": [B, H, Hkv, S, S, D], "dtype": "bfloat16", "want_rms": path[key][2],
+            "mutant_err_of_rule": failing}
+    emit({"phase": "wide_train_kernels", "arch": GEMMA_ARCH, "shape": [B, H, Hkv, S, S, D],
+          "sweep_errors": {f"{k}/{n}": e for (k, n), e in worst.items()}, "sweep_routes": routes,
+          "tolerance": BWD_TOL, "training_shape_errors": path,
+          "training_shape_errors_of_sweep_tol": path_sweep_tol,
+          "training_shape_tolerance": {"rms": TRAIN_TOL_RMS, "rel": TRAIN_TOL_REL},
+          "hopper_counts_moved": moved, "mutants": mutants,
+          "mutant_min_err_of_rule": min(r for n, r in failing.items() if n != "shipped"),
+          "mutant_min_required": FLASH_MUTANT_MIN, "ms_turns": timed["turns"], "ms": ms,
+          "plain_ms": timed["plain_ms"], "bounds": bounds,
+          "bound_share": {key: bounds[key]["bound_ms"] / ms[key] for key in bounds},
+          "sdpa_bwd_over_dq_plus_dkv": ms["sdpa_bwd"] / (ms["dq"] + ms["dkv"]),
+          "sdpa_bwd_kernels": sdpa_bwd_kernels})
+    del q, k, v, dout, out, lse, delta
+    torch.cuda.empty_cache()
+    return entries
+
+
+def _wide_train_vs_cpu(dev, cfg, layers: int) -> dict:
+    """One forward and backward through the train step's loss
+    (``make_loss_fn``) with ``cfg`` at full width and ``layers`` layers in
+    float32, 1 x WIDE_TRAIN_CPU_SEQ tokens, on the card and on the CPU from
+    the same weights (drawn once on the card from a seeded generator, a
+    copy moved to the CPU): phase 12's rule, the loss (and the router's aux
+    losses) within CPU_LOSS_RTOL, the gradient norm and every gradient
+    (|g_card - g_cpu| / |g_cpu| in the 2-norm) within CPU_GNORM_RTOL."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import Model
+    from repro_torch.precision import full_float32_matmul
+    from repro_torch.train.step import make_loss_fn
+
+    cfg32 = dataclasses.replace(cfg, num_layers=layers, param_dtype="float32",
+                                compute_dtype="float32")
+    model = Model(cfg32)
+    t0 = time.perf_counter()
+    lm_card = model.init(generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+    lm_cpu = copy.deepcopy(lm_card).to("cpu")
+    seq = np.random.default_rng(2).integers(0, cfg.vocab_size, (1, WIDE_TRAIN_CPU_SEQ + 1))
+    batch = {"tokens": torch.from_numpy(seq[:, :-1]), "labels": torch.from_numpy(seq[:, 1:])}
+    loss_fn = make_loss_fn(model)
+    res = {}
+    for side, lm in (("card", lm_card), ("cpu", lm_cpu)):
+        device = dev if side == "card" else torch.device("cpu")
+        b = {k: t.to(device) for k, t in batch.items()}
+        params = dict(lm.named_parameters())
+        with torch.enable_grad(), full_float32_matmul():
+            total, metrics, aux = loss_fn(lm, b)
+            grads = torch.autograd.grad(total, list(params.values()))
+        res[side] = {"loss": float(total.detach()),
+                     "aux": {k: float(t.detach()) for k, t in (aux or {}).items()},
+                     "grads": {n: g.detach().cpu() for n, g in zip(params, grads)}}
+        del grads, total, metrics, aux
+    card, cpu = res["card"], res["cpu"]
+    loss_rel = abs(card["loss"] / cpu["loss"] - 1)
+    aux_rel = {k: abs(card["aux"][k] / cpu["aux"][k] - 1) for k in cpu["aux"]}
+    grad_rel = {n: float((card["grads"][n] - g).norm() / g.norm().clamp_min(1e-30))
+                for n, g in cpu["grads"].items()}
+    norm = {side: math.sqrt(sum(float(g.double().square().sum()) for g in r["grads"].values()))
+            for side, r in res.items()}
+    gnorm_rel = abs(norm["card"] / norm["cpu"] - 1)
+    worst_grad = max(grad_rel, key=grad_rel.get)
+    if not (loss_rel <= CPU_LOSS_RTOL and all(r <= CPU_LOSS_RTOL for r in aux_rel.values())):
+        fail(f"{cfg.name}: the card's and the CPU's losses disagree: {card['loss']} vs "
+             f"{cpu['loss']}, aux {card['aux']} vs {cpu['aux']}")
+    if not (gnorm_rel <= CPU_GNORM_RTOL and grad_rel[worst_grad] <= CPU_GNORM_RTOL):
+        fail(f"{cfg.name}: the card's and the CPU's gradients disagree: grad norm {norm}, "
+             f"{worst_grad} off by {grad_rel[worst_grad]}")
+    line = {"layers": layers, "dtype": "float32", "tokens": [1, WIDE_TRAIN_CPU_SEQ],
+            "loss_card": card["loss"], "loss_cpu": cpu["loss"], "loss_rel_err": loss_rel,
+            "aux_card": card["aux"], "aux_cpu": cpu["aux"], "aux_rel_err": aux_rel,
+            "grad_norm_card": norm["card"], "grad_norm_cpu": norm["cpu"],
+            "grad_norm_rel_err": gnorm_rel, "grads_compared": len(grad_rel),
+            "worst_grad": [worst_grad, grad_rel[worst_grad]],
+            "rtol": {"loss": CPU_LOSS_RTOL, "grad": CPU_GNORM_RTOL},
+            "seconds": time.perf_counter() - t0}
+    del lm_card, lm_cpu, res, card, cpu
+    torch.cuda.empty_cache()
+    return line
+
+
+# kernel names by what they compute, for a training step's shares of device time
+_TRAIN_KERNEL_KINDS = (("attention_forward", ("flash_fwd",)),
+                       ("attention_backward", ("flash_bwd",)),
+                       ("matrix_products", ("gemm", "xmma", "nvjet", "cutlass", "sm90_", "cublas")))
+
+
+def _train_arch(dev, cfg, phase: str, extra: dict) -> dict:
+    """Train ``cfg`` (at full width, its depth as given) in bf16 with
+    ``remat="full"`` through ``build_loader`` and ``train_loop`` for
+    WIDE_TRAIN_WARMUP + WIDE_TRAIN_STEPS steps of TRAIN_BATCH x TRAIN_SEQ
+    tokens, the weights drawn on the card from a seeded generator, with the
+    attention kernels' counts set to 0 just before and read just after:
+    per step 2 forwards with lse a layer (the recomputation), one dq and
+    one dk/dv, all through the Hopper kernels.  The loss finite and
+    falling; step ms, tokens/s, peak memory, each step's metrics (with
+    ``moe_lb_loss`` in the moe family); then one step under
+    ``torch.profiler``: device kernel ms by kind.  Emits the phase line;
+    returns the launch counts."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fab
+    from repro_torch.launch.train import build_loader, train_loop
+    from repro_torch.models import Model
+    from repro_torch.train.optimizer import AdamWConfig, constant_lr
+    from repro_torch.train.step import make_train_state, make_train_step
+
+    cfg = dataclasses.replace(cfg, remat="full")
+    model = Model(cfg)
+    corpus = os.path.join(HERE, "build", "chip_smoke_corpus")
+    loader = build_loader(corpus, TRAIN_SEQ, TRAIN_BATCH, n_tokens=TRAIN_CORPUS_TOKENS,
+                          vocab_size=min(cfg.vocab_size, 1024))
+    t0 = time.perf_counter()
+    state = make_train_state(model, AdamWConfig(lr=constant_lr(3e-4)), device=dev,
+                             generator=torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights = sum(p.numel() for p in state["params"].parameters())
+    torch.cuda.reset_peak_memory_stats(dev)
+    fa.flash_attention_fwd_lse.launches = fa.hopper_launches = fa.wide_launches = 0
+    for entry in (fab.flash_attention_bwd_dq, fab.flash_attention_bwd_dkv):
+        entry.launches = entry.hopper_launches = 0
+    fab.hopper_launches = 0
+    total = WIDE_TRAIN_WARMUP + WIDE_TRAIN_STEPS
+    timings = {}
+    t0 = time.perf_counter()
+    run = train_loop(model, loader, steps=total, log_every=1, device=dev, state=state,
+                     timings=timings)
+    wall = time.perf_counter() - t0
+    L, D = cfg.num_layers, cfg.resolved_head_dim
+    launches = {"fwd": fa.flash_attention_fwd_lse.launches,
+                "dq": fab.flash_attention_bwd_dq.launches,
+                "dkv": fab.flash_attention_bwd_dkv.launches}
+    hopper = {"fwd": fa.hopper_launches, "dq": fab.flash_attention_bwd_dq.hopper_launches,
+              "dkv": fab.flash_attention_bwd_dkv.hopper_launches}
+    per_step = {"fwd": 2 * L, "dq": L, "dkv": L}
+    want = {key: n * total for key, n in per_step.items()}
+    if launches != want or hopper != want:
+        fail(f"{cfg.name}: the training kernels launched {launches} times ({hopper} through the "
+             f"Hopper kernels) in {total} steps; need {per_step} a step, all Hopper")
+    if fab.hopper_launches != hopper["dq"] + hopper["dkv"]:
+        fail(f"{cfg.name}: the module counts {fab.hopper_launches} Hopper backward launches")
+    if fa.wide_launches != (want["fwd"] if D > 128 else 0):
+        fail(f"{cfg.name}: {fa.wide_launches} forwards counted at head_dim over 128")
+    metrics = run["metrics"]
+    losses = [m["loss"] for m in metrics]
+    if len(losses) != total or not all(math.isfinite(x) for x in losses):
+        fail(f"{cfg.name}: non-finite or missing losses: {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"{cfg.name}: loss did not fall: {losses[0]} at the first step, {losses[-1]} at the last")
+    if cfg.moe is not None and not all(math.isfinite(m["moe_lb_loss"]) for m in metrics):
+        fail(f"{cfg.name}: non-finite moe_lb_loss: {[m.get('moe_lb_loss') for m in metrics]}")
+    peak = torch.cuda.max_memory_allocated(dev)
+    step_s = timings["step_s"]
+    timed = sorted(step_s[WIDE_TRAIN_WARMUP:])
+    med = statistics.median(timed)
+    timed_wall = timings["end"][-1] - timings["end"][WIDE_TRAIN_WARMUP - 1]
+
+    step_fn = make_train_step(model, AdamWConfig(lr=constant_lr(3e-4), weight_decay=0.01))
+    tb = {k: torch.from_numpy(np.asarray(next(iter(loader))[k])).to(dev) for k in ("tokens", "labels")}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step_fn(run["final_state"], tb)
+        torch.cuda.synchronize()
+    traced_s = time.perf_counter() - t0
+    on_card = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not on_card:
+        fail(f"{cfg.name}: the traced step shows no kernel on the card")
+    kernel_ms = sum(e.self_device_time_total for e in on_card) / 1e3
+    kinds = {kind: sum(e.self_device_time_total for e in on_card
+                       if any(m in e.key.lower() for m in marks)) / 1e3
+             for kind, marks in _TRAIN_KERNEL_KINDS}
+    kinds["other"] = kernel_ms - sum(kinds.values())
+    attn = {}
+    for key, pat in (("fwd", "flash_fwd_hopper"), ("dq", "flash_bwd_dq_hopper"),
+                     ("dkv", "flash_bwd_dkv_hopper")):
+        mine = [e for e in on_card if pat in e.key]
+        n = sum(e.count for e in mine)
+        if n != per_step[key]:
+            fail(f"{cfg.name}: the traced step shows {n} launches of {pat}, not {per_step[key]}")
+        attn[key] = {"count": n, "ms_per_launch": sum(e.self_device_time_total for e in mine) / 1e3 / n}
+    top = sorted(on_card, key=lambda e: -e.self_device_time_total)[:10]
+    keep = ("loss", "ce_loss", "z_loss", "moe_lb_loss", "grad_norm", "lr")
+    emit({"phase": phase, "arch": cfg.name, "layers": L, "d_model": cfg.d_model,
+          "heads": [cfg.num_heads, cfg.num_kv_heads, D], "window": cfg.sliding_window,
+          "weights": weights, "init_s": init_s, "dtype": cfg.compute_dtype, "remat": cfg.remat,
+          "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "corpus_vocab": min(cfg.vocab_size, 1024),
+          "warmup_steps": WIDE_TRAIN_WARMUP, "timed_steps": WIDE_TRAIN_STEPS,
+          "step_ms_median": med * 1e3, "step_ms_max": timed[-1] * 1e3,
+          "step_ms_first": step_s[0] * 1e3, "wall_s": wall,
+          "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / med,
+          "wall_tokens_per_s": TRAIN_BATCH * TRAIN_SEQ * WIDE_TRAIN_STEPS / timed_wall,
+          "peak_device_mem_gb": peak / 1e9,
+          "launches_per_step": {k: v // total for k, v in launches.items()},
+          "hopper_launches_per_step": {k: v // total for k, v in hopper.items()},
+          "metrics": [{k: m[k] for k in keep if k in m} for m in metrics],
+          "traced_step_s": traced_s, "traced_step_device_kernel_ms": kernel_ms,
+          "traced_step_device_busy_share": kernel_ms / 1e3 / traced_s,
+          "traced_step_ms_by_kind": kinds, "traced_attention": attn,
+          "top_kernels": [[e.key[:80], e.count, e.self_device_time_total / 1e3] for e in top],
+          **extra})
+    del run, state, step_fn, tb, loader
+    torch.cuda.empty_cache()
+    return launches
+
+
+def gemma_train_phase(dev) -> dict:
+    """Phase 32: gemma-7b's training at full width (head_dim 256) and
+    GEMMA_TRAIN_LAYERS of its 28 layers, first at 2 layers in float32 on
+    the card against the CPU; returns the attention kernels' launches."""
+    from repro_torch.configs import get_config
+
+    full = get_config(GEMMA_ARCH)
+    vs_cpu = _wide_train_vs_cpu(dev, full, WIDE_TRAIN_CPU_LAYERS[GEMMA_ARCH])
+    return _train_arch(dev, dataclasses.replace(full, num_layers=GEMMA_TRAIN_LAYERS),
+                       "gemma_train", {
+        "reduced": {"num_layers": [full.num_layers, GEMMA_TRAIN_LAYERS],
+                    "why": "memory: the full depth's weights, gradients and AdamW moments need "
+                           "102 GB"},
+        "vs_cpu": vs_cpu})
+
+
+def moe_train_phase(dev, sm_clock_hz: float) -> dict:
+    """Phase 33: mixtral-8x7b's training at full width and
+    MIXTRAL_TRAIN_LAYERS of its 32 layers, first at 1 layer in float32 on
+    the card against the CPU; then the training attention kernels at its
+    shape, q (4, 32, 2,048, 128) over k and v (4, 8, 2,048, 128), causal
+    under its 4,096-token window, against their plain versions by the
+    training rule and timed in turns with SDPA, beside the bound and
+    ``ptxas``'s spill of ``flash_bwd_dkv_hopper<128>``.  Returns the
+    attention kernels' launches."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention_bwd as fab
+
+    full = get_config(MIXTRAL_ARCH)
+    B, S, H, Hkv, D = TRAIN_BATCH, TRAIN_SEQ, full.num_heads, full.num_kv_heads, \
+        full.resolved_head_dim
+    window = full.sliding_window
+    gen = torch.Generator().manual_seed(33)
+    q, k, v = (torch.randn((B, S, n, D), generator=gen).to(dev, torch.bfloat16).transpose(1, 2)
+               for n in (H, Hkv, Hkv))
+    dout = torch.randn((B, H, S, D), generator=gen).to(dev, torch.bfloat16)
+    if fab.route(q, k, v, dout, window) != "hopper":
+        fail(f"mixtral's training shape routes to {fab.route(q, k, v, dout, window)}")
+    path, (out, lse, delta) = attention_errors(q, k, v, dout, True, window, _rms_err)
+    if not all(e[1] <= 1.0 for e in path.values()):
+        fail(f"training attention kernels disagree with their plain versions at mixtral's "
+             f"training shape: {path}")
+    timed = _time_training_attention(q, k, v, dout, lse, delta, window, out)
+    del q, k, v, dout, out, lse, delta
+    torch.cuda.empty_cache()
+    pairs = _visible_pairs(S, window)
+    work = _attention_work(B, H, Hkv, S, D, pairs)
+    bounds = {key: max(nb / HBM_BYTES_PER_S, fl / BF16_FLOP_PER_S) * 1e3
+              for key, (nb, fl) in work.items()}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    exp_ms = B * H * pairs / (SFU_EXP2_PER_CLOCK_PER_SM * sms * sm_clock_hz) * 1e3
+    ptxas = {k: v_ for k, v_ in _build.ptxas_report("flash_attention_bwd").items()
+             if "flash_bwd_dkv_hopperILi128E" in k}
+    kernels = {"shape": [B, H, Hkv, S, S, D], "window": window, "errors": path,
+               "ms_turns": timed["turns"], "ms": timed["ms"], "plain_ms": timed["plain_ms"],
+               "bound_ms": bounds, "exponentials_ms": exp_ms,
+               "bound_share": {key: bounds[key] / timed["ms"][key] for key in bounds},
+               "flash_bwd_dkv_hopper_128_ptxas": ptxas}
+    vs_cpu = _wide_train_vs_cpu(dev, full, WIDE_TRAIN_CPU_LAYERS[MIXTRAL_ARCH])
+    return _train_arch(dev, dataclasses.replace(full, num_layers=MIXTRAL_TRAIN_LAYERS),
+                       "moe_train", {
+        "reduced": {"num_layers": [full.num_layers, MIXTRAL_TRAIN_LAYERS],
+                    "why": "memory: the full depth's bf16 weights alone (93 GB) exceed the "
+                           "card's 80 GB"},
+        "experts": [full.moe.num_experts, full.moe.top_k], "vs_cpu": vs_cpu,
+        "training_kernels": kernels})
 
 
 if __name__ == "__main__":

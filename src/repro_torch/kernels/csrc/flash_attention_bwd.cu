@@ -26,8 +26,8 @@
 // kernels are deterministic (a resumed run repeats an uninterrupted one
 // bitwise).  Three pairs of kernels, chosen by the wrapper
 // (kernels/flash_attention_bwd.py, route):
-//   - flash_bwd_dq_hopper and flash_bwd_dkv_hopper (bf16, head_dim 64 or
-//     128, q, k, v and dout each addressable by TMA: the training path).
+//   - flash_bwd_dq_hopper and flash_bwd_dkv_hopper (bf16, head_dim 64, 128
+//     or 256, q, k, v and dout each addressable by TMA: the training path).
 //     Persistent: one block of three warpgroups per SM walks work items,
 //     those with the most tiles first.  Warpgroup 0 produces: its first
 //     thread loads by TMA with the 128-byte swizzle, each load completing
@@ -59,17 +59,47 @@
 //     tile's accumulating ones, so the exponentials run while the tensor
 //     cores finish those.  setmaxnreg moves registers from the producer to
 //     the consumers.
+//     At head_dim 256 (gemma-7b) neither tiling fits: Q and dO of 128 rows
+//     and two stages of 64-key K and V tiles would take 256 KB, and dK and
+//     dV of 64 keys 256 registers a thread.  So:
+//       dq: an item stays 128 query rows (two consumers of 64), with one Q
+//     and dO buffer (128 KB) and K and V tiles of 32 keys in 3 stages of 32
+//     KB (230,480 bytes); a consumer thread holds dQ (128 registers), S and
+//     dP of 32 keys (16 each) and dS's bf16 fragments (8).  Its S and dP
+//     are m64n32k16 from shared memory, dS.K one m64n256k16 a 16-key step;
+//     the 32 descriptors of Q and dO are made anew for each tile
+//     (hopper::opaque): held across the tile loop they spilled.
+//       dk/dv: an item is 64 keys that both consumers take.  Warpgroup 1
+//     computes S^T = K.Q^T, P^T and dV += P^T.dO; warpgroup 2 dP^T =
+//     V.dO^T, dS^T = P^T (dP^T - delta) and dK += dS^T.Q, reading P^T in
+//     float32 from two 16 KB buffers that warpgroup 1 fills (mbarriers "P
+//     full" and "P free", each element at [128 i + thread]); each holds one
+//     64 x 256 float32 accumulator, 128 registers a thread.  K and V of an
+//     item take 64 KB, 2 stages of 64-row Q and dO tiles 128 KB, lse and
+//     delta 1 KB and P^T 32 KB: 231,504 bytes.  The producer keeps 32
+//     registers (at 24 its four-panel loads spilled), the consumers 232.
+//     On a tile with masked pairs (the causal diagonal's, where a key's
+//     first queries give it its largest probabilities) warpgroup 1 also
+//     adds P^T's bf16 rounding error back into dV as a second bf16
+//     product: without it the first keys' dV came close to the bound of
+//     chip_smoke.py's training rule at gemma's shape.
 //   - dq_bf16 and dkv_bf16 (other bf16 inputs: head_dim 16, 20 or 32 in the
-//     sweeps and the smoke config, strides TMA refuses): one block per
-//     64-row tile and (batch, head) or (batch, kv head), 4 warps of
-//     mma.sync.m16n8k16 each owning 16 rows (the fragment helpers of
-//     flash_common.cuh; P and dS rounded to bf16 as the A operand of the
-//     second products), tiles loaded by plain loads between two barriers,
-//     head_dim padded with zeros to 32, 64 or 128 in shared memory.
+//     sweeps and the smoke config, 120 and widths between 129 and 255,
+//     strides TMA refuses): one block per 64-row tile and (batch, head) or
+//     (batch, kv head), 4 warps of mma.sync.m16n8k16 each owning 16 rows
+//     (the fragment helpers of flash_common.cuh; P and dS rounded to bf16
+//     as the A operand of the second products), tiles loaded by plain
+//     loads between two barriers, head_dim padded with zeros to 32, 64, 128
+//     or 256 in shared memory.  At 256 the A fragments are read from shared
+//     memory for each product instead of held, and dk/dv splits its output
+//     columns over gridDim.z (two blocks of 128, each recomputing the
+//     scores over the full head_dim).
 //   - dq_f32 and dkv_f32 (float32: tests and the card-against-CPU step):
 //     the same tiling on CUDA cores in full float32, each thread owning 4
 //     rows x 8 columns of the 64 x 64 score tile and 4 rows x D/8 columns of
-//     the outputs.
+//     the outputs; at 256, 32-key (dq) and 32-query (dk/dv) tiles and dk/dv's
+//     output columns split as the bf16 kernel's, in 205,824 and 214,528
+//     bytes of shared memory.
 //
 // Bound at the training shape, q (4, 15, 2048, 64) and k/v (4, 5, 2048, 64)
 // bf16, causal, 2,098,176 pairs per head, 60 query heads: the dq kernel
@@ -84,7 +114,10 @@
 // feed wgmma from a TMA ring instead of loading tiles through registers,
 // keep two consumer warpgroups so that one's exponentials run under the
 // other's products, and walk the causal work longest first so that the
-// SMs finish together.
+// SMs finish together.  At gemma-7b's training shape, q, k, v (4, 16, 2048,
+// 256), causal, 134.3 M visible pairs: dq 206.3 GFLOP (0.209 ms at 989
+// TFLOP/s), dk/dv 275.0 GFLOP (0.278 ms), against 0.100 and 0.107 ms of
+// bytes: the tensor cores bound both.
 //
 // Plain C entry points, loaded with ctypes: each launch returns
 // cudaGetLastError() so that a refused launch surfaces in the caller.
@@ -149,6 +182,38 @@ __device__ __forceinline__ void query_range(const Params& p, int k0, int* lo, in
 }
 
 // ============================================================== bf16
+// Up to head_dim 128 each warp keeps the A fragments of its 16 rows of Q
+// and dO (or K and V) in registers for the whole block; at 256 they would
+// take 128 registers a thread beside the accumulators, so they are read
+// from the tile in shared memory for each product instead.
+template <int kD>
+constexpr bool kFragsInRegs = kD <= 128;
+
+// acc (+)= A . X^T as flash::mma_rows does, with A the 16 rows [r, r + 16)
+// of the (64, kD + 8) tile As, loaded one 16-column fragment at a time
+template <int kD>
+__device__ __forceinline__ void mma_rows_tile(float (&acc)[8][4], const __nv_bfloat16* As, int r,
+                                              const __nv_bfloat16* X, int g, int t) {
+  constexpr int kLd = kD + 8;
+#pragma unroll
+  for (int kk = 0; kk < kD / 16; ++kk) {
+    uint32_t a[4];
+    load_a_frag(a, As, kLd, r, kk * 16, g, t);
+#pragma unroll
+    for (int nb = 0; nb < 8; ++nb) {
+      const __nv_bfloat16* xr = X + (nb * 8 + g) * kLd + kk * 16 + 2 * t;
+      mma_bf16(acc[nb], a, *reinterpret_cast<const uint32_t*>(xr),
+               *reinterpret_cast<const uint32_t*>(xr + 8));
+    }
+  }
+}
+
+// Output columns of one dk/dv block: all of them up to head_dim 128; at
+// 256 half, split over gridDim.z (each block recomputes the scores over
+// the full head_dim), so that dK and dV stay in 128 registers a thread.
+template <int kD>
+constexpr int kDkvCols = kD > 128 ? 128 : kD;
+
 template <int kD>
 __global__ void __launch_bounds__(kThreads) dq_bf16(const Params p) {
   constexpr int kLd = kD + 8;
@@ -174,11 +239,14 @@ __global__ void __launch_bounds__(kThreads) dq_bf16(const Params p) {
   load_tile_bf16<kD>(Qs, q, p.q_ss, q0, p.S, p.D);
   load_tile_bf16<kD>(dOs, dout, p.do_ss, q0, p.S, p.D);
   __syncthreads();
-  uint32_t qa[kD / 16][4], da[kD / 16][4];
+  constexpr int kFrags = kFragsInRegs<kD> ? kD / 16 : 1;
+  uint32_t qa[kFrags][4], da[kFrags][4];
+  if constexpr (kFragsInRegs<kD>) {
 #pragma unroll
-  for (int kk = 0; kk < kD / 16; ++kk) {
-    load_a_frag(qa[kk], Qs, kLd, warp * 16, kk * 16, g, t);
-    load_a_frag(da[kk], dOs, kLd, warp * 16, kk * 16, g, t);
+    for (int kk = 0; kk < kD / 16; ++kk) {
+      load_a_frag(qa[kk], Qs, kLd, warp * 16, kk * 16, g, t);
+      load_a_frag(da[kk], dOs, kLd, warp * 16, kk * 16, g, t);
+    }
   }
   float lse[2], delta[2];
 #pragma unroll
@@ -205,8 +273,13 @@ __global__ void __launch_bounds__(kThreads) dq_bf16(const Params p) {
     for (int nb = 0; nb < 8; ++nb)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[nb][e] = dp[nb][e] = 0.f;
-    mma_rows<kD>(s, qa, Ks, g, t);   // S = Q K^T
-    mma_rows<kD>(dp, da, Vs, g, t);  // dP = dO V^T
+    if constexpr (kFragsInRegs<kD>) {
+      mma_rows<kD>(s, qa, Ks, g, t);   // S = Q K^T
+      mma_rows<kD>(dp, da, Vs, g, t);  // dP = dO V^T
+    } else {
+      mma_rows_tile<kD>(s, Qs, warp * 16, Ks, g, t);
+      mma_rows_tile<kD>(dp, dOs, warp * 16, Vs, g, t);
+    }
 #pragma unroll
     for (int nb = 0; nb < 8; ++nb) {
 #pragma unroll
@@ -248,7 +321,8 @@ __global__ void __launch_bounds__(kThreads) dkv_bf16(const Params p) {
   float* lse_s = reinterpret_cast<float*>(dOs + kBlockQ * kLd);
   float* delta_s = lse_s + kBlockQ;
 
-  const int k0 = blockIdx.x * kBlockK;
+  constexpr int kCols = kDkvCols<kD>;
+  const int k0 = blockIdx.x * kBlockK, col0 = blockIdx.z * kCols;
   const int b = blockIdx.y / p.Hkv, hk = blockIdx.y % p.Hkv;
   const int group = p.H / p.Hkv;
   const auto* k = static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + hk * p.k_sh;
@@ -263,9 +337,9 @@ __global__ void __launch_bounds__(kThreads) dkv_bf16(const Params p) {
   load_tile_bf16<kD>(Ks, k, p.k_st, k0, p.T, p.D);
   load_tile_bf16<kD>(Vs, v, p.v_st, k0, p.T, p.D);
 
-  float dk_acc[kD / 8][4], dv_acc[kD / 8][4];
+  float dk_acc[kCols / 8][4], dv_acc[kCols / 8][4];  // columns [col0, col0 + kCols)
 #pragma unroll
-  for (int nd = 0; nd < kD / 8; ++nd)
+  for (int nd = 0; nd < kCols / 8; ++nd)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk_acc[nd][e] = dv_acc[nd][e] = 0.f;
 
@@ -288,13 +362,15 @@ __global__ void __launch_bounds__(kThreads) dkv_bf16(const Params p) {
 
       // S^T = K Q^T: rows are this warp's 16 keys, columns 64 queries
       float st[8][4];
-      {
+#pragma unroll
+      for (int nb = 0; nb < 8; ++nb) st[nb][0] = st[nb][1] = st[nb][2] = st[nb][3] = 0.f;
+      if constexpr (kFragsInRegs<kD>) {
         uint32_t ka[kD / 16][4];
 #pragma unroll
         for (int kk = 0; kk < kD / 16; ++kk) load_a_frag(ka[kk], Ks, kLd, warp * 16, kk * 16, g, t);
-#pragma unroll
-        for (int nb = 0; nb < 8; ++nb) st[nb][0] = st[nb][1] = st[nb][2] = st[nb][3] = 0.f;
         mma_rows<kD>(st, ka, Qs, g, t);
+      } else {
+        mma_rows_tile<kD>(st, Ks, warp * 16, Qs, g, t);
       }
 #pragma unroll
       for (int nb = 0; nb < 8; ++nb) {
@@ -305,17 +381,19 @@ __global__ void __launch_bounds__(kThreads) dkv_bf16(const Params p) {
                           ? expf(st[nb][e] * p.scale - lse_s[c]) : 0.f;  // P^T
         }
       }
-      mma_cols<kD>(dv_acc, st, dOs, g, t);  // dV += P^T dO
+      mma_cols<kD, kCols>(dv_acc, st, dOs + col0, g, t);  // dV += P^T dO
 
       // dP^T = V dO^T, then dS^T = P^T * (dP^T - delta)
       float dpt[8][4];
-      {
+#pragma unroll
+      for (int nb = 0; nb < 8; ++nb) dpt[nb][0] = dpt[nb][1] = dpt[nb][2] = dpt[nb][3] = 0.f;
+      if constexpr (kFragsInRegs<kD>) {
         uint32_t va[kD / 16][4];
 #pragma unroll
         for (int kk = 0; kk < kD / 16; ++kk) load_a_frag(va[kk], Vs, kLd, warp * 16, kk * 16, g, t);
-#pragma unroll
-        for (int nb = 0; nb < 8; ++nb) dpt[nb][0] = dpt[nb][1] = dpt[nb][2] = dpt[nb][3] = 0.f;
         mma_rows<kD>(dpt, va, dOs, g, t);
+      } else {
+        mma_rows_tile<kD>(dpt, Vs, warp * 16, dOs, g, t);
       }
 #pragma unroll
       for (int nb = 0; nb < 8; ++nb) {
@@ -325,7 +403,7 @@ __global__ void __launch_bounds__(kThreads) dkv_bf16(const Params p) {
           st[nb][e] *= dpt[nb][e] - delta_s[c];
         }
       }
-      mma_cols<kD>(dk_acc, st, Qs, g, t);  // dK += dS^T Q
+      mma_cols<kD, kCols>(dk_acc, st, Qs + col0, g, t);  // dK += dS^T Q
     }
   }
 
@@ -336,10 +414,10 @@ __global__ void __launch_bounds__(kThreads) dkv_bf16(const Params p) {
     __nv_bfloat16* dkr = dk + r * p.dk_st;
     __nv_bfloat16* dvr = dv + r * p.dv_st;
 #pragma unroll
-    for (int nd = 0; nd < kD / 8; ++nd) {
+    for (int nd = 0; nd < kCols / 8; ++nd) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const int d = nd * 8 + 2 * t + e;
+        const int d = col0 + nd * 8 + 2 * t + e;
         if (d < p.D) {
           dkr[d] = __float2bfloat16(dk_acc[nd][2 * ri + e] * p.scale);
           dvr[d] = __float2bfloat16(dv_acc[nd][2 * ri + e]);
@@ -350,16 +428,26 @@ __global__ void __launch_bounds__(kThreads) dkv_bf16(const Params p) {
 }
 
 // ============================================================== f32
+// The float32 tiles: 64 query rows a dq block over key tiles of kF32Keys,
+// 64 keys a dk/dv block over query tiles of kF32Queries.  At head_dim 256
+// two tiles of 64 rows and two of 32 (257 floats a row) fill 205,824 and
+// 214,528 bytes of shared memory; 64-row tiles throughout would need 263 KB.
+template <int kD>
+constexpr int kF32Keys = kD > 128 ? 32 : 64;
+template <int kD>
+constexpr int kF32Queries = kD > 128 ? 32 : 64;
+
 template <int kD>
 __global__ void __launch_bounds__(kThreads) dq_f32(const Params p) {
   constexpr int kLd = kD + 1;
   constexpr int kDj = kD / 8;
+  constexpr int kBK = kF32Keys<kD>, kKj = kBK / 8, kSLd = kBK + 1;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* Qs = reinterpret_cast<float*>(smem_raw);
   float* dOs = Qs + kBlockQ * kLd;
   float* Ks = dOs + kBlockQ * kLd;
-  float* Vs = Ks + kBlockK * kLd;
-  float* dSs = Vs + kBlockK * kLd;  // (64, 65)
+  float* Vs = Ks + kBK * kLd;
+  float* dSs = Vs + kBK * kLd;  // (64, kBK + 1)
 
   const int q0 = blockIdx.x * kBlockQ;
   const int bh = blockIdx.y, b = bh / p.H, h = bh % p.H;
@@ -389,33 +477,33 @@ __global__ void __launch_bounds__(kThreads) dq_f32(const Params p) {
 
   int k_lo, k_hi;
   key_range(p, q0, &k_lo, &k_hi);
-  for (int k0 = (k_lo / kBlockK) * kBlockK; k0 < k_hi; k0 += kBlockK) {
+  for (int k0 = (k_lo / kBK) * kBK; k0 < k_hi; k0 += kBK) {
     __syncthreads();
-    load_tile_f32<kD>(Ks, k, p.k_st, k0, p.T, p.D);
-    load_tile_f32<kD>(Vs, v, p.v_st, k0, p.T, p.D);
+    load_tile_f32<kD, kBK>(Ks, k, p.k_st, k0, p.T, p.D);
+    load_tile_f32<kD, kBK>(Vs, v, p.v_st, k0, p.T, p.D);
     __syncthreads();
 
-    float s[4][8], dp[4][8];
+    float s[4][kKj], dp[4][kKj];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) s[i][j] = dp[i][j] = 0.f;
+      for (int j = 0; j < kKj; ++j) s[i][j] = dp[i][j] = 0.f;
     for (int d = 0; d < p.D; ++d) {
-      float qv[4], dov[4], kv[8], vv[8];
+      float qv[4], dov[4], kv[kKj], vv[kKj];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         qv[i] = Qs[(4 * ty + i) * kLd + d];
         dov[i] = dOs[(4 * ty + i) * kLd + d];
       }
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < kKj; ++j) {
         kv[j] = Ks[(tx + 8 * j) * kLd + d];
         vv[j] = Vs[(tx + 8 * j) * kLd + d];
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
+        for (int j = 0; j < kKj; ++j) {
           s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
           dp[i][j] = fmaf(dov[i], vv[j], dp[i][j]);
         }
@@ -423,20 +511,20 @@ __global__ void __launch_bounds__(kThreads) dq_f32(const Params p) {
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < kKj; ++j) {
         const float pr = visible(p, q0 + 4 * ty + i, k0 + tx + 8 * j)
                              ? expf(s[i][j] * p.scale - lse[i]) : 0.f;
-        dSs[(4 * ty + i) * 65 + tx + 8 * j] = pr * (dp[i][j] - delta[i]);
+        dSs[(4 * ty + i) * kSLd + tx + 8 * j] = pr * (dp[i][j] - delta[i]);
       }
     __syncthreads();
 
-    for (int c = 0; c < kBlockK; ++c) {
+    for (int c = 0; c < kBK; ++c) {
       float kc[kDj];
 #pragma unroll
       for (int j = 0; j < kDj; ++j) kc[j] = Ks[c * kLd + tx + 8 * j];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const float ds = dSs[(4 * ty + i) * 65 + c];
+        const float ds = dSs[(4 * ty + i) * kSLd + c];
 #pragma unroll
         for (int j = 0; j < kDj; ++j) acc[i][j] = fmaf(ds, kc[j], acc[i][j]);
       }
@@ -458,18 +546,19 @@ __global__ void __launch_bounds__(kThreads) dq_f32(const Params p) {
 template <int kD>
 __global__ void __launch_bounds__(kThreads) dkv_f32(const Params p) {
   constexpr int kLd = kD + 1;
-  constexpr int kDj = kD / 8;
+  constexpr int kCols = kDkvCols<kD>, kDj = kCols / 8;  // output columns of this block
+  constexpr int kBQ = kF32Queries<kD>, kQj = kBQ / 8, kPLd = kBQ + 1;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* Ks = reinterpret_cast<float*>(smem_raw);
   float* Vs = Ks + kBlockK * kLd;
   float* Qs = Vs + kBlockK * kLd;
-  float* dOs = Qs + kBlockQ * kLd;
-  float* Ps = dOs + kBlockQ * kLd;  // (64 keys, 65)
-  float* dSs = Ps + kBlockK * 65;   // (64 keys, 65)
-  float* lse_s = dSs + kBlockK * 65;
-  float* delta_s = lse_s + kBlockQ;
+  float* dOs = Qs + kBQ * kLd;
+  float* Ps = dOs + kBQ * kLd;     // (64 keys, kBQ + 1)
+  float* dSs = Ps + kBlockK * kPLd;  // (64 keys, kBQ + 1)
+  float* lse_s = dSs + kBlockK * kPLd;
+  float* delta_s = lse_s + kBQ;
 
-  const int k0 = blockIdx.x * kBlockK;
+  const int k0 = blockIdx.x * kBlockK, col0 = blockIdx.z * kCols;
   const int b = blockIdx.y / p.Hkv, hk = blockIdx.y % p.Hkv;
   const int group = p.H / p.Hkv;
   const float* k = static_cast<const float*>(p.k) + b * p.k_sb + hk * p.k_sh;
@@ -477,7 +566,7 @@ __global__ void __launch_bounds__(kThreads) dkv_f32(const Params p) {
   float* dk = static_cast<float*>(p.dk) + b * p.dk_sb + hk * p.dk_sh;
   float* dv = static_cast<float*>(p.dv) + b * p.dv_sb + hk * p.dv_sh;
 
-  // thread (ty, tx): keys 4*ty + i, query columns tx + 8*j, output columns tx + 8*j
+  // thread (ty, tx): keys 4*ty + i, query columns tx + 8*j, output columns col0 + tx + 8*j
   const int ty = threadIdx.x / 8, tx = threadIdx.x % 8;
   load_tile_f32<kD>(Ks, k, p.k_st, k0, p.T, p.D);
   load_tile_f32<kD>(Vs, v, p.v_st, k0, p.T, p.D);
@@ -493,38 +582,38 @@ __global__ void __launch_bounds__(kThreads) dkv_f32(const Params p) {
     const int64_t bh = int64_t(b) * p.H + h;
     const float* q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
     const float* dout = static_cast<const float*>(p.dout) + b * p.do_sb + h * p.do_sh;
-    for (int q0 = (q_lo / kBlockQ) * kBlockQ; q0 < q_hi; q0 += kBlockQ) {
+    for (int q0 = (q_lo / kBQ) * kBQ; q0 < q_hi; q0 += kBQ) {
       __syncthreads();
-      load_tile_f32<kD>(Qs, q, p.q_ss, q0, p.S, p.D);
-      load_tile_f32<kD>(dOs, dout, p.do_ss, q0, p.S, p.D);
-      if (threadIdx.x < kBlockQ) {
+      load_tile_f32<kD, kBQ>(Qs, q, p.q_ss, q0, p.S, p.D);
+      load_tile_f32<kD, kBQ>(dOs, dout, p.do_ss, q0, p.S, p.D);
+      if (threadIdx.x < kBQ) {
         const int r = q0 + threadIdx.x;
         lse_s[threadIdx.x] = r < p.S ? p.lse[bh * p.S + r] : 0.f;
         delta_s[threadIdx.x] = r < p.S ? p.delta[bh * p.S + r] : 0.f;
       }
       __syncthreads();
 
-      float st[4][8], dpt[4][8];
+      float st[4][kQj], dpt[4][kQj];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) st[i][j] = dpt[i][j] = 0.f;
+        for (int j = 0; j < kQj; ++j) st[i][j] = dpt[i][j] = 0.f;
       for (int d = 0; d < p.D; ++d) {
-        float kv[4], vv[4], qv[8], dov[8];
+        float kv[4], vv[4], qv[kQj], dov[kQj];
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           kv[i] = Ks[(4 * ty + i) * kLd + d];
           vv[i] = Vs[(4 * ty + i) * kLd + d];
         }
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
+        for (int j = 0; j < kQj; ++j) {
           qv[j] = Qs[(tx + 8 * j) * kLd + d];
           dov[j] = dOs[(tx + 8 * j) * kLd + d];
         }
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
-          for (int j = 0; j < 8; ++j) {
+          for (int j = 0; j < kQj; ++j) {
             st[i][j] = fmaf(kv[i], qv[j], st[i][j]);
             dpt[i][j] = fmaf(vv[i], dov[j], dpt[i][j]);
           }
@@ -532,26 +621,26 @@ __global__ void __launch_bounds__(kThreads) dkv_f32(const Params p) {
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
+        for (int j = 0; j < kQj; ++j) {
           const int c = tx + 8 * j;
           const float pr = visible(p, q0 + c, k0 + 4 * ty + i)
                                ? expf(st[i][j] * p.scale - lse_s[c]) : 0.f;
-          Ps[(4 * ty + i) * 65 + c] = pr;
-          dSs[(4 * ty + i) * 65 + c] = pr * (dpt[i][j] - delta_s[c]);
+          Ps[(4 * ty + i) * kPLd + c] = pr;
+          dSs[(4 * ty + i) * kPLd + c] = pr * (dpt[i][j] - delta_s[c]);
         }
       __syncthreads();
 
-      for (int c = 0; c < kBlockQ; ++c) {
+      for (int c = 0; c < kBQ; ++c) {
         float qc[kDj], doc[kDj];
 #pragma unroll
         for (int j = 0; j < kDj; ++j) {
-          qc[j] = Qs[c * kLd + tx + 8 * j];
-          doc[j] = dOs[c * kLd + tx + 8 * j];
+          qc[j] = Qs[c * kLd + col0 + tx + 8 * j];
+          doc[j] = dOs[c * kLd + col0 + tx + 8 * j];
         }
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          const float pr = Ps[(4 * ty + i) * 65 + c];
-          const float ds = dSs[(4 * ty + i) * 65 + c];
+          const float pr = Ps[(4 * ty + i) * kPLd + c];
+          const float ds = dSs[(4 * ty + i) * kPLd + c];
 #pragma unroll
           for (int j = 0; j < kDj; ++j) {
             dv_acc[i][j] = fmaf(pr, doc[j], dv_acc[i][j]);
@@ -568,7 +657,7 @@ __global__ void __launch_bounds__(kThreads) dkv_f32(const Params p) {
     if (r >= p.T) continue;
 #pragma unroll
     for (int j = 0; j < kDj; ++j) {
-      const int d = tx + 8 * j;
+      const int d = col0 + tx + 8 * j;
       if (d < p.D) {
         dk[r * p.dk_st + d] = dk_acc[i][j] * p.scale;
         dv[r * p.dv_st + d] = dv_acc[i][j];
@@ -580,7 +669,7 @@ __global__ void __launch_bounds__(kThreads) dkv_f32(const Params p) {
 // --------------------------------------------------------------- Hopper
 namespace bwd_hopper {
 
-constexpr int kBlockM = 128;   // query rows of a dq item, keys of a dk/dv item
+constexpr int kBlockM = 128;   // query rows of a dq item
 constexpr int kTileQ = 64;     // query rows of a dk/dv tile
 constexpr int kThreads = 384;  // warpgroup 0 produces, 1 and 2 consume
 constexpr int kRowBytes = 128; // one swizzled row: 64 bf16 values
@@ -590,48 +679,74 @@ constexpr int kProducerRegs = 24, kConsumerRegs = 240;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int64_t kMaxItems = int64_t(1) << 30;  // item indices stay in int
 
-// Shared memory of the dq kernel: two Q buffers | two dO buffers (each
-// kD / 64 panels of 128 rows) | K stages | V stages | barriers; every piece
-// on a 1,024-byte boundary.
+// Shared memory of the dq kernel: Q buffers | dO buffers (each kD / 64
+// panels of 128 rows) | K stages | V stages | barriers; every piece on a
+// 1,024-byte boundary.  At head_dim 64 and 128 two Q and dO buffers, so
+// that the next item's load overlaps the last one's products.  At 256 one
+// buffer of Q and dO holds 128 KB, so the key tiles shrink to 32 keys in 3
+// stages of 32 KB: 230,480 bytes in all.  A consumer thread there holds
+// dQ's 64 rows x 256 columns (128 registers), S and dP of 32 keys (16
+// each) and dS's bf16 A fragments (8).
 template <int kD>
 struct DqLayout {
-  static constexpr int kN = kD == 64 ? 128 : 64;  // keys per tile
+  static constexpr int kN = kD == 64 ? 128 : (kD == 128 ? 64 : 32);  // keys per tile
   static constexpr int kPanels = kD / 64;
-  static constexpr int kStages = kD == 64 ? 3 : 2;
+  static constexpr int kQBuffers = kD == 256 ? 1 : 2;
+  static constexpr int kStages = kD == 128 ? 2 : 3;
   static constexpr int kQBytes = kBlockM * kD * 2;  // one Q or dO buffer
   static constexpr int kQPanel = kBlockM * kRowBytes;
   static constexpr int kTileBytes = kN * kD * 2;  // one K or V tile
   static constexpr int kKVPanel = kN * kRowBytes;
-  static constexpr int kDO = 2 * kQBytes;
-  static constexpr int kK = 4 * kQBytes;
+  static constexpr int kDO = kQBuffers * kQBytes;
+  static constexpr int kK = 2 * kQBuffers * kQBytes;
   static constexpr int kV = kK + kStages * kTileBytes;
   static constexpr int kBar = kV + kStages * kTileBytes;
-  static constexpr int kBars = 4 + 2 * kStages;  // Q and dO full, free; per stage full, free
+  // per Q buffer Q and dO full, free; per stage full, free
+  static constexpr int kBars = 2 * kQBuffers + 2 * kStages;
   static constexpr int kSmem = kBar + 8 * kBars + 1024;  // + the base's alignment
   static_assert(kSmem > 116 * 1024 && kSmem <= 227 * 1024, "one block per SM");
 };
 
 // Shared memory of the dk/dv kernel: K buffers | V buffers (each kD / 64
-// panels of 128 rows) | Q stages | dO stages (64 rows each) | per stage 64
-// lse values (log2 units) and 64 delta values | barriers.
+// panels of kKeys rows) | Q stages | dO stages (64 rows each) | per stage
+// 64 lse values (log2 units) and 64 delta values | at head_dim 256 two
+// 64 x 64 float32 buffers of P^T | barriers.  An item is 128 keys at head_dim
+// 64 and 128, one 64-row slice a consumer warpgroup.  At 256 dK and dV of
+// 64 keys would take 256 registers a thread, so an item is 64 keys that
+// both consumers take (kSplit): warpgroup 1 computes S^T, P^T and dV,
+// warpgroup 2 dP^T, dS^T and dK, each with one 64 x 256 float32
+// accumulator (128 registers), and P^T passes from the first to the second
+// through the P^T buffers.  There K and V of an item take 64 KB, 2 stages of
+// Q and dO tiles 128 KB, the rows 1 KB and P^T 32 KB: 231,504 bytes in all.
 template <int kD>
 struct DkvLayout {
+  static constexpr bool kSplit = kD == 256;
+  static constexpr int kKeys = kSplit ? 64 : 128;  // keys per item
   static constexpr int kPanels = kD / 64;
   static constexpr int kKVBufs = kD == 64 ? 2 : 1;
-  static constexpr int kStages = 4;
-  static constexpr int kKVBytes = kBlockM * kD * 2;  // one item's K or V
-  static constexpr int kKVPanel = kBlockM * kRowBytes;
+  static constexpr int kStages = kSplit ? 2 : 4;
+  static constexpr int kPBufs = kSplit ? 2 : 0;
+  static constexpr int kKVBytes = kKeys * kD * 2;  // one item's K or V
+  static constexpr int kKVPanel = kKeys * kRowBytes;
   static constexpr int kTileBytes = kTileQ * kD * 2;  // one Q or dO tile
   static constexpr int kTPanel = kTileQ * kRowBytes;
   static constexpr int kV = kKVBufs * kKVBytes;
   static constexpr int kQ = 2 * kV;
   static constexpr int kDO = kQ + kStages * kTileBytes;
   static constexpr int kRows = kDO + kStages * kTileBytes;
-  static constexpr int kBar = kRows + kStages * 2 * kTileQ * 4;
-  static constexpr int kBars = 2 * kKVBufs + 2 * kStages;  // per buffer and per stage: full, free
+  static constexpr int kP = kRows + kStages * 2 * kTileQ * 4;
+  static constexpr int kBar = kP + kPBufs * kTileQ * 64 * 4;
+  // per K/V buffer, per stage and per P^T buffer: full, free
+  static constexpr int kBars = 2 * kKVBufs + 2 * kStages + 2 * kPBufs;
   static constexpr int kSmem = kBar + 8 * kBars + 1024;
   static_assert(kSmem > 116 * 1024 && kSmem <= 227 * 1024, "one block per SM");
+  // At 256 the producer's loop over four panels spills at 24 registers
+  static constexpr int kProducerRegs = kSplit ? 32 : 24, kConsumerRegs = kSplit ? 232 : 240;
+  static_assert(128 * kProducerRegs + 256 * kConsumerRegs <= 65536, "registers");
 };
+
+// Keys of a dk/dv item at head_dim D (a host-side copy of DkvLayout's)
+__host__ __device__ constexpr int dkv_keys(int D) { return D == 256 ? 64 : 128; }
 
 // K-major descriptor of k-step kk (16 columns, 32 bytes) of a swizzled
 // tile whose 64-column panels lie `panel` bytes apart, from row `row` on
@@ -649,6 +764,10 @@ __device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int panel, int kk) {
 // d (+)= A . B^T, both K-major in shared memory: a 64 x N score tile
 template <int N>
 __device__ __forceinline__ void mma_ss(float (&d)[N / 2], uint64_t da, uint64_t db, int scale_d);
+template <>
+__device__ __forceinline__ void mma_ss<32>(float (&d)[16], uint64_t da, uint64_t db, int scale_d) {
+  hopper::wgmma_m64n32k16_ss(d, da, db, scale_d);
+}
 template <>
 __device__ __forceinline__ void mma_ss<64>(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
   hopper::wgmma_m64n64k16_ss(d, da, db, scale_d);
@@ -670,6 +789,10 @@ template <>
 __device__ __forceinline__ void mma_rs<128>(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
   hopper::wgmma_m64n128k16_rs_tb(d, a, db);
 }
+template <>
+__device__ __forceinline__ void mma_rs<256>(float (&d)[128], const uint32_t (&a)[4], uint64_t db) {
+  hopper::wgmma_m64n256k16_rs_tb(d, a, db);
+}
 
 // bf16 A fragments of a 64 x 16n float32 accumulator: its columns
 // [16 kk, 16 kk + 16) are the A of k-step kk
@@ -686,8 +809,8 @@ __host__ __device__ __forceinline__ int64_t dq_items(const Params& p) {
   return int64_t((p.S + kBlockM - 1) / kBlockM) * p.B * p.H;
 }
 
-__host__ __device__ __forceinline__ int64_t dkv_items(const Params& p) {
-  return int64_t((p.T + kBlockM - 1) / kBlockM) * p.B * p.Hkv;
+__host__ __device__ __forceinline__ int64_t dkv_items(const Params& p, int keys) {
+  return int64_t((p.T + keys - 1) / keys) * p.B * p.Hkv;
 }
 
 // A dq item: 128 query rows of one (batch, head) and the key tiles of kN
@@ -717,23 +840,24 @@ __device__ __forceinline__ DqWork dq_item(const Params& p, int w) {
   return wk;
 }
 
-// A dk/dv item: 128 keys of one (batch, kv head) and the query tiles of 64
-// rows that see them, for each query head of the group.  Item w is key
+// A dk/dv item: kKeys keys of one (batch, kv head) and the query tiles of
+// 64 rows that see them, for each query head of the group.  Item w is key
 // tile w / (B Hkv) (under the causal mask the first key tiles have the
 // most query tiles) of batch x kv head w % (B Hkv).
 struct DkvWork {
   int k0, b, hk, qt0, n_qt, n_tiles;
 };
 
+template <int kKeys>
 __device__ __forceinline__ DkvWork dkv_item(const Params& p, int w) {
   const int bhk = w % (p.B * p.Hkv);
   DkvWork wk;
-  wk.k0 = (w / (p.B * p.Hkv)) * kBlockM;
+  wk.k0 = (w / (p.B * p.Hkv)) * kKeys;
   wk.b = bhk / p.Hkv;
   wk.hk = bhk % p.Hkv;
   int64_t lo = p.causal ? wk.k0 : 0, hi = p.S;
-  if (p.has_window && int64_t(wk.k0) + kBlockM - 1 + p.window < hi) {
-    hi = int64_t(wk.k0) + kBlockM - 1 + p.window;
+  if (p.has_window && int64_t(wk.k0) + kKeys - 1 + p.window < hi) {
+    hi = int64_t(wk.k0) + kKeys - 1 + p.window;
   }
   wk.qt0 = wk.n_qt = 0;
   if (hi > lo) {
@@ -757,12 +881,12 @@ __global__ void __launch_bounds__(kThreads, 1)
   const uint32_t base = (smem_u32(hopper_smem) + 1023u) & ~1023u;
   const uint32_t sQ = base, sDO = base + L::kDO, sK = base + L::kK, sV = base + L::kV;
   // barriers: per Q buffer Q and dO full, free; per stage K and V full, free
-  const uint32_t bar_q = base + L::kBar, bar_qe = bar_q + 16;
-  const uint32_t bar_f = bar_qe + 16, bar_e = bar_f + 8 * L::kStages;
+  const uint32_t bar_q = base + L::kBar, bar_qe = bar_q + 8 * L::kQBuffers;
+  const uint32_t bar_f = bar_qe + 8 * L::kQBuffers, bar_e = bar_f + 8 * L::kStages;
   const int n_items = static_cast<int>(dq_items(p));
 
   if (threadIdx.x == 0) {
-    for (int qb = 0; qb < 2; ++qb) {
+    for (int qb = 0; qb < L::kQBuffers; ++qb) {
       mbar_init(bar_q + 8 * qb, 1);
       mbar_init(bar_qe + 8 * qb, 2 * 128);  // every consumer thread frees Q and the stages
     }
@@ -786,8 +910,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int r = 0, w; (w = item_of_round(r)) < n_items; ++r) {
         const DqWork wk = dq_item<kN>(p, w);
         if (wk.n_tiles == 0) continue;
-        const int qb = qn & 1;
-        mbar_wait(bar_qe + 8 * qb, ((qn >> 1) & 1) ^ 1);  // each buffer's first round is free
+        const int qb = qn % L::kQBuffers;
+        mbar_wait(bar_qe + 8 * qb, ((qn / L::kQBuffers) & 1) ^ 1);  // each buffer's first round is free
         ++qn;
         mbar_expect_tx(bar_q + 8 * qb, 2 * L::kQBytes);
 #pragma unroll
@@ -827,15 +951,18 @@ __global__ void __launch_bounds__(kThreads, 1)
 
     // S = Q K^T and dP = dO V^T of stage s, kD / 16 steps of 16 columns each
     auto issue_sdp = [&](int s) {
+      // at 256 the 32 descriptors of Q and dO are made anew for each tile
+      const uint32_t q_at = kD == 256 ? opaque(sQc) : sQc;
+      const uint32_t do_at = kD == 256 ? opaque(sDOc) : sDOc;
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kD / 16; ++kk) {
-        mma_ss<kN>(sc, desc_k(sQc, L::kQPanel, 64 * c, kk),
+        mma_ss<kN>(sc, desc_k(q_at, L::kQPanel, 64 * c, kk),
                    desc_k(sK + s * L::kTileBytes, L::kKVPanel, 0, kk), kk > 0);
       }
 #pragma unroll
       for (int kk = 0; kk < kD / 16; ++kk) {
-        mma_ss<kN>(dp, desc_k(sDOc, L::kQPanel, 64 * c, kk),
+        mma_ss<kN>(dp, desc_k(do_at, L::kQPanel, 64 * c, kk),
                    desc_k(sV + s * L::kTileBytes, L::kKVPanel, 0, kk), kk > 0);
       }
       wgmma_commit();
@@ -912,10 +1039,10 @@ __global__ void __launch_bounds__(kThreads, 1)
       // Tile i's S and dP products run while tile i - 1's dS.K does: the
       // exponentials of tile i overlap dS_{i-1} K_{i-1} on the tensor cores.
       if (wk.n_tiles > 0) {
-        const int qb = qn & 1;
+        const int qb = qn % L::kQBuffers;
         sQc = sQ + qb * L::kQBytes;
         sDOc = sDO + qb * L::kQBytes;
-        mbar_wait(bar_q + 8 * qb, (qn >> 1) & 1);
+        mbar_wait(bar_q + 8 * qb, (qn / L::kQBuffers) & 1);
         ++qn;
         int s = it % L::kStages;
         mbar_wait(bar_f + 8 * s, (it / L::kStages) & 1);
@@ -975,10 +1102,11 @@ __global__ void __launch_bounds__(kThreads, 1)
   // per stage: kTileQ lse values in log2 units, then kTileQ delta values
   float* const rows = reinterpret_cast<float*>(hopper_smem + (base - smem_u32(hopper_smem)) +
                                                L::kRows);
-  // barriers: per K/V buffer full, free; per stage full, free
+  // barriers: per K/V buffer full, free; per stage full, free; per P^T buffer full, free
   const uint32_t bar_kv = base + L::kBar, bar_kve = bar_kv + 8 * L::kKVBufs;
   const uint32_t bar_f = bar_kve + 8 * L::kKVBufs, bar_e = bar_f + 8 * L::kStages;
-  const int n_items = static_cast<int>(dkv_items(p));
+  const uint32_t bar_p = bar_e + 8 * L::kStages, bar_pe = bar_p + 8 * L::kPBufs;
+  const int n_items = static_cast<int>(dkv_items(p, L::kKeys));
   const int group = p.H / p.Hkv;
 
   if (threadIdx.x == 0) {
@@ -990,13 +1118,17 @@ __global__ void __launch_bounds__(kThreads, 1)
       mbar_init(bar_f + 8 * s, 1 + 32);  // the TMA loads, and each producer lane's rows
       mbar_init(bar_e + 8 * s, 2 * 128);
     }
+    for (int pb = 0; pb < L::kPBufs; ++pb) {
+      mbar_init(bar_p + 8 * pb, 128);   // warpgroup 1 wrote P^T
+      mbar_init(bar_pe + 8 * pb, 128);  // warpgroup 2 read it
+    }
     fence_barrier_init();
   }
   __syncthreads();
 
   if (threadIdx.x < 128) {
     // ------------------------------------------------------ producer
-    regs_dealloc<kProducerRegs>();
+    regs_dealloc<L::kProducerRegs>();
     if (threadIdx.x < 32) {
       const int lane = threadIdx.x;
       if (lane == 0) {
@@ -1007,7 +1139,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
       int it = 0, kn = 0;  // tiles and K/V loads so far: the ring's and K/V's phases
       for (int r = 0, w; (w = item_of_round(r)) < n_items; ++r) {
-        const DkvWork wk = dkv_item(p, w);
+        const DkvWork wk = dkv_item<L::kKeys>(p, w);
         if (wk.n_tiles == 0) continue;
         if (lane == 0) {
           const int kb = kn % L::kKVBufs;
@@ -1047,9 +1179,194 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
       }
     }
+  } else if constexpr (L::kSplit) {
+    // ------------------------------------------- consumers, head_dim 256
+    // Both take the item's 64 keys.  Warpgroup 1 (side 0): S^T = K Q^T,
+    // P^T, dV += P^T dO; warpgroup 2 (side 1): dP^T = V dO^T, dS^T = P^T
+    // (dP^T - delta), dK += dS^T Q, with P^T in float32 from warpgroup 1
+    // through the P^T buffers, element i of thread x at [128 i + x].
+    regs_alloc<L::kConsumerRegs>();
+    const int side = threadIdx.x / 128 - 1;
+    const int x = threadIdx.x % 128;
+    const int warp = x / 32, lane = x % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int r_lo = 16 * warp + g;  // this thread's keys: r_lo and r_lo + 8
+    const float sl2 = p.scale * kLog2e;
+    float* const pt = reinterpret_cast<float*>(hopper_smem + (base - smem_u32(hopper_smem)) + L::kP);
+    const uint32_t sA = side == 0 ? sK : sV;    // the score product's A: K or V
+    const uint32_t sB = side == 0 ? sQ : sDO;   // its B, a stage's Q or dO
+    const uint32_t sG = side == 0 ? sDO : sQ;   // the accumulating product's B
+
+    float acc[kD / 2];               // dV (side 0) or dK (side 1) of this thread's two keys
+    float st[kTileQ / 2];            // S^T then P^T, or dP^T then dS^T
+    uint32_t sa[kTileQ / 16][4];     // the tile before's P^T or dS^T in bf16
+    int key_lo = 0;
+
+    auto issue_score = [&](int s) {
+      const uint32_t a_at = opaque(sA);  // K's or V's 16 descriptors made anew for each tile
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kD / 16; ++kk) {
+        mma_ss<kTileQ>(st, desc_k(a_at, L::kKVPanel, 0, kk),
+                       desc_k(sB + s * L::kTileBytes, L::kTPanel, 0, kk), kk > 0);
+      }
+      wgmma_commit();
+    };
+    // acc += (P^T or dS^T) . (dO or Q) of stage s: 16 queries a step, the
+    // tile's rows as B's K axis (MN-major) across its four column panels
+    auto issue_acc = [&](int s) {
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kTileQ / 16; ++kk) {
+        mma_rs<kD>(acc, sa[kk], desc_mn(sG + s * L::kTileBytes, L::kTPanel, kk));
+      }
+      wgmma_commit();
+    };
+    // Side 0: P^T of the query tile at q0 of stage s into st, masked as the
+    // 64 and 128 kernels mask it, then into P^T buffer it % 2 once side 1
+    // has read what tile it - 2 left there.  Side 1: dS^T from that buffer.
+    // Returns whether the tile has masked pairs (side 0).
+    auto grad_split = [&](int s, int q0, int it) -> bool {
+      fence_regs(st);
+      const float* ls = rows + s * 2 * kTileQ;
+      float* const buf = pt + (it % 2) * kTileQ * 64;
+      const uint32_t phase = (it / 2) & 1;
+      if (side == 0) {
+        const int key_last = key_lo + 63;
+        const bool unmasked = q0 + kTileQ <= p.S && key_last < p.T &&
+                              (!p.causal || q0 >= key_last) &&
+                              (!p.has_window || q0 + kTileQ - 1 - key_lo < p.window);
+        int up[2], down[2];  // visible query columns: down < col <= up, less this lane's 2t
+        const int last_col = min(p.S - q0, kTileQ) - 1;
+#pragma unroll
+        for (int ri = 0; ri < 2; ++ri) {
+          const int64_t key = int64_t(key_lo) + r_lo + 8 * ri, d = key - q0;
+          const int w_col = p.has_window ? hopper::clamp_col<kTileQ>(d + p.window - 1) : kTileQ;
+          up[ri] = unmasked ? kTileQ : (key < p.T ? min(w_col, last_col) : -1) - 2 * t;
+          down[ri] = unmasked || !p.causal ? -kTileQ : hopper::clamp_col<kTileQ>(d - 1) - 2 * t;
+        }
+#pragma unroll
+        for (int j = 0; j < kTileQ / 8; ++j) {
+          const float2 l2 = *reinterpret_cast<const float2*>(ls + 8 * j + 2 * t);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = 8 * j + e % 2;  // less 2t
+            const float pr = ex2(fmaf(st[4 * j + e], sl2, -(e % 2 ? l2.y : l2.x)));
+            st[4 * j + e] = col > up[e / 2] || col <= down[e / 2] ? 0.f : pr;
+          }
+        }
+        mbar_wait(bar_pe + 8 * (it % 2), phase ^ 1);  // each buffer's first round is free
+#pragma unroll
+        for (int i = 0; i < kTileQ / 2; ++i) buf[128 * i + x] = st[i];
+        mbar_arrive(bar_p + 8 * (it % 2));  // releases these stores to side 1
+        return !unmasked;
+      } else {
+        mbar_wait(bar_p + 8 * (it % 2), phase);
+#pragma unroll
+        for (int j = 0; j < kTileQ / 8; ++j) {
+          const float2 dl = *reinterpret_cast<const float2*>(ls + kTileQ + 8 * j + 2 * t);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = 4 * j + e;
+            st[i] = buf[128 * i + x] * (st[i] - (e % 2 ? dl.y : dl.x));
+          }
+        }
+        mbar_arrive(bar_pe + 8 * (it % 2));
+        return false;
+      }
+    };
+    // Side 0, on a tile with masked pairs (the causal diagonal's, where a
+    // key's first queries give it its largest probabilities): dV += (P^T -
+    // bf16(P^T)) dO of stage s, the rounding error of P^T's bf16 operand
+    // added back as a second bf16 product, at once.  At head_dim 256 dV's
+    // rms is about 0.09, and the first keys' dV would otherwise carry
+    // errors near the training rule's 0.1 rms(dV).
+    auto add_p_rounding = [&](int s) {
+      uint32_t lo[kTileQ / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kTileQ / 16; ++kk) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&sa[kk][r]);
+          lo[kk][r] = pack_bf16(st[8 * kk + 2 * r] - __low2float(hi),
+                                st[8 * kk + 2 * r + 1] - __high2float(hi));
+        }
+      }
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kTileQ / 16; ++kk) {
+        mma_rs<kD>(acc, lo[kk], desc_mn(sG + s * L::kTileBytes, L::kTPanel, kk));
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+    };
+
+    int it = 0, kn = 0;  // tiles and K/V loads so far, as the producer counts them
+    for (int r = 0, w; (w = item_of_round(r)) < n_items; ++r) {
+      const DkvWork wk = dkv_item<L::kKeys>(p, w);
+      key_lo = wk.k0;
+#pragma unroll
+      for (int i = 0; i < kD / 2; ++i) acc[i] = 0.f;
+
+      // Tile i's score product runs while tile i - 1's accumulating one does
+      if (wk.n_tiles > 0) {
+        mbar_wait(bar_kv, kn & 1);  // one K/V buffer
+        ++kn;
+        int s = it % L::kStages, qi = 0;  // qi: the query tile of the newest tile
+        mbar_wait(bar_f + 8 * s, (it / L::kStages) & 1);
+        issue_score(s);
+        wgmma_wait<0>();
+        bool masked = grad_split(s, wk.qt0, it);
+        pack_a(sa, st);
+        if (masked) add_p_rounding(s);
+        for (int i = 1; i < wk.n_tiles; ++i) {
+          if (++qi == wk.n_qt) qi = 0;  // the next query head's first tile
+          const int s_prev = s;
+          s = ++it % L::kStages;
+          mbar_wait(bar_f + 8 * s, (it / L::kStages) & 1);
+          issue_score(s);
+          issue_acc(s_prev);
+          wgmma_wait<1>();  // the score product of tile i is done
+          masked = grad_split(s, wk.qt0 + qi * kTileQ, it);
+          wgmma_wait<0>();
+          fence_regs(acc);
+          mbar_arrive(bar_e + 8 * s_prev);
+          pack_a(sa, st);
+          if (masked) add_p_rounding(s);
+        }
+        mbar_arrive(bar_kve);  // every product that reads K and V is done
+        issue_acc(s);
+        wgmma_wait<0>();
+        fence_regs(acc);
+        mbar_arrive(bar_e + 8 * s);
+        ++it;
+      }
+
+      // side 0: dv = dV; side 1: dk = scale dK; in bf16, in their layouts,
+      // zeros for keys that no query sees
+      const float f = side == 0 ? 1.f : p.scale;
+      __nv_bfloat16* const o =
+          static_cast<__nv_bfloat16*>(side == 0 ? p.dv : p.dk) +
+          wk.b * (side == 0 ? p.dv_sb : p.dk_sb) + wk.hk * (side == 0 ? p.dv_sh : p.dk_sh);
+      const int64_t o_st = side == 0 ? p.dv_st : p.dk_st;
+#pragma unroll
+      for (int ri = 0; ri < 2; ++ri) {
+        const int key = key_lo + r_lo + 8 * ri;
+        if (key >= p.T) continue;
+        __nv_bfloat16* orow = o + key * o_st + 2 * t;
+#pragma unroll
+        for (int j = 0; j < kD / 8; ++j) {
+          *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
+              __floats2bfloat162_rn(acc[4 * j + 2 * ri] * f, acc[4 * j + 2 * ri + 1] * f);
+        }
+      }
+    }
   } else {
     // ------------------------------------------------------ consumers
-    regs_alloc<kConsumerRegs>();
+    regs_alloc<L::kConsumerRegs>();
     const int c = threadIdx.x / 128 - 1;  // keys [64c, 64c + 64) of each item
     const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
     const int g = lane / 4, t = lane % 4;
@@ -1142,7 +1459,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
     int it = 0, kn = 0;  // tiles and K/V loads so far, as the producer counts them
     for (int r = 0, w; (w = item_of_round(r)) < n_items; ++r) {
-      const DkvWork wk = dkv_item(p, w);
+      const DkvWork wk = dkv_item<L::kKeys>(p, w);
       key_lo = wk.k0 + 64 * c;
 #pragma unroll
       for (int i = 0; i < kD / 2; ++i) dk[i] = dv[i] = 0.f;
@@ -1240,11 +1557,12 @@ int launch_dq(const Params& p, cudaStream_t stream) {
 template <int kD>
 int launch_dkv(const Params& p, cudaStream_t stream) {
   CUtensorMap tm[4];
-  const int err = encode_maps<kD>(p, kTileQ, kBlockM, tm);
+  using L = DkvLayout<kD>;
+  const int err = encode_maps<kD>(p, kTileQ, L::kKeys, tm);
   if (err != 0) return err;
   static int sms[hopper::kMaxDevices] = {};
   void* args[] = {&tm[0], &tm[1], &tm[2], &tm[3], const_cast<Params*>(&p)};
-  return hopper::launch_persistent(flash_bwd_dkv_hopper<kD>, sms, dkv_items(p), kThreads,
+  return hopper::launch_persistent(flash_bwd_dkv_hopper<kD>, sms, dkv_items(p, L::kKeys), kThreads,
                                    DkvLayout<kD>::kSmem, args, stream);
 }
 
@@ -1257,18 +1575,22 @@ int launch_dq(int dtype, const Params& p, cudaStream_t stream) {
   if (dtype == 1) {
     return launch(dq_bf16<kD>, grid, sizeof(__nv_bfloat16) * 4 * 64 * (kD + 8), p, stream);
   }
-  return launch(dq_f32<kD>, grid, sizeof(float) * (4 * 64 * (kD + 1) + 64 * 65), p, stream);
+  constexpr int kBK = kF32Keys<kD>;
+  return launch(dq_f32<kD>, grid,
+                sizeof(float) * ((2 * 64 + 2 * kBK) * (kD + 1) + 64 * (kBK + 1)), p, stream);
 }
 
 template <int kD>
 int launch_dkv(int dtype, const Params& p, cudaStream_t stream) {
-  const dim3 grid((p.T + kBlockK - 1) / kBlockK, p.B * p.Hkv);
+  const dim3 grid((p.T + kBlockK - 1) / kBlockK, p.B * p.Hkv, kD / kDkvCols<kD>);
   if (dtype == 1) {
     return launch(dkv_bf16<kD>, grid,
                   sizeof(__nv_bfloat16) * 4 * 64 * (kD + 8) + sizeof(float) * 2 * 64, p, stream);
   }
+  constexpr int kBQ = kF32Queries<kD>;
   return launch(dkv_f32<kD>, grid,
-                sizeof(float) * (4 * 64 * (kD + 1) + 2 * 64 * 65 + 2 * 64), p, stream);
+                sizeof(float) * ((2 * 64 + 2 * kBQ) * (kD + 1) + 2 * 64 * (kBQ + 1) + 2 * kBQ), p,
+                stream);
 }
 
 Params make_params(const void* q, const void* k, const void* v, const void* dout,
@@ -1307,10 +1629,10 @@ Params make_params(const void* q, const void* k, const void* v, const void* dout
 // b,h,t and dv b,h,t (the dk/dv ones).  lse and delta (B*H, S) float32,
 // contiguous.  flash_attention_bwd_dq and _dkv launch the mma.sync (bf16)
 // or float32 kernels; flash_attention_bwd_dq_hopper and _dkv_hopper the
-// Hopper ones, which take bf16 with D 64 or 128, q, k, v and dout 16-byte
-// aligned with strides of 16-byte multiples on every axis longer than 1,
-// and at most 2**30 work items (ceil(S / 128) x B x H for dq, ceil(T /
-// 128) x B x Hkv for dk/dv).  Each returns a cudaError_t: 0 when the
+// Hopper ones, which take bf16 with D 64, 128 or 256, q, k, v and dout
+// 16-byte aligned with strides of 16-byte multiples on every axis longer
+// than 1, and at most 2**30 work items (ceil(S / 128) x B x H for dq,
+// ceil(T / 128) x B x Hkv for dk/dv, ceil(T / 64) at head_dim 256).  Each returns a cudaError_t: 0 when the
 // launch was taken; 1 (cudaErrorInvalidValue) for an input its kernels do
 // not take or a tensor map the driver refuses; 801 (cudaErrorNotSupported)
 // where the driver has no cuTensorMapEncodeTiled.
@@ -1345,6 +1667,7 @@ int run_dq(const Params& p, int dtype, cudaStream_t s) {
   if (p.D <= 32) return launch_dq<32>(dtype, p, s);
   if (p.D <= 64) return launch_dq<64>(dtype, p, s);
   if (p.D <= 128) return launch_dq<128>(dtype, p, s);
+  if (p.D <= 256) return launch_dq<256>(dtype, p, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -1353,6 +1676,7 @@ int run_dkv(const Params& p, int dtype, cudaStream_t s) {
   if (p.D <= 32) return launch_dkv<32>(dtype, p, s);
   if (p.D <= 64) return launch_dkv<64>(dtype, p, s);
   if (p.D <= 128) return launch_dkv<128>(dtype, p, s);
+  if (p.D <= 256) return launch_dkv<256>(dtype, p, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -1362,15 +1686,17 @@ int run_dq_hopper(const Params& p, int dtype, cudaStream_t s) {
   }
   if (p.D == 64) return bwd_hopper::launch_dq<64>(p, s);
   if (p.D == 128) return bwd_hopper::launch_dq<128>(p, s);
+  if (p.D == 256) return bwd_hopper::launch_dq<256>(p, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 int run_dkv_hopper(const Params& p, int dtype, cudaStream_t s) {
-  if (dtype != 1 || bwd_hopper::dkv_items(p) > bwd_hopper::kMaxItems) {
+  if (dtype != 1 || bwd_hopper::dkv_items(p, bwd_hopper::dkv_keys(p.D)) > bwd_hopper::kMaxItems) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (p.D == 64) return bwd_hopper::launch_dkv<64>(p, s);
   if (p.D == 128) return bwd_hopper::launch_dkv<128>(p, s);
+  if (p.D == 256) return bwd_hopper::launch_dkv<256>(p, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -77,9 +77,9 @@ __device__ __forceinline__ void mma_rows(float (&acc)[8][4], const uint32_t (&a)
 
 // acc (+)= P . X: P a 16 x 64 float32 C-fragment tile (8 blocks of 8
 // columns), rounded to bf16 on the way in; X a (64, kD) bf16 tile read by
-// column.
-template <int kD>
-__device__ __forceinline__ void mma_cols(float (&acc)[kD / 8][4], const float (&p)[8][4],
+// column, its first kCols columns from X on (all of them by default).
+template <int kD, int kCols = kD>
+__device__ __forceinline__ void mma_cols(float (&acc)[kCols / 8][4], const float (&p)[8][4],
                                          const __nv_bfloat16* X, int g, int t) {
   constexpr int kLd = kD + 8;
 #pragma unroll
@@ -91,7 +91,7 @@ __device__ __forceinline__ void mma_cols(float (&acc)[kD / 8][4], const float (&
     pa[3] = pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3]);
     const __nv_bfloat16* xr = X + (kk * 16 + 2 * t) * kLd + g;
 #pragma unroll
-    for (int nd = 0; nd < kD / 8; ++nd) {
+    for (int nd = 0; nd < kCols / 8; ++nd) {
       const __nv_bfloat16* c = xr + nd * 8;
       mma_bf16(acc[nd], pa, pack_raw(c[0], c[kLd]), pack_raw(c[8 * kLd], c[9 * kLd]));
     }
@@ -124,13 +124,14 @@ __device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* tile, const __nv_b
   }
 }
 
-// The float32 counterpart: a zero-padded (64, kD + 1) tile, one value a
-// thread (the odd stride puts a column walk on distinct banks).
-template <int kD>
+// The float32 counterpart: a zero-padded (kRows, kD + 1) tile of rows
+// [r0, r0 + kRows), one value a thread (the odd stride puts a column walk
+// on distinct banks).
+template <int kD, int kRows = 64>
 __device__ __forceinline__ void load_tile_f32(float* tile, const float* src, int64_t row_stride,
                                               int r0, int rows, int D) {
   constexpr int kLd = kD + 1;
-  for (int i = threadIdx.x; i < 64 * kD; i += kThreads) {
+  for (int i = threadIdx.x; i < kRows * kD; i += kThreads) {
     const int r = i / kD, d = i % kD;
     tile[r * kLd + d] = (r0 + r < rows && d < D) ? src[(r0 + r) * row_stride + d] : 0.f;
   }

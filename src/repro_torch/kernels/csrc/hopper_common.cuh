@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks in PTX for the port's kernels: mbarriers,
 // TMA tile loads from a tensor map and stores to one (bulk groups), wgmma
 // shared-memory descriptors for the 128-byte swizzle, the warpgroup
-// products the flash-attention kernels use (n64, n128 and n256), the
+// products the flash-attention kernels use (n32, n64, n128 and n256), the
 // persistent blocks' order of work items, setmaxnreg, ex2.approx, and the
 // host-side tensor-map encoding of swizzled rank-4 bf16 tiles and plain
 // rank-3 boxes (the driver's cuTensorMapEncodeTiled, reached through the
@@ -153,11 +153,14 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #define HOPPER_D8(i)                                                                  \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),        \
       "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-#define HOPPER_D32 HOPPER_D8(0), HOPPER_D8(8), HOPPER_D8(16), HOPPER_D8(24)
+#define HOPPER_D16 HOPPER_D8(0), HOPPER_D8(8)
+#define HOPPER_D32 HOPPER_D16, HOPPER_D8(16), HOPPER_D8(24)
 #define HOPPER_D64 HOPPER_D32, HOPPER_D8(32), HOPPER_D8(40), HOPPER_D8(48), HOPPER_D8(56)
 #define HOPPER_D128                                                                   \
   HOPPER_D64, HOPPER_D8(64), HOPPER_D8(72), HOPPER_D8(80), HOPPER_D8(88), HOPPER_D8(96), \
       HOPPER_D8(104), HOPPER_D8(112), HOPPER_D8(120)
+#define HOPPER_R16                                                                    \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
 #define HOPPER_R32                                                                    \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "          \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
@@ -202,6 +205,18 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da, 
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// The same for a 64 x 32 tile (the backward's dq at head_dim 256: 32-key
+// score tiles).
+__device__ __forceinline__ void wgmma_m64n32k16_ss(float (&d)[16], uint64_t da, uint64_t db,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " HOPPER_R16
+      ", %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : HOPPER_D16
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // d += A . B with A (64 x 16 bf16) from registers in the mma.sync A layout
 // per warp (a0 = A[g][2t..], a1 = A[g+8][2t..], a2 = A[g][2t+8..], a3 =
 // A[g+8][2t+8..]) and B (16 x N) MN-major in shared memory (transposed:
@@ -226,8 +241,9 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs_tb(float (&d)[64], const uin
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// The same for a 64 x 256 tile (head_dim 256's O): B is V's 16 keys across
-// four 64-column panels, `lbo` bytes apart in the descriptor.
+// The same for a 64 x 256 tile (head_dim 256's O, and the backward's dQ,
+// dK and dV there): B is 16 rows of V, K, dO or Q across four 64-column
+// panels, `lbo` bytes apart in the descriptor.
 __device__ __forceinline__ void wgmma_m64n256k16_rs_tb(float (&d)[128], const uint32_t (&a)[4],
                                                        uint64_t db) {
   asm volatile(
@@ -239,9 +255,11 @@ __device__ __forceinline__ void wgmma_m64n256k16_rs_tb(float (&d)[128], const ui
 }
 
 #undef HOPPER_D8
+#undef HOPPER_D16
 #undef HOPPER_D32
 #undef HOPPER_D64
 #undef HOPPER_D128
+#undef HOPPER_R16
 #undef HOPPER_R32
 #undef HOPPER_R64
 #undef HOPPER_R128
@@ -259,6 +277,14 @@ __device__ __forceinline__ int item_of_round(int r) {
 template <int n>
 __device__ __forceinline__ int clamp_col(int64_t x) {
   return static_cast<int>(x < -1 ? -1 : (x > n ? n : x));
+}
+
+// x, as a value the compiler must take to be written here: descriptors
+// computed from it inside a loop are computed there at each use, not held
+// in registers across the loop (a kernel at its register limit spills them).
+__device__ __forceinline__ uint32_t opaque(uint32_t x) {
+  asm volatile("" : "+r"(x));
+  return x;
 }
 
 // Hand registers from a warpgroup that needs few to one that needs many.

@@ -37,8 +37,8 @@ the module's ``hopper_launches`` counts the launches of the Hopper
 kernel through either, and ``wide_launches`` the launches at head_dim
 over 128 through any kernel (gemma-7b's prefill counts in both), so a run
 can show which route its path took.  A wrapper adds one where it
-launches and nowhere else.  The backward kernels stop at head_dim 128
-(:mod:`.flash_attention_bwd`, ROADMAP.md queue C #10).
+launches and nowhere else.  The backward kernels
+(:mod:`.flash_attention_bwd`) take the same head_dims.
 """
 from __future__ import annotations
 

@@ -12,27 +12,29 @@ pieces are kernels written for Hopper:
   replacing ``_dq_kernel``;
 - dk and dv: :func:`flash_attention_bwd_dkv` (the same source), replacing
   ``_dkv_kernel`` and the group sum after it: each work item of 128 keys
-  of one kv head sums over its query heads in registers, so the step is
-  deterministic.
+  (64 at head_dim 256) of one kv head sums over its query heads in
+  registers, so the step is deterministic.
 
 Which backward kernels take which inputs is :func:`route`, a pure function
 of type, shape, strides and base addresses (never a trial launch):
 
-- ``"hopper"``: bfloat16 with head_dim 64 or 128, q, k, v and dout each
-  addressable by TMA (a 16-byte-aligned base, every stride of an axis
-  longer than 1 a multiple of 16 bytes), and at most 2**30 work items of
-  each kernel.  The training path's strided (B, S, H, D) views are.
-  Persistent blocks, TMA loads into an mbarrier ring, ``wgmma`` products,
-  a producer warp and two consumer warpgroups (see the source).
+- ``"hopper"``: bfloat16 with head_dim 64, 128 or 256, q, k, v and dout
+  each addressable by TMA (a 16-byte-aligned base, every stride of an
+  axis longer than 1 a multiple of 16 bytes), and at most 2**30 work
+  items of each kernel.  The training path's strided (B, S, H, D) views
+  are.  Persistent blocks, TMA loads into an mbarrier ring, ``wgmma``
+  products, a producer warp and two consumer warpgroups (see the
+  source).  At 256 (gemma-7b) dq's key tiles are 32 keys, and dk/dv's
+  items are 64 keys whose dV and dK the two consumers split.
 - ``"bf16"``: every other bfloat16 input (head_dim 16, 20 or 32 in the
-  sweeps and the smoke config, h2o-danube-3-4b's 120; strides TMA
-  refuses): ``mma.sync`` on 64-row tiles.
+  sweeps and the smoke configs, h2o-danube-3-4b's 120, widths between
+  129 and 255; strides TMA refuses, 256 included): ``mma.sync`` on
+  64-row tiles, head_dim padded to 32, 64, 128 or 256.
 - ``"f32"``: float32, on the CUDA cores in full float32.
 
-The backward kernels take head_dim up to 128, where the forward takes
-256: :func:`check_head_dim` raises on more on the card, naming ROADMAP.md
-queue C #10 (training gemma-7b, head_dim 256, waits for it).  The plain
-versions on the CPU take any head_dim.
+The backward kernels take head_dim up to 256, as the forward does:
+:func:`check_head_dim` raises on more.  The plain versions on the CPU take
+any head_dim.
 
 On the CPU each piece is its plain version
 (:func:`~repro_torch.kernels.ref.flash_attention_fwd_lse_ref`,
@@ -79,8 +81,9 @@ __all__ = [
     "HOPPER_HEAD_DIMS",
 ]
 
-MAX_HEAD_DIM = 128  # the backward kernels' widest tile
-HOPPER_HEAD_DIMS = (64, 128)
+MAX_HEAD_DIM = 256  # the backward kernels' widest tile
+DQ_ROWS = 128  # query rows of one work item of the Hopper dq kernel
+HOPPER_HEAD_DIMS = (64, 128, 256)
 
 _ARGS = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # q k v dout
@@ -132,21 +135,23 @@ def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout: torch.Tensor,
         return "f32"
     B, H, S, D = q.shape
     Hkv, T = k.shape[1], k.shape[2]
-    items = max(-(-S // 128) * B * H, -(-T // 128) * B * Hkv)
+    items = max(-(-S // DQ_ROWS) * B * H, -(-T // dkv_keys(D)) * B * Hkv)
     if (D in HOPPER_HEAD_DIMS and items <= HOPPER_MAX_ITEMS
             and all(_tma_ready(t) for t in (q, k, v, dout))):
         return "hopper"
     return "bf16"
 
 
+def dkv_keys(D: int) -> int:
+    """Keys of one work item of the Hopper dk/dv kernel at head_dim ``D``."""
+    return 64 if D == 256 else 128
+
+
 def check_head_dim(D: int) -> None:
     """Raise ``ValueError`` on a head_dim the backward kernels do not take
-    (over 128), naming the open fault."""
+    (over 256, as the forward)."""
     if D > MAX_HEAD_DIM:
-        raise ValueError(
-            f"the backward kernels take head_dim up to {MAX_HEAD_DIM}, got {D} "
-            "(ROADMAP.md queue C #10: training at head_dim 256, gemma-7b's, is not ported yet)"
-        )
+        raise ValueError(f"the backward kernels take head_dim up to {MAX_HEAD_DIM}, got {D}")
 
 
 def launch(lib: Optional[ctypes.CDLL], dkv: bool, q, k, v, dout, lse, delta, causal: bool,

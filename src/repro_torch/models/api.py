@@ -21,7 +21,8 @@ Batch contract (tensors on the params' device):
 router's aux losses summed over the MoE layers (zeros for the other
 families), as the reference's ``forward`` returns them.  The moe family
 (mixtral, phi3.5-moe) takes the dense family's calls and cache; its
-``forward`` runs only without a gradient (ROADMAP.md queue A #17).  The
+``forward`` trains, the aux losses differentiable beside the logits (the
+train step weights them into its loss).  The
 ssm family (falcon-mamba) takes the same calls: its cache holds
 convolution windows and scan states instead of keys and values,
 ``pos_offset``, ``pos`` and ``start`` do not apply to it, and its

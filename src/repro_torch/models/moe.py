@@ -26,8 +26,8 @@ decode step (one token a group, C = 1 for mixtral's 8 experts) that is
 each expert's weights read for each token, the reference's cost as well.
 
 Router aux losses (switch transformer's load balance and the z-loss) are
-returned beside the output, for a training step to weight (ROADMAP.md
-queue A #17: the port's training step does not take them yet).
+returned beside the output, differentiable, for the training step
+(:mod:`..train.step`) to weight into its loss as the reference's does.
 """
 from __future__ import annotations
 

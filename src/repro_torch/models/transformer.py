@@ -34,10 +34,11 @@ Moe family (mixtral, phi3.5-moe): the dense layer with the MLP of each
 layer where ``cfg.is_moe_layer(i)`` replaced by :func:`.moe.moe_apply`,
 the reference's one-hot dispatch in plain products.  ``forward_lm(...,
 return_aux=True)`` also gives the router's aux losses, summed over the
-layers as the reference sums them.  Only the forward without a gradient
-is ported: with one, ``forward_lm`` raises ``NotImplementedError``
-(ROADMAP.md queue A #17), since a training step that left the aux losses
-unweighted would differ from the reference's silently.
+layers as the reference sums them; they are differentiable, and the train
+step (:mod:`..train.step`) weights them into its loss.  Each block returns
+its layer's aux losses beside its output, as the reference's scan carries
+``(h, aux)``: under ``remat="full"`` they leave the checkpointed block as
+outputs, and its recomputation in the backward changes nothing.
 
 Ssm family (falcon-mamba): each layer is ``norm1`` and the Mamba mixer
 (:mod:`.ssm`), with no ``norm2`` or MLP, as in the reference.  A full
@@ -274,24 +275,22 @@ def _logits(lm: LM, h: torch.Tensor) -> torch.Tensor:
     return logits.to(_dtype(cfg.logit_dtype))
 
 
-def _ffn(blk: Block, cfg: ModelConfig, h: torch.Tensor,
-         aux: Optional[dict] = None) -> torch.Tensor:
-    """``h`` plus the layer's MLP or MoE of ``norm2(h)``; an MoE layer's
-    aux losses are added into ``aux`` where it is given."""
+def _ffn(blk: Block, cfg: ModelConfig, h: torch.Tensor) -> tuple[torch.Tensor, Optional[dict]]:
+    """``h`` plus the layer's MLP or MoE of ``norm2(h)``, and an MoE
+    layer's aux losses (``{"lb_loss", "z_loss"}``; None for an MLP)."""
     x = apply_norm(h, blk.norm2.p, cfg.norm)
     if not hasattr(blk, "moe"):
-        return h + mlp_apply(blk.mlp.p, x, cfg.act)
+        return h + mlp_apply(blk.mlp.p, x, cfg.act), None
     f, layer_aux = moe_apply(blk.moe.p, cfg, x)
-    if aux is not None:
-        for name, value in layer_aux.items():
-            aux[name] = aux[name] + value
-    return h + f
+    return h + f, layer_aux
 
 
-def _block(blk: Block, cfg: ModelConfig, h: torch.Tensor, rope,
-           aux: Optional[dict] = None) -> torch.Tensor:
+def _block(blk: Block, cfg: ModelConfig, h: torch.Tensor,
+           rope) -> tuple[torch.Tensor, Optional[dict]]:
+    """One layer over a full sequence: ``(h, layer_aux)`` as :func:`_ffn`
+    returns them.  Pure, so a checkpoint may run it again."""
     o, _ = _attn_apply(blk.attn.p, cfg, apply_norm(h, blk.norm1.p, cfg.norm), rope)
-    return _ffn(blk, cfg, h + o, aux)
+    return _ffn(blk, cfg, h + o)
 
 
 def _no_gradient(lm: LM, what: str, item: str) -> None:
@@ -311,9 +310,9 @@ def forward_lm(lm: LM, tokens: torch.Tensor, *, return_aux: bool = False,
     num_patches + S, vocab) in the vlm family, after ``patch_embeds``); with
     ``return_aux``, ``(logits, {"lb_loss", "z_loss"})``, the MoE layers'
     aux losses summed over the layers (float32 zeros without MoE layers),
-    as the reference returns them.  Under autograd with ``cfg.remat ==
-    "full"`` each block's activations are recomputed in the backward
-    instead of kept."""
+    as the reference returns them, differentiable.  Under autograd with
+    ``cfg.remat == "full"`` each block's activations are recomputed in the
+    backward instead of kept."""
     cfg = lm.cfg
     aux = None
     if return_aux:
@@ -322,8 +321,6 @@ def forward_lm(lm: LM, tokens: torch.Tensor, *, return_aux: bool = False,
     if cfg.family == "ssm":
         logits = _forward_ssm(lm, tokens)
         return (logits, aux) if return_aux else logits
-    if cfg.family == "moe":
-        _no_gradient(lm, "the moe family (the router's aux losses in the step)", "#17")
     if cfg.remat not in ("none", "full"):
         raise NotImplementedError(
             f"remat={cfg.remat!r} is not ported yet (ROADMAP.md queue A #7); use 'none' or 'full'"
@@ -334,10 +331,13 @@ def forward_lm(lm: LM, tokens: torch.Tensor, *, return_aux: bool = False,
     for blk in lm.blocks:
         if remat:
             # no dropout or other draws inside: no RNG state to stash
-            h = checkpoint(_block, blk, cfg, h, rope, aux, use_reentrant=False,
-                           preserve_rng_state=False)
+            h, layer_aux = checkpoint(_block, blk, cfg, h, rope, use_reentrant=False,
+                                      preserve_rng_state=False)
         else:
-            h = _block(blk, cfg, h, rope, aux)
+            h, layer_aux = _block(blk, cfg, h, rope)
+        if aux is not None and layer_aux is not None:
+            for name, value in layer_aux.items():
+                aux[name] = aux[name] + value
     logits = _logits(lm, h)
     return (logits, aux) if return_aux else logits
 
@@ -447,7 +447,7 @@ def decode_lm(lm: LM, token: torch.Tensor, cache: dict, pos: int,
     for i, blk in enumerate(lm.blocks):
         x = apply_norm(h, blk.norm1.p, cfg.norm)
         o = _attn_decode(blk.attn.p, cfg, x, kc[i], vc[i], pos % W, rope, valid)
-        h = _ffn(blk, cfg, h + o)
+        h, _ = _ffn(blk, cfg, h + o)
     return _logits(lm, h)[:, 0], cache
 
 
@@ -490,5 +490,5 @@ def prefill_lm(lm: LM, tokens: torch.Tensor, cache: dict, pos_offset: int = 0,
             vw = F.pad(v, pad).roll(pos_offset % W, dims=1)
         kc[i].copy_(kw)
         vc[i].copy_(vw)
-        h = _ffn(blk, cfg, h + o)
+        h, _ = _ffn(blk, cfg, h + o)
     return _logits(lm, h[:, -1:, :])[:, 0], cache

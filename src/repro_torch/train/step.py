@@ -1,21 +1,26 @@
 """Train-state, train-step and serve-step factories: the port of
-``repro.train.step``; the train step for the dense, vlm and encdec
-families (the moe and ssm families raise in their forward under a
-gradient, ROADMAP.md queue A #17 and #9), the serve steps for every
-ported family.
+``repro.train.step``; the train step for the dense, moe, vlm and encdec
+families (the ssm family raises in its forward under a gradient,
+ROADMAP.md queue A #9), the serve steps for every ported family.
 
 ``make_train_step`` builds ``(state, batch) -> (state, metrics)`` with:
 
 - optional microbatching (gradient accumulation over the leading axis in
   float32, as the reference's ``lax.scan``; memory ∝ 1/n_micro),
 - the loss and backward (attention through the Hopper kernels on the card),
+- MoE aux-loss weighting: where ``cfg.moe`` is set, the router's load
+  balance and z-losses, summed over the MoE layers, join the loss as
+  ``moe_lb_weight * lb_loss + moe_z_weight * z_loss``, as in the
+  reference,
 - the AdamW update (in place),
 - metrics as float32 0-d tensors on the device: ``loss``, ``ce_loss``,
-  ``z_loss``, ``ppl_proxy``, ``tokens``, ``grad_norm`` and ``lr``.
+  ``z_loss``, ``ppl_proxy``, ``tokens``, ``grad_norm`` and ``lr``, and
+  ``moe_lb_loss`` where ``cfg.moe`` is set (averaged over the
+  microbatches as the others are).
 
 The state is ``{"params": LM, "opt": AdamWState, "step": int}``; the
-reference's is the same tree of arrays.  The MoE aux losses and the
-ZeRO-2 gradient shardings have no counterpart here (one device, dense).
+reference's is the same tree of arrays.  The ZeRO-2 gradient shardings
+have no counterpart here (one device).
 """
 from __future__ import annotations
 
@@ -32,6 +37,7 @@ from .optimizer import AdamWConfig, adamw_init, adamw_update
 __all__ = [
     "TrainState",
     "make_train_state",
+    "make_loss_fn",
     "make_train_step",
     "make_serve_steps",
     "train_state_tree",
@@ -76,29 +82,50 @@ def load_train_state_tree(state: TrainState, tree: dict) -> None:
     state["step"] = int(np.asarray(tree["step"]).item())
 
 
+def make_loss_fn(model: Model, *, moe_lb_weight: float = 0.01, moe_z_weight: float = 1e-3,
+                 z_loss_weight: float = 1e-4) -> Callable:
+    """The train step's loss: ``loss_fn(lm, batch) -> (total, metrics,
+    aux)``, ``aux`` the router's ``{"lb_loss", "z_loss"}`` where
+    ``cfg.moe`` is set (weighted into ``total``), else None."""
+    cfg = model.cfg
+
+    def loss_fn(lm, batch: dict):
+        aux = None
+        if cfg.moe is None:
+            logits = model.forward(lm, batch)
+        else:
+            logits, aux = model.forward(lm, batch, return_aux=True)
+        total, metrics = lm_loss(logits, batch["labels"], batch.get("mask"),
+                                 z_loss_weight=z_loss_weight)
+        if aux is not None:
+            total = total + moe_lb_weight * aux["lb_loss"] + moe_z_weight * aux["z_loss"]
+            metrics["moe_lb_loss"] = aux["lb_loss"]
+        metrics["loss"] = total
+        return total, metrics, aux
+
+    return loss_fn
+
+
 def make_train_step(
     model: Model,
     opt_cfg: AdamWConfig,
     *,
     num_microbatches: int = 1,
+    moe_lb_weight: float = 0.01,
+    moe_z_weight: float = 1e-3,
     z_loss_weight: float = 1e-4,
 ) -> Callable[[TrainState, dict], tuple[TrainState, dict]]:
     """``batch`` holds ``tokens`` and ``labels`` (B, S) and optionally
     ``mask`` (B, S), with ``patch_embeds`` (vlm) or ``frames`` (encdec)
     as :class:`~repro_torch.models.Model` takes them, on the params'
     device; B divisible by ``num_microbatches``."""
-
-    def loss_fn(lm, batch: dict):
-        logits = model.forward(lm, batch)
-        total, metrics = lm_loss(logits, batch["labels"], batch.get("mask"),
-                                 z_loss_weight=z_loss_weight)
-        metrics["loss"] = total
-        return total, metrics
+    loss_fn = make_loss_fn(model, moe_lb_weight=moe_lb_weight, moe_z_weight=moe_z_weight,
+                           z_loss_weight=z_loss_weight)
 
     def single(lm, params: dict, batch: dict):
         # the backward's float32 products in full float32 too, as the forward's
         with torch.enable_grad(), full_float32_matmul():
-            total, metrics = loss_fn(lm, batch)
+            total, metrics, _ = loss_fn(lm, batch)
             grads = torch.autograd.grad(total, list(params.values()))
         return dict(zip(params, grads)), {k: v.detach() for k, v in metrics.items()}
 

@@ -30,7 +30,7 @@ _EXPECT_B = {"falcon-mamba-7b": 7.3, "mixtral-8x7b": 46.7, "phi3.5-moe-42b-a6.6b
              "h2o-danube-3-4b": 4.0, "internvl2-26b": 20.0, "whisper-large-v3": 1.55}
 _EXPECT_ACTIVE_B = {"mixtral-8x7b": 12.9, "phi3.5-moe-42b-a6.6b": 6.6}
 # the families whose training is not ported, and the ROADMAP.md item that ports it
-_NO_TRAINING = {"moe": "queue A #17", "ssm": "queue A #9"}
+_NO_TRAINING = {"ssm": "queue A #9"}
 
 
 def test_the_port_registers_every_reference_id_but_three():
@@ -136,6 +136,7 @@ def test_train_step_or_its_item(arch):
     state, metrics = step(state, batch)
     assert state["step"] == 1
     assert np.isfinite(float(metrics["loss"])) and float(metrics["grad_norm"]) > 0
+    assert ("moe_lb_loss" in metrics) == (cfg.moe is not None)
 
 
 # Not the moe family: a token's expert capacity is shared with the other

@@ -855,21 +855,28 @@ def test_mma_sync_kernel_keeps_head_dim_256_where_tma_refuses(shape):
 
 @pytest.mark.cuda
 def test_training_at_head_dim_256_raises_naming_its_item():
-    """The forward takes head_dim 256 with a gradient (the forward with
-    lse, through the Hopper kernel); the backward refuses it, naming
-    ROADMAP.md queue C #10, and launches nothing."""
+    """Named when the backward refused head_dim 256.  Now a gradient at
+    256 (gemma-7b's) runs the forward with lse and the dq and dk/dv
+    kernels, each once and through the Hopper kernels, and the gradients
+    equal the plain backward's from the same residuals."""
     from repro_torch.kernels import flash_attention_bwd as fab
 
     dev = _card()
-    q, k, v = (t.requires_grad_() for t in _fa_inputs(1, 2, 2, 64, 64, 256, torch.bfloat16, dev))
+    q, k, v, dout = _train_inputs(1, 8, 2, 130, 130, 256, torch.bfloat16, dev, seed=12)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
     n = (flash_attention.flash_attention_fwd_lse.launches, flash_attention.hopper_launches)
     out = ops.flash_attention(q, k, v, causal=True)
     assert (flash_attention.flash_attention_fwd_lse.launches,
             flash_attention.hopper_launches) == (n[0] + 1, n[1] + 1)
-    counts = (fab.flash_attention_bwd_dq.launches, fab.flash_attention_bwd_dkv.launches)
-    with pytest.raises(ValueError, match="queue C #10"):
-        out.float().square().sum().backward()
-    assert (fab.flash_attention_bwd_dq.launches, fab.flash_attention_bwd_dkv.launches) == counts
+    counts = _bwd_counts(fab)
+    got = torch.autograd.grad(out, (q, k, v), dout)
+    torch.cuda.synchronize()
+    assert _bwd_counts(fab) == (counts[0] + 2, *(c + 1 for c in counts[1:]))
+    qd, kd, vd = (t.detach() for t in (q, k, v))
+    _, lse = flash_attention.flash_attention_fwd_lse(qd, kd, vd, causal=True)  # the residual, again
+    wants = ref.flash_attention_bwd_ref(qd, kd, vd, out.detach(), lse, dout, causal=True)
+    for g, want in zip(got, wants):
+        _assert_hopper_bwd_close(g, want)
 
 
 @pytest.mark.cuda
@@ -896,6 +903,7 @@ def test_hopper_kernel_is_bitwise_repeatable_at_the_training_shape():
 # 128.  (B, H, Hkv, S, T, causal, window)
 HOPPER_BWD_CASES = [
     (1, 15, 5, 130, 130, True, None),
+    (1, 8, 2, 300, 300, True, None),
     (2, 6, 1, 300, 300, True, None),
     (1, 15, 5, 300, 300, True, 32),
     (2, 6, 1, 130, 130, True, 32),
@@ -934,7 +942,7 @@ def _bwd_counts(fab):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 256])
 @pytest.mark.parametrize("B,H,Hkv,S,T,causal,window", HOPPER_BWD_CASES)
 def test_hopper_backward_matches_plain_version(B, H, Hkv, S, T, causal, window, D):
     """dq and dk/dv through the Hopper kernels, one launch each, against the
@@ -954,7 +962,7 @@ def test_hopper_backward_matches_plain_version(B, H, Hkv, S, T, causal, window, 
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 256])
 def test_hopper_backward_takes_strided_bshd_views(D):
     """The model's (B, S, H, D) projections, k and v sliced from one tensor
     (strided in the head axis too), a cotangent in q's layout; the outputs
@@ -980,7 +988,7 @@ def test_hopper_backward_takes_strided_bshd_views(D):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 256])
 def test_hopper_backward_rows_and_keys_without_pairs_are_zero(D):
     """Rows past T + window - 1 of a short key axis see no key (lse -inf):
     their dq is zero; keys past S under the causal mask are seen by no
@@ -1019,6 +1027,31 @@ def test_hopper_backward_is_bitwise_repeatable_at_the_training_shape():
     first = _backward(fab, q, k, v, dout, True, None)
     second = _backward(fab, q, k, v, dout, True, None)
     assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal,window", BWD_MASKS)
+def test_head_dim_256_keeps_the_mma_sync_backward_where_tma_refuses(causal, window):
+    """gemma-7b's head_dim in rows of 260 values (a 520-byte head stride
+    TMA refuses), GQA 8:2, S off the tiles: dq_bf16<256> and the dk/dv
+    kernel that splits its 256 output columns over two blocks; their
+    entry points count them, the Hopper counter does not."""
+    from repro_torch.kernels import flash_attention_bwd as fab
+
+    dev = _card()
+    B, H, Hkv, S = 1, 8, 2, 150
+    g = torch.Generator(device=dev).manual_seed(13)
+    x = torch.randn((B, H + 2 * Hkv, S, 260), generator=g, device=dev).to(torch.bfloat16)
+    q, k, v = x[:, :H, :, :256], x[:, H:H + Hkv, :, :256], x[:, H + Hkv:, :, :256]
+    dout = torch.randn((B, H, S, 256), generator=g, device=dev).to(torch.bfloat16)
+    assert fab.route(q, k, v, dout, window) == "bf16"
+    n = _bwd_counts(fab)
+    out, lse, dq, dk, dv = _backward(fab, q, k, v, dout, causal, window)
+    assert _bwd_counts(fab) == (n[0], n[1] + 1, n[2] + 1, n[3], n[4])
+    wants = ref.flash_attention_bwd_ref(*(t.contiguous() for t in (q, k, v, out)), lse, dout,
+                                        causal=causal, window=window)
+    for got, want in zip((dq, dk, dv), wants):
+        _assert_hopper_bwd_close(got, want)
 
 
 @pytest.mark.cuda

@@ -64,15 +64,17 @@ def _misaligned_dout():
      "f32"),  # the card-against-CPU step's type
     (lambda: (*_bshd_views(1, 40, 2, 2, 128, dtype=torch.float32), torch.empty((1, 2, 40, 128))),
      "f32"),
+    (lambda: (*_bshd_views(1, 40, 4, 2, 160), torch.empty((1, 4, 40, 160), dtype=torch.bfloat16)),
+     "bf16"),  # a width between 129 and 255: the mma.sync kernels, padded to 256
     (_misaligned_row_stride, "bf16"),
     (_misaligned_dout, "bf16"),
-], ids=["d20", "d16", "d32", "f32-d64", "f32-d128", "row-stride-136B", "dout-base-8B"])
+], ids=["d20", "d16", "d32", "f32-d64", "f32-d128", "d160", "row-stride-136B", "dout-base-8B"])
 def test_other_inputs_keep_their_kernels(make, want):
     assert fab.route(*make()) == want
 
 
 @pytest.mark.parametrize("case,err", [
-    ("float16", TypeError), ("mixed_types", TypeError), ("head_dim_160", ValueError),
+    ("float16", TypeError), ("mixed_types", TypeError), ("head_dim_264", ValueError),
     ("last_axis_strided", ValueError), ("heads_not_grouped", ValueError),
     ("window_zero", ValueError), ("dout_shape", ValueError), ("dout_type", ValueError),
     ("dout_last_axis_strided", ValueError),
@@ -85,8 +87,8 @@ def test_route_raises_where_the_kernels_do(case, err):
         q, k, v, dout = q.half(), k.half(), v.half(), dout.half()
     elif case == "mixed_types":
         k = k.float()
-    elif case == "head_dim_160":
-        q, k, v = _bshd_views(1, 16, 4, 2, 160)
+    elif case == "head_dim_264":
+        q, k, v = _bshd_views(1, 16, 4, 2, 264)
         dout = torch.empty(q.shape, dtype=q.dtype)
     elif case == "last_axis_strided":
         q, k, v = (t[..., ::2] for t in _bshd_views(1, 16, 4, 2, 128))
@@ -105,23 +107,30 @@ def test_route_raises_where_the_kernels_do(case, err):
 
 
 def test_head_dim_120_takes_the_mma_sync_backward_and_256_is_refused():
-    """danube's head_dim 120 goes to the Hopper forward but to the
-    mma.sync backward kernels (the Hopper ones are built at 64 and 128);
-    gemma's 256, which the Hopper forward takes, the backward refuses,
-    naming the open fault."""
+    """Named when the backward stopped at head_dim 128.  danube's 120 goes
+    to the Hopper forward but to the mma.sync backward kernels (the Hopper
+    ones are built at 64, 128 and 256); gemma's 256 now takes the Hopper
+    backward on the training path's views, the mma.sync one at strides TMA
+    refuses, the float32 one in float32; past 256 both directions refuse."""
     q, k, v = _bshd_views(4, 2048, 32, 8, 120)
     assert fa.route(q, k, v) == "hopper"
     for dout in _douts(q):
         assert fab.route(q, k, v, dout) == "bf16"
         assert fab.route(*(t.float() for t in (q, k, v, dout))) == "f32"
-    q, k, v = _bshd_views(1, 64, 16, 16, 256, device="meta")
+    q, k, v = _bshd_views(4, 2048, 16, 16, 256, device="meta")
     assert fa.route(q, k, v) == "hopper"
     for dout in _douts(q):
-        with pytest.raises(ValueError, match="queue C #10"):
-            fab.route(q, k, v, dout)
-    with pytest.raises(ValueError, match="queue C #10"):
-        fab.check_head_dim(129)
-    fab.check_head_dim(128)
+        assert fab.route(q, k, v, dout) == "hopper"
+        assert fab.route(*(t.float() for t in (q, k, v, dout))) == "f32"
+    # rows of 260 values: a 520-byte head stride, which TMA refuses
+    rows = torch.empty((1, 64, 16, 260), dtype=torch.bfloat16)[..., :256].transpose(1, 2)
+    assert fab.route(rows, rows, rows, torch.empty(rows.shape, dtype=rows.dtype)) == "bf16"
+    q, k, v = _bshd_views(1, 64, 4, 2, 264, device="meta")
+    with pytest.raises(ValueError, match="256"):
+        fab.route(q, k, v, torch.empty(q.shape, dtype=q.dtype, device="meta"))
+    with pytest.raises(ValueError, match="up to 256"):
+        fab.check_head_dim(257)
+    fab.check_head_dim(256)
 
 
 def test_cpu_plain_versions_take_head_dim_256_with_a_gradient():

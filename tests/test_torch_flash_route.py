@@ -159,6 +159,7 @@ def test_the_forward_takes_head_dims_up_to_256():
     *(("flash_attention", n, e) for n, e in chip_smoke.WIDE_MUTANTS.items()),
     *(("ssm_scan", n, e) for n, e in chip_smoke.SSM_MUTANTS.items()),
     *(("flash_attention_bwd", n, e) for n, e in chip_smoke.BWD_MUTANTS.items()),
+    *(("flash_attention_bwd", n, e) for n, e in chip_smoke.BWD256_MUTANTS.items()),
     *(("ell_to_dense", n, e) for n, e in chip_smoke.ELL_MUTANTS.items()),
 ])
 def test_each_mutant_edits_one_line_of_its_source(source, name, edit):

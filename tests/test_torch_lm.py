@@ -271,15 +271,26 @@ def test_forward_returns_the_reference_aux_losses():
 
 
 def test_moe_forward_under_a_gradient_raises():
-    """Training the moe family would leave the aux losses unweighted:
-    ``forward_lm`` refuses a gradient, naming the item."""
+    """Named when the moe family's forward refused a gradient (its aux
+    losses were not weighted in the step yet).  Now it records one: the
+    logits and the aux losses carry a graph, the aux losses' gradient
+    reaches every layer's router, and the values agree with the forward's
+    without a gradient (which takes the plain attention without lse: float32
+    sums in another order)."""
     cfg = _f32(smoke_config("mixtral-8x7b"))
     lm = tr.init_lm(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
-    tokens = torch.zeros((1, 8), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A #17"):
-        tr.forward_lm(lm, tokens)
+    tokens = torch.from_numpy(np.random.default_rng(5).integers(0, cfg.vocab_size, (2, 8)))
+    logits, aux = tr.forward_lm(lm, tokens, return_aux=True)
+    assert logits.shape == (2, 8, cfg.vocab_size) and logits.requires_grad
+    assert aux.keys() == {"lb_loss", "z_loss"} and all(v.requires_grad for v in aux.values())
+    routers = [blk.moe.router for blk in lm.blocks]
+    grads = torch.autograd.grad(aux["lb_loss"] + aux["z_loss"], routers)
+    assert all(bool(g.abs().sum() > 0) for g in grads)
     with torch.no_grad():
-        assert tr.forward_lm(lm, tokens).shape == (1, 8, cfg.vocab_size)
+        plain_logits, plain_aux = tr.forward_lm(lm, tokens, return_aux=True)
+    torch.testing.assert_close(plain_logits, logits.detach(), atol=1e-5, rtol=1e-5)
+    for k in aux:
+        torch.testing.assert_close(plain_aux[k], aux[k].detach(), atol=1e-6, rtol=1e-5)
 
 
 def test_lm_from_jax_refuses_a_wrong_tree():

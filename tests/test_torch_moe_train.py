@@ -1,0 +1,171 @@
+"""Training in the moe family and at head_dim 256, port against the JAX
+package on the CPU: three train steps of mixtral's and phi3.5-moe's smoke
+configs (the router's aux losses weighted into the loss, ``moe_lb_loss``
+among the metrics) and of gemma's smoke config widened to head_dim 256,
+against ``repro.train.step.make_train_step`` from the same weights (drawn
+by ``repro``, carried over by ``convert``) and batches (numpy, seeded);
+remat ``"full"`` against ``"none"`` for the moe family; and
+``train_loop`` on those configs through the ``tokens://`` loader with a
+checkpoint and a bitwise resume."""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import smoke_config as ref_smoke_config
+from repro.models import Model as RefModel
+from repro.train import optimizer as jopt
+from repro.train import step as jstep
+from repro_torch import convert
+from repro_torch.configs import smoke_config
+from repro_torch.distributed.fault import run_with_restarts
+from repro_torch.launch.train import build_loader, train_loop
+from repro_torch.models import Model
+from repro_torch.train import optimizer, step
+
+# The tolerances of tests/test_torch_train.py's
+# test_three_train_steps_match_reference: the metrics are float32 sums over
+# every logit and gradient in another order; the parameters after 3 AdamW
+# steps of lr <= 1e-3 at least 99.9% of each tensor within 2e-6 and every
+# element within 1e-4 (Adam's m / sqrt(v) is ill-conditioned where a
+# gradient lies within float32 noise of zero); the schedule's float32
+# cosine one ulp apart
+METRIC_RTOL, LR_RTOL = 1e-4, 2.4e-7
+PARAM_TOL, PARAM_SHARE, PARAM_MAX = 2e-6, 0.999, 1e-4
+METRICS = {"loss", "ce_loss", "z_loss", "ppl_proxy", "tokens", "grad_norm", "lr"}
+# (arch, head_dim): the moe smoke configs as they are, gemma's widened from
+# 32 to the full config's 256
+CONFIGS = [("mixtral-8x7b", None), ("phi3.5-moe-42b-a6.6b", None), ("gemma-7b", 256)]
+
+
+def _pair(arch: str, head_dim):
+    """The reference's and the port's smoke config in float32, at
+    ``head_dim`` where given."""
+    changes = dict(param_dtype="float32", compute_dtype="float32")
+    if head_dim is not None:
+        changes["head_dim"] = head_dim
+    ref_cfg = dataclasses.replace(ref_smoke_config(arch), **changes)
+    cfg = dataclasses.replace(smoke_config(arch), **changes)
+    assert dataclasses.asdict(ref_cfg) == dataclasses.asdict(cfg)
+    return ref_cfg, cfg
+
+
+@pytest.mark.parametrize("micro", [1, 2])
+@pytest.mark.parametrize("arch,head_dim", CONFIGS, ids=["mixtral", "phi3.5-moe", "gemma-d256"])
+def test_three_train_steps_match_reference(arch, head_dim, micro):
+    ref_cfg, cfg = _pair(arch, head_dim)
+    jmodel, model = RefModel(ref_cfg), Model(cfg)
+    kw = dict(weight_decay=0.01, clip_norm=1.0)
+    jcfg = jopt.AdamWConfig(lr=jopt.warmup_cosine(1e-3, warmup=1, total=3), **kw)
+    tcfg = optimizer.AdamWConfig(lr=optimizer.warmup_cosine(1e-3, warmup=1, total=3), **kw)
+    jstate = jstep.make_train_state(jmodel, jax.random.PRNGKey(0), jcfg)
+    state = convert.train_state_from_jax(jax.tree.map(np.asarray, jstate), cfg, device="cpu")
+    jfn = jax.jit(jstep.make_train_step(jmodel, jcfg, num_microbatches=micro))
+    tfn = step.make_train_step(model, tcfg, num_microbatches=micro)
+    want_metrics = METRICS | ({"moe_lb_loss"} if cfg.moe is not None else set())
+    rng = np.random.default_rng(micro)  # the batches of test_three_train_steps_match_reference
+    for i in range(3):
+        seq = rng.integers(0, cfg.vocab_size, (4, 33)).astype(np.int32)
+        batch = {"tokens": seq[:, :-1], "labels": seq[:, 1:]}
+        jstate, jm = jfn(jstate, {k: jnp.asarray(v) for k, v in batch.items()})
+        state, m = tfn(state, {k: torch.from_numpy(v) for k, v in batch.items()})
+        assert set(m) == set(jm) == want_metrics
+        for k in m:
+            rtol = LR_RTOL if k == "lr" else METRIC_RTOL
+            np.testing.assert_allclose(float(m[k]), float(jm[k]), rtol=rtol, err_msg=f"{k} step {i}")
+    assert state["step"] == int(jstate["step"]) == 3 and state["opt"].count == 3
+    want = dict(convert.train_state_from_jax(jax.tree.map(np.asarray, jstate), cfg,
+                                             device="cpu")["params"].named_parameters())
+    for name, p in state["params"].named_parameters():
+        err = (p.detach() - want[name].detach()).abs()
+        assert float((err <= PARAM_TOL).float().mean()) >= PARAM_SHARE, name
+        assert float(err.max()) <= PARAM_MAX, (name, float(err.max()))
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "phi3.5-moe-42b-a6.6b"])
+def test_remat_full_gives_the_same_gradients_and_aux_losses(arch):
+    """Each checkpointed block returns its aux losses as outputs, so the
+    recomputation in the backward neither changes them nor adds to them:
+    gradients and aux losses bitwise those without remat, the aux values
+    the same after the backward as before it."""
+    _, cfg = _pair(arch, None)
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 16)))
+    got = {}
+    for remat in ("none", "full"):
+        model = Model(dataclasses.replace(cfg, remat=remat))
+        lm = model.init(generator=torch.Generator().manual_seed(0), device="cpu")
+        logits, aux = model.forward(lm, {"tokens": tokens}, return_aux=True)
+        before = {k: v.detach().clone() for k, v in aux.items()}
+        loss = logits.square().mean() + 0.01 * aux["lb_loss"] + 1e-3 * aux["z_loss"]
+        grads = torch.autograd.grad(loss, list(lm.parameters()))
+        for k, v in aux.items():
+            assert torch.equal(v.detach(), before[k]), (remat, k)
+        got[remat] = grads, before
+    (g_none, aux_none), (g_full, aux_full) = got["none"], got["full"]
+    assert all(torch.equal(a, b) for a, b in zip(g_none, g_full))
+    assert aux_none.keys() == aux_full.keys() == {"lb_loss", "z_loss"}
+    assert all(torch.equal(aux_none[k], aux_full[k]) for k in aux_none)
+    assert all(float(v) > 0 for v in aux_none.values())
+
+
+def test_aux_losses_reach_the_router_gradient():
+    """The weighted aux losses are part of the loss: with their weights
+    the router's gradient differs from the one without them."""
+    _, cfg = _pair("mixtral-8x7b", None)
+    model = Model(cfg)
+    tokens = torch.from_numpy(np.random.default_rng(4).integers(0, cfg.vocab_size, (2, 16)))
+    batch = {"tokens": tokens, "labels": tokens}
+    grads = {}
+    for weights in ((0.01, 1e-3), (0.0, 0.0)):
+        state = step.make_train_state(model, optimizer.AdamWConfig(lr=1e-3), device="cpu",
+                                      generator=torch.Generator().manual_seed(1))
+        router = state["params"].blocks[0].moe.router
+        before = router.detach().clone()
+        fn = step.make_train_step(model, optimizer.AdamWConfig(lr=1e-3, weight_decay=0.0),
+                                  moe_lb_weight=weights[0], moe_z_weight=weights[1])
+        _, m = fn(state, batch)
+        grads[weights] = (router.detach() - before, float(m["loss"]), float(m["ce_loss"]))
+    (with_aux, loss_aux, ce_aux), (without, loss_plain, ce_plain) = grads.values()
+    assert ce_aux == ce_plain and loss_aux > loss_plain
+    assert not torch.equal(with_aux, without)
+
+
+def _loader(corpus, cfg):
+    # main's vocabulary: the config's, at most 1,024
+    return build_loader(corpus, seq_len=32, batch=4, block_size=4, fetch_factor=2,
+                        n_tokens=60_000, vocab_size=min(cfg.vocab_size, 1024))
+
+
+@pytest.mark.parametrize("arch,head_dim", [("mixtral-8x7b", None), ("gemma-7b", 256)],
+                         ids=["mixtral", "gemma-d256"])
+def test_train_loop_with_a_checkpoint_resumes_bitwise(arch, head_dim, tmp_path):
+    """``train_loop`` over the ``tokens://`` loader, a checkpoint every 3
+    steps and a crash after step 4: the resumed run ends bitwise where an
+    uninterrupted one does, its losses finite."""
+    cfg = dataclasses.replace(smoke_config(arch), remat="full")
+    if head_dim is not None:
+        cfg = dataclasses.replace(cfg, head_dim=head_dim)
+    model, corpus, steps = Model(cfg), str(tmp_path / "corpus"), 6
+    want = train_loop(model, _loader(corpus, cfg), steps=steps, ckpt_dir=str(tmp_path / "ref"),
+                      ckpt_every=3, log_every=1, device="cpu")
+    assert len(want["metrics"]) == steps
+    assert all(np.isfinite(m["loss"]) for m in want["metrics"])
+    assert all(("moe_lb_loss" in m) == (cfg.moe is not None) for m in want["metrics"])
+
+    def work(resume: bool):
+        return train_loop(model, _loader(corpus, cfg), steps=steps,
+                          ckpt_dir=str(tmp_path / "crashy"), ckpt_every=3, log_every=100,
+                          resume=resume, crash_after=None if resume else 4, device="cpu")
+
+    restarts = []
+    got = run_with_restarts(work, max_restarts=1, on_restart=lambda n, e: restarts.append(str(e)))
+    assert len(restarts) == 1 and "injected crash" in restarts[0]
+    wp = dict(want["final_state"]["params"].named_parameters())
+    gp = dict(got["final_state"]["params"].named_parameters())
+    assert wp.keys() == gp.keys()
+    for k in wp:
+        assert torch.equal(wp[k], gp[k]), k
+        assert torch.equal(want["final_state"]["opt"].v[k], got["final_state"]["opt"].v[k]), k

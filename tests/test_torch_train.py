@@ -40,7 +40,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # tests/test_kernels_bwd.py's sweep: (B, H, Hkv, S, T, D, block_q, block_k)
 BWD_SWEEP = [(1, 2, 2, 64, 64, 16, 32, 32), (2, 4, 2, 64, 64, 32, 32, 32),
-             (1, 2, 1, 96, 96, 16, 32, 48)]
+             (1, 2, 1, 96, 96, 16, 32, 48),
+             # gemma-7b's head_dim 256: GQA 2:1, and 4:1 with T != S
+             (1, 4, 2, 64, 64, 256, 32, 32), (1, 4, 1, 48, 80, 256, 16, 16)]
 BWD_MASKS = [(True, None), (True, 32), (False, None)]
 # float32 on both sides, sums in another order: the JAX package's own
 # tolerances, 3e-5 for the forward (tests/test_kernels_bwd.py's forward
