@@ -26,7 +26,7 @@ The cell-training path (slice 1):
    plates, 32,768 cells = two fetches of 64 x 256, 2,048 counts per cell,
    seed 0), generated under ``build/chip_smoke_data`` in the checkout or
    reused when its manifest matches; the generation runs in a process of
-   its own while phases 31-33 run, and this phase waits for it;
+   its own while phases 31-35 run, and this phase waits for it;
 4. kernel: ``ell_to_dense``'s tiled kernel, with and without its fused
    ``log1p``, on the card against its plain PyTorch version (followed by
    ``log1p_``): the JAX package's sweep with duplicate columns (atol 1e-6,
@@ -370,8 +370,9 @@ LM serving of the other registered configs (slice 14), after phase 18:
    plain version's, the bound and the kernel's share of it; then
    (``family_kernels``) the same at the prefill shapes of phases 29-30
    (FAMILY_SHAPES): whisper-large-v3's encoder, q, k, v (8, 20, 1,500,
-   64), non-causal, and internvl2-26b's prefill, q (4, 48, 4,608, 128)
-   over k, v (4, 8, 4,608, 128), causal, in bf16 through the Hopper
+   64), non-causal, internvl2-26b's prefill, q (4, 48, 4,608, 128) over
+   k, v (4, 8, 4,608, 128), causal, and jamba-1.5-large's (phase 35), q
+   (4, 64, 4,608, 128) over the same k, v, in bf16 through the Hopper
    kernel, within WIDE_RULE of the plain version (run one batch row at a
    time), timed in turns with SDPA, beside the bound (bytes, tensor cores
    and exponentials);
@@ -460,6 +461,39 @@ LM training at head_dim 256 and in the MoE family (slice 17), after phase
    router's aux losses held too), each step's ``moe_lb_loss`` and
    ``z_loss`` printed (4 forwards with lse, 2 dq and 2 dk/dv a step at
    head_dim 128).
+
+``remat="dots"`` and the hybrid family (slice 18), after phase 33:
+
+34. remat_dots: gemma-7b at full width, first at 2 layers in float32, one
+   forward and backward through ``make_loss_fn`` under ``remat="dots"``
+   and under ``"full"`` on the same weights and tokens: the loss equal and
+   the gradients bitwise (where a recomputed product changes bits, each
+   within CPU_GNORM_RTOL, the differing tensors printed); then at
+   GEMMA_TRAIN_LAYERS in bf16, batch 4 x 2,048, AdamW, one state trained
+   DOTS_WARMUP + DOTS_STEPS steps under ``"dots"`` and then under
+   ``"full"``, the attention kernels' counts set to 0 just before each
+   turn and read just after (12 forwards with lse, 6 dq and 6 dk/dv a
+   step under both, all Hopper at head_dim 256: the backward recomputes
+   the attention under both); step ms, tokens/s, peak memory, losses;
+35. hybrid_serve: jamba-1.5-large-398b at full width (d_model 8,192, 64
+   heads of 128 over 8, d_ff 24,576, 16 experts top 2, Mamba d_inner
+   16,384 with N 16, no RoPE, vocabulary 65,536), the host's memory
+   printed first; at HYBRID_CPU_SCHEDULE (three layers with its three
+   kinds) in float32 on the card against the CPU as phase 28 (each MoE
+   layer's expert choices compared where the router's margin exceeds
+   MOE_ROUTER_TIE), then ``SlotBatcher`` at that schedule as phase 28's;
+   then in bf16 at HYBRID_LAYERS of its 72 layers (``reduced``: the
+   layers' weights), all 16 experts, ``serve_batch`` as phase 27, the
+   counts set to 0 just before and read just after: 4 ``ssm_scan``
+   launches a prefill, all ``ssm_scan_hopper``, and 1 through
+   ``flash_fwd_hopper<128>``; time to first token, decode ms per step,
+   peak memory, and the traced prefill and decode step by kind (the
+   scan, attention, products, the rest, and the device time of the MoE
+   layers and of their routing, ``moe_dispatch``); then the scan at the
+   prefill's shape, x (4, 4,608, 16,384) bf16, dt float32, N 16, through
+   ``ssm_scan_hopper`` within SSM_RULE of its plain version, timed around
+   it, beside its bound (the forward at that prefill's shape is phase
+   26's ``jamba_prefill``).
 
 Then the kernels line (one entry per kernel), the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.  Any failure
@@ -695,7 +729,8 @@ FAMILY_CPU_LAYERS = 2
 # phase 26: whisper's encoder (non-causal self-attention over the frames)
 # and internvl2's prefill
 FAMILY_SHAPES = {"whisper_encoder": (8, 20, 20, 1500, 64, False),
-                 "internvl2_prefill": (4, 48, 8, 4608, 128, True)}
+                 "internvl2_prefill": (4, 48, 8, 4608, 128, True),
+                 "jamba_prefill": (4, 64, 8, 4608, 128, True)}
 # the mutation check at the new shapes: edited copies of
 # csrc/flash_attention.cu, each of which must fail WIDE_RULE at one of
 # wide_kernel_phase's cases FLASH_MUTANT_MIN times over: the mma.sync
@@ -742,6 +777,18 @@ WIDE_TRAIN_CPU_SEQ = 256
 # a query head, GQA 2:1 over an uneven S, 4:1 with T > S and with T < S
 WIDE_BWD_SWEEP = [(1, 2, 2, 64, 64, 256), (2, 4, 2, 130, 130, 256), (1, 8, 2, 96, 160, 256),
                   (1, 4, 1, 200, 120, 256)]
+# remat="dots" against "full" in gemma-7b's training (phase 34): steps a turn
+DOTS_WARMUP, DOTS_STEPS = 2, 5
+# jamba-1.5-large served (phase 35): at 5 of its 72 layers, which hold every
+# kind of layer it has (Mamba with an MLP, Mamba with an MoE, attention with
+# an MLP) in 24.0 B weights, 48.1 GB in bf16 (8 layers would need 90 GB);
+# against the CPU in float32 at three layers with those kinds (attention at
+# layer 2 of a period of 3, the MoE at layer 1, as jamba's schedule puts
+# them at 4 and at every odd layer); the prefill's scan, (B, S, d_inner, N)
+HYBRID_ARCH = "jamba-1.5-large-398b"
+HYBRID_LAYERS = 5
+HYBRID_CPU_SCHEDULE = dict(num_layers=3, attn_period=3, attn_offset=2)
+HYBRID_SCAN = (4, 4608, 16384, 16)
 # the mutation check of the backward at head_dim 256: edited copies of
 # csrc/flash_attention_bwd.cu, each of which must fail the training rule
 # FLASH_MUTANT_MIN times over at gemma's training shape: dK without the
@@ -1346,7 +1393,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     seconds["vlm_serve"] = time.perf_counter() - t0 - sum(seconds.values())
 
-    # phase 3's store is generated on one host core while phases 31-33,
+    # phase 3's store is generated on one host core while phases 31-35,
     # whose times are the card's, run
     root = os.path.join(HERE, "build", "chip_smoke_data")
     data_t0 = time.perf_counter()
@@ -1363,6 +1410,19 @@ def main() -> None:
     moe_train_phase(dev, float(max_sm_mhz) * 1e6)
     torch.cuda.empty_cache()
     seconds["moe_train"] = time.perf_counter() - t0 - sum(seconds.values())
+
+    # 34. remat="dots" against "full" in gemma-7b's training
+    dots = remat_dots_phase(dev)
+    for key in ("dq", "dkv"):
+        wide_train[key]["dots_launches"] = dots[key]
+    seconds["remat_dots"] = time.perf_counter() - t0 - sum(seconds.values())
+
+    # 35. the hybrid family: jamba-1.5-large served at 5 of its 72 layers
+    hybrid, hybrid_scan = hybrid_serve_phase(dev, float(max_sm_mhz) * 1e6)
+    family_kernels[2]["launches"] = hybrid["hopper"]
+    hybrid_scan["launches"] = hybrid["ssm_scan_hopper"]
+    torch.cuda.empty_cache()
+    seconds["hybrid_serve"] = time.perf_counter() - t0 - sum(seconds.values())
     emit({"phase": "other_configs_seconds", **seconds,
           "script_seconds_so_far": time.perf_counter() - script_t0})
 
@@ -1373,7 +1433,7 @@ def main() -> None:
     generate_tahoe_like(root, **DATA)  # the store just written: its manifest matches
     store = load_tahoe_like(root)
     emit({"phase": "data", "seconds": time.perf_counter() - data_t0,
-          "waited_after_phases_31_33_s": time.perf_counter() - t0, "cells": len(store),
+          "waited_after_phases_31_35_s": time.perf_counter() - t0, "cells": len(store),
           "genes": store.n_var, "plates": len(store.shards),
           "fetches_per_epoch": math.ceil(len(store) / (BATCH * FETCH_FACTOR))})
 
@@ -1510,7 +1570,7 @@ def main() -> None:
     emit({"phase": "script_seconds", "seconds": time.perf_counter() - script_t0})
     emit({"kernels": [{k: kernel[k] for k in ell_keys}, lm_kernel, *wide_kernels,
                       *family_kernels, *train_kernels, wide_train["dq"], wide_train["dkv"],
-                      ssm_kernel]})
+                      ssm_kernel, hybrid_scan]})
     print(smi)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
@@ -2177,11 +2237,12 @@ def train_phases(dev, sm_clock_hz: float, sdpa_bwd_kernels: list) -> list:
             for key in ("fwd", "dq", "dkv")]
 
 
-def _ssm_inputs(B, S, Dm, N, dtype, dev, gen):
+def _ssm_inputs(B, S, Dm, N, dtype, dev, gen, dt_rank: int = 256):
     """The scan's inputs with the model's distributions and layouts: x one
     half of a wider projection, dt log-uniform in [1e-3, 1e-1] (mamba's dt
     init), A near -(1..N), B and C column slices of a float32 x_proj output
-    (after dt_rank = 256 columns), D near 1, h0 ~ N(0, 0.3)."""
+    (after ``dt_rank`` columns: falcon-mamba-7b's 256, jamba's 512), D near
+    1, h0 ~ N(0, 0.3)."""
     import torch
 
     xz = torch.randn((B, S, 2 * Dm), generator=gen, device=dev).to(dtype)
@@ -2189,10 +2250,10 @@ def _ssm_inputs(B, S, Dm, N, dtype, dev, gen):
                                                                generator=gen))
     A = -torch.exp(torch.log(torch.arange(1, N + 1, device=dev).float())[None]
                    + 0.1 * torch.randn((Dm, N), generator=gen, device=dev))
-    xdb = torch.randn((B, S, 256 + 2 * N), generator=gen, device=dev)
+    xdb = torch.randn((B, S, dt_rank + 2 * N), generator=gen, device=dev)
     D = 1 + 0.1 * torch.randn((Dm,), generator=gen, device=dev)
     h0 = 0.3 * torch.randn((B, Dm, N), generator=gen, device=dev)
-    return xz[..., :Dm], dt, A, xdb[..., 256:256 + N], xdb[..., 256 + N:], D, h0
+    return (xz[..., :Dm], dt, A, xdb[..., dt_rank:dt_rank + N], xdb[..., dt_rank + N:], D, h0)
 
 
 def _rule_err(got, want, dtype_name: str) -> tuple[float, float, float]:
@@ -3958,12 +4019,14 @@ def _serve_arch(dev, cfg, prompts, phase: str, extra: dict, *, inputs=None,
     2 tokens at the same shapes, then ``gen`` tokens with the attention
     kernels' counts set to 0 just before and read just after: every
     prefill attention layer (encdec: every encoder layer) through the
-    Hopper kernel, also counted as wide past head_dim 128.  Emits the
-    phase line; returns the launch counts."""
+    Hopper kernel, also counted as wide past head_dim 128, and every
+    Mamba layer's scan through ``ssm_scan_hopper`` (the hybrid family's).
+    Emits the phase line; returns the launch counts."""
     import numpy as np
     import torch
 
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssm_scan as ssm
     from repro_torch.launch.serve import serve_batch
     from repro_torch.models import Model
 
@@ -3979,14 +4042,20 @@ def _serve_arch(dev, cfg, prompts, phase: str, extra: dict, *, inputs=None,
     torch.cuda.reset_peak_memory_stats(dev)
     timings = {}
     fa.flash_attention.launches = fa.hopper_launches = fa.wide_launches = 0
+    ssm.ssm_scan.launches = ssm.hopper_launches = 0
     toks = serve_batch(model, prompts, gen, extra=inputs, params=params, device=dev,
                        timings=timings)
     counts = {"flash_attention": fa.flash_attention.launches, "hopper": fa.hopper_launches,
-              "wide": fa.wide_launches}
+              "wide": fa.wide_launches, "ssm_scan": ssm.ssm_scan.launches,
+              "ssm_scan_hopper": ssm.hopper_launches}
     L, D = cfg.num_layers, cfg.resolved_head_dim
-    want = {"flash_attention": L, "hopper": L, "wide": L if D > 128 else 0}
+    A = L if cfg.family == "encdec" else sum(cfg.is_attn_layer(i) for i in range(L))
+    M = L - A if cfg.family == "hybrid" else 0  # Mamba layers
+    want = {"flash_attention": A, "hopper": A, "wide": A if D > 128 else 0, "ssm_scan": M,
+            "ssm_scan_hopper": M}
     if counts != want:
-        fail(f"{cfg.name}: one prefill of {L} attention layers launched {counts}, not {want}")
+        fail(f"{cfg.name}: one prefill of {A} attention and {M} Mamba layers launched {counts}, "
+             f"not {want}")
     B = prompts.shape[0]
     if toks.shape != (B, gen) or not ((toks >= 0) & (toks < cfg.vocab_size)).all():
         fail(f"{cfg.name}: serve_batch gave tokens of shape {toks.shape} outside the vocabulary")
@@ -4011,17 +4080,24 @@ def _serve_arch(dev, cfg, prompts, phase: str, extra: dict, *, inputs=None,
 
 
 # kernel names by what they compute, for the traces' shares of device time
-_KERNEL_KINDS = (("attention_kernel", ("flash_fwd",)),
+_KERNEL_KINDS = (("attention_kernel", ("flash_fwd",)), ("ssm_scan", ("ssm_scan",)),
                  ("matrix_products", ("gemm", "xmma", "nvjet", "cutlass", "sm90_", "cublas")))
+# record_function ranges of the serving traces (:func:`_traced_moe`)
+_TRACED_RANGES = ("moe_apply", "moe_dispatch")
 
 
 def _device_time(prof) -> dict:
     """The profiler's device kernels: their total ms, each kind's ms
-    (_KERNEL_KINDS; the rest is elementwise, copies, reductions), and the
-    ten longest by name with their count and ms."""
+    (_KERNEL_KINDS; the rest is elementwise, copies, reductions), the
+    device ms of the kernels launched inside each of _TRACED_RANGES (the
+    MoE layers whole, and their routing and dispatch and combine tensors:
+    products among them), and the ten longest by name with their count and
+    ms."""
     import torch
 
-    on_card = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    # the ranges' own spans on the card are annotations, not kernels
+    on_card = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.key not in _TRACED_RANGES]
     if not on_card:
         fail("the trace shows no kernel on the card")
     total = sum(e.self_device_time_total for e in on_card) / 1e3
@@ -4030,19 +4106,39 @@ def _device_time(prof) -> dict:
              for kind, marks in _KERNEL_KINDS}
     kinds["other"] = total - sum(kinds.values())
     top = sorted(on_card, key=lambda e: -e.self_device_time_total)[:10]
-    return {"device_kernel_ms": total, "ms_by_kind": kinds,
+    ranges = {name: sum(e.device_time_total for e in prof.events()
+                        if e.name == name and e.device_type == torch.autograd.DeviceType.CPU) / 1e3
+              for name in _TRACED_RANGES}
+    return {"device_kernel_ms": total, "ms_by_kind": kinds, "ranges_ms": ranges,
             "top_kernels": [[e.key[:80], e.count, e.self_device_time_total / 1e3] for e in top]}
+
+
+def _traced_moe():
+    """Stand-ins for ``transformer.moe_apply`` and ``moe.moe_dispatch``
+    that run them inside ``record_function`` ranges of those names."""
+    import torch
+
+    from repro_torch.models import moe
+
+    def ranged(name, fn):
+        def run(*args, **kw):
+            with torch.profiler.record_function(name):
+                return fn(*args, **kw)
+        return run
+    return ranged("moe_apply", moe.moe_apply), ranged("moe_dispatch", moe.moe_dispatch)
 
 
 def _trace_prefill_and_decode(model, params, prompts, inputs: dict, gen: int) -> dict:
     """One prefill of ``prompts`` (and ``inputs``, as ``serve_batch``
     takes them) and its first decode step under ``torch.profiler``, after
-    the counts were read: each one's device kernel time by kind and its
-    longest kernels."""
+    the counts were read, the MoE layers in ranges (:func:`_traced_moe`):
+    each one's device kernel time by kind and its longest kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.launch.serve import decode_span
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tr
 
     B, P = prompts.shape
     dev = params.embed.device
@@ -4052,16 +4148,21 @@ def _trace_prefill_and_decode(model, params, prompts, inputs: dict, gen: int) ->
     batch = {"tokens": torch.from_numpy(prompts.astype("int64")).to(dev),
              **{k: torch.from_numpy(v).to(device=dev, dtype=cd) for k, v in inputs.items()}}
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        logits, cache = model.prefill(params, batch, cache)
-        torch.cuda.synchronize()
-    prefill = _device_time(prof)
-    tok = logits.argmax(-1)
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        model.decode(params, tok, cache, start)
-        torch.cuda.synchronize()
-    decode = {**_device_time(prof), "wall_ms_traced": (time.perf_counter() - t0) * 1e3}
+    originals = tr.moe_apply, moe.moe_dispatch
+    tr.moe_apply, moe.moe_dispatch = _traced_moe()
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            logits, cache = model.prefill(params, batch, cache)
+            torch.cuda.synchronize()
+        prefill = _device_time(prof)
+        tok = logits.argmax(-1)
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            model.decode(params, tok, cache, start)
+            torch.cuda.synchronize()
+        decode = {**_device_time(prof), "wall_ms_traced": (time.perf_counter() - t0) * 1e3}
+    finally:
+        tr.moe_apply, moe.moe_dispatch = originals
     del cache
     return {"prefill": prefill, "decode_step": decode}
 
@@ -4161,7 +4262,8 @@ def _wide_vs_cpu(dev, cfg, layers: int, prompt_len: int, moe_routing: bool,
                 fail(f"{cfg.name}: the card routes tokens to other experts than the CPU")
             compared += int(clear.sum())
             near += int((~clear).sum())
-        if len(seen["cpu"]) != layers * (1 + WIDE_CPU_DECODE) or compared == 0:
+        moe_layers = sum(cfg32.is_moe_layer(i) for i in range(layers))
+        if len(seen["cpu"]) != moe_layers * (1 + WIDE_CPU_DECODE) or compared == 0:
             fail(f"{cfg.name}: routing recorded {len(seen['cpu'])} times, {compared} compared")
         line["routing"] = {"tokens_compared": compared, "near_ties_skipped": near,
                            "tie": MOE_ROUTER_TIE}
@@ -4193,11 +4295,8 @@ def moe_serve_phase(dev) -> None:
     their 32 layers, the card against the CPU at 1 layer, and SlotBatcher
     at mixtral's width."""
     import numpy as np
-    import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.models import Model
-    from repro_torch.serve.scheduler import SlotBatcher
 
     rng = np.random.default_rng(4)
     for arch in MOE_ARCHS:
@@ -4211,8 +4310,24 @@ def moe_serve_phase(dev) -> None:
             "experts": [full.moe.num_experts, full.moe.top_k], "vs_cpu": vs_cpu})
 
     # continuous batching at mixtral's width, 2 layers, float32
-    cfg = dataclasses.replace(get_config("mixtral-8x7b"), num_layers=MOE_BATCH_LAYERS,
-                              param_dtype="float32", compute_dtype="float32")
+    _batcher_vs_standalone(dev, dataclasses.replace(get_config("mixtral-8x7b"),
+                                                    num_layers=MOE_BATCH_LAYERS),
+                           "moe_batching", {})
+
+
+def _batcher_vs_standalone(dev, cfg, phase: str, extra: dict) -> None:
+    """``SlotBatcher`` over ``cfg`` (its width and depth) in float32, the
+    weights drawn on the card from seed 5: MOE_BATCH_REQUESTS requests of
+    MOE_BATCH_PROMPT_LENS prompt tokens and MOE_BATCH_NEW new ones over
+    BATCH_SLOTS slots, each request's tokens equal to its standalone serve
+    except across ties.  Emits the phase line."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import Model
+    from repro_torch.serve.scheduler import SlotBatcher
+
+    cfg = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
     model = Model(cfg)
     lm = model.init(generator=torch.Generator(device=dev).manual_seed(5), device=dev)
     brng = np.random.default_rng(5)
@@ -4226,7 +4341,7 @@ def moe_serve_phase(dev) -> None:
     done = batcher.run()
     batch_s = time.perf_counter() - t0
     if [r.rid for r in done] != list(range(MOE_BATCH_REQUESTS)) or not all(r.done for r in done):
-        fail(f"the MoE batcher completed {[r.rid for r in done]}")
+        fail(f"{cfg.name}: the batcher completed {[r.rid for r in done]}")
     diverged, equal = [], 0
     for req, p, m in zip(done, prompts, max_new):
         want, lgs = _greedy_standalone(model, lm, p, int(m), MOE_BATCH_MAX_LEN, dev)
@@ -4235,12 +4350,12 @@ def moe_serve_phase(dev) -> None:
             equal += 1
         else:
             diverged.append({"rid": req.rid, **tie})
-    emit({"phase": "moe_batching", "arch": cfg.name, "layers": cfg.num_layers,
+    emit({"phase": phase, "arch": cfg.name, "layers": cfg.num_layers,
           "d_model": cfg.d_model, "dtype": "float32", "slots": BATCH_SLOTS,
           "requests": MOE_BATCH_REQUESTS, "max_len": MOE_BATCH_MAX_LEN,
           "prompt_lens": lens.tolist(), "max_new": max_new.tolist(),
           "tokens": int(sum(len(r.out) for r in done)), "equal_to_standalone": equal,
-          "seconds": batch_s, "ties": diverged})
+          "seconds": batch_s, "ties": diverged, **extra})
     del lm, batcher
     torch.cuda.empty_cache()
 
@@ -4839,6 +4954,231 @@ def moe_train_phase(dev, sm_clock_hz: float) -> dict:
                            "card's 80 GB"},
         "experts": [full.moe.num_experts, full.moe.top_k], "vs_cpu": vs_cpu,
         "training_kernels": kernels})
+
+
+def remat_dots_phase(dev) -> dict:
+    """Phase 34: ``remat="dots"`` against ``"full"`` in gemma-7b's training
+    at full width: first one forward and backward through the train step's
+    loss at 2 layers in float32 on the card, under each (the gradients
+    bitwise equal; where a recomputed product changes bits, each gradient
+    within CPU_GNORM_RTOL, the differing ones named); then in bf16 at
+    GEMMA_TRAIN_LAYERS, batch TRAIN_BATCH x TRAIN_SEQ, AdamW, one state
+    trained DOTS_WARMUP + DOTS_STEPS steps under each in turns, the
+    attention kernels' counts set to 0 just before each turn and read just
+    after (per step 2 forwards with lse a layer, the recomputation
+    included, one dq and one dk/dv, all Hopper at head_dim 256).  Returns
+    the kernels' launches counted in the ``"dots"`` turn."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fab
+    from repro_torch.models import Model
+    from repro_torch.precision import full_float32_matmul
+    from repro_torch.train.optimizer import AdamWConfig, constant_lr
+    from repro_torch.train.step import make_loss_fn, make_train_state, make_train_step
+
+    full = get_config(GEMMA_ARCH)
+    t0 = time.perf_counter()
+    cfg32 = dataclasses.replace(full, num_layers=WIDE_TRAIN_CPU_LAYERS[GEMMA_ARCH],
+                                param_dtype="float32", compute_dtype="float32")
+    lm = Model(cfg32).init(generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+    seq = np.random.default_rng(2).integers(0, full.vocab_size, (1, WIDE_TRAIN_CPU_SEQ + 1))
+    batch = {"tokens": torch.from_numpy(seq[:, :-1]).to(dev),
+             "labels": torch.from_numpy(seq[:, 1:]).to(dev)}
+    params = dict(lm.named_parameters())
+    grads, losses = {}, {}
+    for remat in ("full", "dots"):
+        lm.cfg = dataclasses.replace(cfg32, remat=remat)  # forward_lm reads the module's config
+        with torch.enable_grad(), full_float32_matmul():
+            total, _, _ = make_loss_fn(Model(lm.cfg))(lm, batch)
+            grads[remat] = dict(zip(params, torch.autograd.grad(total, list(params.values()))))
+        losses[remat] = float(total.detach())
+    differ = {n: float((grads["dots"][n] - g).norm() / g.norm().clamp_min(1e-30))
+              for n, g in grads["full"].items() if not torch.equal(grads["dots"][n], g)}
+    if losses["dots"] != losses["full"] or not all(r <= CPU_GNORM_RTOL for r in differ.values()):
+        fail(f"remat='dots' and 'full' disagree: losses {losses}, gradients {differ}")
+    f32 = {"layers": cfg32.num_layers, "dtype": "float32", "tokens": [1, WIDE_TRAIN_CPU_SEQ],
+           "losses": losses, "grads_compared": len(params), "grads_bitwise": len(params) - len(differ),
+           "differing_grads_rel_err": differ, "rtol": CPU_GNORM_RTOL,
+           "seconds": time.perf_counter() - t0}
+    del lm, params, grads, batch
+    torch.cuda.empty_cache()
+
+    cfg = dataclasses.replace(full, num_layers=GEMMA_TRAIN_LAYERS)
+    opt = AdamWConfig(lr=constant_lr(3e-4), weight_decay=0.01)
+    state = make_train_state(Model(cfg), opt, device=dev,
+                             generator=torch.Generator(device=dev).manual_seed(0))
+    rng = np.random.default_rng(34)
+    L, per_step = cfg.num_layers, {"fwd": 2 * cfg.num_layers, "dq": cfg.num_layers,
+                                   "dkv": cfg.num_layers}
+    turns, dots_launches = {}, None
+    for remat in ("dots", "full"):
+        state["params"].cfg = dataclasses.replace(cfg, remat=remat)
+        step_fn = make_train_step(Model(state["params"].cfg), opt)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        fa.flash_attention_fwd_lse.launches = fa.hopper_launches = fa.wide_launches = 0
+        for entry in (fab.flash_attention_bwd_dq, fab.flash_attention_bwd_dkv):
+            entry.launches = entry.hopper_launches = 0
+        step_s, run_losses = [], []
+        for _ in range(DOTS_WARMUP + DOTS_STEPS):
+            seq = rng.integers(0, min(cfg.vocab_size, 1024), (TRAIN_BATCH, TRAIN_SEQ + 1))
+            tb = {"tokens": torch.from_numpy(seq[:, :-1]).to(dev),
+                  "labels": torch.from_numpy(seq[:, 1:]).to(dev)}
+            ts = time.perf_counter()
+            _, m = step_fn(state, tb)
+            run_losses.append(float(m["loss"]))  # synchronises
+            step_s.append(time.perf_counter() - ts)
+        n = DOTS_WARMUP + DOTS_STEPS
+        launches = {"fwd": fa.flash_attention_fwd_lse.launches,
+                    "dq": fab.flash_attention_bwd_dq.launches,
+                    "dkv": fab.flash_attention_bwd_dkv.launches}
+        hopper = {"fwd": fa.hopper_launches, "dq": fab.flash_attention_bwd_dq.hopper_launches,
+                  "dkv": fab.flash_attention_bwd_dkv.hopper_launches}
+        want = {k: v * n for k, v in per_step.items()}
+        if launches != want or hopper != want or fa.wide_launches != want["fwd"]:
+            fail(f"remat={remat!r}: the training kernels launched {launches} ({hopper} Hopper, "
+                 f"{fa.wide_launches} wide) in {n} steps; need {per_step} a step, all Hopper at 256")
+        if not all(math.isfinite(x) for x in run_losses):
+            fail(f"remat={remat!r}: non-finite loss: {run_losses}")
+        if remat == "dots":
+            dots_launches = launches
+        med = statistics.median(step_s[DOTS_WARMUP:])
+        turns[remat] = {"step_ms_median": med * 1e3,
+                        "step_ms": [x * 1e3 for x in step_s[DOTS_WARMUP:]],
+                        "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / med,
+                        "peak_device_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+                        "launches_per_step": {k: v // n for k, v in launches.items()},
+                        "hopper_launches_per_step": {k: v // n for k, v in hopper.items()},
+                        "losses": run_losses}
+    emit({"phase": "remat_dots", "arch": GEMMA_ARCH, "layers": L, "d_model": cfg.d_model,
+          "heads": [cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim],
+          "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "dtype": cfg.compute_dtype,
+          "warmup_steps": DOTS_WARMUP, "timed_steps": DOTS_STEPS, "order": list(turns),
+          "reduced": {"num_layers": [full.num_layers, L],
+                      "why": "memory: the full depth's weights, gradients and AdamW moments need "
+                             "102 GB"},
+          "vs_full_f32": f32, **turns,
+          "dots_over_full_step": turns["dots"]["step_ms_median"] / turns["full"]["step_ms_median"],
+          "dots_minus_full_peak_gb": turns["dots"]["peak_device_mem_gb"]
+          - turns["full"]["peak_device_mem_gb"]})
+    del state, step_fn
+    torch.cuda.empty_cache()
+    return dots_launches
+
+
+def _scan_at_shape(dev, sm_clock_hz: float, B: int, S: int, Dm: int, N: int,
+                   dt_rank: int) -> dict:
+    """``ssm_scan`` at a prefill's shape, x (B, S, Dm) bf16 and dt float32
+    as the model's layouts give them, N states, through ``ssm_scan_hopper``,
+    within SSM_RULE of its plain version; CUDA-event times of the kernel
+    around the plain version's, beside the bound (bytes; exponentials on
+    the special-function units).  Returns the kernels-line entry."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssm_scan as ssm
+
+    gen = torch.Generator(device=dev).manual_seed(35)
+    inputs = _ssm_inputs(B, S, Dm, N, torch.bfloat16, dev, gen, dt_rank=dt_rank)
+    x, dt, A, Bc, Cc, D, h0 = inputs
+    if ssm.route(x, dt, Bc, Cc) != "hopper":
+        fail(f"the scan at {(B, S, Dm, N)} routes to {ssm.route(x, dt, Bc, Cc)}, not hopper")
+    before = ssm.hopper_launches
+    y, h = ssm.ssm_scan(*inputs)
+    torch.cuda.synchronize()
+    if ssm.hopper_launches != before + 1:
+        fail(f"the scan at {(B, S, Dm, N)} moved the Hopper count by {ssm.hopper_launches - before}")
+    want_y, want_h = ref.ssm_scan_ref(*inputs)
+    err = {"y": _rule_err(y, want_y, "bfloat16"), "h_final": _rule_err(h, want_h, "float32")}
+    if not all(e[1] <= 1.0 for e in err.values()):
+        fail(f"ssm_scan disagrees with its plain version at {(B, S, Dm, N)}: {err}")
+    del y, h, want_y, want_h
+
+    def kernel():
+        return ssm.ssm_scan(*inputs)
+
+    def plain():
+        return ref.ssm_scan_ref(*inputs)
+
+    turns = {"kernel": [], "plain": []}
+    for key, fn, calls, groups in (("kernel", kernel, WIDE_TIMED_CALLS, 3), ("plain", plain, 1, 2),
+                                   ("kernel", kernel, WIDE_TIMED_CALLS, 3)):
+        turns[key].append(event_ms(fn, calls=calls, groups=groups))
+    moved = sum(t.numel() * t.element_size() for t in inputs) + x.numel() * x.element_size() \
+        + h0.numel() * 4  # each input read once, y and h_final written once
+    exps = B * S * Dm * N
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    exp_ms = exps / (SFU_EXP2_PER_CLOCK_PER_SM * sms * sm_clock_hz) * 1e3
+    ms = statistics.mean(turns["kernel"])
+    del inputs, x, dt, A, Bc, Cc, D, h0
+    torch.cuda.empty_cache()
+    return {"name": "ssm_scan_jamba", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
+            "replaces": "src/repro/kernels/ssm_scan.py:68", "kernel": "ssm_scan_hopper",
+            "launches": None, "max_abs_err": max(e[0] for e in err.values()), "ms": ms,
+            "kernel_ms": ms, "plain_ms": statistics.mean(turns["plain"]),
+            "plain": "ssm_scan_ref", "library_ms": None,
+            "library": "none: no single PyTorch call computes a selective scan",
+            "bound_ms": max(bytes_ms, exp_ms),
+            "bound_by": "bytes" if bytes_ms >= exp_ms else "operations",
+            "bound_parts_ms": {"bytes": bytes_ms, "exponentials": exp_ms},
+            "bound_share": max(bytes_ms, exp_ms) / ms, "shape": [B, S, Dm, N],
+            "dtype": "bfloat16", "errors": err, "ms_turns": turns, "bytes": moved,
+            "exponentials": exps}
+
+
+def hybrid_serve_phase(dev, sm_clock_hz: float) -> tuple[dict, dict]:
+    """Phase 35: jamba-1.5-large at full width (d_model 8,192, 64 heads of
+    128 over 8, d_ff 24,576, 16 experts top 2, Mamba d_inner 16,384 with N
+    16, no RoPE, vocabulary 65,536).  First at HYBRID_CPU_SCHEDULE (three
+    layers with jamba's three kinds: Mamba and MLP, Mamba and MoE,
+    attention and MLP) in float32 on the card against the CPU, as phase
+    28 (the host's memory printed first: the MoE layer's 16 float32
+    experts are 38.7 GB on each side); ``SlotBatcher`` at that schedule;
+    then ``serve_batch`` in bf16 at HYBRID_LAYERS of its 72 layers, all 16
+    experts, as phase 27, every Mamba layer's prefill scan through
+    ``ssm_scan_hopper`` and the attention layer's through
+    ``flash_fwd_hopper<128>``; then the scan at the prefill's shape
+    (HYBRID_SCAN) against its plain version.  (The forward at its prefill
+    shape is timed in phase 26, FAMILY_SHAPES.)  Returns the prefill's
+    launch counts and the scan's kernels-line entry."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+
+    full = get_config(HYBRID_ARCH)
+    meminfo = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            key, value = line.split(":")
+            if key in ("MemTotal", "MemAvailable"):
+                meminfo[key] = int(value.split()[0]) * 1024 / 1e9  # GB
+    emit({"phase": "hybrid_host_memory", "host_gb": meminfo,
+          "float32_layers": HYBRID_CPU_SCHEDULE["num_layers"]})
+    small = dataclasses.replace(full, **HYBRID_CPU_SCHEDULE)
+    kinds = small.layer_kinds()
+    if set(kinds) != set(full.layer_kinds()):
+        fail(f"the float32 schedule's layers {kinds} do not hold jamba's kinds {full.layer_kinds()}")
+    vs_cpu = _wide_vs_cpu(dev, small, small.num_layers, WIDE_CPU_PROMPT, True)
+    vs_cpu["schedule"] = {**HYBRID_CPU_SCHEDULE, "kinds": kinds}
+    _batcher_vs_standalone(dev, small, "hybrid_batching", {"schedule": HYBRID_CPU_SCHEDULE})
+    cfg = dataclasses.replace(full, num_layers=HYBRID_LAYERS)
+    prompts = np.random.default_rng(35).integers(0, cfg.vocab_size,
+                                                 (WIDE_BATCH, WIDE_PROMPT)).astype(np.int32)
+    launches = _serve_arch(dev, cfg, prompts, "hybrid_serve", {
+        "reduced": {"num_layers": [full.num_layers, HYBRID_LAYERS],
+                    "why": "memory: 5 layers hold 24.0 B weights (48.1 GB in bf16) and every "
+                           "kind of layer jamba has; 8 would need 90 GB, the full depth 797 GB"},
+        "kinds": cfg.layer_kinds(), "experts": [full.moe.num_experts, full.moe.top_k],
+        "vs_cpu": vs_cpu})
+    B, S, Dm, N = HYBRID_SCAN
+    scan = _scan_at_shape(dev, sm_clock_hz, B, S, Dm, N, full.ssm.resolved_dt_rank(full.d_model))
+    emit({"phase": "hybrid_kernels", **scan})
+    return launches, scan
 
 
 if __name__ == "__main__":

@@ -1,8 +1,7 @@
 """Architecture registry of the port: ``get_config(name)`` gives the full
 published config, ``smoke_config(name)`` a reduced same-family config for
-CPU tests.  ``ARCHS`` lists the ids the port serves; an id of the JAX
-package's registry that is not ported yet raises ``KeyError`` naming the
-``ROADMAP.md`` item that ports its family.
+CPU tests.  ``ARCHS`` lists the ids the port serves: every id of the
+JAX package's registry.
 """
 from __future__ import annotations
 
@@ -20,6 +19,7 @@ ARCHS = [
     "h2o-danube-3-4b",
     "whisper-large-v3",
     "internvl2-26b",
+    "jamba-1.5-large-398b",
 ]
 
 _MODULES = {
@@ -32,17 +32,11 @@ _MODULES = {
     "h2o-danube-3-4b": "h2o_danube_3_4b",
     "whisper-large-v3": "whisper_large_v3",
     "internvl2-26b": "internvl2_26b",
-}
-
-# the JAX package's other id, by the ROADMAP.md item that ports its family
-_NOT_PORTED = {
-    "jamba-1.5-large-398b": "queue A #13 (the hybrid family, which needs four cards)",
+    "jamba-1.5-large-398b": "jamba_1_5_large",
 }
 
 
 def _mod(name: str):
-    if name in _NOT_PORTED:
-        raise KeyError(f"arch {name!r} is not ported yet (ROADMAP.md {_NOT_PORTED[name]})")
     if name not in _MODULES:
         raise KeyError(f"unknown arch {name!r}; choose from {ARCHS}")
     return importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")

@@ -24,7 +24,7 @@ import torch
 
 from .models.config import ModelConfig
 from .models.encdec import EncDec
-from .models.transformer import LM, Block, check_family
+from .models.transformer import LM, Block, check_family, stack_period
 from .train.optimizer import AdamWState
 from .train.probe import TASKS, AdamState, LinearHead, ProbeHeads
 
@@ -90,20 +90,20 @@ def _expect(tree: Mapping, shapes: dict, where: str) -> None:
 _SSM_FLOAT32 = ("dt_bias", "A_log", "D")
 
 
-def _ssm_shapes(cfg: ModelConfig) -> dict:
-    s, L, d = cfg.ssm, cfg.num_layers, cfg.d_model
+def _ssm_shapes(cfg: ModelConfig, L: int) -> dict:
+    s, d = cfg.ssm, cfg.d_model
     d_in, dtr, n = s.expand * d, s.resolved_dt_rank(d), s.d_state
     return {"w_in": (L, d, 2 * d_in), "w_conv": (L, s.d_conv, d_in),
             "w_x": (L, d_in, dtr + 2 * n), "w_dt": (L, dtr, d_in), "dt_bias": (L, d_in),
             "A_log": (L, d_in, n), "D": (L, d_in), "w_out": (L, d_in, d)}
 
 
-def _ffn_shapes(cfg: ModelConfig) -> tuple[str, dict]:
-    """The FFN group of every layer in the stacked tree, ``mlp`` or
-    ``moe``, and its shapes.  The tree stacks one kind for all layers (the
-    reference's ``sub_0``), so a config whose layers mix them has none."""
-    L, d, ff = cfg.num_layers, cfg.d_model, cfg.d_ff
-    kinds = {cfg.is_moe_layer(i) for i in range(L)}
+def _ffn_shapes(cfg: ModelConfig, layers: range) -> tuple[str, dict]:
+    """The FFN group of ``layers``, one position of the period stacked in
+    the tree (``sub_i``), ``mlp`` or ``moe``, and its shapes.  A stack
+    holds one kind, so a position whose layers mix them has none."""
+    L, d, ff = len(layers), cfg.d_model, cfg.d_ff
+    kinds = {cfg.is_moe_layer(i) for i in layers}
     if len(kinds) != 1:
         raise ValueError(f"{cfg.name}: layers mix MoE and MLP, which one stacked tree cannot hold")
     gated = cfg.act in ("swiglu", "geglu")
@@ -174,9 +174,22 @@ def _encdec_from_jax(params_np: Mapping, cfg: ModelConfig, device) -> EncDec:
                   _blocks(params_np["dec_blocks"], dec, Ld, wdt, device))
 
 
+def _position_shapes(cfg: ModelConfig, i: int, layers: range) -> dict:
+    """The groups of position ``i`` of the period, stacked over ``layers``:
+    ``norm1`` and the mixer (``attn`` or ``ssm``), then, outside the ssm
+    family, ``norm2`` and the FFN (``mlp`` or ``moe``)."""
+    n = len(layers)
+    if cfg.family == "ssm":
+        return {"norm1": _norm_shapes(cfg, n), "ssm": _ssm_shapes(cfg, n)}
+    mixer = ("attn", _attn_shapes(cfg, n)) if cfg.is_attn_layer(i) else ("ssm", _ssm_shapes(cfg, n))
+    ffn, ffn_shapes = _ffn_shapes(cfg, layers)
+    return {"norm1": _norm_shapes(cfg, n), mixer[0]: mixer[1], "norm2": _norm_shapes(cfg, n),
+            ffn: ffn_shapes}
+
+
 def lm_from_jax(params_np: Mapping, cfg: ModelConfig, *, device="cuda"):
     """``repro``'s params tree as numpy arrays -> the port's LM (dense,
-    moe, ssm or vlm family) or EncDec (encdec).
+    moe, ssm, hybrid or vlm family) or EncDec (encdec).
 
     The tree is ``embed`` (vocab, d), ``lm_head`` (d, vocab) unless the
     embeddings are tied, ``final_norm``, and ``blocks/sub_0``, each leaf
@@ -184,7 +197,13 @@ def lm_from_jax(params_np: Mapping, cfg: ModelConfig, *, device="cuda"):
     ``norm2`` and ``mlp`` {w_in, w_gate, w_out}; moe the same with ``moe``
     {router (d, E), w_in, w_gate (E, d, ff), w_out (E, ff, d)} in place of
     ``mlp``; ssm ``norm1`` and ``ssm`` {w_in, w_conv, w_x, w_dt, dt_bias,
-    A_log, D, w_out}; vlm the dense tree.  The encdec tree is ``embed``
+    A_log, D, w_out}; vlm the dense tree; hybrid one tree per position i
+    of the period P (``attn_period``), ``blocks/sub_i``, each leaf stacked
+    (num_layers / P, ...), ``attn`` or ``ssm`` and ``mlp`` or ``moe`` as
+    layer i's kinds: entry s of ``sub_i`` becomes layer s·P + i.  The
+    reference's tree holds whole periods only, so a hybrid config whose
+    ``num_layers`` is not a multiple of P raises ``ValueError``, as the
+    reference's ``init_lm`` does.  The encdec tree is ``embed``
     (tied), ``enc_final_norm``, ``dec_final_norm``, ``enc_blocks`` {norm1,
     attn, norm2, mlp {w_in, w_out}} stacked (num_layers, ...) and
     ``dec_blocks`` {norm1, self_attn, norm_x, cross_attn, norm2, mlp}
@@ -197,21 +216,20 @@ def lm_from_jax(params_np: Mapping, cfg: ModelConfig, *, device="cuda"):
     check_family(cfg)
     if cfg.family == "encdec":
         return _encdec_from_jax(params_np, cfg, device)
-    L, d = cfg.num_layers, cfg.d_model
-    if cfg.family == "ssm":
-        layer_shapes = {"norm1": _norm_shapes(cfg, L), "ssm": _ssm_shapes(cfg)}
-    else:
-        ffn, ffn_shapes = _ffn_shapes(cfg)
-        layer_shapes = {"norm1": _norm_shapes(cfg, L), "attn": _attn_shapes(cfg, L),
-                        "norm2": _norm_shapes(cfg, L), ffn: ffn_shapes}
+    L, d, P = cfg.num_layers, cfg.d_model, stack_period(cfg)
+    if L % P:
+        raise ValueError(f"{cfg.name}: num_layers {L} % period {P} != 0")
+    positions = {i: _position_shapes(cfg, i, range(i, L, P)) for i in range(P)}
     shapes = {"embed": (cfg.vocab_size, d), "final_norm": _norm_shapes(cfg),
-              "blocks": {"sub_0": layer_shapes}}
+              "blocks": {f"sub_{i}": g for i, g in positions.items()}}
     if not cfg.tie_embeddings:
         shapes["lm_head"] = (d, cfg.vocab_size)
     _expect(params_np, shapes, "params")
 
     wdt = getattr(torch, cfg.param_dtype)
-    blocks = _blocks(params_np["blocks"]["sub_0"], layer_shapes, L, wdt, device)
+    stacks = [_blocks(params_np["blocks"][f"sub_{i}"], g, L // P, wdt, device)
+              for i, g in positions.items()]
+    blocks = [stacks[layer % P][layer // P] for layer in range(L)]
     final_norm = {k: _tensor(a, torch.float32, device) for k, a in params_np["final_norm"].items()}
     lm_head = None if cfg.tie_embeddings else _tensor(params_np["lm_head"], wdt, device)
     return LM(cfg, _tensor(params_np["embed"], wdt, device), final_norm, blocks, lm_head)

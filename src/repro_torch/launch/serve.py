@@ -12,13 +12,14 @@ device, the port of ``repro.launch.serve``::
 
 ``--arch`` takes any id of :data:`repro_torch.configs.ARCHS`: the dense
 smollm-360m, phi3-medium-14b, h2o-danube-3-4b and gemma-7b, the moe
-mixtral-8x7b and phi3.5-moe-42b-a6.6b, the ssm falcon-mamba-7b, the vlm
-internvl2-26b and the encdec whisper-large-v3.  One prefill for the
+mixtral-8x7b and phi3.5-moe-42b-a6.6b, the ssm falcon-mamba-7b, the
+hybrid jamba-1.5-large-398b, the vlm internvl2-26b and the encdec
+whisper-large-v3.  One prefill for the
 whole batch, then shared decode steps.  On the card the prefill's
 attention (whisper's: the encoder's, non-causal) is the port's Hopper
 flash-attention kernel, ``flash_fwd_hopper`` (head_dim 64, 120, 128 and
-gemma's 256), and falcon-mamba-7b's selective scan the Hopper scan
-kernel; the MoE layers' dispatch and experts are plain products, as in
+gemma's 256), and the selective scan of falcon-mamba-7b's and jamba's
+Mamba layers the Hopper scan kernel; the MoE layers' dispatch and experts are plain products, as in
 the reference; decode runs no kernel of the port's own.
 
 The vlm and encdec families take extra inputs (``extra``): the image

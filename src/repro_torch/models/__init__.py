@@ -1,6 +1,5 @@
-"""The port's model zoo: the decoder-only LM (dense, moe, ssm and vlm
-families) and the encoder-decoder (encdec); the hybrid family waits for
-ROADMAP.md queue A #13."""
+"""The port's model zoo: the decoder-only LM (dense, moe, ssm, hybrid and
+vlm families) and the encoder-decoder (encdec)."""
 from .api import Model
 from .config import ModelConfig, MoEConfig, SSMConfig, active_param_count, param_count
 

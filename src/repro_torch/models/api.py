@@ -26,15 +26,17 @@ train step weights them into its loss).  The
 ssm family (falcon-mamba) takes the same calls: its cache holds
 convolution windows and scan states instead of keys and values,
 ``pos_offset``, ``pos`` and ``start`` do not apply to it, and its
-``forward`` runs only without a gradient.  The vlm family (internvl2)
+``forward`` runs only without a gradient.  The hybrid family (jamba)
+takes them too: its cache holds rings for its attention layers and
+states for its Mamba layers, and its ``forward`` runs only without a
+gradient, as the ssm family's.  The vlm family (internvl2)
 puts ``patch_embeds`` ahead of the tokens: its cache and positions cover
 num_patches + S, and ``forward`` drops the prefix's logits (text token j
 sits at position num_patches + j).  The encdec family (whisper) encodes
 ``frames``; its ``prefill`` fills the cross cache and decodes a BOS token
 0 at position 0 (the prompt's tokens are not read), its ``decode`` takes
 the decoder's position, and ``pos_offset`` and ``start`` do not apply to
-it.  The hybrid family raises ``NotImplementedError`` (ROADMAP.md queue A
-#13).
+it.
 """
 from __future__ import annotations
 

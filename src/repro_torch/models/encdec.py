@@ -45,11 +45,18 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from ..precision import full_float32_matmul
 from .config import ModelConfig
-from .layers import apply_norm, attention, cached_attention, dense_init, einsum, mlp_apply
+from .layers import (
+    apply_norm,
+    attention,
+    cached_attention,
+    dense_init,
+    einsum,
+    mlp_apply,
+    remat_call,
+)
 from .transformer import Block, _Params, _dtype, _norm_init, _param
 
 __all__ = [
@@ -146,19 +153,13 @@ def _proj_qkv(p: dict, x: torch.Tensor):
 
 def _layers(blocks: nn.ModuleList, cfg: ModelConfig, h: torch.Tensor, layer, *args):
     """``h`` through ``layer(blk, cfg, h, *args)`` for each block; under
-    autograd with ``cfg.remat == "full"`` each layer's activations are
-    recomputed in the backward, as the reference's ``jax.checkpoint``."""
-    if cfg.remat not in ("none", "full"):
-        raise NotImplementedError(
-            f"remat={cfg.remat!r} is not ported yet (ROADMAP.md queue A #7); use 'none' or 'full'"
-        )
-    remat = cfg.remat == "full" and torch.is_grad_enabled()
+    autograd, unless ``cfg.remat`` is ``"none"``, each layer is recomputed
+    whole in the backward (:func:`.layers.remat_call`): the reference's
+    encoder-decoder takes ``jax.checkpoint`` without a policy for
+    ``"dots"`` too."""
+    remat = "none" if cfg.remat == "none" else "full"
     for blk in blocks:
-        if remat:  # no dropout or other draws inside: no RNG state to stash
-            h = checkpoint(layer, blk, cfg, h, *args, use_reentrant=False,
-                           preserve_rng_state=False)
-        else:
-            h = layer(blk, cfg, h, *args)
+        h = remat_call(remat, layer, blk, cfg, h, *args)
     return h
 
 

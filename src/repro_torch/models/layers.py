@@ -7,14 +7,30 @@ Attention goes through :func:`repro_torch.kernels.ops.flash_attention`:
 on the card the Hopper kernel, on the CPU its plain version.  The logical
 sharding annotations of the reference (``constrain_act``, axes trees) have
 no counterpart here: the port runs on one device.
+
+Activation checkpointing (:func:`remat_call`) follows the reference's
+``cfg.remat``: ``"none"`` keeps every activation, ``"full"`` recomputes a
+whole block in the backward, ``"dots"`` keeps the block's products that
+have no batch dimension and recomputes the rest, as
+``jax.checkpoint_policies.checkpoint_dots_with_no_batch_dims`` does.
+``torch.einsum`` lowers every product to a ``bmm``, one with no batch
+dimension to a ``bmm`` of batch 1, and so does a batched product whose
+batch is 1 (an MoE dispatch in one group): the op and its shapes cannot
+tell them apart.  So :func:`einsum` reads the equation and marks, for the
+thread that runs it, the products that have no batch dimension, and the
+policy keeps exactly the ``bmm`` run under that mark.  The products
+themselves are ``torch.einsum``'s, the same ops as without the mark.
 """
 from __future__ import annotations
 
+import functools
 import math
+import threading
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from ..kernels import ops
 
@@ -32,16 +48,66 @@ __all__ = [
     "silu",
     "gelu",
     "einsum",
+    "has_batch_dim",
+    "remat_call",
 ]
 
+# set while einsum runs a product without a batch dimension, per thread: the
+# backward recomputes a block on autograd's device thread
+_PRODUCT = threading.local()
 
-def einsum(eq: str, *xs: torch.Tensor) -> torch.Tensor:
+
+def has_batch_dim(eq: str) -> bool:
+    """Whether the two-operand product ``eq`` has a batch dimension: an
+    index (``...`` counts as one) in both operands and in the output, as
+    ``jnp.einsum`` makes it a batch dimension of ``dot_general``."""
+    ins, out = eq.replace("...", ".").split("->")
+    a, b = ins.split(",")
+    return bool(set(a) & set(b) & set(out))
+
+
+def einsum(eq: str, *xs: torch.Tensor, saveable: bool = True) -> torch.Tensor:
     """``torch.einsum`` after promoting the operands to one type, as
-    ``jnp.einsum`` does (torch refuses mixed types)."""
+    ``jnp.einsum`` does (torch refuses mixed types).  A product of two
+    operands without a batch dimension runs under this thread's mark, which
+    :func:`remat_call`'s ``"dots"`` policy reads; ``saveable=False`` leaves
+    it unmarked where the backward never reads its output (a block's last
+    product, added into the residual stream), which the reference's partial
+    evaluation does not keep either."""
     dt = xs[0].dtype
     for x in xs[1:]:
         dt = torch.promote_types(dt, x.dtype)
-    return torch.einsum(eq, *(x.to(dt) for x in xs))
+    xs = tuple(x.to(dt) for x in xs)
+    if not saveable or len(xs) != 2 or has_batch_dim(eq):
+        return torch.einsum(eq, *xs)
+    _PRODUCT.no_batch = True
+    try:
+        return torch.einsum(eq, *xs)
+    finally:
+        _PRODUCT.no_batch = False
+
+
+def _dots_policy(ctx, func, *args, **kwargs) -> CheckpointPolicy:
+    """Keep the products :func:`einsum` marks (no batch dimension);
+    recompute every other op: batched products (the MoE's experts,
+    dispatch and combine), norms, activations and the attention kernels."""
+    if func is torch.ops.aten.bmm.default and getattr(_PRODUCT, "no_batch", False):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_call(remat: str, fn, *args):
+    """``fn(*args)``, under autograd checkpointed as ``remat`` says (the
+    reference's ``_remat``): ``"none"`` keeps every activation, ``"dots"``
+    keeps the products without a batch dimension and recomputes the rest in
+    the backward, anything else (``"full"``) recomputes everything.  ``fn``
+    must be pure: it draws nothing, so no RNG state is stashed."""
+    if remat == "none" or not torch.is_grad_enabled():
+        return fn(*args)
+    kw = {}
+    if remat == "dots":  # _dots_policy read at each call, so a test may stand in for it
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _dots_policy)
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False, **kw)
 
 
 # ----------------------------------------------------------------- norms
@@ -151,9 +217,9 @@ def mlp_apply(p: dict, x: torch.Tensor, act: str) -> torch.Tensor:
     if "w_gate" in p:
         h = einsum("...d,df->...f", x, p["w_in"])
         g = _ACTS[act](einsum("...d,df->...f", x, p["w_gate"]))
-        return einsum("...f,fd->...d", h * g, p["w_out"])
+        return einsum("...f,fd->...d", h * g, p["w_out"], saveable=False)
     h = gelu(einsum("...d,df->...f", x, p["w_in"]))
-    return einsum("...f,fd->...d", h, p["w_out"])
+    return einsum("...f,fd->...d", h, p["w_out"], saveable=False)
 
 
 def dense_init(shape: tuple, dtype: torch.dtype, generator: torch.Generator, device,

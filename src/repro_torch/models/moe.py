@@ -101,7 +101,7 @@ def moe_dispatch(p: dict, cfg: ModelConfig, xg: torch.Tensor) -> Dispatch:
     moe = cfg.moe
     G, Sg, _ = xg.shape
     E, k, cf = moe.num_experts, moe.top_k, moe.capacity_factor
-    logits = torch.einsum("gsd,de->gse", xg.float(), p["router"].float())
+    logits = einsum("gsd,de->gse", xg.float(), p["router"].float())
     probs = torch.softmax(logits, dim=-1)
     ranked, order = torch.sort(probs, dim=-1, descending=True, stable=True)
     gates, expert_ids = ranked[..., :k], order[..., :k]

@@ -15,11 +15,12 @@ no graph.  Each of the three computes its float32 products in full float32,
 as the reference does, and leaves the caller's TF32 setting as it found
 it: one :func:`~repro_torch.precision.full_float32_matmul` block a call
 (a backward outside ``forward_lm`` needs its own, as ``train/step.py``
-has).  ``forward_lm`` honours ``cfg.remat``: ``"none"`` keeps every
-activation, ``"full"`` checkpoints each block
-(``torch.utils.checkpoint``, recomputed in the backward, as the
-reference's ``jax.checkpoint`` of each layer); ``"dots"`` raises
-``NotImplementedError`` (ROADMAP.md queue A #7).
+has).  ``forward_lm`` honours ``cfg.remat`` block by block
+(:func:`.layers.remat_call`): ``"none"`` keeps every activation,
+``"full"`` recomputes each block in the backward (the reference's
+``jax.checkpoint`` of each layer), ``"dots"`` keeps each block's products
+without a batch dimension and recomputes the rest (the reference's
+``checkpoint_dots_with_no_batch_dims``).
 
 Dense family: attention over a full sequence runs through
 :func:`.layers.attention`, so on the card it is a flash-attention kernel
@@ -49,6 +50,21 @@ place; positions, ``pos_offset`` and ``start`` do not apply.  Only the
 forward without a gradient is ported: ``forward_lm`` with a gradient
 raises ``NotImplementedError`` (ROADMAP.md queue A #9).
 
+Hybrid family (jamba): layer i is attention where ``cfg.is_attn_layer(i)``
+(``i % attn_period == attn_offset``; jamba has no RoPE) and a Mamba mixer
+elsewhere, each followed by ``norm2`` and an MLP, or an MoE where
+``cfg.is_moe_layer(i)``.  Its cache is the reference's: one entry per
+position of the period, ``sub_i``, attention rings ``{"k", "v"}`` or
+Mamba states ``{"conv", "h"}``, stacked over the layers at that position
+(layer l is entry l // P of ``sub_{l % P}``).  A prefill continues each
+Mamba layer's state and fills each attention layer's ring at
+``pos_offset``; decode runs one recurrence step or one cached attention
+a layer.  Training waits for the scan's backward, as in the ssm family
+(ROADMAP.md queue A #9).  Unlike the reference's stacked tree, which
+needs whole periods, ``LM`` takes any depth: jamba is served on one card
+at 5 of its 72 layers, which hold every kind of layer it has (ROADMAP.md
+queue C #23).
+
 Vlm family (internvl2): the dense layer behind an image prefix.
 ``forward_lm`` and ``prefill_lm`` take ``patch_embeds`` (B, num_patches,
 d), cast to the compute type and placed ahead of the (scaled) token
@@ -61,8 +77,6 @@ it.
 
 Dropped from the reference: the sharding annotations (``constrain_act``)
 and the one-hot embedding under a sharding context (a gather always).
-The ``hybrid`` family raises ``NotImplementedError`` (ROADMAP.md queue A
-#13: jamba needs four cards).
 """
 from __future__ import annotations
 
@@ -72,7 +86,6 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from ..precision import full_float32_matmul
 from .config import ModelConfig
@@ -84,6 +97,7 @@ from .layers import (
     dense_init,
     einsum,
     mlp_apply,
+    remat_call,
     rope_tables,
 )
 from .moe import moe_apply, moe_init
@@ -98,17 +112,23 @@ __all__ = [
     "prefill_lm",
     "decode_lm",
     "check_family",
+    "stack_period",
 ]
 
 
-_FAMILIES = ("dense", "moe", "ssm", "vlm", "encdec")  # encdec: models/encdec.py
+_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "encdec")  # encdec: models/encdec.py
 
 
 def check_family(cfg: ModelConfig) -> None:
     if cfg.family not in _FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet (ROADMAP.md queue A #13)"
-        )
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}; choose from {_FAMILIES}")
+
+
+def stack_period(cfg: ModelConfig) -> int:
+    """The layers of one period of the schedule, P: the reference stacks
+    layer s·P + i as entry s of ``sub_i``.  ``attn_period`` in the hybrid
+    family, else 1."""
+    return cfg.attn_period if cfg.family == "hybrid" else 1
 
 
 def _check_decoder_only(cfg: ModelConfig) -> None:
@@ -144,7 +164,8 @@ class Block(nn.Module):
     ``attn`` (wq wk wv wo), ``norm2`` and ``mlp`` in the dense family, and
     in the moe family ``moe`` (router w_in w_gate w_out) in place of
     ``mlp`` where the layer is an MoE layer; ``norm1`` and ``ssm`` in the
-    ssm family."""
+    ssm family; in the hybrid family ``ssm`` in place of ``attn`` where
+    the layer is a Mamba layer."""
 
     def __init__(self, **groups: dict):
         super().__init__()
@@ -184,7 +205,8 @@ def init_lm(cfg: ModelConfig, *, generator: Optional[torch.Generator] = None,
     """Random weights with the reference's scales: N(0, 1) times 0.02 for
     the embedding, 1/sqrt(heads x head_dim) for ``wo`` and 1/sqrt(fan-in)
     for every other matrix (the ssm mixer's as :func:`.ssm.ssm_init`);
-    norms at one.  Drawn in float32 from ``generator`` (a CPU generator
+    norms at one; each layer's kind from ``cfg.is_attn_layer(i)`` and
+    ``cfg.is_moe_layer(i)``, at any depth.  Drawn in float32 from ``generator`` (a CPU generator
     seeded 0 by default) on its device, in a fixed order, then cast to
     ``param_dtype`` on ``device``; a generator on the card draws a
     full-size model there."""
@@ -201,12 +223,15 @@ def init_lm(cfg: ModelConfig, *, generator: Optional[torch.Generator] = None,
     lm_head = None if cfg.tie_embeddings else w((d, cfg.vocab_size))
     blocks = []
     for i in range(cfg.num_layers):
-        if cfg.family == "ssm":
+        if cfg.family == "ssm":  # mamba1: the mixer is the layer (no norm2, no FFN)
             blocks.append(Block(norm1=_norm_init(d, cfg.norm, device),
                                 ssm=ssm_init(cfg, gen, device)))
             continue
-        attn = {"wq": w((d, hq, hd)), "wk": w((d, hkv, hd)), "wv": w((d, hkv, hd)),
-                "wo": w((hq, hd, d), 1.0 / math.sqrt(hq * hd))}
+        if cfg.is_attn_layer(i):
+            mixer = {"attn": {"wq": w((d, hq, hd)), "wk": w((d, hkv, hd)), "wv": w((d, hkv, hd)),
+                              "wo": w((hq, hd, d), 1.0 / math.sqrt(hq * hd))}}
+        else:
+            mixer = {"ssm": ssm_init(cfg, gen, device)}
         if cfg.is_moe_layer(i):
             ffn = {"moe": moe_init(cfg, gen, device)}
         elif cfg.act in ("swiglu", "geglu"):
@@ -214,7 +239,7 @@ def init_lm(cfg: ModelConfig, *, generator: Optional[torch.Generator] = None,
                            "w_out": w((cfg.d_ff, d))}}
         else:
             ffn = {"mlp": {"w_in": w((d, cfg.d_ff)), "w_out": w((cfg.d_ff, d))}}
-        blocks.append(Block(norm1=_norm_init(d, cfg.norm, device), attn=attn,
+        blocks.append(Block(norm1=_norm_init(d, cfg.norm, device), **mixer,
                             norm2=_norm_init(d, cfg.norm, device), **ffn))
     return LM(cfg, embed, _norm_init(d, cfg.norm, device), blocks, lm_head)
 
@@ -223,7 +248,9 @@ def init_lm(cfg: ModelConfig, *, generator: Optional[torch.Generator] = None,
 def _rope(cfg: ModelConfig, positions: torch.Tensor):
     """RoPE's (sin, cos) at ``positions``, shared by every layer; None
     without RoPE."""
-    return rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta) if cfg.use_rope else None
+    if not cfg.use_rope or cfg.family == "ssm":
+        return None
+    return rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
 
 
 def _attn_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, rope):
@@ -277,7 +304,10 @@ def _logits(lm: LM, h: torch.Tensor) -> torch.Tensor:
 
 def _ffn(blk: Block, cfg: ModelConfig, h: torch.Tensor) -> tuple[torch.Tensor, Optional[dict]]:
     """``h`` plus the layer's MLP or MoE of ``norm2(h)``, and an MoE
-    layer's aux losses (``{"lb_loss", "z_loss"}``; None for an MLP)."""
+    layer's aux losses (``{"lb_loss", "z_loss"}``; None for an MLP); ``h``
+    alone in the ssm family, whose layers have no FFN."""
+    if not hasattr(blk, "norm2"):
+        return h, None
     x = apply_norm(h, blk.norm2.p, cfg.norm)
     if not hasattr(blk, "moe"):
         return h + mlp_apply(blk.mlp.p, x, cfg.act), None
@@ -287,9 +317,14 @@ def _ffn(blk: Block, cfg: ModelConfig, h: torch.Tensor) -> tuple[torch.Tensor, O
 
 def _block(blk: Block, cfg: ModelConfig, h: torch.Tensor,
            rope) -> tuple[torch.Tensor, Optional[dict]]:
-    """One layer over a full sequence: ``(h, layer_aux)`` as :func:`_ffn`
-    returns them.  Pure, so a checkpoint may run it again."""
-    o, _ = _attn_apply(blk.attn.p, cfg, apply_norm(h, blk.norm1.p, cfg.norm), rope)
+    """One layer over a full sequence, its attention or Mamba mixer then
+    its FFN: ``(h, layer_aux)`` as :func:`_ffn` returns them.  Pure, so a
+    checkpoint may run it again."""
+    x = apply_norm(h, blk.norm1.p, cfg.norm)
+    if hasattr(blk, "ssm"):
+        o, _ = ssm_apply(blk.ssm.p, cfg, x)
+    else:
+        o, _ = _attn_apply(blk.attn.p, cfg, x, rope)
     return _ffn(blk, cfg, h + o)
 
 
@@ -310,31 +345,21 @@ def forward_lm(lm: LM, tokens: torch.Tensor, *, return_aux: bool = False,
     num_patches + S, vocab) in the vlm family, after ``patch_embeds``); with
     ``return_aux``, ``(logits, {"lb_loss", "z_loss"})``, the MoE layers'
     aux losses summed over the layers (float32 zeros without MoE layers),
-    as the reference returns them, differentiable.  Under autograd with
-    ``cfg.remat == "full"`` each block's activations are recomputed in the
-    backward instead of kept."""
+    as the reference returns them, differentiable.  Under autograd each
+    block is checkpointed as ``cfg.remat`` says.  The ssm and hybrid
+    families run only without a gradient: the scan kernel has no backward,
+    and the plain scan must not stand in for it on the card."""
     cfg = lm.cfg
+    if cfg.family in ("ssm", "hybrid"):
+        _no_gradient(lm, f"the {cfg.family} family", "#9")
     aux = None
     if return_aux:
         aux = {name: torch.zeros((), dtype=torch.float32, device=lm.embed.device)
                for name in ("lb_loss", "z_loss")}
-    if cfg.family == "ssm":
-        logits = _forward_ssm(lm, tokens)
-        return (logits, aux) if return_aux else logits
-    if cfg.remat not in ("none", "full"):
-        raise NotImplementedError(
-            f"remat={cfg.remat!r} is not ported yet (ROADMAP.md queue A #7); use 'none' or 'full'"
-        )
     h = _embed_prompt(lm, tokens, patch_embeds)
     rope = _rope(cfg, torch.arange(h.shape[1], device=h.device))
-    remat = cfg.remat == "full" and torch.is_grad_enabled()
     for blk in lm.blocks:
-        if remat:
-            # no dropout or other draws inside: no RNG state to stash
-            h, layer_aux = checkpoint(_block, blk, cfg, h, rope, use_reentrant=False,
-                                      preserve_rng_state=False)
-        else:
-            h, layer_aux = _block(blk, cfg, h, rope)
+        h, layer_aux = remat_call(cfg.remat, _block, blk, cfg, h, rope)
         if aux is not None and layer_aux is not None:
             for name, value in layer_aux.items():
                 aux[name] = aux[name] + value
@@ -342,39 +367,41 @@ def forward_lm(lm: LM, tokens: torch.Tensor, *, return_aux: bool = False,
     return (logits, aux) if return_aux else logits
 
 
-def _forward_ssm(lm: LM, tokens: torch.Tensor) -> torch.Tensor:
-    """The ssm family's full-sequence logits, without a gradient: the scan
-    kernel has no backward, and the plain scan must not stand in for it on
-    the card."""
-    _no_gradient(lm, "the ssm family", "#9")
-    cfg = lm.cfg
-    h = _embed(lm, tokens)
-    for blk in lm.blocks:
-        o, _ = ssm_apply(blk.ssm.p, cfg, apply_norm(h, blk.norm1.p, cfg.norm))
-        h = h + o
-    return _logits(lm, h)
-
-
 # ===================================================================== cache
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device="cuda") -> dict:
-    """Decode cache.  Dense and moe: ``{"sub_0": {"k", "v"}}``, each (layers,
-    batch, W, kv_heads, head_dim) in ``compute_dtype`` with
-    ``W = min(max_len, sliding_window or max_len)``: linear buffers, or
-    rings for a sliding window.  Ssm: ``{"sub_0": {"conv", "h"}}``, the
-    convolution windows (layers, batch, d_conv - 1, d_inner) in
-    ``compute_dtype`` and the scan states (layers, batch, d_inner,
-    d_state) in float32, whatever ``max_len``.  Every buffer has the batch
-    axis at position 1; layer i's buffers are ``[i]`` views."""
+    """Decode cache, the reference's layout: one entry ``sub_i`` per
+    position i of the period P (:func:`stack_period`; 1 outside the hybrid
+    family), each buffer stacked over the ``count_i`` layers at that
+    position, layer l being entry l // P of ``sub_{l % P}``.  An attention
+    position holds ``{"k", "v"}``, each (count_i, batch, W, kv_heads,
+    head_dim) in ``compute_dtype`` with ``W = min(max_len, sliding_window
+    or max_len)``: linear buffers, or rings for a sliding window.  A Mamba
+    position holds ``{"conv", "h"}``, the convolution windows (count_i,
+    batch, d_conv - 1, d_inner) in ``compute_dtype`` and the scan states
+    (count_i, batch, d_inner, d_state) in float32, whatever ``max_len``.
+    Every buffer has the batch axis at position 1."""
     _check_decoder_only(cfg)
-    if cfg.family == "ssm":  # one layer's state (shapes only), stacked over the layers
-        layer = ssm_state_init(cfg, batch, device="meta")
-        return {"sub_0": {k: torch.zeros((cfg.num_layers, *t.shape), dtype=t.dtype, device=device)
-                          for k, t in layer.items()}}
+    P, L = stack_period(cfg), cfg.num_layers
     cd = _dtype(cfg.compute_dtype)
     W = max_len if cfg.sliding_window is None else min(max_len, cfg.sliding_window)
-    shape = (cfg.num_layers, batch, W, cfg.num_kv_heads, cfg.resolved_head_dim)
-    return {"sub_0": {"k": torch.zeros(shape, dtype=cd, device=device),
-                      "v": torch.zeros(shape, dtype=cd, device=device)}}
+    cache = {}
+    for i in range(min(P, L)):
+        count = len(range(i, L, P))
+        if cfg.is_attn_layer(i):
+            shape = (count, batch, W, cfg.num_kv_heads, cfg.resolved_head_dim)
+            bufs = {"k": (shape, cd), "v": (shape, cd)}
+        else:  # one layer's state (shapes only), stacked over the position's layers
+            bufs = {k: ((count, *t.shape), t.dtype)
+                    for k, t in ssm_state_init(cfg, batch, device="meta").items()}
+        cache[f"sub_{i}"] = {k: torch.zeros(shape, dtype=dt, device=device)
+                             for k, (shape, dt) in bufs.items()}
+    return cache
+
+
+def _layer_cache(cfg: ModelConfig, cache: dict, layer: int) -> dict:
+    """Layer ``layer``'s buffers in ``cache``: views, written in place."""
+    P = stack_period(cfg)
+    return {k: t[layer // P] for k, t in cache[f"sub_{layer % P}"].items()}
 
 
 def _decode_mask(cfg: ModelConfig, W: int, pos: int, start: Optional[torch.Tensor], device):
@@ -412,19 +439,19 @@ def _attn_decode(p: dict, cfg: ModelConfig, x: torch.Tensor, k_cache: torch.Tens
     return einsum("bshk,hkd->bsd", cached_attention(q, k_cache, v_cache, valid), p["wo"])
 
 
-def _ssm_layers(lm: LM, h: torch.Tensor, cache: dict, mixer) -> torch.Tensor:
-    """Run ``h`` through the ssm layers, each ``h + mixer(p, cfg, norm1(h),
-    state)``, where ``mixer`` returns (out, new state); each layer's new
-    state is copied into the cache in place."""
-    cfg = lm.cfg
-    conv, hs = cache["sub_0"]["conv"], cache["sub_0"]["h"]
-    for i, blk in enumerate(lm.blocks):
-        x = apply_norm(h, blk.norm1.p, cfg.norm)
-        o, state = mixer(blk.ssm.p, cfg, x, {"conv": conv[i], "h": hs[i]})
-        conv[i].copy_(state["conv"])
-        hs[i].copy_(state["h"])
-        h = h + o
-    return h
+def _ssm_step(mixer, blk: Block, cfg: ModelConfig, x: torch.Tensor, state: dict) -> torch.Tensor:
+    """``mixer`` (:func:`.ssm.ssm_apply` or :func:`.ssm.ssm_decode_step`)
+    of ``x`` from one layer's ``state`` (views of the cache), the new
+    state copied into it in place."""
+    o, new = mixer(blk.ssm.p, cfg, x, state)
+    state["conv"].copy_(new["conv"])
+    state["h"].copy_(new["h"])
+    return o
+
+
+def _attn_width(cache: dict) -> Optional[int]:
+    """W, the attention rings' length; None without attention layers."""
+    return next((bufs["k"].shape[2] for bufs in cache.values() if "k" in bufs), None)
 
 
 @torch.no_grad()
@@ -434,19 +461,21 @@ def decode_lm(lm: LM, token: torch.Tensor, cache: dict, pos: int,
     """One serving step: token (B,) at absolute position ``pos`` ->
     next-token logits (B, vocab); the cache is updated in place.
     ``start`` (B,): each batch slot's first owned position (see
-    :func:`_decode_mask`).  The ssm family has no positions: ``pos`` and
-    ``start`` do not apply there."""
+    :func:`_decode_mask`).  Mamba layers have no positions: ``pos`` and
+    ``start`` do not apply to them (to the ssm family at all)."""
     cfg = lm.cfg
     h = _embed(lm, token[:, None])
-    if cfg.family == "ssm":
-        return _logits(lm, _ssm_layers(lm, h, cache, ssm_decode_step))[:, 0], cache
-    kc, vc = cache["sub_0"]["k"], cache["sub_0"]["v"]
-    W = kc.shape[2]
-    rope = _rope(cfg, torch.full((1,), pos, device=h.device))  # a fill, not a host copy
-    valid = _decode_mask(cfg, W, pos, start, h.device)
+    W, rope, valid = _attn_width(cache), None, None
+    if W is not None:
+        rope = _rope(cfg, torch.full((1,), pos, device=h.device))  # a fill, not a host copy
+        valid = _decode_mask(cfg, W, pos, start, h.device)
     for i, blk in enumerate(lm.blocks):
+        c = _layer_cache(cfg, cache, i)
         x = apply_norm(h, blk.norm1.p, cfg.norm)
-        o = _attn_decode(blk.attn.p, cfg, x, kc[i], vc[i], pos % W, rope, valid)
+        if hasattr(blk, "ssm"):
+            o = _ssm_step(ssm_decode_step, blk, cfg, x, c)
+        else:
+            o = _attn_decode(blk.attn.p, cfg, x, c["k"], c["v"], pos % W, rope, valid)
         h, _ = _ffn(blk, cfg, h + o)
     return _logits(lm, h)[:, 0], cache
 
@@ -463,32 +492,31 @@ def prefill_lm(lm: LM, tokens: torch.Tensor, cache: dict, pos_offset: int = 0,
     joining request with the shared decode position.  In the vlm family
     the prompt is ``patch_embeds`` then the tokens, num_patches + S
     positions.  A cache shorter than the prompt (a sliding-window ring)
-    keeps its last W positions.  The
-    ssm family continues each layer's convolution window and scan state
-    from the cache (zeros in a fresh one) and has no positions: there
-    ``pos_offset`` does not apply.
+    keeps its last W positions.  A Mamba layer continues its convolution
+    window and scan state from the cache (zeros in a fresh one) and has no
+    positions: ``pos_offset`` does not apply to it.
     """
     cfg = lm.cfg
     h = _embed_prompt(lm, tokens, patch_embeds)
-    if cfg.family == "ssm":
-        h = _ssm_layers(lm, h, cache, ssm_apply)
-        return _logits(lm, h[:, -1:, :])[:, 0], cache
     S = h.shape[1]
-    kc, vc = cache["sub_0"]["k"], cache["sub_0"]["v"]
-    W = kc.shape[2]
     rope = _rope(cfg, pos_offset + torch.arange(S, device=h.device))
     for i, blk in enumerate(lm.blocks):
+        c = _layer_cache(cfg, cache, i)
         x = apply_norm(h, blk.norm1.p, cfg.norm)
-        o, (k, v) = _attn_apply(blk.attn.p, cfg, x, rope)
-        if S >= W:
-            # last W tokens; ring slot of token t is (offset+t) % W
-            shift = (pos_offset + S - W) % W
-            kw, vw = k[:, -W:].roll(shift, dims=1), v[:, -W:].roll(shift, dims=1)
+        if hasattr(blk, "ssm"):
+            o = _ssm_step(ssm_apply, blk, cfg, x, c)
         else:
-            pad = (0, 0, 0, 0, 0, W - S)
-            kw = F.pad(k, pad).roll(pos_offset % W, dims=1)
-            vw = F.pad(v, pad).roll(pos_offset % W, dims=1)
-        kc[i].copy_(kw)
-        vc[i].copy_(vw)
+            o, (k, v) = _attn_apply(blk.attn.p, cfg, x, rope)
+            W = c["k"].shape[1]
+            if S >= W:
+                # last W tokens; ring slot of token t is (offset+t) % W
+                shift = (pos_offset + S - W) % W
+                kw, vw = k[:, -W:].roll(shift, dims=1), v[:, -W:].roll(shift, dims=1)
+            else:
+                pad = (0, 0, 0, 0, 0, W - S)
+                kw = F.pad(k, pad).roll(pos_offset % W, dims=1)
+                vw = F.pad(v, pad).roll(pos_offset % W, dims=1)
+            c["k"].copy_(kw)
+            c["v"].copy_(vw)
         h, _ = _ffn(blk, cfg, h + o)
     return _logits(lm, h[:, -1:, :])[:, 0], cache

@@ -15,9 +15,10 @@ the P positions behind the cursor):
   expects them;
 - a per-slot ``start`` mask stops the request from attending the previous
   occupant's stale cache entries;
-- SSM caches (falcon-mamba) hold no positions: the request's convolution
-  window and scan state overwrite the slot's wholesale at admission, and
-  ``pos_offset`` and ``start`` do not apply to them.
+- SSM caches (falcon-mamba, jamba's Mamba layers) hold no positions: the
+  request's convolution window and scan state overwrite the slot's
+  wholesale at admission, and ``pos_offset`` and ``start`` do not apply
+  to them; a hybrid cache (jamba) holds both kinds, each handled so.
 
 Decoder-only text families only, as in the reference: the encdec family
 (whisper) is refused at construction with the reference's

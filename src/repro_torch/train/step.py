@@ -1,7 +1,7 @@
 """Train-state, train-step and serve-step factories: the port of
 ``repro.train.step``; the train step for the dense, moe, vlm and encdec
-families (the ssm family raises in its forward under a gradient,
-ROADMAP.md queue A #9), the serve steps for every ported family.
+families (the ssm and hybrid families raise in their forward under a
+gradient, ROADMAP.md queue A #9), the serve steps for every family.
 
 ``make_train_step`` builds ``(state, batch) -> (state, metrics)`` with:
 
@@ -161,8 +161,8 @@ def make_train_step(
 
 
 def make_serve_steps(model: Model) -> tuple[Callable, Callable]:
-    """Returns (prefill_step, decode_step) for any ported family: dense,
-    moe, ssm, vlm or encdec.  ``prefill_step`` passes the batch through
+    """Returns (prefill_step, decode_step) for any family: dense, moe,
+    ssm, hybrid, vlm or encdec.  ``prefill_step`` passes the batch through
     whole (``tokens``, and ``patch_embeds`` or ``frames``); ``decode_step``
     gives the greedy next token (int32), the logits and the cache."""
 

@@ -1309,6 +1309,26 @@ def test_hopper_launches_counts_exactly_the_staged_launches():
     assert (ssm_scan.ssm_scan.launches, ssm_scan.hopper_launches) == (before[0] + 4, before[1] + 3)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_ssm_staged_kernel_at_jambas_width(dtype):
+    """jamba-1.5-large's Mamba layers: d_inner 16,384 (twice falcon-mamba's),
+    N 16, B and C after its dt_rank of 512 columns, through the Hopper
+    kernel, within the rule of its plain version."""
+    from repro_torch.kernels import ssm_scan
+
+    dev = _card()
+    x, dt, A, Bc, Cc, D, h0 = _ssm_inputs(2, 300, 16384, 16, dtype, dev, seed=13, dt_rank=512)
+    assert ssm_scan.route(x, dt, Bc, Cc) == "hopper"
+    before = ssm_scan.hopper_launches
+    y, h = ops.ssm_scan(x, dt, A, Bc, Cc, D, h0)
+    torch.cuda.synchronize()
+    assert ssm_scan.hopper_launches == before + 1
+    want_y, want_h = ref.ssm_scan_ref(x, dt, A, Bc, Cc, D, h0)
+    _within_rule(y, want_y, *SSM_RULE[str(dtype).removeprefix("torch.")])
+    _within_rule(h, want_h, *SSM_RULE["float32"])
+
+
 def _mamba_card_against_cpu(dev):
     """falcon-mamba-7b's mixer width at 2 layers with a small vocabulary in
     float32: the same weights on the card and on the CPU, a 300-token
@@ -1388,3 +1408,32 @@ def test_probe_step_on_the_card_matches_the_cpu_whatever_the_tf32_setting(monkey
     assert got_loss == pytest.approx(want_loss, rel=1e-5)
     for n, m in want_m.items():
         torch.testing.assert_close(got_m[n], m, atol=1e-5 * float(m.abs().max()), rtol=0, msg=n)
+
+
+# ------------------------------------------------------- remat="dots" on the card
+@pytest.mark.cuda
+def test_remat_dots_gives_the_gradients_of_full_on_the_card():
+    """A small model (gemma's smoke config widened to head_dim 256, bf16,
+    so the attention runs the Hopper forward with lse and backward) under
+    ``"dots"`` and ``"full"``: what dots keeps is the forward's own
+    tensors, and full recomputes them with the same kernels on the same
+    inputs, so the gradients agree bitwise."""
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import Model
+
+    dev = _card()
+    cfg = dataclasses.replace(smoke_config("gemma-7b"), head_dim=256)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 128), generator=torch.Generator().manual_seed(2))
+    grads = {}
+    for remat in ("full", "dots"):
+        model = Model(dataclasses.replace(cfg, remat=remat))
+        lm = model.init(generator=torch.Generator().manual_seed(0), device=dev)
+        before = flash_attention.hopper_launches
+        logits = model.forward(lm, {"tokens": tokens.to(dev)})
+        grads[remat] = torch.autograd.grad(logits.float().square().mean(), list(lm.parameters()))
+        torch.cuda.synchronize()
+        # the forward and its recomputation in the backward, a layer each
+        assert flash_attention.hopper_launches == before + 2 * cfg.num_layers, remat
+    assert all(torch.equal(a, b) for a, b in zip(grads["full"], grads["dots"]))

@@ -238,15 +238,19 @@ def test_init_draws_the_reference_scales():
 
 
 def test_other_families_and_archs_are_refused():
-    """jamba (the hybrid family) waits for queue A #13; the decoder-only LM
-    refuses the encdec family, which is models/encdec.py's."""
+    """Named when jamba (the hybrid family) waited for queue A #13; now its
+    configs resolve to the reference's and the LM takes its smoke config,
+    and what is still refused is the encdec family, which is
+    models/encdec.py's, not the decoder-only LM's, and an unknown
+    family."""
     arch = "jamba-1.5-large-398b"
-    with pytest.raises(KeyError, match="ROADMAP.md queue A #13"):
-        get_config(arch)
-    with pytest.raises(KeyError, match="ROADMAP"):
-        smoke_config(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A #13"):
-        tr.init_lm(ref_smoke_config(arch), device="cpu")
+    assert dataclasses.asdict(get_config(arch)) == dataclasses.asdict(ref_get_config(arch))
+    assert dataclasses.asdict(smoke_config(arch)) == dataclasses.asdict(ref_smoke_config(arch))
+    lm = tr.init_lm(ref_smoke_config(arch), device="cpu")
+    kinds = [(hasattr(b, "attn"), hasattr(b, "moe")) for b in lm.blocks]
+    assert kinds == ref_smoke_config(arch).layer_kinds()
+    with pytest.raises(ValueError, match="unknown family"):
+        tr.init_lm(dataclasses.replace(smoke_config(arch), family="hybird"), device="cpu")
     for make in (lambda c: tr.init_lm(c, device="cpu"),
                  lambda c: tr.init_cache(c, 1, 8, device="cpu")):
         with pytest.raises(ValueError, match="encdec"):

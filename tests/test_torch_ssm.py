@@ -425,7 +425,12 @@ def test_registry_serves_falcon_mamba_at_the_references_config():
     cfg = get_config(ARCH)
     assert (cfg.num_layers, cfg.d_model, cfg.ssm.d_state, cfg.ssm.d_conv, cfg.ssm.expand,
             cfg.vocab_size, cfg.tie_embeddings) == (64, 4096, 16, 4, 2, 65024, False)
-    with pytest.raises(KeyError, match="ROADMAP"):
-        get_config("jamba-1.5-large-398b")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tr.init_lm(ref_smoke_config("jamba-1.5-large-398b"), device="cpu")
+    # the hybrid family's Mamba layers are this family's mixer (the
+    # registry refused jamba until ROADMAP.md queue A #13's first half)
+    jamba = get_config("jamba-1.5-large-398b")
+    assert dataclasses.asdict(jamba) == dataclasses.asdict(ref_get_config("jamba-1.5-large-398b"))
+    lm = tr.init_lm(ref_smoke_config("jamba-1.5-large-398b"), device="cpu")
+    mamba = [b for b in lm.blocks if hasattr(b, "ssm")]
+    assert len(mamba) == 3 and all(hasattr(b, "norm2") for b in mamba)
+    assert {k: v.shape for k, v in mamba[0].ssm.p.items()} == \
+        {k: v.shape for k, v in tr.init_lm(smoke_config(ARCH), device="cpu").blocks[0].ssm.p.items()}
