@@ -17,7 +17,8 @@ nothing of JAX or of the JAX package.  Phases, each printing one JSON line:
    at head_dim 256 (``flash_fwd_hopper``, ``flash_fwd_bf16`` and
    ``flash_fwd_f32``) and the backward's six there (dq and dk/dv on the
    three routes), and the registers, shared memory and spill bytes of
-   ``ell_to_dense``'s tiled kernel (identity and ``log1p`` epilogues) from
+   ``ell_to_dense``'s tiled kernel (identity and ``log1p`` epilogues) and
+   of the scan's backward kernel (float32 and bf16 at N 4 and 16) from
    ``ptxas -v``;
 
 The cell-training path (slice 1):
@@ -26,7 +27,7 @@ The cell-training path (slice 1):
    plates, 32,768 cells = two fetches of 64 x 256, 2,048 counts per cell,
    seed 0), generated under ``build/chip_smoke_data`` in the checkout or
    reused when its manifest matches; the generation runs in a process of
-   its own while phases 31-35 run, and this phase waits for it;
+   its own while phases 31-36 run, and this phase waits for it;
 4. kernel: ``ell_to_dense``'s tiled kernel, with and without its fused
    ``log1p``, on the card against its plain PyTorch version (followed by
    ``log1p_``): the JAX package's sweep with duplicate columns (atol 1e-6,
@@ -207,8 +208,9 @@ The planned storage layer on the cell path (slice 10):
 20. planned_cell_path: phase 5's store, strategy and geometry (32,768 cells,
    ``BlockShuffling(16)``, batch 64, ``fetch_factor`` 256: two fetches and
    512 steps an epoch), one epoch of ``train_probe`` from the same heads
-   in each of five ways, in turns, twice: (a) the ``ShardedCSRStore``
-   directly, as phase 5; (b) ``Pipeline.from_uri("sharded-csr://...")``
+   in each of five ways, one after another (PLANNED_TURNS): (a) the
+   ``ShardedCSRStore`` directly, as phase 5; (b)
+   ``Pipeline.from_uri("sharded-csr://...")``
    with ``io_workers=1`` and ``readahead=0``; (c) ``io_workers=4`` and
    ``readahead=1``; (d) and (e): (b) and (c) with
    ``IOCounters(simulate=NVME_SSD, simulate_scale=1.0)``, whose reads sleep
@@ -231,7 +233,8 @@ h5ad plate files and the fetch pool on the cell path (slice 11):
    (one ``.h5ad`` each through ``csr_shard_to_h5ad``, the shim's writer,
    and a ``manifest.json``; the export's seconds and bytes printed), then
    one epoch of ``train_probe`` from the same heads in each of four ways,
-   in turns, twice: (a) the ``ShardedCSRStore`` directly, whose batches
+   one after another (H5AD_TURNS): (a) the ``ShardedCSRStore`` directly,
+   whose batches
    are the reference; (b) ``Pipeline.from_uri("sharded-h5ad://...?driver=
    shim")`` at ``io_workers`` 1 and ``readahead`` 0, its cache sized as
    phase 20's; (c) (b) with ``.prefetch(workers=4)``, through
@@ -495,6 +498,35 @@ LM training at head_dim 256 and in the MoE family (slice 17), after phase
    it, beside its bound (the forward at that prefill's shape is phase
    26's ``jamba_prefill``).
 
+Training in the ssm and hybrid families (slice 19), after phase 35:
+
+36. ssm_train: (a) the scan's backward kernel (``ssm_scan_bwd``,
+   ``csrc/ssm_scan_bwd.cu``) against its plain version
+   (``ssm_scan_bwd_ref``) at S 0, 1, 15, 16, 17 and 1,023, N 4 and 16, D
+   96 and 200, float32 and bf16, with h0 and a seeded h_final gradient
+   and without, B and C as column views and dy not contiguous: every
+   gradient within SSM_RULE of rms(want) (dx by x's type, the rest as
+   float32), each call counted once and no copy made, two calls bitwise
+   equal; the mutation check: two edited copies of the source
+   (SSM_BWD_MUTANTS: ddt without A a_t h_{t-1}, the state's adjoint not
+   carried across a segment) built under ``build/`` must each fail that
+   rule SSM_MUTANT_MIN times over; (b) at falcon-mamba-7b's training
+   shape, x and dy (4, 2,048, 8,192) bf16, N 16: the kernel within the
+   rule and bitwise repeatable, its CUDA-event time in turns with the
+   forward kernel, the plain backward once, the bound (bytes,
+   exponentials, float32 flops) and ``ptxas``'s registers and spills;
+   (c) one forward and backward of falcon-mamba-7b at 2 layers in float32
+   on the card and on the CPU, by phase 32's rule, the card's scan
+   gradient through the kernel (one launch a layer); (e) the same for
+   jamba's smoke config (its three kinds of layer, one launch a Mamba
+   layer); (d) falcon-mamba-7b at full width (d_model 4,096, d_inner
+   8,192, N 16, vocabulary 65,024, untied) and SSM_TRAIN_LAYERS of its 64
+   layers (``reduced``), trained as phase 32 (bf16, ``remat="full"``,
+   batch 4 x 2,048, 2 + 10 steps), the scan's counts set to 0 just before
+   and read just after (2 ``ssm_scan_hopper`` launches and one
+   ``ssm_scan_bwd`` a layer and step), the loss finite and falling; step
+   ms, tokens/s, peak memory, kernel ms by kind.
+
 Then the kernels line (one entry per kernel), the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.  Any failure
 exits non-zero before it.
@@ -652,13 +684,15 @@ FIG5_SEEDS = (0,)
 # readahead, simulated storage); None is the store read directly
 PLANNED_WAYS = {"a_direct": None, "b_planned": (1, 0, False), "c_readahead": (4, 1, False),
                 "d_planned_nvme": (1, 0, True), "e_readahead_nvme": (4, 1, True)}
-PLANNED_TURNS = 2
+# one turn of the ways each: the script's time limit (1,200 s) holds the
+# host-bound cell path's epochs, which a slow host stretches by a third
+PLANNED_TURNS = 1
 PLANNED_CACHE_HEADROOM = 1.25
 # the h5ad cell path: ways (a)-(d) of phase 21; None is the CSR store read
 # directly, else how sharded-h5ad:// is iterated
 H5AD_WAYS = {"a_direct": None, "b_h5ad": "sync", "c_fetch_pool": "pool",
              "d_dataloader": "dataloader"}
-H5AD_TURNS = 2
+H5AD_TURNS = 1  # as PLANNED_TURNS
 H5AD_POOL_WORKERS = 4  # FetchPool threads of way (c)
 H5AD_LOADER_WORKERS = 4  # DataLoader processes of way (d)
 H5AD_LOADER_TIMEOUT_S = 300  # a worker that hangs raises instead of holding the call
@@ -804,6 +838,40 @@ BWD256_MUTANTS = {
         "-kTileQ : hopper::clamp_col<kTileQ>(d - 1) - 2 * t;",
         "-kTileQ : hopper::clamp_col<kTileQ>(d - 2) - 2 * t;"),
 }
+# The scan's backward and the ssm family's training (phase 36).  The sweep
+# of (a): S = 0, one step, around the backward's 8-step segments (15, 16,
+# 17) and 1,023; D 96 (three of its 32-channel blocks, no whole block of the
+# forward's 128) and 200 (neither); every gradient held to SSM_RULE scaled
+# to rms(want) (dx by x's type, the rest as float32)
+SSM_BWD_S = (0, 1, 15, 16, 17, 1023)
+SSM_BWD_D = (96, 200)
+SSM_GRADS = ("dx", "ddt", "dA", "dB", "dC", "dD", "dh0")
+# the mutation check: edited copies of csrc/ssm_scan_bwd.cu, built under
+# build/, each of which must fail the rule SSM_MUTANT_MIN times over on the
+# sweep's longest case: ddt without its A a_t h_{t-1} term, and the state's
+# adjoint not carried from one segment into the one before it
+SSM_BWD_MUTANTS = {
+    "ddt_drops_A_a_h": ("ddt[t * p.Dm] = fmaf(xv, dxs, kLn2 * dda);", "ddt[t * p.Dm] = xv * dxs;"),
+    "drops_carry_across_segments": (
+        "    if (s > 0) fetch<T, kN>(p, b, d, active, s - 1, lane, true, next);\n",
+        "    if (s > 0) fetch<T, kN>(p, b, d, active, s - 1, lane, true, next);\n"
+        "    if (s < segs - 1) {\n#pragma unroll\n"
+        "      for (int n = 0; n < kN; ++n) carry[n] = 0.f;\n    }\n"),
+}
+SSM_BWD_MUTANT_CASE = (2, 1023, 200, 16)
+# (b): falcon-mamba-7b's training scan, batch 4 x 2,048 tokens (phase 13's
+# shape), d_inner 8,192, N 16
+SSM_BWD_PATH = (TRAIN_BATCH, TRAIN_SEQ, 8192, 16)
+# float32 flops the backward must do per state and step: seven FMAs (h_t,
+# dh_t, the dB, dC and dx terms, dA's and ddt's sums of dh a_t h_{t-1})
+# and four products (dt A, a_t h_{t-1}, dh a_t h_{t-1}, the carried a_t dh)
+SSM_BWD_FLOPS = 18
+# (c)-(e): falcon-mamba-7b at 2 layers in float32 against the CPU, trained
+# at 8 of its 64 layers (the full depth's 7.27 B weights, gradients and
+# AdamW moments need 87 GB at 12 bytes a weight); jamba's smoke config (one
+# period of 4: Mamba, Mamba with MoE, attention, Mamba with MoE) against the
+# CPU in float32
+SSM_TRAIN_LAYERS, SSM_TRAIN_CPU_LAYERS = 8, 2
 
 
 def fail(msg: str) -> None:
@@ -1353,7 +1421,13 @@ def main() -> None:
     if len(ell_ptxas) != 2:
         fail(f"ptxas reports {len(ell_ptxas)} tiled ell_to_dense kernels, not 2 (identity and "
              f"log1p epilogues)")
-    emit({"phase": "build", "seconds": seconds, "built": built, "flash_fwd_hopper_ptxas": hopper,
+    scan_bwd = {k: v for k, v in _build.ptxas_report("ssm_scan_bwd").items()
+                if "ssm_scan_bwd_kernel" in k}
+    if len(scan_bwd) != 4:
+        fail(f"ptxas reports {len(scan_bwd)} scan backward kernels, not 4 (float32 and bf16 at "
+             f"N 4 and 16)")
+    emit({"phase": "build", "seconds": seconds, "built": built, "ssm_scan_bwd_ptxas": scan_bwd,
+          "flash_fwd_hopper_ptxas": hopper,
           "flash_fwd_head_dim_256_ptxas": wide, "flash_bwd_hopper_ptxas": bwd_hopper,
           "flash_bwd_head_dim_256_ptxas": wide_bwd,
           "ell_to_dense_tiled_ptxas": ell_ptxas})
@@ -1393,7 +1467,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     seconds["vlm_serve"] = time.perf_counter() - t0 - sum(seconds.values())
 
-    # phase 3's store is generated on one host core while phases 31-35,
+    # phase 3's store is generated on one host core while phases 31-36,
     # whose times are the card's, run
     root = os.path.join(HERE, "build", "chip_smoke_data")
     data_t0 = time.perf_counter()
@@ -1423,6 +1497,11 @@ def main() -> None:
     hybrid_scan["launches"] = hybrid["ssm_scan_hopper"]
     torch.cuda.empty_cache()
     seconds["hybrid_serve"] = time.perf_counter() - t0 - sum(seconds.values())
+
+    # 36. training in the ssm and hybrid families: the scan's backward kernel
+    ssm_bwd_kernel = ssm_train_phase(dev, float(max_sm_mhz) * 1e6)
+    torch.cuda.empty_cache()
+    seconds["ssm_train"] = time.perf_counter() - t0 - sum(seconds.values())
     emit({"phase": "other_configs_seconds", **seconds,
           "script_seconds_so_far": time.perf_counter() - script_t0})
 
@@ -1433,7 +1512,7 @@ def main() -> None:
     generate_tahoe_like(root, **DATA)  # the store just written: its manifest matches
     store = load_tahoe_like(root)
     emit({"phase": "data", "seconds": time.perf_counter() - data_t0,
-          "waited_after_phases_31_35_s": time.perf_counter() - t0, "cells": len(store),
+          "waited_after_phases_31_36_s": time.perf_counter() - t0, "cells": len(store),
           "genes": store.n_var, "plates": len(store.shards),
           "fetches_per_epoch": math.ceil(len(store) / (BATCH * FETCH_FACTOR))})
 
@@ -1570,7 +1649,7 @@ def main() -> None:
     emit({"phase": "script_seconds", "seconds": time.perf_counter() - script_t0})
     emit({"kernels": [{k: kernel[k] for k in ell_keys}, lm_kernel, *wide_kernels,
                       *family_kernels, *train_kernels, wide_train["dq"], wide_train["dkv"],
-                      ssm_kernel, hybrid_scan]})
+                      ssm_kernel, hybrid_scan, ssm_bwd_kernel]})
     print(smi)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
@@ -4699,10 +4778,12 @@ def _wide_train_vs_cpu(dev, cfg, layers: int) -> dict:
     the same weights (drawn once on the card from a seeded generator, a
     copy moved to the CPU): phase 12's rule, the loss (and the router's aux
     losses) within CPU_LOSS_RTOL, the gradient norm and every gradient
-    (|g_card - g_cpu| / |g_cpu| in the 2-norm) within CPU_GNORM_RTOL."""
+    (|g_card - g_cpu| / |g_cpu| in the 2-norm) within CPU_GNORM_RTOL.  The
+    line counts the scan backward's launches on the card's side."""
     import numpy as np
     import torch
 
+    from repro_torch.kernels import ssm_scan as ssm
     from repro_torch.models import Model
     from repro_torch.precision import full_float32_matmul
     from repro_torch.train.step import make_loss_fn
@@ -4721,10 +4802,11 @@ def _wide_train_vs_cpu(dev, cfg, layers: int) -> dict:
         device = dev if side == "card" else torch.device("cpu")
         b = {k: t.to(device) for k, t in batch.items()}
         params = dict(lm.named_parameters())
+        scans = ssm.ssm_scan_bwd.launches
         with torch.enable_grad(), full_float32_matmul():
             total, metrics, aux = loss_fn(lm, b)
             grads = torch.autograd.grad(total, list(params.values()))
-        res[side] = {"loss": float(total.detach()),
+        res[side] = {"loss": float(total.detach()), "scan_bwd": ssm.ssm_scan_bwd.launches - scans,
                      "aux": {k: float(t.detach()) for k, t in (aux or {}).items()},
                      "grads": {n: g.detach().cpu() for n, g in zip(params, grads)}}
         del grads, total, metrics, aux
@@ -4750,6 +4832,7 @@ def _wide_train_vs_cpu(dev, cfg, layers: int) -> dict:
             "grad_norm_rel_err": gnorm_rel, "grads_compared": len(grad_rel),
             "worst_grad": [worst_grad, grad_rel[worst_grad]],
             "rtol": {"loss": CPU_LOSS_RTOL, "grad": CPU_GNORM_RTOL},
+            "scan_bwd_launches_on_the_card": card["scan_bwd"],
             "seconds": time.perf_counter() - t0}
     del lm_card, lm_cpu, res, card, cpu
     torch.cuda.empty_cache()
@@ -4759,6 +4842,8 @@ def _wide_train_vs_cpu(dev, cfg, layers: int) -> dict:
 # kernel names by what they compute, for a training step's shares of device time
 _TRAIN_KERNEL_KINDS = (("attention_forward", ("flash_fwd",)),
                        ("attention_backward", ("flash_bwd",)),
+                       ("scan_forward", ("ssm_scan_hopper",)),
+                       ("scan_backward", ("ssm_scan_bwd", "sum_over_middle")),
                        ("matrix_products", ("gemm", "xmma", "nvjet", "cutlass", "sm90_", "cublas")))
 
 
@@ -4767,19 +4852,21 @@ def _train_arch(dev, cfg, phase: str, extra: dict) -> dict:
     ``remat="full"`` through ``build_loader`` and ``train_loop`` for
     WIDE_TRAIN_WARMUP + WIDE_TRAIN_STEPS steps of TRAIN_BATCH x TRAIN_SEQ
     tokens, the weights drawn on the card from a seeded generator, with the
-    attention kernels' counts set to 0 just before and read just after:
-    per step 2 forwards with lse a layer (the recomputation), one dq and
-    one dk/dv, all through the Hopper kernels.  The loss finite and
-    falling; step ms, tokens/s, peak memory, each step's metrics (with
-    ``moe_lb_loss`` in the moe family); then one step under
-    ``torch.profiler``: device kernel ms by kind.  Emits the phase line;
-    returns the launch counts."""
+    attention and scan kernels' counts set to 0 just before and read just
+    after: per step 2 forwards with lse an attention layer (the
+    recomputation), one dq and one dk/dv, all through the Hopper kernels,
+    and 2 scans a Mamba layer (``ssm_scan_hopper``) and one scan backward
+    (``ssm_scan_bwd``).  The loss finite and falling; step ms, tokens/s,
+    peak memory, each step's metrics (with ``moe_lb_loss`` where the config
+    has MoE layers); then one step under ``torch.profiler``: device kernel
+    ms by kind.  Emits the phase line; returns the launch counts."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_attention_bwd as fab
+    from repro_torch.kernels import ssm_scan as ssm
     from repro_torch.launch.train import build_loader, train_loop
     from repro_torch.models import Model
     from repro_torch.train.optimizer import AdamWConfig, constant_lr
@@ -4796,11 +4883,15 @@ def _train_arch(dev, cfg, phase: str, extra: dict) -> dict:
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     weights = sum(p.numel() for p in state["params"].parameters())
+    blocks = list(state["params"].blocks)
+    n_attn = sum(hasattr(blk, "attn") for blk in blocks)
+    n_scan = sum(hasattr(blk, "ssm") for blk in blocks)
     torch.cuda.reset_peak_memory_stats(dev)
     fa.flash_attention_fwd_lse.launches = fa.hopper_launches = fa.wide_launches = 0
     for entry in (fab.flash_attention_bwd_dq, fab.flash_attention_bwd_dkv):
         entry.launches = entry.hopper_launches = 0
     fab.hopper_launches = 0
+    ssm.ssm_scan.launches = ssm.hopper_launches = ssm.ssm_scan_bwd.launches = 0
     total = WIDE_TRAIN_WARMUP + WIDE_TRAIN_STEPS
     timings = {}
     t0 = time.perf_counter()
@@ -4810,14 +4901,18 @@ def _train_arch(dev, cfg, phase: str, extra: dict) -> dict:
     L, D = cfg.num_layers, cfg.resolved_head_dim
     launches = {"fwd": fa.flash_attention_fwd_lse.launches,
                 "dq": fab.flash_attention_bwd_dq.launches,
-                "dkv": fab.flash_attention_bwd_dkv.launches}
+                "dkv": fab.flash_attention_bwd_dkv.launches,
+                "scan_fwd": ssm.ssm_scan.launches, "scan_bwd": ssm.ssm_scan_bwd.launches}
     hopper = {"fwd": fa.hopper_launches, "dq": fab.flash_attention_bwd_dq.hopper_launches,
-              "dkv": fab.flash_attention_bwd_dkv.hopper_launches}
-    per_step = {"fwd": 2 * L, "dq": L, "dkv": L}
+              "dkv": fab.flash_attention_bwd_dkv.hopper_launches,
+              "scan_fwd": ssm.hopper_launches, "scan_bwd": ssm.ssm_scan_bwd.launches}
+    per_step = {"fwd": 2 * n_attn, "dq": n_attn, "dkv": n_attn, "scan_fwd": 2 * n_scan,
+                "scan_bwd": n_scan}
     want = {key: n * total for key, n in per_step.items()}
     if launches != want or hopper != want:
         fail(f"{cfg.name}: the training kernels launched {launches} times ({hopper} through the "
-             f"Hopper kernels) in {total} steps; need {per_step} a step, all Hopper")
+             f"Hopper kernels and the scan's backward) in {total} steps; need {per_step} a "
+             f"step, all Hopper")
     if fab.hopper_launches != hopper["dq"] + hopper["dkv"]:
         fail(f"{cfg.name}: the module counts {fab.hopper_launches} Hopper backward launches")
     if fa.wide_launches != (want["fwd"] if D > 128 else 0):
@@ -4854,16 +4949,25 @@ def _train_arch(dev, cfg, phase: str, extra: dict) -> dict:
     kinds["other"] = kernel_ms - sum(kinds.values())
     attn = {}
     for key, pat in (("fwd", "flash_fwd_hopper"), ("dq", "flash_bwd_dq_hopper"),
-                     ("dkv", "flash_bwd_dkv_hopper")):
+                     ("dkv", "flash_bwd_dkv_hopper"), ("scan_fwd", "ssm_scan_hopper"),
+                     ("scan_bwd", "ssm_scan_bwd_kernel")):
         mine = [e for e in on_card if pat in e.key]
         n = sum(e.count for e in mine)
-        if n != per_step[key]:
+        # The profiler drops kernel records where a step launches many
+        # kernels (PERF.md §7; a Mamba step's elementwise passes): the
+        # scan's kernels, whose launches the wrappers counted exactly
+        # above, must show at least once and at most that often; the
+        # attention kernels exactly as counted.
+        if n != per_step[key] and not (key.startswith("scan") and 0 < n <= per_step[key]):
             fail(f"{cfg.name}: the traced step shows {n} launches of {pat}, not {per_step[key]}")
-        attn[key] = {"count": n, "ms_per_launch": sum(e.self_device_time_total for e in mine) / 1e3 / n}
+        if n:
+            attn[key] = {"count": n, "launched": per_step[key],
+                         "ms_per_launch": sum(e.self_device_time_total for e in mine) / 1e3 / n}
     top = sorted(on_card, key=lambda e: -e.self_device_time_total)[:10]
     keep = ("loss", "ce_loss", "z_loss", "moe_lb_loss", "grad_norm", "lr")
     emit({"phase": phase, "arch": cfg.name, "layers": L, "d_model": cfg.d_model,
           "heads": [cfg.num_heads, cfg.num_kv_heads, D], "window": cfg.sliding_window,
+          "attention_layers": n_attn, "mamba_layers": n_scan,
           "weights": weights, "init_s": init_s, "dtype": cfg.compute_dtype, "remat": cfg.remat,
           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "corpus_vocab": min(cfg.vocab_size, 1024),
           "warmup_steps": WIDE_TRAIN_WARMUP, "timed_steps": WIDE_TRAIN_STEPS,
@@ -5179,6 +5283,213 @@ def hybrid_serve_phase(dev, sm_clock_hz: float) -> tuple[dict, dict]:
     scan = _scan_at_shape(dev, sm_clock_hz, B, S, Dm, N, full.ssm.resolved_dt_rank(full.d_model))
     emit({"phase": "hybrid_kernels", **scan})
     return launches, scan
+
+
+def _bwd_inputs(B, S, Dm, N, dtype, dev, gen, seeded: bool):
+    """The scan's inputs as :func:`_ssm_inputs` gives them (B and C column
+    views), dy a half of a wider tensor (not contiguous), h0 and dh_final
+    where ``seeded`` (else None)."""
+    import torch
+
+    inputs = list(_ssm_inputs(B, S, Dm, N, dtype, dev, gen))
+    dy = torch.randn((B, S, 2 * Dm), generator=gen, device=dev).to(dtype)[..., Dm:]
+    dh_final = torch.randn((B, Dm, N), generator=gen, device=dev) if seeded else None
+    if not seeded:
+        inputs[6] = None
+    return inputs, dy, dh_final
+
+
+def _grad_errs(got, want, dtype_name: str) -> dict:
+    """{gradient: (max |err|, over SSM_RULE, rms(want))} of the non-empty
+    gradients; dx by x's type, the rest as float32.  A gradient that is
+    all zeros (dA and dD of an empty sequence) must be met exactly."""
+    errs = {}
+    for name, g, w in zip(SSM_GRADS, got, want):
+        if not w.numel():
+            continue
+        if not bool(w.any()):
+            d = (g.float() - w.float()).abs().max().item()
+            errs[name] = (d, 0.0 if d == 0 else math.inf, 0.0)
+        else:
+            errs[name] = _rule_err(g, w, dtype_name if name == "dx" else "float32")
+    return errs
+
+
+def _ssm_bwd_mutants(dev, case) -> dict:
+    """Each of SSM_BWD_MUTANTS and the unedited source, built by
+    :func:`_build_mutants`, on ``case``'s float32 inputs (h0 and dh_final
+    given) into NaN-filled outputs: the worst gradient's error over the
+    rule (a NaN counts as infinite)."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssm_scan as ssm
+
+    libs, out_dir = _build_mutants("ssm_scan_bwd", SSM_BWD_MUTANTS, ssm.bind_bwd)
+    B, S, Dm, N = case
+    inputs, dy, dh_final = _bwd_inputs(B, S, Dm, N, torch.float32, dev,
+                                       torch.Generator(device=dev).manual_seed(361), True)
+    want = ref.ssm_scan_bwd_ref(*inputs, dy, dh_final)
+    result = {}
+    for name, lib in libs.items():
+        shapes = ((B, S, Dm), (B, S, Dm), (B, S, N), (B, S, N), (Dm, N), (Dm,), (B, Dm, N))
+        out = tuple(torch.full(sh, math.nan, device=dev) for sh in shapes)
+        got = ssm.launch_bwd(lib, *inputs, dy, dh_final, out=out)[:7]
+        torch.cuda.synchronize()
+        errs = _grad_errs(got, want, "float32")
+        result[name] = max(math.inf if math.isnan(e[1]) else e[1] for e in errs.values())
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return result
+
+
+def ssm_train_phase(dev, sm_clock_hz: float) -> dict:
+    """Phase 36: training in the ssm and hybrid families.  (a) the scan's
+    backward kernel against ``ssm_scan_bwd_ref`` on the sweep, two calls
+    bitwise equal, and SSM_BWD_MUTANTS; (b) its time at falcon-mamba-7b's
+    training shape in turns with the forward kernel, the plain backward
+    once, the bound and ``ptxas``'s registers and spills; (c)
+    falcon-mamba-7b at 2 layers in float32 on the card against the CPU;
+    (d) falcon-mamba-7b trained at full width and SSM_TRAIN_LAYERS of its
+    64 layers; (e) jamba's smoke config in float32 on the card against the
+    CPU.  Returns the backward's kernels-line entry."""
+    import torch
+
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels import ssm_scan as ssm
+
+    t_phase = time.perf_counter()
+    full = get_config(SSM_ARCH)
+    # (a) the sweep
+    gen = torch.Generator(device=dev).manual_seed(36)
+    worst, calls, before = {}, 0, ssm.ssm_scan_bwd.launches
+    copies = ssm.ssm_scan_bwd.copies
+    repeatable = None
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).removeprefix("torch.")
+        for S in SSM_BWD_S:
+            for Dm in SSM_BWD_D:
+                for N in (4, 16):
+                    for seeded in (False, True):
+                        inputs, dy, dh_final = _bwd_inputs(2, S, Dm, N, dtype, dev, gen, seeded)
+                        got = ssm.ssm_scan_bwd(*inputs, dy, dh_final)
+                        calls += 1
+                        if (S, Dm, N, seeded) == SSM_BWD_MUTANT_CASE[1:] + (True,):
+                            again = ssm.ssm_scan_bwd(*inputs, dy, dh_final)
+                            calls += 1
+                            same = all(torch.equal(a, b) for a, b in zip(got, again))
+                            repeatable = same if repeatable is None else repeatable and same
+                        want = ref.ssm_scan_bwd_ref(*inputs, dy, dh_final)
+                        for grad, e in _grad_errs(got, want, name).items():
+                            key = f"{name}/{grad}"
+                            worst[key] = max(worst.get(key, e), e, key=lambda t: t[1])
+    torch.cuda.synchronize()
+    if ssm.ssm_scan_bwd.launches != before + calls or ssm.ssm_scan_bwd.copies != copies:
+        fail(f"the sweep's {calls} backward calls counted {ssm.ssm_scan_bwd.launches - before} "
+             f"launches and {ssm.ssm_scan_bwd.copies - copies} copies")
+    if not all(e[1] <= 1.0 for e in worst.values()):
+        fail(f"the scan's backward disagrees with its plain version on the sweep: {worst}")
+    if not repeatable:
+        fail("two calls of the scan's backward differ")
+    mutants = _ssm_bwd_mutants(dev, SSM_BWD_MUTANT_CASE)
+    weak = {k: r for k, r in mutants.items() if k != "shipped" and not r >= SSM_MUTANT_MIN}
+    if weak:
+        fail(f"mutants of the scan's backward pass the rule with less than {SSM_MUTANT_MIN}x: "
+             f"{weak}")
+    if not mutants["shipped"] <= 1.0:
+        fail(f"the unedited backward built as a mutant fails the rule: {mutants['shipped']}")
+    emit({"phase": "ssm_train_kernel_sweep", "S": list(SSM_BWD_S), "D": list(SSM_BWD_D),
+          "N": [4, 16], "dtypes": ["float32", "bfloat16"], "h0_and_dh_final": [False, True],
+          "calls": calls, "worst_over_rule": worst, "rule": SSM_RULE,
+          "repeatable_bitwise": repeatable, "mutants_over_rule": mutants,
+          "mutant_case": list(SSM_BWD_MUTANT_CASE), "mutant_min": SSM_MUTANT_MIN,
+          "seconds": time.perf_counter() - t_phase})
+
+    # (b) the training shape: the kernel in turns with the forward, the plain version once
+    B, S, Dm, N = SSM_BWD_PATH
+    x, dt, A, Bc, Cc, D, _ = _ssm_inputs(B, S, Dm, N, torch.bfloat16, dev, gen)
+    dy = torch.randn((B, S, Dm), generator=gen, device=dev).to(torch.bfloat16)
+    inputs = (x, dt, A, Bc, Cc, D, None)
+    got = ssm.ssm_scan_bwd(*inputs, dy, None)
+    again = ssm.ssm_scan_bwd(*inputs, dy, None)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = ref.ssm_scan_bwd_ref(*inputs, dy, None)
+    end.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
+    path = _grad_errs(got, want, "bfloat16")
+    if not all(e[1] <= 1.0 for e in path.values()):
+        fail(f"the scan's backward disagrees with its plain version at {SSM_BWD_PATH}: {path}")
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        fail(f"two calls of the scan's backward differ at {SSM_BWD_PATH}")
+    max_abs_err = max(e[0] for e in (*path.values(), *worst.values()))
+    del got, again, want
+    fns = {"backward": lambda: ssm.ssm_scan_bwd(*inputs, dy, None),
+           "forward": lambda: ssm.ssm_scan(*inputs)}
+    turns = {"backward": [], "forward": []}
+    for key in ("backward", "forward", "forward", "backward"):
+        turns[key].append(event_ms(fns[key], calls=WIDE_TIMED_CALLS, groups=3))
+    ms = statistics.mean(turns["backward"])
+    # each input read once (x, dt, dy, B, C, A, D), each output written once
+    # (dx, ddt, dB, dC, dA, dD, dh0)
+    read = sum(t.numel() * t.element_size() for t in (x, dt, dy, Bc, Cc, A, D))
+    written = x.numel() * (x.element_size() + 4) + 2 * B * S * N * 4 + Dm * N * 4 + Dm * 4 \
+        + B * Dm * N * 4
+    exps = B * S * Dm * N
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    parts = {"bytes": (read + written) / HBM_BYTES_PER_S * 1e3,
+             "exponentials": exps / (SFU_EXP2_PER_CLOCK_PER_SM * sms * sm_clock_hz) * 1e3,
+             "fp32_flops": SSM_BWD_FLOPS * exps / FP32_FLOP_PER_S * 1e3}
+    bound = max(parts.values())
+    ptxas = {k: v for k, v in _build.ptxas_report("ssm_scan_bwd").items()
+             if "ssm_scan_bwd_kernel" in k}
+    kernel = {"name": "ssm_scan_bwd", "route": "cuda",
+              "source": "src/repro_torch/kernels/csrc/ssm_scan_bwd.cu",
+              "replaces": "src/repro/kernels/ssm_scan.py:101",
+              "replaces_note": "the gradient of the TPU kernel's function, which has no Pallas "
+                               "backward: the JAX package differentiates selective_scan "
+                               "(src/repro/models/ssm.py:100) with jax.vjp",
+              "kernel": "ssm_scan_bwd_kernel", "launches": None,
+              "max_abs_err": max_abs_err, "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
+              "plain": "ssm_scan_bwd_ref, once", "library_ms": None,
+              "library": "none: no single PyTorch call computes a selective scan's gradient",
+              "bound_ms": bound, "bound_by": "bytes" if parts["bytes"] == bound else "operations",
+              "bound_parts_ms": parts, "bound_share": bound / ms, "shape": list(SSM_BWD_PATH),
+              "dtype": "bfloat16", "errors": path, "ms_turns": turns,
+              "forward_ms": statistics.mean(turns["forward"]),
+              "bytes": read + written, "exponentials": exps, "ptxas": ptxas}
+    emit({"phase": "ssm_train_kernel", **kernel})
+    del x, dt, A, Bc, Cc, D, dy, inputs, fns
+    torch.cuda.empty_cache()
+
+    # (c) falcon-mamba-7b at 2 layers in float32, the card against the CPU
+    vs_cpu = _wide_train_vs_cpu(dev, full, SSM_TRAIN_CPU_LAYERS)
+    if vs_cpu["scan_bwd_launches_on_the_card"] != SSM_TRAIN_CPU_LAYERS:
+        fail(f"the float32 step on the card launched the scan's backward "
+             f"{vs_cpu['scan_bwd_launches_on_the_card']} times for {SSM_TRAIN_CPU_LAYERS} layers")
+
+    # (e) jamba's smoke config, its three kinds of layer, the card against the CPU
+    small = smoke_config(HYBRID_ARCH)
+    hybrid = _wide_train_vs_cpu(dev, small, small.num_layers)
+    mamba = sum(not attn for attn, _ in small.layer_kinds())
+    hybrid.update(kinds=small.layer_kinds(), arch=small.name)
+    if hybrid["scan_bwd_launches_on_the_card"] != mamba:
+        fail(f"jamba's float32 step on the card launched the scan's backward "
+             f"{hybrid['scan_bwd_launches_on_the_card']} times for {mamba} Mamba layers")
+    emit({"phase": "hybrid_train_vs_cpu", **hybrid})
+
+    # (d) falcon-mamba-7b trained at full width, SSM_TRAIN_LAYERS of 64 layers
+    launches = _train_arch(dev, dataclasses.replace(full, num_layers=SSM_TRAIN_LAYERS),
+                           "ssm_train", {
+        "reduced": {"num_layers": [full.num_layers, SSM_TRAIN_LAYERS],
+                    "why": "memory: the full depth's 7.27 B weights, gradients and AdamW "
+                           "moments need 87 GB at 12 bytes a weight"},
+        "d_inner": full.ssm.expand * full.d_model, "d_state": full.ssm.d_state,
+        "vocab": full.vocab_size, "tie_embeddings": full.tie_embeddings, "vs_cpu": vs_cpu,
+        "phase_seconds_before_training": time.perf_counter() - t_phase})
+    kernel["launches"] = launches["scan_bwd"]
+    return kernel
 
 
 if __name__ == "__main__":

@@ -2,8 +2,10 @@
 Hopper kernel, a CPU tensor to the plain PyTorch version.  Nothing falls
 back: a failed launch raises.  Attention that needs a gradient goes
 through :func:`.flash_attention_bwd.flash_attention_vjp`, whose forward
-and backward dispatch the same way; the selective scan has no backward
-and raises where one would be needed."""
+and backward dispatch the same way; the selective scan that needs a
+gradient through :class:`SsmScanFn`, whose forward is the scan's kernel
+and whose backward is the scan's backward kernel on the card (their
+plain versions on the CPU)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -15,8 +17,9 @@ from .csr_to_dense import ell_to_dense as _ell_to_dense_kernel
 from .flash_attention import flash_attention as _flash_attention_kernel
 from .flash_attention_bwd import flash_attention_vjp
 from .ssm_scan import ssm_scan as _ssm_scan_kernel
+from .ssm_scan import ssm_scan_bwd as _ssm_scan_bwd_kernel
 
-__all__ = ["ell_to_dense", "flash_attention", "ssm_scan"]
+__all__ = ["ell_to_dense", "flash_attention", "ssm_scan", "ssm_scan_vjp", "SsmScanFn"]
 
 
 def ell_to_dense(vals: torch.Tensor, cols: torch.Tensor, *, n_cols: int,
@@ -50,22 +53,61 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
     raise ValueError(f"no flash_attention for tensors on {q.device}")
 
 
-def ssm_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bc: torch.Tensor,
-             Cc: torch.Tensor, D: torch.Tensor,
-             h0: Optional[torch.Tensor] = None) -> tuple[torch.Tensor, torch.Tensor]:
-    """The selective scan: (y (B, S, D) in ``x.dtype``, h_final (B, D, N)
-    float32); see :func:`.ref.ssm_scan_ref`.  Neither version has a
-    backward: with grad enabled and an input that requires it, raises
-    ``NotImplementedError`` (training the ssm family is ROADMAP.md queue A
-    #9)."""
-    inputs = (x, dt, A, Bc, Cc, D, h0)
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in inputs):
-        raise NotImplementedError(
-            "the selective scan has no backward yet: training the ssm family is not ported "
-            "(ROADMAP.md queue A #9)"
-        )
+def _scan(x, dt, A, Bc, Cc, D, h0):
     if x.device.type == "cuda":
         return _ssm_scan_kernel(x, dt, A, Bc, Cc, D, h0)
     if x.device.type == "cpu":
         return ref.ssm_scan_ref(x, dt, A, Bc, Cc, D, h0)
     raise ValueError(f"no ssm_scan for tensors on {x.device}")
+
+
+def _scan_bwd(x, dt, A, Bc, Cc, D, h0, dy, dh_final):
+    if x.device.type == "cuda":
+        return _ssm_scan_bwd_kernel(x, dt, A, Bc, Cc, D, h0, dy, dh_final)
+    if x.device.type == "cpu":
+        return ref.ssm_scan_bwd_ref(x, dt, A, Bc, Cc, D, h0, dy, dh_final)
+    raise ValueError(f"no ssm_scan backward for tensors on {x.device}")
+
+
+class SsmScanFn(torch.autograd.Function):
+    """The differentiable selective scan: ``(y, h_final)`` of
+    :func:`ssm_scan`, its inputs kept for the backward (which recomputes
+    the states from ``h0``).  A gradient that reaches neither output
+    arrives as None, not as zeros."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bc, Cc, D, h0):
+        ctx.set_materialize_grads(False)
+        y, h_final = _scan(x, dt, A, Bc, Cc, D, h0)
+        ctx.save_for_backward(x, dt, A, Bc, Cc, D, h0)
+        return y, h_final
+
+    @staticmethod
+    def backward(ctx, dy, dh_final):
+        x, dt, A, Bc, Cc, D, h0 = ctx.saved_tensors
+        if dy is None and dh_final is None:
+            return (None,) * 7
+        if dy is None:
+            dy = torch.zeros_like(x)
+        grads = _scan_bwd(x, dt, A, Bc, Cc, D, h0, dy, dh_final)
+        return tuple(g if need else None for g, need in zip(grads, ctx.needs_input_grad))
+
+
+def ssm_scan_vjp(x, dt, A, Bc, Cc, D, h0=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The differentiable selective scan; the entry point of
+    :class:`SsmScanFn`, as :func:`flash_attention_vjp` is of attention's."""
+    return SsmScanFn.apply(x, dt, A, Bc, Cc, D, h0)
+
+
+def ssm_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bc: torch.Tensor,
+             Cc: torch.Tensor, D: torch.Tensor,
+             h0: Optional[torch.Tensor] = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The selective scan: (y (B, S, D) in ``x.dtype``, h_final (B, D, N)
+    float32); see :func:`.ref.ssm_scan_ref`.  With grad enabled and an
+    input that requires it, the differentiable :func:`ssm_scan_vjp`
+    (training), whose forward launches the same kernel; else the kernel
+    alone (serving)."""
+    inputs = (x, dt, A, Bc, Cc, D, h0)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in inputs):
+        return ssm_scan_vjp(*inputs)
+    return _scan(*inputs)

@@ -14,6 +14,7 @@ __all__ = [
     "flash_attention_fwd_lse_ref",
     "flash_attention_bwd_ref",
     "ssm_scan_ref",
+    "ssm_scan_bwd_ref",
 ]
 
 
@@ -191,3 +192,61 @@ def ssm_scan_ref(
         y[:, t] = torch.einsum("bdn,bn->bd", h, Cc[:, t])
     y = y + xf * D.float()
     return y.to(x.dtype), h
+
+
+def ssm_scan_bwd_ref(
+    x: torch.Tensor,  # (B, S, D)
+    dt: torch.Tensor,  # (B, S, D) float32
+    A: torch.Tensor,  # (D, N) float32
+    Bc: torch.Tensor,  # (B, S, N) float32
+    Cc: torch.Tensor,  # (B, S, N) float32
+    D: torch.Tensor,  # (D,)
+    h0: Optional[torch.Tensor],  # (B, D, N) float32, or None
+    dy: Optional[torch.Tensor],  # (B, S, D), or None (zeros)
+    dh_final: Optional[torch.Tensor] = None,  # (B, D, N), or None (zeros)
+) -> tuple[torch.Tensor, ...]:
+    """The VJP of :func:`ssm_scan_ref` as an explicit reverse recurrence in
+    float32: ``(dx, ddt, dA, dB, dC, dD, dh0)``, dx in ``x.dtype``, the rest
+    float32.  With a_t = exp(dt_t A), g_t = dL/dy_t and ``dh_final``
+    seeding the state's adjoint at the last step::
+
+        dh_t  = g_t (x) C_t + a_{t+1} * dh_{t+1}
+        dC_t  = sum_d g_t h_t           dB_t = sum_d dh_t dt_t x_t
+        dx_t  = sum_n dh_t dt_t B_t + D g_t
+        ddt_t = sum_n dh_t (x_t B_t + A a_t h_{t-1})
+        dA    = sum_{b,t} dh_t dt_t a_t h_{t-1}
+        dD    = sum_{b,t} g_t x_t       dh0 = a_1 * dh_1
+
+    The states h_t are those of the forward recurrence, kept for every
+    step (B * S * D * N float32 values).  ``dh0`` is returned whether or not
+    ``h0`` was given (zeros stood in for it)."""
+    Bsz, S, Dm = x.shape
+    N = A.shape[1]
+    dev = x.device
+    A, dt, Bc, Cc, xf = A.float(), dt.float(), Bc.float(), Cc.float(), x.float()
+    g = torch.zeros((Bsz, S, Dm), device=dev) if dy is None else dy.float()
+    h = torch.zeros((Bsz, Dm, N), device=dev) if h0 is None else h0.float()
+    hs = torch.empty((S + 1, Bsz, Dm, N), device=dev)  # hs[t] = h_t, hs[0] = h0
+    hs[0] = h
+    for t in range(S):
+        hs[t + 1] = torch.exp(dt[:, t, :, None] * A) * hs[t] \
+            + (dt[:, t] * xf[:, t])[:, :, None] * Bc[:, t, None, :]
+    carry = torch.zeros((Bsz, Dm, N), device=dev) if dh_final is None else dh_final.float()
+    dx = torch.empty((Bsz, S, Dm), device=dev)
+    ddt = torch.empty((Bsz, S, Dm), device=dev)
+    dB = torch.empty((Bsz, S, N), device=dev)
+    dC = torch.empty((Bsz, S, N), device=dev)
+    dA = torch.zeros((Dm, N), device=dev)
+    for t in reversed(range(S)):
+        a = torch.exp(dt[:, t, :, None] * A)  # (B, D, N)
+        dh = g[:, t, :, None] * Cc[:, t, None, :] + carry
+        ah = a * hs[t]  # a_t h_{t-1}
+        dC[:, t] = torch.einsum("bd,bdn->bn", g[:, t], hs[t + 1])
+        dB[:, t] = torch.einsum("bdn,bd->bn", dh, dt[:, t] * xf[:, t])
+        dx[:, t] = torch.einsum("bdn,bn->bd", dh, Bc[:, t]) * dt[:, t]
+        ddt[:, t] = (dh * (xf[:, t, :, None] * Bc[:, t, None, :] + A * ah)).sum(-1)
+        dA += (dh * dt[:, t, :, None] * ah).sum(0)
+        carry = a * dh
+    dx = dx + g * D.float()
+    dD = (g * xf).sum((0, 1))
+    return dx.to(x.dtype), ddt, dA, dB, dC, dD, carry

@@ -28,6 +28,17 @@ are) and are never copied.  ``y`` and ``h_final`` come out contiguous.
 ``ssm_scan.launches`` counts the launches of either kernel and the
 module's ``hopper_launches`` those of ``ssm_scan_hopper``: the wrapper
 adds to them where it launches and nowhere else.
+
+The backward (:func:`ssm_scan_bwd`, ``csrc/ssm_scan_bwd.cu``) is one
+kernel for every layout (:func:`bwd_route`): it reads x, dt, B, C and dy
+through their strides, recomputes the states from ``h0`` (a float32
+checkpoint every few steps in a scratch the wrapper allocates) and walks
+the sequence in reverse; a second kernel sums the warps' dB and dC terms
+and the channels' dA and dD over the batch, in order (no atomics: two
+calls give the same bits).  ``ssm_scan_bwd.launches`` counts its calls
+that launch, ``ssm_scan_bwd.copies`` the one copy it may make (a
+non-contiguous ``dh_final``).  Its plain version is
+:func:`repro_torch.kernels.ref.ssm_scan_bwd_ref`.
 """
 from __future__ import annotations
 
@@ -40,11 +51,13 @@ import torch
 
 from . import _build
 
-__all__ = ["ssm_scan", "STATE_SIZES", "bind", "launch", "route"]
+__all__ = ["ssm_scan", "ssm_scan_bwd", "STATE_SIZES", "bind", "bind_bwd", "bwd_route", "launch",
+           "launch_bwd", "route"]
 
 STATE_SIZES = (4, 16)  # the N compiled in: falcon-mamba-7b's smoke config and its own
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _DIMS, _STRIDES = ctypes.c_int64 * 4, ctypes.c_int64 * 12  # (B, S, D, N); x, dt, B, C
+_BWD_STRIDES = ctypes.c_int64 * 15  # x, dt, B, C, dy
 
 hopper_launches = 0  # launches of ssm_scan_hopper
 
@@ -66,9 +79,28 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
+def bind_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C entry points' argument types on a loaded library of
+    ``csrc/ssm_scan_bwd.cu`` (or of a build of an edited copy)."""
+    lib.ssm_scan_bwd.argtypes = [ctypes.c_void_p] * 20 + [  # 9 inputs, 7 outputs, 4 scratch
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]  # dtype dims strides stream
+    lib.ssm_scan_bwd.restype = ctypes.c_int
+    for fn in (lib.ssm_scan_bwd_segment_steps, lib.ssm_scan_bwd_block_channels):
+        fn.argtypes = []
+        fn.restype = ctypes.c_int64
+    lib.cuda_error_string.argtypes = [ctypes.c_int]
+    lib.cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 @functools.cache
 def _library() -> ctypes.CDLL:
     return bind(_build.load("ssm_scan"))
+
+
+@functools.cache
+def _bwd_library() -> ctypes.CDLL:
+    return bind_bwd(_build.load("ssm_scan_bwd"))
 
 
 def _check_layout(x, dt, Bc, Cc) -> None:
@@ -208,3 +240,118 @@ def ssm_scan(
 
 
 ssm_scan.launches = 0
+
+
+def bwd_route(x: torch.Tensor, dt: torch.Tensor, Bc: torch.Tensor, Cc: torch.Tensor,
+              dy: torch.Tensor) -> str:
+    """The backward kernel that takes these inputs: ``"ssm_scan_bwd"``, the
+    one kernel, for any strides.  A pure function of type and shape: it
+    needs no card, and raises where the kernel refuses them (the forward's
+    refusals, and a ``dy`` not of x's shape and type)."""
+    _check_layout(x, dt, Bc, Cc)
+    if dy.shape != x.shape or dy.dtype != x.dtype:
+        raise ValueError(f"need dy of x's shape {tuple(x.shape)} and type {x.dtype}, got "
+                         f"{tuple(dy.shape)} {dy.dtype}")
+    return "ssm_scan_bwd"
+
+
+def _check_bwd_inputs(x, dt, A, Bc, Cc, D, h0, dy, dh_final) -> str:
+    """Raise on any input the backward does not take; else its route."""
+    _check_inputs(x, dt, A, Bc, Cc, D, h0)
+    kernel = bwd_route(x, dt, Bc, Cc, dy)
+    if dh_final is not None:
+        want = (x.shape[0], x.shape[2], Bc.shape[2])
+        if dh_final.dtype != torch.float32 or dh_final.shape != want:
+            raise ValueError(f"need dh_final {want} float32, got {tuple(dh_final.shape)} "
+                             f"{dh_final.dtype}")
+        if not dh_final.is_contiguous():
+            raise ValueError("dh_final must be contiguous")
+    for name, t in (("dy", dy), ("dh_final", dh_final)):
+        if t is not None and t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+    return kernel
+
+
+def launch_bwd(lib: Optional[ctypes.CDLL], x, dt, A, Bc, Cc, D, h0, dy, dh_final,
+               out: Optional[tuple] = None) -> tuple:
+    """Check the inputs and launch, from ``lib`` (a library bound by
+    :func:`bind_bwd`; None: the package's own, built at first use), the
+    backward into ``out`` = (dx, ddt, dB, dC, dA, dD, dh0), all contiguous,
+    or new outputs.  Returns ``(dx, ddt, dA, dB, dC, dD, dh0, launched)``
+    in :func:`repro_torch.kernels.ref.ssm_scan_bwd_ref`'s order; nothing is
+    launched for an empty batch or width (the sums dB, dC, dA and dD are
+    then zeros, written here).  Raises if the launch fails.  Counts
+    nothing: :func:`ssm_scan_bwd` does."""
+    _check_bwd_inputs(x, dt, A, Bc, Cc, D, h0, dy, dh_final)
+    Bsz, S, Dm = x.shape
+    N = Bc.shape[2]
+    dev = x.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    if out is None:
+        out = (torch.empty((Bsz, S, Dm), dtype=x.dtype, device=dev), torch.empty((Bsz, S, Dm), **f32),
+               torch.empty((Bsz, S, N), **f32), torch.empty((Bsz, S, N), **f32),
+               torch.empty((Dm, N), **f32), torch.empty((Dm,), **f32),
+               torch.empty((Bsz, Dm, N), **f32))
+    dx, ddt, dB, dC, dA, dD, dh0 = out
+    if Bsz * Dm == 0:
+        for t in (dB, dC, dA, dD):
+            t.zero_()
+        return dx, ddt, dA, dB, dC, dD, dh0, False
+    if lib is None:
+        lib = _bwd_library()
+    seg, lanes = lib.ssm_scan_bwd_segment_steps(), lib.ssm_scan_bwd_block_channels()
+    # scratch: the segments' checkpoints, the warps' dB and dC terms, the
+    # channels' dA and dD summed over time
+    ckpt = torch.empty((Bsz, -(-S // seg), N, Dm), **f32)
+    bc_part = torch.empty((Bsz, -(-Dm // lanes), S, 2 * N), **f32)
+    a_part = torch.empty((Bsz, Dm, N), **f32)
+    d_part = torch.empty((Bsz, Dm), **f32)
+    device = dev.index
+    guard = (contextlib.nullcontext() if device == torch.cuda.current_device()
+             else torch.cuda.device(device))
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with guard:
+        err = lib.ssm_scan_bwd(
+            *map(ptr, (x, dt, A, Bc, Cc, D, h0, dy, dh_final, dx, ddt, dB, dC, dA, dD, dh0,
+                       ckpt, bc_part, a_part, d_part)),
+            _DTYPES[x.dtype], _DIMS(Bsz, S, Dm, N),
+            _BWD_STRIDES(*x.stride(), *dt.stride(), *Bc.stride(), *Cc.stride(), *dy.stride()),
+            torch._C._cuda_getCurrentRawStream(device),
+        )
+    if err != 0:
+        raise RuntimeError(f"ssm_scan_bwd launch failed: {lib.cuda_error_string(err).decode()} "
+                           f"({err})")
+    return dx, ddt, dA, dB, dC, dD, dh0, True
+
+
+def ssm_scan_bwd(
+    x: torch.Tensor,  # (B, S, D) float32 or bf16
+    dt: torch.Tensor,  # (B, S, D) float32
+    A: torch.Tensor,  # (D, N) float32
+    Bc: torch.Tensor,  # (B, S, N) float32
+    Cc: torch.Tensor,  # (B, S, N) float32
+    D: torch.Tensor,  # (D,) float32
+    h0: Optional[torch.Tensor],  # (B, D, N) float32, or None
+    dy: torch.Tensor,  # (B, S, D) in x's type
+    dh_final: Optional[torch.Tensor] = None,  # (B, D, N) float32, or None
+) -> tuple[torch.Tensor, ...]:
+    """The scan's VJP on the card: ``(dx, ddt, dA, dB, dC, dD, dh0)`` as
+    :func:`repro_torch.kernels.ref.ssm_scan_bwd_ref` returns them, dx in
+    x's type, the rest float32, all contiguous.  Takes what
+    :func:`ssm_scan` takes, with ``dy`` of any strides; a ``dh_final`` of
+    other strides is copied (counted in ``ssm_scan_bwd.copies``).  Raises
+    on anything else: there is no fallback to the plain version."""
+    if dh_final is not None and not dh_final.is_contiguous():
+        dh_final = dh_final.contiguous()
+        ssm_scan_bwd.copies += 1
+    *grads, launched = launch_bwd(None, x, dt, A, Bc, Cc, D, h0, dy, dh_final)
+    if launched:
+        ssm_scan_bwd.launches += 1
+    return tuple(grads)
+
+
+ssm_scan_bwd.launches = 0
+ssm_scan_bwd.copies = 0

@@ -6,10 +6,14 @@ block-sampled (BlockShuffling b, batched fetching f), the per-rank
 round-robin fetch assignment feeds the data-parallel axis, and loader
 state rides in every checkpoint so restarts resume mid-epoch bitwise.  On
 the card, attention's forward and backward run through the Hopper
-flash-attention kernels.  On the CPU, with the smoke config::
+flash-attention kernels, the selective scan's (ssm and hybrid families)
+through the scan's forward and backward kernels.  On the CPU, with the
+smoke config::
 
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
       --steps 50 --batch 8 --seq 128 --ckpt-dir build/run1
+  PYTHONPATH=src python -m repro_torch.launch.train --arch falcon-mamba-7b \\
+      --smoke --device cpu --steps 4
 
 Resume after a crash (same command + --resume) continues bit-exactly.
 """

@@ -3,9 +3,12 @@
 
 A full sequence (forward and prefill) runs the selective scan through
 :func:`repro_torch.kernels.ops.ssm_scan`: on the card the Hopper kernel,
-on the CPU its plain version.  Decode is a single recurrence step,
-``h' = exp(dt A) h + dt B x`` (O(1) in the sequence length), in plain
-tensor code as in the reference: no kernel.
+on the CPU its plain version.  Under autograd (training) the scan is
+differentiable: its backward is the scan's backward kernel on the card
+and its plain reverse recurrence on the CPU, where the reference
+differentiates its jnp scan with ``jax.vjp``.  Decode is a single
+recurrence step, ``h' = exp(dt A) h + dt B x`` (O(1) in the sequence
+length), in plain tensor code as in the reference: no kernel.
 
 Where the port and the reference compute differently:
 
@@ -134,7 +137,11 @@ def ssm_apply(p: dict, cfg: ModelConfig, h: torch.Tensor,
     y, h_final = ops.ssm_scan(x, dt, A, Bc, Cc, p["D"],
                               state["h"] if state is not None else None)
     y = y * silu(z)
-    out = einsum("bse,ed->bsd", y, p["w_out"])
+    # the output projection is read by a backward only where a norm follows
+    # it inside the layer (the hybrid family's norm2): under remat="dots"
+    # the reference keeps it there, and drops it in the ssm family, whose
+    # layer ends in the residual add
+    out = einsum("bse,ed->bsd", y, p["w_out"], saveable=cfg.family == "hybrid")
     return out, ({"conv": new_conv, "h": h_final} if state is not None else None)
 
 

@@ -46,9 +46,11 @@ Ssm family (falcon-mamba): each layer is ``norm1`` and the Mamba mixer
 sequence runs the selective scan through the Hopper kernel on the card;
 decode is one recurrence step per layer in plain tensor code.  The cache
 holds each layer's convolution window and scan state, overwritten in
-place; positions, ``pos_offset`` and ``start`` do not apply.  Only the
-forward without a gradient is ported: ``forward_lm`` with a gradient
-raises ``NotImplementedError`` (ROADMAP.md queue A #9).
+place; positions, ``pos_offset`` and ``start`` do not apply.  Under
+autograd the scan's backward is a kernel too (the reference
+differentiates its jnp scan): ``forward_lm`` trains the family, each
+Mamba layer's scan running once a step forward and once backward, and
+once more forward where ``cfg.remat`` recomputes the block.
 
 Hybrid family (jamba): layer i is attention where ``cfg.is_attn_layer(i)``
 (``i % attn_period == attn_offset``; jamba has no RoPE) and a Mamba mixer
@@ -59,11 +61,11 @@ Mamba states ``{"conv", "h"}``, stacked over the layers at that position
 (layer l is entry l // P of ``sub_{l % P}``).  A prefill continues each
 Mamba layer's state and fills each attention layer's ring at
 ``pos_offset``; decode runs one recurrence step or one cached attention
-a layer.  Training waits for the scan's backward, as in the ssm family
-(ROADMAP.md queue A #9).  Unlike the reference's stacked tree, which
-needs whole periods, ``LM`` takes any depth: jamba is served on one card
-at 5 of its 72 layers, which hold every kind of layer it has (ROADMAP.md
-queue C #23).
+a layer.  It trains as the ssm and moe families do (the MoE layers' aux
+losses weighted in by the train step).  Unlike the reference's stacked
+tree, which needs whole periods, ``LM`` takes any depth: jamba is served
+on one card at 5 of its 72 layers, which hold every kind of layer it has
+(ROADMAP.md queue C #23).
 
 Vlm family (internvl2): the dense layer behind an image prefix.
 ``forward_lm`` and ``prefill_lm`` take ``patch_embeds`` (B, num_patches,
@@ -328,16 +330,6 @@ def _block(blk: Block, cfg: ModelConfig, h: torch.Tensor,
     return _ffn(blk, cfg, h + o)
 
 
-def _no_gradient(lm: LM, what: str, item: str) -> None:
-    """Raise where autograd would record through ``lm``'s parameters: that
-    family's training is not ported."""
-    if torch.is_grad_enabled() and any(p.requires_grad for p in lm.parameters()):
-        raise NotImplementedError(
-            f"{lm.cfg.name}: training {what} is not ported yet (ROADMAP.md queue A {item}); "
-            "run forward_lm under torch.no_grad()"
-        )
-
-
 @full_float32_matmul()
 def forward_lm(lm: LM, tokens: torch.Tensor, *, return_aux: bool = False,
                patch_embeds: Optional[torch.Tensor] = None):
@@ -346,12 +338,8 @@ def forward_lm(lm: LM, tokens: torch.Tensor, *, return_aux: bool = False,
     ``return_aux``, ``(logits, {"lb_loss", "z_loss"})``, the MoE layers'
     aux losses summed over the layers (float32 zeros without MoE layers),
     as the reference returns them, differentiable.  Under autograd each
-    block is checkpointed as ``cfg.remat`` says.  The ssm and hybrid
-    families run only without a gradient: the scan kernel has no backward,
-    and the plain scan must not stand in for it on the card."""
+    block is checkpointed as ``cfg.remat`` says."""
     cfg = lm.cfg
-    if cfg.family in ("ssm", "hybrid"):
-        _no_gradient(lm, f"the {cfg.family} family", "#9")
     aux = None
     if return_aux:
         aux = {name: torch.zeros((), dtype=torch.float32, device=lm.embed.device)

@@ -1,13 +1,13 @@
 """Train-state, train-step and serve-step factories: the port of
-``repro.train.step``; the train step for the dense, moe, vlm and encdec
-families (the ssm and hybrid families raise in their forward under a
-gradient, ROADMAP.md queue A #9), the serve steps for every family.
+``repro.train.step``; the train step and the serve steps for every
+family: dense, moe, ssm, hybrid, vlm and encdec.
 
 ``make_train_step`` builds ``(state, batch) -> (state, metrics)`` with:
 
 - optional microbatching (gradient accumulation over the leading axis in
   float32, as the reference's ``lax.scan``; memory ∝ 1/n_micro),
-- the loss and backward (attention through the Hopper kernels on the card),
+- the loss and backward (attention through the Hopper kernels on the card,
+  the selective scan through its forward and backward kernels),
 - MoE aux-loss weighting: where ``cfg.moe`` is set, the router's load
   balance and z-losses, summed over the MoE layers, join the loss as
   ``moe_lb_weight * lb_loss + moe_z_weight * z_loss``, as in the

@@ -1172,8 +1172,172 @@ def test_ssm_scan_kernel_refuses_what_it_does_not_take():
         ssm_scan.ssm_scan(x, dt, A.t().contiguous().t(), Bc, Cc, D)
     with pytest.raises(ValueError):
         ssm_scan.ssm_scan(x, dt, A, Bc, Cc, D.cpu())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.ssm_scan(x.clone().requires_grad_(), dt, A, Bc, Cc, D)
+    # under a gradient (training) the forward is the same kernel, with the
+    # same refusals
+    with pytest.raises(ValueError):
+        ops.ssm_scan(x.clone().requires_grad_(), dt, A, Bc, Cc, D.cpu())
+    with pytest.raises(TypeError):
+        ops.ssm_scan(x.half().requires_grad_(), dt, A, Bc, Cc, D)
+
+
+# ------------------------------------------------------- the scan's backward
+# S = 0, one step, around the backward's 8-step segments (15, 16, 17) and
+# 1,023; D 96 (three of its 32-channel blocks) and 200 (no whole number of
+# blocks, of 32 or of the forward's 128)
+SSM_BWD_S = [0, 1, 15, 16, 17, 1023]
+SSM_BWD_D = [96, 200]
+SSM_GRADS = ("dx", "ddt", "dA", "dB", "dC", "dD", "dh0")
+
+
+def _bwd_inputs(B, S, Dm, N, dtype, dev, seed, seeded: bool):
+    """The model's layouts (x half of a projection, B and C column views
+    after falcon-mamba's 256 columns), dy a half of a wider tensor (not
+    contiguous); h0 and dh_final where ``seeded``, else None."""
+    inputs = list(_ssm_inputs(B, S, Dm, N, dtype, dev, seed=seed, dt_rank=256))
+    g = torch.Generator().manual_seed(seed + 1)
+    dy = torch.randn((B, S, 2 * Dm), generator=g).to(dev, dtype)[..., Dm:]
+    dh_final = torch.randn((B, Dm, N), generator=g).to(dev) if seeded else None
+    if not seeded:
+        inputs[6] = None
+    return inputs, dy, dh_final
+
+
+def _grads_within_rule(got, want, dtype):
+    for name, g, w in zip(SSM_GRADS, got, want):
+        kind = str(dtype).removeprefix("torch.") if name == "dx" else "float32"
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        if w.numel():
+            _within_rule(g, w, *SSM_RULE[kind])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("seeded", [False, True], ids=["zeros", "h0_dh_final"])
+@pytest.mark.parametrize("N", [4, 16])
+@pytest.mark.parametrize("Dm", SSM_BWD_D)
+@pytest.mark.parametrize("S", SSM_BWD_S)
+def test_ssm_scan_bwd_kernel_matches_plain_version(S, Dm, N, seeded, dtype):
+    """Every gradient of the backward kernel within the forward's rule
+    (dx by x's type, the rest as float32) of ``ssm_scan_bwd_ref``, one
+    launch counted and no copy."""
+    from repro_torch.kernels import ssm_scan
+
+    dev = _card()
+    inputs, dy, dh_final = _bwd_inputs(2, S, Dm, N, dtype, dev, S + Dm + N, seeded)
+    assert ssm_scan.bwd_route(*inputs[:2], *inputs[3:5], dy) == "ssm_scan_bwd"
+    before = (ssm_scan.ssm_scan_bwd.launches, ssm_scan.ssm_scan_bwd.copies)
+    got = ssm_scan.ssm_scan_bwd(*inputs, dy, dh_final)
+    torch.cuda.synchronize()
+    assert (ssm_scan.ssm_scan_bwd.launches, ssm_scan.ssm_scan_bwd.copies) == (before[0] + 1,
+                                                                              before[1])
+    _grads_within_rule(got, ref.ssm_scan_bwd_ref(*inputs, dy, dh_final), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 1023, 200, 16), (4, 2048, 8192, 16)],
+                         ids=["sweep", "falcon_mamba_training"])
+def test_ssm_scan_bwd_kernel_is_bitwise_repeatable(shape):
+    """No atomics: two calls on the same inputs give the same bits, at the
+    sweep's longest case and at falcon-mamba-7b's training shape (bf16)."""
+    from repro_torch.kernels import ssm_scan
+
+    dev = _card()
+    inputs, dy, dh_final = _bwd_inputs(*shape, torch.bfloat16, dev, 3, True)
+    first = ssm_scan.ssm_scan_bwd(*inputs, dy, dh_final)
+    second = ssm_scan.ssm_scan_bwd(*inputs, dy, dh_final)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    assert all(bool(torch.isfinite(g.float()).all()) for g in first)
+
+
+@pytest.mark.cuda
+def test_ssm_scan_bwd_kernel_takes_any_strides_and_copies_only_dh_final():
+    """x with a last stride of 2 and dt transposed in memory give what
+    contiguous copies give, bitwise, with no copy; a non-contiguous
+    dh_final is copied once, counted."""
+    from repro_torch.kernels import ssm_scan
+
+    dev = _card()
+    (x, dt, A, Bc, Cc, D, h0), dy, dh_final = _bwd_inputs(2, 40, 96, 16, torch.float32, dev, 7, True)
+    xs = torch.stack([x, x], dim=-1)[..., 0]
+    dts = dt.transpose(0, 1).contiguous().transpose(0, 1)
+    copies = ssm_scan.ssm_scan_bwd.copies
+    got = ssm_scan.ssm_scan_bwd(xs, dts, A, Bc, Cc, D, h0, dy, dh_final)
+    assert ssm_scan.ssm_scan_bwd.copies == copies
+    want = ssm_scan.ssm_scan_bwd(*(t.contiguous() for t in (x, dt, A, Bc, Cc, D, h0, dy, dh_final)))
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    strided = dh_final.transpose(1, 2).contiguous().transpose(1, 2)
+    again = ssm_scan.ssm_scan_bwd(x, dt, A, Bc, Cc, D, h0, dy, strided)
+    torch.cuda.synchronize()
+    assert ssm_scan.ssm_scan_bwd.copies == copies + 1
+    assert all(torch.equal(g, w) for g, w in zip(again, want))
+
+
+@pytest.mark.cuda
+def test_ssm_scan_bwd_kernel_launches_nothing_for_no_channel_or_no_row():
+    """D = 0 or B = 0: no launch counted; the sums over the channels
+    (dB, dC) and over the batch (dA, dD) are zeros, as the plain version's."""
+    from repro_torch.kernels import ssm_scan
+
+    dev = _card()
+    (x, dt, A, Bc, Cc, D, h0), dy, dh_final = _bwd_inputs(2, 9, 32, 4, torch.float32, dev, 4, True)
+    before = ssm_scan.ssm_scan_bwd.launches
+    cases = [(x[..., :0], dt[..., :0], A[:0], Bc, Cc, D[:0], h0[:, :0], dy[..., :0], dh_final[:, :0]),
+             (x[:0], dt[:0], A, Bc[:0], Cc[:0], D, h0[:0], dy[:0], dh_final[:0])]
+    for inputs in cases:
+        inputs = [t.contiguous() for t in inputs]
+        got = ssm_scan.ssm_scan_bwd(*inputs)
+        want = ref.ssm_scan_bwd_ref(*inputs)
+        assert all(g.shape == w.shape and torch.equal(g, w) for g, w in zip(got, want))
+    assert ssm_scan.ssm_scan_bwd.launches == before
+
+
+@pytest.mark.cuda
+def test_ssm_scan_bwd_kernel_refuses_what_it_does_not_take():
+    """N 5, float16 x, a D on the CPU, a dy not of x's type: raised before
+    any launch, none counted."""
+    from repro_torch.kernels import ssm_scan
+
+    dev = _card()
+    (x, dt, A, Bc, Cc, D, h0), dy, dh_final = _bwd_inputs(1, 8, 32, 4, torch.float32, dev, 2, True)
+    before = ssm_scan.ssm_scan_bwd.launches
+    (x5, dt5, A5, B5, C5, D5, h5), dy5, dh5 = _bwd_inputs(1, 8, 32, 5, torch.float32, dev, 2, True)
+    with pytest.raises(ValueError):
+        ssm_scan.ssm_scan_bwd(x5, dt5, A5, B5, C5, D5, h5, dy5, dh5)
+    with pytest.raises(TypeError):
+        ssm_scan.ssm_scan_bwd(x.half(), dt, A, Bc, Cc, D, h0, dy.half(), dh_final)
+    with pytest.raises(ValueError):
+        ssm_scan.ssm_scan_bwd(x, dt, A, Bc, Cc, D.cpu(), h0, dy, dh_final)
+    with pytest.raises(ValueError):
+        ssm_scan.ssm_scan_bwd(x, dt, A, Bc, Cc, D, h0, dy.bfloat16(), dh_final)
+    assert ssm_scan.ssm_scan_bwd.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_ssm_scan_under_autograd_runs_both_kernels(dtype):
+    """``ops.ssm_scan`` under a gradient on the card: the forward through
+    ``ssm_scan_hopper`` (the model's layouts) and, in the backward, one
+    launch of the backward kernel, whose gradients autograd hands back
+    bitwise; no plain scan runs."""
+    from repro_torch.kernels import ssm_scan
+
+    dev = _card()
+    (x, dt, A, Bc, Cc, D, h0), dy, _ = _bwd_inputs(2, 300, 200, 16, dtype, dev, 5, True)
+    leaves = [t.detach().clone().requires_grad_() for t in (x, dt, A, Bc, Cc, D, h0)]
+    plain = (ref.ssm_scan_ref, ref.ssm_scan_bwd_ref)
+    ref.ssm_scan_ref = ref.ssm_scan_bwd_ref = None  # a plain scan on this path would raise
+    try:
+        before = (ssm_scan.hopper_launches, ssm_scan.ssm_scan_bwd.launches)
+        y, h = ops.ssm_scan(*leaves)
+        grads = torch.autograd.grad(y, leaves, dy)
+        torch.cuda.synchronize()
+    finally:
+        ref.ssm_scan_ref, ref.ssm_scan_bwd_ref = plain
+    assert (ssm_scan.hopper_launches, ssm_scan.ssm_scan_bwd.launches) == (before[0] + 1,
+                                                                          before[1] + 1)
+    want = ssm_scan.ssm_scan_bwd(*(t.detach() for t in leaves), dy, None)
+    assert all(torch.equal(g, w) for g, w in zip(grads, want))
 
 
 # ------------------------------------------------ the staged (TMA) Hopper scan

@@ -7,7 +7,8 @@ forward's logits without a gradient, the prefill's logits and the whole
 cache key by key, 4 decode steps, ``serve_batch`` and ``SlotBatcher``
 against standalone serves and the reference's batcher; a depth that is
 not a whole number of periods (the port's LM takes it, the reference's
-tree does not); and training, refused (ROADMAP.md queue A #9)."""
+tree does not); and a train step (its three-step parity with the
+reference is in tests/test_torch_ssm_train.py)."""
 import dataclasses
 
 import jax
@@ -261,18 +262,26 @@ def test_batcher_over_hybrid_caches_matches_standalone_and_reference(serving_pai
 
 
 def test_training_is_refused_naming_its_item():
-    """The scan has no backward yet: the forward under a gradient and the
-    train step raise ``NotImplementedError`` naming ROADMAP.md queue A #9;
-    without a gradient the forward runs."""
-    cfg = smoke_config(ARCH)
+    """Named when the scan had no backward and training raised, naming
+    ROADMAP.md queue A #9; since #9 was ported the hybrid family trains:
+    the forward under a gradient gives the logits and aux losses of the
+    forward without one, bitwise, and a train step through a depth that is
+    not a whole number of periods (ROADMAP.md queue C #23) moves every
+    parameter, the Mamba, attention and MoE layers' alike."""
+    cfg = dataclasses.replace(smoke_config(ARCH), num_layers=3)
     model = Model(cfg)
     state = make_train_state(model, AdamWConfig(lr=1e-3), device="cpu",
                              generator=torch.Generator().manual_seed(1))
     tokens = torch.from_numpy(_tokens(cfg, 2, 16, seed=4).astype(np.int64))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A #9"):
-        make_train_step(model, AdamWConfig(lr=1e-3))(state, {"tokens": tokens, "labels": tokens})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A #9"):
-        model.forward(state["params"], {"tokens": tokens})
     with torch.no_grad():
-        logits, aux = model.forward(state["params"], {"tokens": tokens}, return_aux=True)
-    assert logits.shape == (2, 16, cfg.vocab_size) and float(aux["lb_loss"]) > 0
+        want, want_aux = model.forward(state["params"], {"tokens": tokens}, return_aux=True)
+    logits, aux = model.forward(state["params"], {"tokens": tokens}, return_aux=True)
+    assert logits.grad_fn is not None and torch.equal(logits.detach(), want)
+    assert all(torch.equal(aux[k].detach(), want_aux[k]) for k in want_aux)
+    before = {n: p.detach().clone() for n, p in state["params"].named_parameters()}
+    state, metrics = make_train_step(model, AdamWConfig(lr=1e-3))(
+        state, {"tokens": tokens, "labels": tokens})
+    assert state["step"] == 1 and np.isfinite(float(metrics["loss"]))
+    assert float(metrics["moe_lb_loss"]) > 0
+    unmoved = [n for n, p in state["params"].named_parameters() if torch.equal(p, before[n])]
+    assert not unmoved, unmoved

@@ -4,8 +4,9 @@ from a size); the mark leaves ``torch.einsum``'s bits as they are; the
 products a checkpointed block keeps under ``"dots"`` against the
 residuals that ``jax.checkpoint`` with ``checkpoint_dots_with_no_batch_dims``
 keeps for the reference's layer (by shape, at batch 1, where the MoE's
-dispatch runs one group, and at batch 2); three train steps under
-``"dots"`` on both sides; and the encoder-decoder, whose reference takes
+dispatch runs one group, and at batch 2; the Mamba layers of the ssm and
+hybrid families too); three train steps under ``"dots"`` on both sides;
+and the encoder-decoder, whose reference takes
 ``jax.checkpoint`` without a policy under ``"dots"``."""
 import dataclasses
 
@@ -35,8 +36,10 @@ F32 = dict(param_dtype="float32", compute_dtype="float32")
 # 1e-4; the schedule's float32 cosine one ulp apart
 METRIC_RTOL, LR_RTOL = 1e-4, 2.4e-7
 PARAM_TOL, PARAM_SHARE, PARAM_MAX = 2e-6, 0.999, 1e-4
-# dense with GQA (v's residual is its expansion), dense without, and moe
-ARCHS = ["smollm-360m", "gemma-7b", "mixtral-8x7b"]
+# dense with GQA (v's residual is its expansion), dense without, moe, ssm
+# (a Mamba layer, whose output projection ends the layer) and hybrid (jamba's
+# first layer, a Mamba mixer followed by norm2 and an MLP)
+ARCHS = ["smollm-360m", "gemma-7b", "mixtral-8x7b", "falcon-mamba-7b", "jamba-1.5-large-398b"]
 
 
 @pytest.mark.parametrize("eq,batched", [
@@ -96,7 +99,10 @@ def test_dots_keeps_the_references_residuals(monkeypatch, arch, B):
     router; never the expert products, the dispatch or the combine, also
     at batch 1 where the dispatch runs one group).  Not the FFN's output
     projection, which the backward never reads: ``mlp_apply`` leaves it
-    unmarked, as the reference's partial evaluation drops it."""
+    unmarked, as the reference's partial evaluation drops it.  In a Mamba
+    layer: its input projection, x_proj's and dt's products; its output
+    projection only where norm2 reads it (hybrid), not where the layer ends
+    in the residual add (ssm)."""
     cfg = dataclasses.replace(smoke_config(arch), num_layers=1, remat="dots", **F32)
     lm = tr.init_lm(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
     marked, kept = [], []
@@ -128,7 +134,11 @@ def test_dots_keeps_the_references_residuals(monkeypatch, arch, B):
     assert sorted(marked) == _reference_residuals(arch, B)
 
 
-@pytest.mark.parametrize("arch", ["smollm-360m", "mixtral-8x7b"])
+# (jamba's steps under "dots" are the port's under "none" bitwise,
+# tests/test_torch_ssm_train.py; against the reference's "dots" run one
+# element falls outside PARAM_MAX by ROADMAP.md queue C #22's mechanism,
+# shown there)
+@pytest.mark.parametrize("arch", ["smollm-360m", "mixtral-8x7b", "falcon-mamba-7b"])
 def test_three_train_steps_under_dots_match_the_references(arch):
     ref_cfg = dataclasses.replace(ref_smoke_config(arch), remat="dots", **F32)
     cfg = dataclasses.replace(smoke_config(arch), remat="dots", **F32)

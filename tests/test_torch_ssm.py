@@ -131,11 +131,19 @@ def test_ssm_scan_takes_the_models_strided_views():
 
 
 def test_ssm_scan_has_no_backward():
-    x, dt, A, Bc, Cc, D, _ = map(torch.from_numpy, _scan_inputs(np.random.default_rng(6), 1, 4, 8, 4))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.ssm_scan(x.requires_grad_(), dt, A, Bc, Cc, D)
+    """Named when the scan had no backward and raised under a gradient;
+    since ROADMAP.md queue A #9 it has one: under a gradient ``ops.ssm_scan``
+    gives the values it gives without one, bitwise, and its gradient
+    reaches every input (against the reference's ``jax.vjp`` in
+    tests/test_torch_ssm_train.py)."""
+    x, dt, A, Bc, Cc, D, h0 = map(torch.from_numpy, _scan_inputs(np.random.default_rng(6), 1, 4, 8, 4))
+    inputs = [t.clone().requires_grad_() for t in (x, dt, A, Bc, Cc, D, h0)]
+    y, h = ops.ssm_scan(*inputs)
     with torch.no_grad():
-        ops.ssm_scan(x, dt, A, Bc, Cc, D)
+        want = ops.ssm_scan(x, dt, A, Bc, Cc, D, h0)
+    assert torch.equal(y.detach(), want[0]) and torch.equal(h.detach(), want[1])
+    grads = torch.autograd.grad(y.square().sum() + h.sum(), inputs)
+    assert all(g.shape == t.shape and bool(g.abs().sum() > 0) for g, t in zip(grads, inputs))
 
 
 # ---------------------------------------------------------------- the mixer
@@ -283,15 +291,20 @@ def test_short_prompts_continue_the_previous_window(length):
 
 
 def test_forward_with_a_gradient_raises():
+    """Named when the forward raised under a gradient; since ROADMAP.md
+    queue A #9 it trains: the logits under a gradient equal those without
+    one bitwise, and the loss's gradient reaches every parameter."""
     _, cfg = _smoke()
     model = Model(cfg)
     lm = model.init(generator=torch.Generator().manual_seed(0), device="cpu")
-    tokens = torch.zeros((1, 5), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.forward(lm, {"tokens": tokens})
-    assert all(p.requires_grad for p in lm.parameters())
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(0, cfg.vocab_size, (1, 5)))
+    logits = model.forward(lm, {"tokens": tokens})
+    assert all(p.requires_grad for p in lm.parameters()) and logits.grad_fn is not None
     with torch.no_grad():
-        assert model.forward(lm, {"tokens": tokens}).shape == (1, 5, cfg.vocab_size)
+        want = model.forward(lm, {"tokens": tokens})
+    assert logits.shape == (1, 5, cfg.vocab_size) and torch.equal(logits.detach(), want)
+    grads = torch.autograd.grad(logits.square().mean(), list(lm.parameters()))
+    assert all(bool(g.abs().sum() > 0) for g in grads)
 
 
 def test_init_matches_the_reference_tree():
