@@ -500,32 +500,47 @@ LM training at head_dim 256 and in the MoE family (slice 17), after phase
 
 Training in the ssm and hybrid families (slice 19), after phase 35:
 
-36. ssm_train: (a) the scan's backward kernel (``ssm_scan_bwd``,
+36. ssm_train: (a) the scan's backward (``ssm_scan_bwd``,
    ``csrc/ssm_scan_bwd.cu``) against its plain version
    (``ssm_scan_bwd_ref``) at S 0, 1, 15, 16, 17 and 1,023, N 4 and 16, D
    96 and 200, float32 and bf16, with h0 and a seeded h_final gradient
-   and without, B and C as column views and dy not contiguous: every
-   gradient within SSM_RULE of rms(want) (dx by x's type, the rest as
-   float32), each call counted once and no copy made, two calls bitwise
-   equal; the mutation check: two edited copies of the source
-   (SSM_BWD_MUTANTS: ddt without A a_t h_{t-1}, the state's adjoint not
-   carried across a segment) built under ``build/`` must each fail that
-   rule SSM_MUTANT_MIN times over; (b) at falcon-mamba-7b's training
-   shape, x and dy (4, 2,048, 8,192) bf16, N 16: the kernel within the
-   rule and bitwise repeatable, its CUDA-event time in turns with the
-   forward kernel, the plain backward once, the bound (bytes,
-   exponentials, float32 flops) and ``ptxas``'s registers and spills;
-   (c) one forward and backward of falcon-mamba-7b at 2 layers in float32
-   on the card and on the CPU, by phase 32's rule, the card's scan
-   gradient through the kernel (one launch a layer); (e) the same for
-   jamba's smoke config (its three kinds of layer, one launch a Mamba
-   layer); (d) falcon-mamba-7b at full width (d_model 4,096, d_inner
-   8,192, N 16, vocabulary 65,024, untied) and SSM_TRAIN_LAYERS of its 64
-   layers (``reduced``), trained as phase 32 (bf16, ``remat="full"``,
-   batch 4 x 2,048, 2 + 10 steps), the scan's counts set to 0 just before
-   and read just after (2 ``ssm_scan_hopper`` launches and one
-   ``ssm_scan_bwd`` a layer and step), the loss finite and falling; step
-   ms, tokens/s, peak memory, kernel ms by kind.
+   and without: on the model's layouts (B and C column views, dy a half
+   of a wider tensor) through ``ssm_scan_bwd_hopper``, which reads the
+   checkpoints of the training forward (``ssm_scan_train_hopper``, whose
+   y and h_final must equal the serving kernel's bitwise), with h0 and
+   h_final also with a dy of last stride 2 through
+   ``ssm_scan_bwd_strided``: every gradient within SSM_RULE of rms(want)
+   (dx by x's type, the rest as float32), each call counted by its route
+   and no copy made, the checkpoints handed over and the training
+   forwards counted, two calls of either route bitwise equal (the second
+   hopper call making its own checkpoints); the mutation check: three edited
+   copies of the hopper kernel (SSM_BWD_MUTANTS: ddt without A a_t
+   h_{t-1}, the state's adjoint not carried across a segment, one warp's
+   dB/dC sums left out of its block's) built under ``build/`` must each
+   fail that rule SSM_MUTANT_MIN times over; (b) at falcon-mamba-7b's
+   training shape, x and dy (4, 2,048, 8,192) bf16, N 16: the hopper
+   kernel within the rule and bitwise repeatable, from the forward's
+   checkpoints and from its own, its CUDA-event times in turns with the
+   strided kernel it replaced there (``previous_ssm_scan_bwd``), the
+   serving forward and the training forward (new, previous, forward,
+   training forward, then the other way), the plain backward once, the
+   bounds (the backward's: bytes, exponentials, float32 flops; the
+   training forward's: the scan's own bytes and exponentials, its
+   checkpoints' stores reported beside them), the training forward's
+   checkpoints against the plain recurrence's states, and ``ptxas``'s
+   registers, spills and stack of both backward kernels; (c) one forward
+   and backward of falcon-mamba-7b at 2 layers in float32 on the card and
+   on the CPU, by phase 32's rule, the card's scan gradient through the
+   hopper kernel (one launch a layer); (e) the same for jamba's smoke
+   config (its three kinds of layer, one launch a Mamba layer); (d)
+   falcon-mamba-7b at full width (d_model 4,096, d_inner 8,192, N 16,
+   vocabulary 65,024, untied) and SSM_TRAIN_LAYERS of its 64 layers
+   (``reduced``), trained as phase 32 (bf16, ``remat="full"``, batch 4 x
+   2,048, 2 + 10 steps), the scan's counts set to 0 just before and read
+   just after (2 ``ssm_scan_train_hopper`` launches and one
+   ``ssm_scan_bwd_hopper`` given their checkpoints a layer and step), the
+   loss finite and falling; step ms, tokens/s, peak memory, kernel ms by
+   kind.
 
 Then the kernels line (one entry per kernel), the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.  Any failure
@@ -840,28 +855,36 @@ BWD256_MUTANTS = {
 }
 # The scan's backward and the ssm family's training (phase 36).  The sweep
 # of (a): S = 0, one step, around the backward's 8-step segments (15, 16,
-# 17) and 1,023; D 96 (three of its 32-channel blocks, no whole block of the
-# forward's 128) and 200 (neither); every gradient held to SSM_RULE scaled
-# to rms(want) (dx by x's type, the rest as float32)
+# 17) and 1,023; D 96 (less than one of the hopper kernel's 128-channel
+# blocks, three of the strided kernel's 32) and 200 (no whole number of
+# either); every gradient held to SSM_RULE scaled to rms(want) (dx by x's
+# type, the rest as float32)
 SSM_BWD_S = (0, 1, 15, 16, 17, 1023)
 SSM_BWD_D = (96, 200)
 SSM_GRADS = ("dx", "ddt", "dA", "dB", "dC", "dD", "dh0")
-# the mutation check: edited copies of csrc/ssm_scan_bwd.cu, built under
-# build/, each of which must fail the rule SSM_MUTANT_MIN times over on the
-# sweep's longest case: ddt without its A a_t h_{t-1} term, and the state's
-# adjoint not carried from one segment into the one before it
+# the mutation check: edited copies of csrc/ssm_scan_bwd.cu's hopper
+# kernel, built under build/, each of which must fail the rule
+# SSM_MUTANT_MIN times over on the sweep's longest case: ddt without its A
+# a_t h_{t-1} term, the state's adjoint not carried from one segment into
+# the one before it, and the last warp's dB_t/dC_t sums left out of its
+# block's
 SSM_BWD_MUTANTS = {
-    "ddt_drops_A_a_h": ("ddt[t * p.Dm] = fmaf(xv, dxs, kLn2 * dda);", "ddt[t * p.Dm] = xv * dxs;"),
+    "ddt_drops_A_a_h": ("const float vt = fmaf(xv, dxs, kLn2 * dda);",
+                        "const float vt = xv * dxs;"),
     "drops_carry_across_segments": (
-        "    if (s > 0) fetch<T, kN>(p, b, d, active, s - 1, lane, true, next);\n",
-        "    if (s > 0) fetch<T, kN>(p, b, d, active, s - 1, lane, true, next);\n"
+        "    float* ow = ost + buf * kSeg * 2 * kChannels;\n",
+        "    float* ow = ost + buf * kSeg * 2 * kChannels;\n"
         "    if (s < segs - 1) {\n#pragma unroll\n"
-        "      for (int n = 0; n < kN; ++n) carry[n] = 0.f;\n    }\n"),
+        "      for (int i = 0; i < kS; ++i) carry[i] = 0.f;\n    }\n"),
+    "drops_last_warp_of_block_sum": (
+        "for (int w = 0; w < kWarps; ++w) acc += rw[",
+        "for (int w = 0; w < kWarps - 1; ++w) acc += rw["),
 }
 SSM_BWD_MUTANT_CASE = (2, 1023, 200, 16)
 # (b): falcon-mamba-7b's training scan, batch 4 x 2,048 tokens (phase 13's
 # shape), d_inner 8,192, N 16
 SSM_BWD_PATH = (TRAIN_BATCH, TRAIN_SEQ, 8192, 16)
+SSM_BWD_TIMED_CALLS = 10
 # float32 flops the backward must do per state and step: seven FMAs (h_t,
 # dh_t, the dB, dC and dx terms, dA's and ddt's sums of dh a_t h_{t-1})
 # and four products (dt A, a_t h_{t-1}, dh a_t h_{t-1}, the carried a_t dh)
@@ -1148,6 +1171,47 @@ def previous_ssm_scan(x, dt, A, Bc, Cc, D, h0):
     return y, h_final
 
 
+def previous_ssm_scan_bwd(x, dt, A, Bc, Cc, D, h0, dy, dh_final=None):
+    """The scan's backward through the kernel that ``ssm_scan_bwd_hopper``
+    replaced on the model's layouts (``ssm_scan_bwd_strided``, the
+    wrapper's strided route, which takes any layout), with the host work
+    its wrapper did: the checks, the outputs and the scratch (checkpoints
+    and one dB/dC partial per 32 channels), one C call.  For its device
+    time beside the new kernel's on the same inputs; counts nothing.
+    Returns ``(dx, ddt, dA, dB, dC, dD, dh0)``."""
+    import ctypes
+
+    import torch
+
+    from repro_torch.kernels import ssm_scan as ssm
+
+    ssm._check_bwd_inputs(x, dt, A, Bc, Cc, D, h0, dy, dh_final)
+    Bsz, S, Dm = x.shape
+    N = Bc.shape[2]
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dx = torch.empty((Bsz, S, Dm), dtype=x.dtype, device=x.device)
+    ddt = torch.empty((Bsz, S, Dm), **f32)
+    dB, dC = torch.empty((Bsz, S, N), **f32), torch.empty((Bsz, S, N), **f32)
+    dA, dD, dh0 = torch.empty((Dm, N), **f32), torch.empty((Dm,), **f32), torch.empty(
+        (Bsz, Dm, N), **f32)
+    lib = ssm._bwd_library()
+    seg, lanes = lib.ssm_scan_bwd_segment_steps(), lib.ssm_scan_bwd_block_channels()
+    scratch = (torch.empty((Bsz, -(-S // seg), N * Dm), **f32),
+               torch.empty((Bsz, -(-Dm // lanes), S, 2 * N), **f32),
+               torch.empty((Bsz, Dm, N), **f32), torch.empty((Bsz, Dm), **f32))
+    tensors = (x, dt, A, Bc, Cc, D, h0, dy, dh_final, dx, ddt, dB, dC, dA, dD, dh0, *scratch)
+    with torch.cuda.device(x.device):
+        err = lib.ssm_scan_bwd(
+            *(None if t is None else t.data_ptr() for t in tensors),
+            0 if x.dtype == torch.float32 else 1, (ctypes.c_int64 * 4)(Bsz, S, Dm, N),
+            (ctypes.c_int64 * 15)(*(s for t in (x, dt, Bc, Cc, dy) for s in t.stride())),
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ssm_scan_bwd_strided launch failed: "
+                           f"{lib.cuda_error_string(err).decode()}")
+    return dx, ddt, dA, dB, dC, dD, dh0
+
+
 def sdpa_backward_kernels(dev, shape) -> list:
     """The names of the kernels that ``scaled_dot_product_attention``'s
     backward launches at the training shape ``(B, S, H, Hkv, D)``, bf16,
@@ -1422,10 +1486,15 @@ def main() -> None:
         fail(f"ptxas reports {len(ell_ptxas)} tiled ell_to_dense kernels, not 2 (identity and "
              f"log1p epilogues)")
     scan_bwd = {k: v for k, v in _build.ptxas_report("ssm_scan_bwd").items()
-                if "ssm_scan_bwd_kernel" in k}
-    if len(scan_bwd) != 4:
-        fail(f"ptxas reports {len(scan_bwd)} scan backward kernels, not 4 (float32 and bf16 at "
-             f"N 4 and 16)")
+                if "ssm_scan_bwd_hopper" in k or "ssm_scan_bwd_strided" in k}
+    if len(scan_bwd) != 8:
+        fail(f"ptxas reports {len(scan_bwd)} scan backward kernels, not 8 (hopper and strided, "
+             f"float32 and bf16 at N 4 and 16)")
+    spilled = {k: v for k, v in scan_bwd.items()
+               if "hopper" in k and "bfloat16" in k and (v["spill_store_bytes"]
+                                                          or v["spill_load_bytes"])}
+    if spilled:
+        fail(f"the scan's hopper backward spills at bf16: {spilled}")
     emit({"phase": "build", "seconds": seconds, "built": built, "ssm_scan_bwd_ptxas": scan_bwd,
           "flash_fwd_hopper_ptxas": hopper,
           "flash_fwd_head_dim_256_ptxas": wide, "flash_bwd_hopper_ptxas": bwd_hopper,
@@ -1499,7 +1568,7 @@ def main() -> None:
     seconds["hybrid_serve"] = time.perf_counter() - t0 - sum(seconds.values())
 
     # 36. training in the ssm and hybrid families: the scan's backward kernel
-    ssm_bwd_kernel = ssm_train_phase(dev, float(max_sm_mhz) * 1e6)
+    ssm_train_kernels = ssm_train_phase(dev, float(max_sm_mhz) * 1e6)
     torch.cuda.empty_cache()
     seconds["ssm_train"] = time.perf_counter() - t0 - sum(seconds.values())
     emit({"phase": "other_configs_seconds", **seconds,
@@ -1649,7 +1718,7 @@ def main() -> None:
     emit({"phase": "script_seconds", "seconds": time.perf_counter() - script_t0})
     emit({"kernels": [{k: kernel[k] for k in ell_keys}, lm_kernel, *wide_kernels,
                       *family_kernels, *train_kernels, wide_train["dq"], wide_train["dkv"],
-                      ssm_kernel, hybrid_scan, ssm_bwd_kernel]})
+                      ssm_kernel, hybrid_scan, *ssm_train_kernels]})
     print(smi)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
@@ -2350,8 +2419,12 @@ def _build_mutants(source: str, edits: dict, bind) -> tuple[dict, str]:
     all under ``build/<source>_mutants`` with the port's flags and its
     headers; returns ({name: the library bound by ``bind``}, that
     directory, which the caller removes)."""
-    import ctypes
+    return _finish_mutants(_start_mutants(source, edits), bind)
 
+
+def _start_mutants(source: str, edits: dict) -> tuple[dict, str, str]:
+    """Start :func:`_build_mutants`'s builds (one ``nvcc`` each, ended if
+    this script exits first); :func:`_finish_mutants` waits for them."""
     from repro_torch.kernels import _build
 
     src = (_build.CSRC / f"{source}.cu").read_text()
@@ -2370,8 +2443,18 @@ def _build_mutants(source: str, edits: dict, bind) -> tuple[dict, str]:
             f.write(text)
         so = os.path.join(out_dir, f"{name}.so")
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o", so, cu]
-        jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                       text=True), so)
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        atexit.register(lambda proc=proc: proc.poll() is None and proc.kill())
+        jobs[name] = (proc, so)
+    return jobs, out_dir, source
+
+
+def _finish_mutants(started: tuple, bind) -> tuple[dict, str]:
+    """Wait for :func:`_start_mutants`'s builds; returns ({name: the library
+    bound by ``bind``}, their directory, which the caller removes)."""
+    import ctypes
+
+    jobs, out_dir, source = started
     libs = {}
     for name, (proc, so) in jobs.items():
         log = proc.communicate()[0]
@@ -4802,11 +4885,12 @@ def _wide_train_vs_cpu(dev, cfg, layers: int) -> dict:
         device = dev if side == "card" else torch.device("cpu")
         b = {k: t.to(device) for k, t in batch.items()}
         params = dict(lm.named_parameters())
-        scans = ssm.ssm_scan_bwd.launches
+        scans, hopper = ssm.ssm_scan_bwd.launches, ssm.hopper_bwd_launches
         with torch.enable_grad(), full_float32_matmul():
             total, metrics, aux = loss_fn(lm, b)
             grads = torch.autograd.grad(total, list(params.values()))
         res[side] = {"loss": float(total.detach()), "scan_bwd": ssm.ssm_scan_bwd.launches - scans,
+                     "scan_bwd_hopper": ssm.hopper_bwd_launches - hopper,
                      "aux": {k: float(t.detach()) for k, t in (aux or {}).items()},
                      "grads": {n: g.detach().cpu() for n, g in zip(params, grads)}}
         del grads, total, metrics, aux
@@ -4833,6 +4917,7 @@ def _wide_train_vs_cpu(dev, cfg, layers: int) -> dict:
             "worst_grad": [worst_grad, grad_rel[worst_grad]],
             "rtol": {"loss": CPU_LOSS_RTOL, "grad": CPU_GNORM_RTOL},
             "scan_bwd_launches_on_the_card": card["scan_bwd"],
+            "scan_bwd_hopper_launches_on_the_card": card["scan_bwd_hopper"],
             "seconds": time.perf_counter() - t0}
     del lm_card, lm_cpu, res, card, cpu
     torch.cuda.empty_cache()
@@ -4842,7 +4927,7 @@ def _wide_train_vs_cpu(dev, cfg, layers: int) -> dict:
 # kernel names by what they compute, for a training step's shares of device time
 _TRAIN_KERNEL_KINDS = (("attention_forward", ("flash_fwd",)),
                        ("attention_backward", ("flash_bwd",)),
-                       ("scan_forward", ("ssm_scan_hopper",)),
+                       ("scan_forward", ("ssm_scan_hopper", "ssm_scan_train_hopper")),
                        ("scan_backward", ("ssm_scan_bwd", "sum_over_middle")),
                        ("matrix_products", ("gemm", "xmma", "nvjet", "cutlass", "sm90_", "cublas")))
 
@@ -4855,8 +4940,9 @@ def _train_arch(dev, cfg, phase: str, extra: dict) -> dict:
     attention and scan kernels' counts set to 0 just before and read just
     after: per step 2 forwards with lse an attention layer (the
     recomputation), one dq and one dk/dv, all through the Hopper kernels,
-    and 2 scans a Mamba layer (``ssm_scan_hopper``) and one scan backward
-    (``ssm_scan_bwd``).  The loss finite and falling; step ms, tokens/s,
+    and 2 scans a Mamba layer (``ssm_scan_train_hopper``, which writes the
+    backward's checkpoints) and one scan backward (``ssm_scan_bwd_hopper``,
+    given them).  The loss finite and falling; step ms, tokens/s,
     peak memory, each step's metrics (with ``moe_lb_loss`` where the config
     has MoE layers); then one step under ``torch.profiler``: device kernel
     ms by kind.  Emits the phase line; returns the launch counts."""
@@ -4892,6 +4978,7 @@ def _train_arch(dev, cfg, phase: str, extra: dict) -> dict:
         entry.launches = entry.hopper_launches = 0
     fab.hopper_launches = 0
     ssm.ssm_scan.launches = ssm.hopper_launches = ssm.ssm_scan_bwd.launches = 0
+    ssm.hopper_bwd_launches = ssm.ssm_scan_bwd.with_checkpoints = ssm.ssm_scan_train.checkpoints = 0
     total = WIDE_TRAIN_WARMUP + WIDE_TRAIN_STEPS
     timings = {}
     t0 = time.perf_counter()
@@ -4903,15 +4990,23 @@ def _train_arch(dev, cfg, phase: str, extra: dict) -> dict:
                 "dq": fab.flash_attention_bwd_dq.launches,
                 "dkv": fab.flash_attention_bwd_dkv.launches,
                 "scan_fwd": ssm.ssm_scan.launches, "scan_bwd": ssm.ssm_scan_bwd.launches}
+    # the scans' forwards and backwards on the hopper routes, the forwards
+    # writing the checkpoints that the backwards read
     hopper = {"fwd": fa.hopper_launches, "dq": fab.flash_attention_bwd_dq.hopper_launches,
               "dkv": fab.flash_attention_bwd_dkv.hopper_launches,
-              "scan_fwd": ssm.hopper_launches, "scan_bwd": ssm.ssm_scan_bwd.launches}
+              "scan_fwd": ssm.ssm_scan_train.checkpoints,
+              "scan_bwd": ssm.ssm_scan_bwd.with_checkpoints}
+    if (ssm.hopper_launches, ssm.hopper_bwd_launches) != (launches["scan_fwd"],
+                                                          launches["scan_bwd"]):
+        fail(f"{cfg.name}: {ssm.hopper_launches} of {launches['scan_fwd']} scans and "
+             f"{ssm.hopper_bwd_launches} of {launches['scan_bwd']} scan backwards on the hopper "
+             f"routes")
     per_step = {"fwd": 2 * n_attn, "dq": n_attn, "dkv": n_attn, "scan_fwd": 2 * n_scan,
                 "scan_bwd": n_scan}
     want = {key: n * total for key, n in per_step.items()}
     if launches != want or hopper != want:
         fail(f"{cfg.name}: the training kernels launched {launches} times ({hopper} through the "
-             f"Hopper kernels and the scan's backward) in {total} steps; need {per_step} a "
+             f"Hopper kernels, the scans' with checkpoints) in {total} steps; need {per_step} a "
              f"step, all Hopper")
     if fab.hopper_launches != hopper["dq"] + hopper["dkv"]:
         fail(f"{cfg.name}: the module counts {fab.hopper_launches} Hopper backward launches")
@@ -4949,8 +5044,8 @@ def _train_arch(dev, cfg, phase: str, extra: dict) -> dict:
     kinds["other"] = kernel_ms - sum(kinds.values())
     attn = {}
     for key, pat in (("fwd", "flash_fwd_hopper"), ("dq", "flash_bwd_dq_hopper"),
-                     ("dkv", "flash_bwd_dkv_hopper"), ("scan_fwd", "ssm_scan_hopper"),
-                     ("scan_bwd", "ssm_scan_bwd_kernel")):
+                     ("dkv", "flash_bwd_dkv_hopper"), ("scan_fwd", "ssm_scan_train_hopper"),
+                     ("scan_bwd", "ssm_scan_bwd_hopper")):
         mine = [e for e in on_card if pat in e.key]
         n = sum(e.count for e in mine)
         # The profiler drops kernel records where a step launches many
@@ -5315,26 +5410,28 @@ def _grad_errs(got, want, dtype_name: str) -> dict:
     return errs
 
 
-def _ssm_bwd_mutants(dev, case) -> dict:
-    """Each of SSM_BWD_MUTANTS and the unedited source, built by
-    :func:`_build_mutants`, on ``case``'s float32 inputs (h0 and dh_final
-    given) into NaN-filled outputs: the worst gradient's error over the
-    rule (a NaN counts as infinite)."""
+def _ssm_bwd_mutants(dev, case, started: tuple) -> dict:
+    """Each of SSM_BWD_MUTANTS and the unedited source, their builds
+    ``started`` by :func:`_start_mutants`, on ``case``'s float32 inputs (h0
+    and dh_final given) and the package's training forward's checkpoints
+    into NaN-filled outputs: the worst gradient's error over the rule (a
+    NaN counts as infinite)."""
     import torch
 
     from repro_torch.kernels import ref
     from repro_torch.kernels import ssm_scan as ssm
 
-    libs, out_dir = _build_mutants("ssm_scan_bwd", SSM_BWD_MUTANTS, ssm.bind_bwd)
+    libs, out_dir = _finish_mutants(started, ssm.bind_bwd)
     B, S, Dm, N = case
     inputs, dy, dh_final = _bwd_inputs(B, S, Dm, N, torch.float32, dev,
                                        torch.Generator(device=dev).manual_seed(361), True)
     want = ref.ssm_scan_bwd_ref(*inputs, dy, dh_final)
+    ckpt = ssm.ssm_scan_train(*inputs)[2]
     result = {}
     for name, lib in libs.items():
         shapes = ((B, S, Dm), (B, S, Dm), (B, S, N), (B, S, N), (Dm, N), (Dm,), (B, Dm, N))
         out = tuple(torch.full(sh, math.nan, device=dev) for sh in shapes)
-        got = ssm.launch_bwd(lib, *inputs, dy, dh_final, out=out)[:7]
+        got = ssm.launch_bwd(lib, *inputs, dy, dh_final, out=out, ckpt=ckpt)[:7]
         torch.cuda.synchronize()
         errs = _grad_errs(got, want, "float32")
         result[name] = max(math.inf if math.isnan(e[1]) else e[1] for e in errs.values())
@@ -5342,16 +5439,40 @@ def _ssm_bwd_mutants(dev, case) -> dict:
     return result
 
 
+def _plain_checkpoints(x, dt, A, Bc, Cc, h0):
+    """The state at the start of every SEGMENT_STEPS-step segment, (B,
+    segments, D, N) float32, by the plain recurrence of ``ssm_scan_ref``:
+    what ``ssm_scan_train_hopper`` writes for the backward."""
+    import torch
+
+    from repro_torch.kernels import ssm_scan as ssm
+
+    Bsz, S, Dm = x.shape
+    N = A.shape[1]
+    h = torch.zeros((Bsz, Dm, N), device=x.device) if h0 is None else h0.float()
+    out = torch.empty((Bsz, -(-S // ssm.SEGMENT_STEPS), Dm, N), device=x.device)
+    xf = x.float()
+    for t in range(S):
+        if t % ssm.SEGMENT_STEPS == 0:
+            out[:, t // ssm.SEGMENT_STEPS] = h
+        h = (torch.exp(dt[:, t, :, None] * A) * h
+             + (dt[:, t] * xf[:, t])[:, :, None] * Bc[:, t, None, :])
+    return out
+
+
 def ssm_train_phase(dev, sm_clock_hz: float) -> dict:
     """Phase 36: training in the ssm and hybrid families.  (a) the scan's
-    backward kernel against ``ssm_scan_bwd_ref`` on the sweep, two calls
-    bitwise equal, and SSM_BWD_MUTANTS; (b) its time at falcon-mamba-7b's
-    training shape in turns with the forward kernel, the plain backward
-    once, the bound and ``ptxas``'s registers and spills; (c)
-    falcon-mamba-7b at 2 layers in float32 on the card against the CPU;
-    (d) falcon-mamba-7b trained at full width and SSM_TRAIN_LAYERS of its
-    64 layers; (e) jamba's smoke config in float32 on the card against the
-    CPU.  Returns the backward's kernels-line entry."""
+    backward on the sweep through both routes (the hopper one given the
+    training forward's checkpoints, and making its own) against
+    ``ssm_scan_bwd_ref``, two calls bitwise equal, and SSM_BWD_MUTANTS;
+    (b) at falcon-mamba-7b's training shape the hopper kernel in turns
+    with the strided kernel and the two forwards, the plain backward once,
+    the bound, the checkpoints against the plain recurrence and
+    ``ptxas``'s registers and spills; (c) falcon-mamba-7b at 2 layers in
+    float32 on the card against the CPU; (d) falcon-mamba-7b trained at
+    full width and SSM_TRAIN_LAYERS of its 64 layers; (e) jamba's smoke
+    config in float32 on the card against the CPU.  Returns the kernels
+    line's entries: the backward's and the training forward's."""
     import torch
 
     from repro_torch.configs import get_config, smoke_config
@@ -5359,12 +5480,18 @@ def ssm_train_phase(dev, sm_clock_hz: float) -> dict:
     from repro_torch.kernels import ssm_scan as ssm
 
     t_phase = time.perf_counter()
+    mutant_builds = _start_mutants("ssm_scan_bwd", SSM_BWD_MUTANTS)  # built while the sweep runs
     full = get_config(SSM_ARCH)
-    # (a) the sweep
+    # (a) the sweep: each case through the hopper route from the training
+    # forward's checkpoints, and with h0 and h_final given through the
+    # strided route (dy of last stride 2); the longest case twice on each,
+    # the second hopper call making its own checkpoints
     gen = torch.Generator(device=dev).manual_seed(36)
-    worst, calls, before = {}, 0, ssm.ssm_scan_bwd.launches
-    copies = ssm.ssm_scan_bwd.copies
-    repeatable = None
+    worst, calls, before = {}, {"hopper": 0, "strided": 0}, ssm.ssm_scan_bwd.launches
+    before_hopper, copies = ssm.hopper_bwd_launches, ssm.ssm_scan_bwd.copies
+    given, trained = ssm.ssm_scan_bwd.with_checkpoints, ssm.ssm_scan_train.checkpoints
+    handed, forwards = 0, 0  # checkpoints handed to the backward; training forwards run
+    repeatable, fwd_same = True, True
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).removeprefix("torch.")
         for S in SSM_BWD_S:
@@ -5372,26 +5499,47 @@ def ssm_train_phase(dev, sm_clock_hz: float) -> dict:
                 for N in (4, 16):
                     for seeded in (False, True):
                         inputs, dy, dh_final = _bwd_inputs(2, S, Dm, N, dtype, dev, gen, seeded)
-                        got = ssm.ssm_scan_bwd(*inputs, dy, dh_final)
-                        calls += 1
-                        if (S, Dm, N, seeded) == SSM_BWD_MUTANT_CASE[1:] + (True,):
-                            again = ssm.ssm_scan_bwd(*inputs, dy, dh_final)
-                            calls += 1
-                            same = all(torch.equal(a, b) for a, b in zip(got, again))
-                            repeatable = same if repeatable is None else repeatable and same
                         want = ref.ssm_scan_bwd_ref(*inputs, dy, dh_final)
-                        for grad, e in _grad_errs(got, want, name).items():
-                            key = f"{name}/{grad}"
-                            worst[key] = max(worst.get(key, e), e, key=lambda t: t[1])
+                        cases = {"hopper": dy}
+                        if seeded:
+                            cases["strided"] = torch.stack([dy, dy], dim=-1)[..., 0]
+                        for kernel, g in cases.items():
+                            if ssm.bwd_route(*inputs[:2], *inputs[3:5], g) != kernel:
+                                fail(f"the sweep's {kernel} case routes elsewhere")
+                            ckpt = None
+                            if kernel == "hopper" and S:
+                                y, h_final, ckpt = ssm.ssm_scan_train(*inputs)
+                                y0, h0_final = ssm.ssm_scan(*inputs)
+                                fwd_same &= torch.equal(y, y0) and torch.equal(h_final, h0_final)
+                                handed, forwards = handed + 1, forwards + 1
+                            got = ssm.ssm_scan_bwd(*inputs, g, dh_final, ckpt=ckpt)
+                            calls[kernel] += 1
+                            if (S, Dm, N, seeded) == SSM_BWD_MUTANT_CASE[1:] + (True,):
+                                again = ssm.ssm_scan_bwd(*inputs, g, dh_final)
+                                calls[kernel] += 1
+                                forwards += kernel == "hopper"
+                                repeatable &= all(torch.equal(a, b) for a, b in zip(got, again))
+                            for grad, e in _grad_errs(got, want, name).items():
+                                key = f"{kernel}/{name}/{grad}"
+                                worst[key] = max(worst.get(key, e), e, key=lambda t: t[1])
     torch.cuda.synchronize()
-    if ssm.ssm_scan_bwd.launches != before + calls or ssm.ssm_scan_bwd.copies != copies:
-        fail(f"the sweep's {calls} backward calls counted {ssm.ssm_scan_bwd.launches - before} "
-             f"launches and {ssm.ssm_scan_bwd.copies - copies} copies")
+    counted = {"launches": ssm.ssm_scan_bwd.launches - before,
+               "hopper": ssm.hopper_bwd_launches - before_hopper,
+               "copies": ssm.ssm_scan_bwd.copies - copies,
+               "with_checkpoints": ssm.ssm_scan_bwd.with_checkpoints - given,
+               "training_forwards": ssm.ssm_scan_train.checkpoints - trained}
+    if (counted["launches"] != sum(calls.values()) or counted["hopper"] != calls["hopper"]
+            or counted["copies"] or counted["with_checkpoints"] != handed
+            or counted["training_forwards"] != forwards):
+        fail(f"the sweep's calls {calls} ({handed} handed checkpoints, {forwards} training "
+             f"forwards) counted {counted}")
     if not all(e[1] <= 1.0 for e in worst.values()):
         fail(f"the scan's backward disagrees with its plain version on the sweep: {worst}")
     if not repeatable:
         fail("two calls of the scan's backward differ")
-    mutants = _ssm_bwd_mutants(dev, SSM_BWD_MUTANT_CASE)
+    if not fwd_same:
+        fail("the training forward's y and h_final differ from the serving kernel's")
+    mutants = _ssm_bwd_mutants(dev, SSM_BWD_MUTANT_CASE, mutant_builds)
     weak = {k: r for k, r in mutants.items() if k != "shipped" and not r >= SSM_MUTANT_MIN}
     if weak:
         fail(f"mutants of the scan's backward pass the rule with less than {SSM_MUTANT_MIN}x: "
@@ -5400,18 +5548,28 @@ def ssm_train_phase(dev, sm_clock_hz: float) -> dict:
         fail(f"the unedited backward built as a mutant fails the rule: {mutants['shipped']}")
     emit({"phase": "ssm_train_kernel_sweep", "S": list(SSM_BWD_S), "D": list(SSM_BWD_D),
           "N": [4, 16], "dtypes": ["float32", "bfloat16"], "h0_and_dh_final": [False, True],
-          "calls": calls, "worst_over_rule": worst, "rule": SSM_RULE,
-          "repeatable_bitwise": repeatable, "mutants_over_rule": mutants,
+          "calls": calls, "counted": counted, "worst_over_rule": worst, "rule": SSM_RULE,
+          "repeatable_bitwise": repeatable, "training_forward_bitwise": fwd_same, "mutants_over_rule": mutants,
           "mutant_case": list(SSM_BWD_MUTANT_CASE), "mutant_min": SSM_MUTANT_MIN,
           "seconds": time.perf_counter() - t_phase})
 
-    # (b) the training shape: the kernel in turns with the forward, the plain version once
+    # (b) the training shape: the hopper kernel in turns with the strided
+    # kernel it replaced there and the two forwards, the plain version once
     B, S, Dm, N = SSM_BWD_PATH
     x, dt, A, Bc, Cc, D, _ = _ssm_inputs(B, S, Dm, N, torch.bfloat16, dev, gen)
     dy = torch.randn((B, S, Dm), generator=gen, device=dev).to(torch.bfloat16)
     inputs = (x, dt, A, Bc, Cc, D, None)
-    got = ssm.ssm_scan_bwd(*inputs, dy, None)
-    again = ssm.ssm_scan_bwd(*inputs, dy, None)
+    if ssm.bwd_route(x, dt, Bc, Cc, dy) != "hopper":
+        fail(f"the training shape's layouts do not take the hopper route")
+    y, h_final, ckpt = ssm.ssm_scan_train(*inputs)
+    plain_ckpt = _plain_checkpoints(x, dt, A, Bc, Cc, None)
+    ckpt_err = _rule_err(ckpt.view(plain_ckpt.shape), plain_ckpt, "float32")
+    if not ckpt_err[1] <= 1.0:
+        fail(f"the training forward's checkpoints disagree with the plain recurrence's: {ckpt_err}")
+    del plain_ckpt, y, h_final
+    got = ssm.ssm_scan_bwd(*inputs, dy, None, ckpt=ckpt)
+    again = ssm.ssm_scan_bwd(*inputs, dy, None, ckpt=ckpt)
+    alone = ssm.ssm_scan_bwd(*inputs, dy, None)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     want = ref.ssm_scan_bwd_ref(*inputs, dy, None)
@@ -5423,14 +5581,23 @@ def ssm_train_phase(dev, sm_clock_hz: float) -> dict:
         fail(f"the scan's backward disagrees with its plain version at {SSM_BWD_PATH}: {path}")
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
         fail(f"two calls of the scan's backward differ at {SSM_BWD_PATH}")
+    if not all(torch.equal(a, b) for a, b in zip(got, alone)):
+        fail(f"the backward from the forward's checkpoints differs from one that made its own "
+             f"at {SSM_BWD_PATH}")
+    prev = previous_ssm_scan_bwd(*inputs, dy, None)
+    torch.cuda.synchronize()
+    prev_path = _grad_errs(prev, want, "bfloat16")
     max_abs_err = max(e[0] for e in (*path.values(), *worst.values()))
-    del got, again, want
-    fns = {"backward": lambda: ssm.ssm_scan_bwd(*inputs, dy, None),
-           "forward": lambda: ssm.ssm_scan(*inputs)}
-    turns = {"backward": [], "forward": []}
-    for key in ("backward", "forward", "forward", "backward"):
-        turns[key].append(event_ms(fns[key], calls=WIDE_TIMED_CALLS, groups=3))
-    ms = statistics.mean(turns["backward"])
+    del got, again, alone, want, prev
+    fns = {"hopper": lambda: ssm.ssm_scan_bwd(*inputs, dy, None, ckpt=ckpt),
+           "previous": lambda: previous_ssm_scan_bwd(*inputs, dy, None),
+           "forward": lambda: ssm.ssm_scan(*inputs),
+           "training_forward": lambda: ssm.ssm_scan_train(*inputs)}
+    turns = {key: [] for key in fns}
+    for key in (*fns, *reversed(fns)):
+        turns[key].append(event_ms(fns[key], calls=SSM_BWD_TIMED_CALLS, groups=3))
+    means = {key: statistics.mean(v) for key, v in turns.items()}
+    ms = means["hopper"]
     # each input read once (x, dt, dy, B, C, A, D), each output written once
     # (dx, ddt, dB, dC, dA, dD, dh0)
     read = sum(t.numel() * t.element_size() for t in (x, dt, dy, Bc, Cc, A, D))
@@ -5443,31 +5610,70 @@ def ssm_train_phase(dev, sm_clock_hz: float) -> dict:
              "fp32_flops": SSM_BWD_FLOPS * exps / FP32_FLOP_PER_S * 1e3}
     bound = max(parts.values())
     ptxas = {k: v for k, v in _build.ptxas_report("ssm_scan_bwd").items()
-             if "ssm_scan_bwd_kernel" in k}
+             if "ssm_scan_bwd_hopper" in k or "ssm_scan_bwd_strided" in k}
     kernel = {"name": "ssm_scan_bwd", "route": "cuda",
               "source": "src/repro_torch/kernels/csrc/ssm_scan_bwd.cu",
               "replaces": "src/repro/kernels/ssm_scan.py:101",
               "replaces_note": "the gradient of the TPU kernel's function, which has no Pallas "
                                "backward: the JAX package differentiates selective_scan "
                                "(src/repro/models/ssm.py:100) with jax.vjp",
-              "kernel": "ssm_scan_bwd_kernel", "launches": None,
+              "kernel": "ssm_scan_bwd_hopper", "launches": None,
               "max_abs_err": max_abs_err, "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
               "plain": "ssm_scan_bwd_ref, once", "library_ms": None,
               "library": "none: no single PyTorch call computes a selective scan's gradient",
               "bound_ms": bound, "bound_by": "bytes" if parts["bytes"] == bound else "operations",
-              "bound_parts_ms": parts, "bound_share": bound / ms, "shape": list(SSM_BWD_PATH),
-              "dtype": "bfloat16", "errors": path, "ms_turns": turns,
-              "forward_ms": statistics.mean(turns["forward"]),
-              "bytes": read + written, "exponentials": exps, "ptxas": ptxas}
+              "bound_parts_ms": parts, "bound_share": bound / ms,
+              "previous_kernel": "ssm_scan_bwd_strided (the strided route, replaced here)",
+              "previous_kernel_ms": means["previous"], "previous_errors": prev_path,
+              "ms_over_previous": ms / means["previous"],
+              "forward_ms": means["forward"], "training_forward_ms": means["training_forward"],
+              "shape": list(SSM_BWD_PATH), "dtype": "bfloat16", "errors": path,
+              "ms_turns": turns, "bytes": read + written, "exponentials": exps, "ptxas": ptxas}
     emit({"phase": "ssm_train_kernel", **kernel})
-    del x, dt, A, Bc, Cc, D, dy, inputs, fns
+    # the training forward: y and h_final as the serving kernel's (the
+    # sweep), its checkpoints against the plain recurrence's states.  Its
+    # bound is the scan's own (x, dt, B, C, A, D read; y and h_final
+    # written): the checkpoints are the backward's residuals, not the
+    # function's output, and their stores are reported beside it.
+    fwd_read = sum(t.numel() * t.element_size() for t in (x, dt, Bc, Cc, A, D))
+    fwd_written = x.numel() * x.element_size() + B * Dm * N * 4
+    fwd_parts = {"bytes": (fwd_read + fwd_written) / HBM_BYTES_PER_S * 1e3,
+                 "exponentials": parts["exponentials"]}
+    fwd_bound = max(fwd_parts.values())
+    fwd_ptxas = {k: v for k, v in _build.ptxas_report("ssm_scan").items()
+                 if "ssm_scan_train_hopper" in k}
+    train_fwd = {"name": "ssm_scan_train", "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
+                 "replaces": "src/repro/kernels/ssm_scan.py:101",
+                 "replaces_note": "the TPU kernel's forward, which training runs with the "
+                                  "backward's checkpoints as its residuals",
+                 "kernel": "ssm_scan_train_hopper", "launches": None,
+                 "max_abs_err": max(ckpt_err[0], max(e[0] for e in worst.values())),
+                 "checkpoint_errors": ckpt_err, "ms": means["training_forward"],
+                 "kernel_ms": means["training_forward"], "plain_ms": None,
+                 "plain": "ssm_scan_ref's recurrence with the states kept every 8 steps, once "
+                          "(untimed)",
+                 "library_ms": None,
+                 "library": "none: no single PyTorch call computes a selective scan",
+                 "bound_ms": fwd_bound,
+                 "bound_by": "bytes" if fwd_parts["bytes"] == fwd_bound else "operations",
+                 "bound_parts_ms": fwd_parts, "bound_share": fwd_bound / means["training_forward"],
+                 "serving_forward_ms": means["forward"], "shape": list(SSM_BWD_PATH),
+                 "dtype": "bfloat16", "checkpoint_bytes": ckpt.numel() * 4,
+                 "checkpoint_bytes_ms": ckpt.numel() * 4 / HBM_BYTES_PER_S * 1e3,
+                 "ms_over_serving_forward": means["training_forward"] - means["forward"],
+                 "ptxas": fwd_ptxas}
+    del x, dt, A, Bc, Cc, D, dy, inputs, fns, ckpt
     torch.cuda.empty_cache()
 
     # (c) falcon-mamba-7b at 2 layers in float32, the card against the CPU
     vs_cpu = _wide_train_vs_cpu(dev, full, SSM_TRAIN_CPU_LAYERS)
-    if vs_cpu["scan_bwd_launches_on_the_card"] != SSM_TRAIN_CPU_LAYERS:
+    if not (vs_cpu["scan_bwd_launches_on_the_card"]
+            == vs_cpu["scan_bwd_hopper_launches_on_the_card"] == SSM_TRAIN_CPU_LAYERS):
         fail(f"the float32 step on the card launched the scan's backward "
-             f"{vs_cpu['scan_bwd_launches_on_the_card']} times for {SSM_TRAIN_CPU_LAYERS} layers")
+             f"{vs_cpu['scan_bwd_launches_on_the_card']} times "
+             f"({vs_cpu['scan_bwd_hopper_launches_on_the_card']} on the hopper route) for "
+             f"{SSM_TRAIN_CPU_LAYERS} layers")
 
     # (e) jamba's smoke config, its three kinds of layer, the card against the CPU
     small = smoke_config(HYBRID_ARCH)
@@ -5489,7 +5695,8 @@ def ssm_train_phase(dev, sm_clock_hz: float) -> dict:
         "vocab": full.vocab_size, "tie_embeddings": full.tie_embeddings, "vs_cpu": vs_cpu,
         "phase_seconds_before_training": time.perf_counter() - t_phase})
     kernel["launches"] = launches["scan_bwd"]
-    return kernel
+    train_fwd["launches"] = launches["scan_fwd"]
+    return [kernel, train_fwd]
 
 
 if __name__ == "__main__":

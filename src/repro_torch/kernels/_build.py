@@ -87,9 +87,9 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def ptxas_report(name: str) -> dict[str, dict[str, int]]:
-    """Registers, spill bytes and, where it has any, static shared memory
-    of each kernel in the built ``csrc/<name>.cu``, by mangled name, from
-    its ``ptxas -v`` log."""
+    """Registers, stack frame and spill bytes and, where it has any,
+    static shared memory of each kernel in the built ``csrc/<name>.cu``,
+    by mangled name, from its ``ptxas -v`` log."""
     report, kernel = {}, None
     for line in _target(name).with_suffix(".log").read_text().splitlines():
         found = re.search(r"Compiling entry function '(\w+)'", line)
@@ -99,6 +99,9 @@ def ptxas_report(name: str) -> dict[str, dict[str, int]]:
             continue
         if kernel is None:
             continue
+        stack = re.search(r"(\d+) bytes stack frame", line)
+        if stack:
+            report[kernel]["stack_frame_bytes"] = int(stack.group(1))
         spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if spills:
             report[kernel]["spill_store_bytes"] = int(spills.group(1))

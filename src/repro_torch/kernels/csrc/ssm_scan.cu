@@ -36,7 +36,8 @@
 // and no instruction that the recurrence does not need may take an issue
 // slot.
 //
-// Two kernels, chosen by the wrapper (kernels/ssm_scan.py, route):
+// Three kernels, chosen by the wrapper (kernels/ssm_scan.py: route, and
+// ssm_scan_train in training):
 //
 // ssm_scan_hopper (the model's layouts: every tensor TMA can address, i.e.
 // a 16-byte-aligned base, a contiguous last axis and the other strides
@@ -72,6 +73,11 @@
 // fault in the ring ends the launch with an error instead of hanging the
 // card.  It runs the same float32 operations in the same order as
 // ssm_scan_kernel, so the two give the same bits.
+//
+// ssm_scan_train_hopper (training, the same layouts): ssm_scan_hopper's
+// body, a separate instantiation, that also stores the state at the start
+// of every 8-step segment for the backward (csrc/ssm_scan_bwd.cu), whose
+// hopper kernel requires them; serving's kernel stays as it is.
 //
 // ssm_scan_kernel (every other layout; any strides, the last axis
 // included): the same recurrence with 128 channels a block, each chunk's B
@@ -255,8 +261,27 @@ struct Params {
   const float* Dv;  // (D,) contiguous
   const float* h0;  // (B, D, N) contiguous, or null
   float* h_final;   // (B, D, N) contiguous
+  float* ckpt;      // ssm_scan_train_hopper: (B, ceil(S / kSegSteps), D, N), else null
   int64_t S, Dm;
 };
+
+// ssm_scan_train_hopper writes the state at the start of every kSegSteps-step
+// segment for the backward (csrc/ssm_scan_bwd.cu, whose segment this is).
+constexpr int kSegSteps = 8;
+static_assert(kSteps % kSegSteps == 0,
+              "a chunk holds whole segments: scan_body checkpoints where t % kSegSteps is 0");
+
+// The calling thread's N states into segment seg's checkpoint of its channel.
+template <int kN>
+__device__ __forceinline__ void checkpoint(const Params& p, int b, int64_t d, int64_t seg,
+                                           const float (&h)[kN]) {
+  const int64_t segs = (p.S + kSegSteps - 1) / kSegSteps;
+  float4* dst = reinterpret_cast<float4*>(p.ckpt + ((b * segs + seg) * p.Dm + d) * kN);
+#pragma unroll
+  for (int n = 0; n < kN / 4; ++n) {
+    dst[n] = make_float4(h[4 * n], h[4 * n + 1], h[4 * n + 2], h[4 * n + 3]);
+  }
+}
 
 __device__ __forceinline__ bool try_wait(uint32_t bar, uint32_t parity) {
   uint32_t done;
@@ -298,9 +323,9 @@ __device__ __forceinline__ void step(const Stage<T, kN>& st, int t, int ch, cons
   store(ycol + t * 32, yv);
 }
 
-template <typename T, int kN>
-__global__ void __launch_bounds__(kChannels, kMinBlocks)
-    ssm_scan_hopper(const __grid_constant__ Maps maps, const Params p) {
+// The kernel's body; with kCkpt it also writes the backward's checkpoints.
+template <typename T, int kN, bool kCkpt>
+__device__ __forceinline__ void scan_body(const Maps& maps, const Params& p) {
   using St = Stage<T, kN>;
   static_assert(sizeof(St) == kStageBytes<T, kN>, "a stage is exactly its four boxes");
   extern __shared__ __align__(128) unsigned char smem[];
@@ -387,10 +412,20 @@ __global__ void __launch_bounds__(kChannels, kMinBlocks)
     T* ycol = &yt.v[0][lane];
     if (steps == kSteps) {
 #pragma unroll
-      for (int t = 0; t < kSteps; ++t) step(st, t, tid, a2, dd, h, ycol);
+      for (int t = 0; t < kSteps; ++t) {
+        if constexpr (kCkpt) {
+          if (t % kSegSteps == 0 && active) checkpoint<kN>(p, b, d, (t0 + t) / kSegSteps, h);
+        }
+        step(st, t, tid, a2, dd, h, ycol);
+      }
     } else {  // the last chunk: its steps that exist (TMA leaves the tile's other rows unstored)
 #pragma unroll 1
-      for (int t = 0; t < steps; ++t) step(st, t, tid, a2, dd, h, ycol);
+      for (int t = 0; t < steps; ++t) {
+        if constexpr (kCkpt) {
+          if (t % kSegSteps == 0 && active) checkpoint<kN>(p, b, d, (t0 + t) / kSegSteps, h);
+        }
+        step(st, t, tid, a2, dd, h, ycol);
+      }
     }
     hopper::fence_proxy_async_shared();  // the tile's writes, before TMA reads them
     __syncwarp();
@@ -408,26 +443,49 @@ __global__ void __launch_bounds__(kChannels, kMinBlocks)
 }
 
 template <typename T, int kN>
-int launch(dim3 grid, cudaStream_t s, const Maps& maps, const Params& p) {
-  constexpr int smem = kSmemBytes<T, kN>;
-  static int ready[hopper::kMaxDevices];  // the shared-memory limit is raised once per device
+__global__ void __launch_bounds__(kChannels, kMinBlocks)
+    ssm_scan_hopper(const __grid_constant__ Maps maps, const Params p) {
+  scan_body<T, kN, false>(maps, p);
+}
+
+// The same scan for training: also the state at the start of every
+// kSegSteps-step segment into p.ckpt, from which the backward's hopper
+// kernel recomputes each segment's states (N floats a channel and segment:
+// at N 16, four 16-byte stores of each thread at steps 0 and 8 of a chunk).
+template <typename T, int kN>
+__global__ void __launch_bounds__(kChannels, kMinBlocks)
+    ssm_scan_train_hopper(const __grid_constant__ Maps maps, const Params p) {
+  scan_body<T, kN, true>(maps, p);
+}
+
+template <typename Kernel>
+int launch_kernel(Kernel kernel, int smem, int (&ready)[hopper::kMaxDevices], dim3 grid,
+                  cudaStream_t s, const Maps& maps, const Params& p) {
   int device = 0;
   cudaError_t e = cudaGetDevice(&device);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (device >= hopper::kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
-  if (!ready[device]) {
-    e = cudaFuncSetAttribute(ssm_scan_hopper<T, kN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
+  if (!ready[device]) {  // the shared-memory limit is raised once per device
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e == cudaSuccess) {
-      e = cudaFuncSetAttribute(ssm_scan_hopper<T, kN>,
-                               cudaFuncAttributePreferredSharedMemoryCarveout,
+      e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
     }
     if (e != cudaSuccess) return static_cast<int>(e);
     ready[device] = 1;
   }
-  ssm_scan_hopper<T, kN><<<grid, kChannels, smem, s>>>(maps, p);
+  kernel<<<grid, kChannels, smem, s>>>(maps, p);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int kN>
+int launch(dim3 grid, cudaStream_t s, const Maps& maps, const Params& p) {
+  static int ready[hopper::kMaxDevices], ready_train[hopper::kMaxDevices];
+  if (p.ckpt != nullptr) {
+    return launch_kernel(ssm_scan_train_hopper<T, kN>, kSmemBytes<T, kN>, ready_train, grid, s,
+                         maps, p);
+  }
+  return launch_kernel(ssm_scan_hopper<T, kN>, kSmemBytes<T, kN>, ready, grid, s, maps, p);
 }
 
 template <typename T>
@@ -486,10 +544,11 @@ extern "C" int ssm_scan_fwd(const void* x, const void* dt, const void* A, const 
 // The same arguments, for inputs the wrapper's route gives to
 // ssm_scan_hopper: x, dt, B and C with a contiguous last axis (the strides
 // at 2, 5, 8 and 11 are not read) and every other stride TMA can take.
-extern "C" int ssm_scan_fwd_hopper(const void* x, const void* dt, const void* A, const void* Bc,
-                                   const void* Cc, const void* Dv, const void* h0, void* y,
-                                   void* h_final, int dtype, const int64_t* dims,
-                                   const int64_t* strides, void* stream) {
+namespace {
+
+int fwd_hopper(const void* x, const void* dt, const void* A, const void* Bc, const void* Cc,
+               const void* Dv, const void* h0, void* y, void* h_final, void* ckpt, int dtype,
+               const int64_t* dims, const int64_t* strides, void* stream) {
   using namespace staged;
   const int64_t B = dims[0], S = dims[1], Dm = dims[2], N = dims[3];
   if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
@@ -520,6 +579,7 @@ extern "C" int ssm_scan_fwd_hopper(const void* x, const void* dt, const void* A,
   p.Dv = static_cast<const float*>(Dv);
   p.h0 = static_cast<const float*>(h0);
   p.h_final = static_cast<float*>(h_final);
+  p.ckpt = static_cast<float*>(ckpt);
   p.S = S;
   p.Dm = Dm;
   const dim3 grid(static_cast<unsigned>((Dm + kChannels - 1) / kChannels),
@@ -528,6 +588,33 @@ extern "C" int ssm_scan_fwd_hopper(const void* x, const void* dt, const void* A,
   return dtype == 0 ? launch_n<float>(static_cast<int>(N), grid, s, maps, p)
                     : launch_n<__nv_bfloat16>(static_cast<int>(N), grid, s, maps, p);
 }
+
+}  // namespace
+
+extern "C" int ssm_scan_fwd_hopper(const void* x, const void* dt, const void* A, const void* Bc,
+                                   const void* Cc, const void* Dv, const void* h0, void* y,
+                                   void* h_final, int dtype, const int64_t* dims,
+                                   const int64_t* strides, void* stream) {
+  return fwd_hopper(x, dt, A, Bc, Cc, Dv, h0, y, h_final, nullptr, dtype, dims, strides, stream);
+}
+
+// ssm_scan_fwd_hopper for training (ssm_scan_train_hopper): ckpt, (B,
+// ceil(S / 8), D, N) float32 contiguous at a 16-byte-aligned address, also
+// receives the state at the start of every 8-step segment, h0's at
+// segment 0, which the backward's hopper route reads instead of
+// recomputing them.
+extern "C" int ssm_scan_fwd_hopper_ckpt(const void* x, const void* dt, const void* A,
+                                        const void* Bc, const void* Cc, const void* Dv,
+                                        const void* h0, void* y, void* h_final, void* ckpt,
+                                        int dtype, const int64_t* dims, const int64_t* strides,
+                                        void* stream) {
+  if (ckpt == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return fwd_hopper(x, dt, A, Bc, Cc, Dv, h0, y, h_final, ckpt, dtype, dims, strides, stream);
+}
+
+// steps a segment of ssm_scan_fwd_hopper_ckpt's checkpoints, which the
+// wrapper holds against the backward's
+extern "C" int64_t ssm_scan_fwd_segment_steps() { return staged::kSegSteps; }
 
 extern "C" const char* cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -17,7 +17,9 @@ from .csr_to_dense import ell_to_dense as _ell_to_dense_kernel
 from .flash_attention import flash_attention as _flash_attention_kernel
 from .flash_attention_bwd import flash_attention_vjp
 from .ssm_scan import ssm_scan as _ssm_scan_kernel
+from .ssm_scan import bwd_route as _ssm_scan_bwd_route
 from .ssm_scan import ssm_scan_bwd as _ssm_scan_bwd_kernel
+from .ssm_scan import ssm_scan_train as _ssm_scan_train_kernel
 
 __all__ = ["ell_to_dense", "flash_attention", "ssm_scan", "ssm_scan_vjp", "SsmScanFn"]
 
@@ -61,9 +63,16 @@ def _scan(x, dt, A, Bc, Cc, D, h0):
     raise ValueError(f"no ssm_scan for tensors on {x.device}")
 
 
-def _scan_bwd(x, dt, A, Bc, Cc, D, h0, dy, dh_final):
+def _scan_train(x, dt, A, Bc, Cc, D, h0):
+    """(y, h_final, the backward's checkpoints or None)."""
     if x.device.type == "cuda":
-        return _ssm_scan_bwd_kernel(x, dt, A, Bc, Cc, D, h0, dy, dh_final)
+        return _ssm_scan_train_kernel(x, dt, A, Bc, Cc, D, h0)
+    return (*_scan(x, dt, A, Bc, Cc, D, h0), None)
+
+
+def _scan_bwd(x, dt, A, Bc, Cc, D, h0, dy, dh_final, ckpt=None):
+    if x.device.type == "cuda":
+        return _ssm_scan_bwd_kernel(x, dt, A, Bc, Cc, D, h0, dy, dh_final, ckpt)
     if x.device.type == "cpu":
         return ref.ssm_scan_bwd_ref(x, dt, A, Bc, Cc, D, h0, dy, dh_final)
     raise ValueError(f"no ssm_scan backward for tensors on {x.device}")
@@ -71,25 +80,32 @@ def _scan_bwd(x, dt, A, Bc, Cc, D, h0, dy, dh_final):
 
 class SsmScanFn(torch.autograd.Function):
     """The differentiable selective scan: ``(y, h_final)`` of
-    :func:`ssm_scan`, its inputs kept for the backward (which recomputes
+    :func:`ssm_scan`, its inputs kept for the backward, and on the card's
+    hopper route the state at the start of every 8-step segment, which the
+    forward writes (``ssm_scan_train``) and the backward's hopper kernel
+    recomputes the states from (N / 2 B S D bytes a layer, 8 B S D at N 16,
+    held from the layer's forward to its backward: for every Mamba layer at
+    once under ``remat="none"``; elsewhere the strided backward recomputes
     the states from ``h0``).  A gradient that reaches neither output
     arrives as None, not as zeros."""
 
     @staticmethod
     def forward(ctx, x, dt, A, Bc, Cc, D, h0):
         ctx.set_materialize_grads(False)
-        y, h_final = _scan(x, dt, A, Bc, Cc, D, h0)
-        ctx.save_for_backward(x, dt, A, Bc, Cc, D, h0)
+        y, h_final, ckpt = _scan_train(x, dt, A, Bc, Cc, D, h0)
+        ctx.save_for_backward(x, dt, A, Bc, Cc, D, h0, ckpt)
         return y, h_final
 
     @staticmethod
     def backward(ctx, dy, dh_final):
-        x, dt, A, Bc, Cc, D, h0 = ctx.saved_tensors
+        x, dt, A, Bc, Cc, D, h0, ckpt = ctx.saved_tensors
         if dy is None and dh_final is None:
             return (None,) * 7
         if dy is None:
             dy = torch.zeros_like(x)
-        grads = _scan_bwd(x, dt, A, Bc, Cc, D, h0, dy, dh_final)
+        if ckpt is not None and _ssm_scan_bwd_route(x, dt, Bc, Cc, dy) != "hopper":
+            ckpt = None  # a dy the hopper route does not take: the strided kernel recomputes
+        grads = _scan_bwd(x, dt, A, Bc, Cc, D, h0, dy, dh_final, ckpt)
         return tuple(g if need else None for g, need in zip(grads, ctx.needs_input_grad))
 
 

@@ -29,15 +29,40 @@ are) and are never copied.  ``y`` and ``h_final`` come out contiguous.
 module's ``hopper_launches`` those of ``ssm_scan_hopper``: the wrapper
 adds to them where it launches and nowhere else.
 
-The backward (:func:`ssm_scan_bwd`, ``csrc/ssm_scan_bwd.cu``) is one
-kernel for every layout (:func:`bwd_route`): it reads x, dt, B, C and dy
-through their strides, recomputes the states from ``h0`` (a float32
-checkpoint every few steps in a scratch the wrapper allocates) and walks
-the sequence in reverse; a second kernel sums the warps' dB and dC terms
-and the channels' dA and dD over the batch, in order (no atomics: two
-calls give the same bits).  ``ssm_scan_bwd.launches`` counts its calls
-that launch, ``ssm_scan_bwd.copies`` the one copy it may make (a
-non-contiguous ``dh_final``).  Its plain version is
+The backward (:func:`ssm_scan_bwd`, ``csrc/ssm_scan_bwd.cu``) has two
+kernels, chosen by :func:`bwd_route` from the same kind of facts:
+
+- ``"hopper"`` (``ssm_scan_bwd_hopper``): inputs whose forward takes the
+  ``"hopper"`` route, with ``dy`` too at a 16-byte-aligned address with a
+  contiguous last axis and the other strides multiples of 16 bytes (an
+  axis of length 1 exempt), and D a multiple of 8: each lane loads a
+  warp's eight channels of a step as one 16-byte vector.  The model's
+  layouts are such (``dy`` as autograd hands it).  Four lanes share a
+  channel, 128 channels a block.
+- ``"strided"`` (``ssm_scan_bwd_strided``): any other strides; one thread
+  a channel, 32 channels a block.
+
+Both walk the sequence in reverse, recomputing each segment's states from
+a float32 checkpoint of the state at its start, one every
+:data:`SEGMENT_STEPS` steps: B ceil(S / 8) D N values, N / 2 B S D bytes
+(537 MB at falcon-mamba-7b's training shape).  The hopper kernel reads
+those that the training forward wrote as it ran (:func:`ssm_scan_train`,
+``ssm_scan_train_hopper``, counted in ``ssm_scan_train.checkpoints``):
+the caller hands them over (counted in ``ssm_scan_bwd.with_checkpoints``),
+or :func:`ssm_scan_bwd` runs that forward first.  The strided kernel
+writes its own, in a first pass from ``h0``.  Each block writes its
+channels' dB and dC sums for every step into a (B, ceil(D / block
+channels), S, 2N) float32 scratch of partials (the block's channels: 128
+on the hopper route, 67 MB at that shape; 32 on the strided one), and
+each channel its dA and dD summed over time into (B, D, N) and (B, D); a
+second kernel sums the partials over the blocks and the batch, in order
+(no atomics: two calls give the same bits).  :func:`launch_bwd`
+allocates the scratch, sized from what the library reports: the
+partials, and the strided route's checkpoints.  ``ssm_scan_bwd.launches``
+counts the calls that launch either kernel, the module's
+``hopper_bwd_launches`` those of ``ssm_scan_bwd_hopper``,
+``ssm_scan_bwd.copies`` the one copy it may make (a non-contiguous
+``dh_final``).  Its plain version is
 :func:`repro_torch.kernels.ref.ssm_scan_bwd_ref`.
 """
 from __future__ import annotations
@@ -51,15 +76,17 @@ import torch
 
 from . import _build
 
-__all__ = ["ssm_scan", "ssm_scan_bwd", "STATE_SIZES", "bind", "bind_bwd", "bwd_route", "launch",
-           "launch_bwd", "route"]
+__all__ = ["ssm_scan", "ssm_scan_bwd", "ssm_scan_train", "SEGMENT_STEPS", "STATE_SIZES", "bind",
+           "bind_bwd", "bwd_route", "launch", "launch_bwd", "route"]
 
 STATE_SIZES = (4, 16)  # the N compiled in: falcon-mamba-7b's smoke config and its own
+SEGMENT_STEPS = 8  # the checkpoint interval, compiled into both sources and checked there
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _DIMS, _STRIDES = ctypes.c_int64 * 4, ctypes.c_int64 * 12  # (B, S, D, N); x, dt, B, C
 _BWD_STRIDES = ctypes.c_int64 * 15  # x, dt, B, C, dy
 
 hopper_launches = 0  # launches of ssm_scan_hopper
+hopper_bwd_launches = 0  # launches of ssm_scan_bwd_hopper
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -74,6 +101,10 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     for fn in (lib.ssm_scan_fwd, lib.ssm_scan_fwd_hopper):
         fn.argtypes = args
         fn.restype = ctypes.c_int
+    lib.ssm_scan_fwd_hopper_ckpt.argtypes = args[:9] + [ctypes.c_void_p] + args[9:]  # + ckpt
+    lib.ssm_scan_fwd_hopper_ckpt.restype = ctypes.c_int
+    lib.ssm_scan_fwd_segment_steps.argtypes = []
+    lib.ssm_scan_fwd_segment_steps.restype = ctypes.c_int64
     lib.cuda_error_string.argtypes = [ctypes.c_int]
     lib.cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -82,10 +113,13 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 def bind_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C entry points' argument types on a loaded library of
     ``csrc/ssm_scan_bwd.cu`` (or of a build of an edited copy)."""
-    lib.ssm_scan_bwd.argtypes = [ctypes.c_void_p] * 20 + [  # 9 inputs, 7 outputs, 4 scratch
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]  # dtype dims strides stream
-    lib.ssm_scan_bwd.restype = ctypes.c_int
-    for fn in (lib.ssm_scan_bwd_segment_steps, lib.ssm_scan_bwd_block_channels):
+    pointers = [ctypes.c_void_p] * 20  # 9 inputs, 7 outputs, 4 scratch
+    rest = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]  # dims strides stream
+    for fn in (lib.ssm_scan_bwd, lib.ssm_scan_bwd_hopper):
+        fn.argtypes = pointers + [ctypes.c_int] + rest  # dtype
+        fn.restype = ctypes.c_int
+    for fn in (lib.ssm_scan_bwd_segment_steps, lib.ssm_scan_bwd_block_channels,
+               lib.ssm_scan_bwd_hopper_block_channels):
         fn.argtypes = []
         fn.restype = ctypes.c_int64
     lib.cuda_error_string.argtypes = [ctypes.c_int]
@@ -175,17 +209,37 @@ def _check_inputs(x, dt, A, Bc, Cc, D, h0) -> str:
     return kernel
 
 
+def _check_ckpt(ckpt: torch.Tensor, x: torch.Tensor, N: int, seg: int) -> None:
+    """Raise unless ``ckpt`` is a checkpoint tensor of the hopper routes:
+    (B, ceil(S / seg), D * N) float32, contiguous, 16-byte-aligned, on x's
+    device."""
+    Bsz, S, Dm = x.shape
+    want = (Bsz, -(-S // seg), Dm * N)
+    if (ckpt.dtype != torch.float32 or tuple(ckpt.shape) != want or not ckpt.is_contiguous()
+            or ckpt.data_ptr() % 16 or ckpt.device != x.device):
+        raise ValueError(f"need checkpoints {want} float32, contiguous, 16-byte-aligned on "
+                         f"{x.device}, got {tuple(ckpt.shape)} {ckpt.dtype} on {ckpt.device}")
+
+
 def launch(lib: Optional[ctypes.CDLL], x, dt, A, Bc, Cc, D, h0,
-           out: Optional[tuple] = None) -> tuple:
+           out: Optional[tuple] = None, ckpt: Optional[torch.Tensor] = None) -> tuple:
     """Check the inputs and launch, from ``lib`` (a library bound by
     :func:`bind`; None: the package's own, built at first use), the kernel
     that :func:`route` names, into ``out`` = (y (B, S, D), h_final (B, D,
-    N)), both contiguous, or new outputs.  Returns ``(y, h_final, kernel or
-    None)``, None for an empty shape, which launches nothing; raises if
-    the launch fails.  Counts nothing: :func:`ssm_scan` does."""
+    N)), both contiguous, or new outputs.  With ``ckpt`` (the hopper route
+    only: (B, ceil(S / 8), D * N) float32), ``ssm_scan_train_hopper``,
+    which also writes the backward's checkpoints into it.  Returns ``(y,
+    h_final, kernel or None)``, None for an empty shape, which launches
+    nothing; raises if the launch fails.  Counts nothing: :func:`ssm_scan`
+    and :func:`ssm_scan_train` do."""
     kernel = _check_inputs(x, dt, A, Bc, Cc, D, h0)
     Bsz, S, Dm = x.shape
     N = Bc.shape[2]
+    if ckpt is not None:
+        if kernel != "hopper":
+            raise ValueError(f"only the hopper route writes checkpoints; these inputs take "
+                             f"{kernel}")
+        _check_ckpt(ckpt, x, N, SEGMENT_STEPS)
     if out is None:
         out = (torch.empty((Bsz, S, Dm), dtype=x.dtype, device=x.device),
                torch.empty((Bsz, Dm, N), dtype=torch.float32, device=x.device))
@@ -195,6 +249,13 @@ def launch(lib: Optional[ctypes.CDLL], x, dt, A, Bc, Cc, D, h0,
     if lib is None:
         lib = _library()
     fn = lib.ssm_scan_fwd_hopper if kernel == "hopper" else lib.ssm_scan_fwd
+    extra = ()
+    if ckpt is not None:
+        seg = lib.ssm_scan_fwd_segment_steps()
+        if seg != SEGMENT_STEPS:
+            raise RuntimeError(f"the forward library checkpoints every {seg} steps, not "
+                               f"{SEGMENT_STEPS}")
+        fn, extra = lib.ssm_scan_fwd_hopper_ckpt, (ckpt.data_ptr(),)
     # The path calls on the current device, where a device guard and a
     # Stream object would cost more host time than the C call: read the
     # device's raw current stream, and enter a guard only for another device.
@@ -205,7 +266,7 @@ def launch(lib: Optional[ctypes.CDLL], x, dt, A, Bc, Cc, D, h0,
         err = fn(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bc.data_ptr(), Cc.data_ptr(),
             D.data_ptr(), None if h0 is None else h0.data_ptr(), y.data_ptr(),
-            h_final.data_ptr(), _DTYPES[x.dtype], _DIMS(Bsz, S, Dm, N),
+            h_final.data_ptr(), *extra, _DTYPES[x.dtype], _DIMS(Bsz, S, Dm, N),
             _STRIDES(*x.stride(), *dt.stride(), *Bc.stride(), *Cc.stride()),
             torch._C._cuda_getCurrentRawStream(device),
         )
@@ -242,17 +303,52 @@ def ssm_scan(
 ssm_scan.launches = 0
 
 
+def ssm_scan_train(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bc: torch.Tensor,
+                   Cc: torch.Tensor, D: torch.Tensor, h0: Optional[torch.Tensor] = None
+                   ) -> tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """:func:`ssm_scan` as training runs it: ``(y, h_final, ckpt)``.  On
+    the hopper route ``ssm_scan_train_hopper`` also writes ``ckpt``, the
+    state at the start of every :data:`SEGMENT_STEPS`-step segment, (B,
+    ceil(S / 8), D * N) float32 (N / 2 B S D bytes, 8 B S D at N 16: 537
+    MB at falcon-mamba-7b's training shape), from which the hopper route
+    of :func:`ssm_scan_bwd` recomputes the states; elsewhere, and for an
+    empty x, ``ckpt`` is None.  Counted as
+    :func:`ssm_scan` counts, and in ``ssm_scan_train.checkpoints``."""
+    global hopper_launches
+    ckpt = None
+    if route(x, dt, Bc, Cc) == "hopper" and x.numel():
+        Bsz, S, Dm = x.shape
+        ckpt = torch.empty((Bsz, -(-S // SEGMENT_STEPS), Dm * Bc.shape[2]), dtype=torch.float32,
+                           device=x.device)
+    y, h_final, kernel = launch(None, x, dt, A, Bc, Cc, D, h0, ckpt=ckpt)
+    if kernel is not None:
+        ssm_scan.launches += 1
+        if kernel == "hopper":
+            hopper_launches += 1
+    if ckpt is not None:
+        ssm_scan_train.checkpoints += 1
+    return y, h_final, ckpt
+
+
+ssm_scan_train.checkpoints = 0
+
+
 def bwd_route(x: torch.Tensor, dt: torch.Tensor, Bc: torch.Tensor, Cc: torch.Tensor,
               dy: torch.Tensor) -> str:
-    """The backward kernel that takes these inputs: ``"ssm_scan_bwd"``, the
-    one kernel, for any strides.  A pure function of type and shape: it
-    needs no card, and raises where the kernel refuses them (the forward's
-    refusals, and a ``dy`` not of x's shape and type)."""
-    _check_layout(x, dt, Bc, Cc)
+    """The backward kernel that takes these inputs: ``"hopper"`` or
+    ``"strided"`` (see the module's docstring).  A pure function of type,
+    shape, strides and base addresses: it needs no card, and raises where
+    the kernels refuse them (the forward's refusals, and a ``dy`` not of
+    x's shape and type).  The hopper route reads the checkpoints of
+    ``ssm_scan_train_hopper``, so it takes only inputs whose forward
+    :func:`route` names ``"hopper"``."""
+    forward = route(x, dt, Bc, Cc)
     if dy.shape != x.shape or dy.dtype != x.dtype:
         raise ValueError(f"need dy of x's shape {tuple(x.shape)} and type {x.dtype}, got "
                          f"{tuple(dy.shape)} {dy.dtype}")
-    return "ssm_scan_bwd"
+    if forward == "hopper" and x.shape[2] % 8 == 0 and _tma_ready(dy):
+        return "hopper"
+    return "strided"
 
 
 def _check_bwd_inputs(x, dt, A, Bc, Cc, D, h0, dy, dh_final) -> str:
@@ -273,16 +369,28 @@ def _check_bwd_inputs(x, dt, A, Bc, Cc, D, h0, dy, dh_final) -> str:
 
 
 def launch_bwd(lib: Optional[ctypes.CDLL], x, dt, A, Bc, Cc, D, h0, dy, dh_final,
-               out: Optional[tuple] = None) -> tuple:
+               out: Optional[tuple] = None, ckpt: Optional[torch.Tensor] = None) -> tuple:
     """Check the inputs and launch, from ``lib`` (a library bound by
     :func:`bind_bwd`; None: the package's own, built at first use), the
     backward into ``out`` = (dx, ddt, dB, dC, dA, dD, dh0), all contiguous,
-    or new outputs.  Returns ``(dx, ddt, dA, dB, dC, dD, dh0, launched)``
-    in :func:`repro_torch.kernels.ref.ssm_scan_bwd_ref`'s order; nothing is
-    launched for an empty batch or width (the sums dB, dC, dA and dD are
-    then zeros, written here).  Raises if the launch fails.  Counts
-    nothing: :func:`ssm_scan_bwd` does."""
-    _check_bwd_inputs(x, dt, A, Bc, Cc, D, h0, dy, dh_final)
+    or new outputs.  Returns ``(dx, ddt, dA, dB, dC, dD, dh0, kernel)``
+    in :func:`repro_torch.kernels.ref.ssm_scan_bwd_ref`'s order, ``kernel``
+    the route that :func:`bwd_route` names, or None for an empty batch or
+    width, which launches nothing (the sums dB, dC, dA and dD are then
+    zeros, written here).  The hopper route needs ``ckpt``, the
+    checkpoints that :func:`ssm_scan_train` wrote for these inputs (None
+    only where S is 0); the strided route takes none and writes its own
+    into scratch.  Raises if the launch fails.  Counts nothing:
+    :func:`ssm_scan_bwd` does."""
+    kernel = _check_bwd_inputs(x, dt, A, Bc, Cc, D, h0, dy, dh_final)
+    if ckpt is not None:
+        if kernel != "hopper":
+            raise ValueError(f"only the hopper route reads the forward's checkpoints; these "
+                             f"inputs take {kernel}")
+        _check_ckpt(ckpt, x, Bc.shape[2], SEGMENT_STEPS)
+    elif kernel == "hopper" and x.numel():
+        raise ValueError("the hopper route reads the training forward's checkpoints: pass "
+                         "ssm_scan_train's ckpt")
     Bsz, S, Dm = x.shape
     N = Bc.shape[2]
     dev = x.device
@@ -293,17 +401,27 @@ def launch_bwd(lib: Optional[ctypes.CDLL], x, dt, A, Bc, Cc, D, h0, dy, dh_final
                torch.empty((Dm, N), **f32), torch.empty((Dm,), **f32),
                torch.empty((Bsz, Dm, N), **f32))
     dx, ddt, dB, dC, dA, dD, dh0 = out
+    if kernel == "hopper" and (dx.data_ptr() % 16 or ddt.data_ptr() % 16):
+        raise ValueError("the hopper route writes dx and ddt in 16-byte vectors: their outputs "
+                         "must start at 16-byte-aligned addresses")
     if Bsz * Dm == 0:
         for t in (dB, dC, dA, dD):
             t.zero_()
-        return dx, ddt, dA, dB, dC, dD, dh0, False
+        return dx, ddt, dA, dB, dC, dD, dh0, None
     if lib is None:
         lib = _bwd_library()
-    seg, lanes = lib.ssm_scan_bwd_segment_steps(), lib.ssm_scan_bwd_block_channels()
-    # scratch: the segments' checkpoints, the warps' dB and dC terms, the
-    # channels' dA and dD summed over time
-    ckpt = torch.empty((Bsz, -(-S // seg), N, Dm), **f32)
-    bc_part = torch.empty((Bsz, -(-Dm // lanes), S, 2 * N), **f32)
+    hopper = kernel == "hopper"
+    seg = lib.ssm_scan_bwd_segment_steps()
+    width = (lib.ssm_scan_bwd_hopper_block_channels() if hopper
+             else lib.ssm_scan_bwd_block_channels())
+    if seg != SEGMENT_STEPS:
+        raise RuntimeError(f"the backward library checkpoints every {seg} steps, not "
+                           f"{SEGMENT_STEPS}")
+    # scratch: the strided route's checkpoints (B, segments, N, D); the
+    # blocks' dB and dC partials; the channels' dA and dD summed over time
+    if not hopper:
+        ckpt = torch.empty((Bsz, -(-S // seg), Dm * N), **f32)
+    bc_part = torch.empty((Bsz, -(-Dm // width), S, 2 * N), **f32)
     a_part = torch.empty((Bsz, Dm, N), **f32)
     d_part = torch.empty((Bsz, Dm), **f32)
     device = dev.index
@@ -313,8 +431,9 @@ def launch_bwd(lib: Optional[ctypes.CDLL], x, dt, A, Bc, Cc, D, h0, dy, dh_final
     def ptr(t):
         return None if t is None else t.data_ptr()
 
+    fn = lib.ssm_scan_bwd_hopper if hopper else lib.ssm_scan_bwd
     with guard:
-        err = lib.ssm_scan_bwd(
+        err = fn(
             *map(ptr, (x, dt, A, Bc, Cc, D, h0, dy, dh_final, dx, ddt, dB, dC, dA, dD, dh0,
                        ckpt, bc_part, a_part, d_part)),
             _DTYPES[x.dtype], _DIMS(Bsz, S, Dm, N),
@@ -322,9 +441,9 @@ def launch_bwd(lib: Optional[ctypes.CDLL], x, dt, A, Bc, Cc, D, h0, dy, dh_final
             torch._C._cuda_getCurrentRawStream(device),
         )
     if err != 0:
-        raise RuntimeError(f"ssm_scan_bwd launch failed: {lib.cuda_error_string(err).decode()} "
-                           f"({err})")
-    return dx, ddt, dA, dB, dC, dD, dh0, True
+        raise RuntimeError(f"ssm_scan_bwd ({kernel}) launch failed: "
+                           f"{lib.cuda_error_string(err).decode()} ({err})")
+    return dx, ddt, dA, dB, dC, dD, dh0, kernel
 
 
 def ssm_scan_bwd(
@@ -337,21 +456,36 @@ def ssm_scan_bwd(
     h0: Optional[torch.Tensor],  # (B, D, N) float32, or None
     dy: torch.Tensor,  # (B, S, D) in x's type
     dh_final: Optional[torch.Tensor] = None,  # (B, D, N) float32, or None
+    ckpt: Optional[torch.Tensor] = None,  # ssm_scan_train's checkpoints, or None
 ) -> tuple[torch.Tensor, ...]:
     """The scan's VJP on the card: ``(dx, ddt, dA, dB, dC, dD, dh0)`` as
     :func:`repro_torch.kernels.ref.ssm_scan_bwd_ref` returns them, dx in
     x's type, the rest float32, all contiguous.  Takes what
     :func:`ssm_scan` takes, with ``dy`` of any strides; a ``dh_final`` of
-    other strides is copied (counted in ``ssm_scan_bwd.copies``).  Raises
-    on anything else: there is no fallback to the plain version."""
+    other strides is copied (counted in ``ssm_scan_bwd.copies``).  The
+    hopper route reads ``ckpt``, the checkpoints of :func:`ssm_scan_train`
+    on the same inputs (counted in ``ssm_scan_bwd.with_checkpoints``);
+    without them it first runs :func:`ssm_scan_train` itself (counted
+    there), which gives the same bits.  Raises on anything else: there is
+    no fallback to the plain version."""
+    global hopper_bwd_launches
     if dh_final is not None and not dh_final.is_contiguous():
         dh_final = dh_final.contiguous()
         ssm_scan_bwd.copies += 1
-    *grads, launched = launch_bwd(None, x, dt, A, Bc, Cc, D, h0, dy, dh_final)
-    if launched:
+    given = ckpt is not None
+    if not given and x.numel() and _check_bwd_inputs(x, dt, A, Bc, Cc, D, h0, dy,
+                                                     dh_final) == "hopper":
+        ckpt = ssm_scan_train(x, dt, A, Bc, Cc, D, h0)[2]
+    *grads, kernel = launch_bwd(None, x, dt, A, Bc, Cc, D, h0, dy, dh_final, ckpt=ckpt)
+    if kernel is not None:
         ssm_scan_bwd.launches += 1
+        if kernel == "hopper":
+            hopper_bwd_launches += 1
+            if given:
+                ssm_scan_bwd.with_checkpoints += 1
     return tuple(grads)
 
 
 ssm_scan_bwd.launches = 0
 ssm_scan_bwd.copies = 0
+ssm_scan_bwd.with_checkpoints = 0

@@ -1182,8 +1182,8 @@ def test_ssm_scan_kernel_refuses_what_it_does_not_take():
 
 # ------------------------------------------------------- the scan's backward
 # S = 0, one step, around the backward's 8-step segments (15, 16, 17) and
-# 1,023; D 96 (three of its 32-channel blocks) and 200 (no whole number of
-# blocks, of 32 or of the forward's 128)
+# 1,023; D 96 (less than one of the hopper route's 128-channel blocks, three
+# of the strided route's 32) and 200 (no whole number of either)
 SSM_BWD_S = [0, 1, 15, 16, 17, 1023]
 SSM_BWD_D = [96, 200]
 SSM_GRADS = ("dx", "ddt", "dA", "dB", "dC", "dD", "dh0")
@@ -1217,20 +1217,64 @@ def _grads_within_rule(got, want, dtype):
 @pytest.mark.parametrize("Dm", SSM_BWD_D)
 @pytest.mark.parametrize("S", SSM_BWD_S)
 def test_ssm_scan_bwd_kernel_matches_plain_version(S, Dm, N, seeded, dtype):
-    """Every gradient of the backward kernel within the forward's rule
-    (dx by x's type, the rest as float32) of ``ssm_scan_bwd_ref``, one
-    launch counted and no copy."""
+    """Every gradient of the hopper backward (the model's layouts) within
+    the forward's rule (dx by x's type, the rest as float32) of
+    ``ssm_scan_bwd_ref``, one launch counted on its route and no copy;
+    without checkpoints it runs the training forward first (counted
+    there); given that forward's checkpoints, the same bits, counted as
+    such."""
     from repro_torch.kernels import ssm_scan
 
     dev = _card()
     inputs, dy, dh_final = _bwd_inputs(2, S, Dm, N, dtype, dev, S + Dm + N, seeded)
-    assert ssm_scan.bwd_route(*inputs[:2], *inputs[3:5], dy) == "ssm_scan_bwd"
-    before = (ssm_scan.ssm_scan_bwd.launches, ssm_scan.ssm_scan_bwd.copies)
+    assert ssm_scan.bwd_route(*inputs[:2], *inputs[3:5], dy) == "hopper"
+    before = (ssm_scan.ssm_scan_bwd.launches, ssm_scan.hopper_bwd_launches,
+              ssm_scan.ssm_scan_bwd.copies, ssm_scan.ssm_scan_train.checkpoints,
+              ssm_scan.ssm_scan_bwd.with_checkpoints)
     got = ssm_scan.ssm_scan_bwd(*inputs, dy, dh_final)
     torch.cuda.synchronize()
-    assert (ssm_scan.ssm_scan_bwd.launches, ssm_scan.ssm_scan_bwd.copies) == (before[0] + 1,
+    assert (ssm_scan.ssm_scan_bwd.launches, ssm_scan.hopper_bwd_launches,
+            ssm_scan.ssm_scan_bwd.copies, ssm_scan.ssm_scan_train.checkpoints,
+            ssm_scan.ssm_scan_bwd.with_checkpoints) == (
+        before[0] + 1, before[1] + 1, before[2], before[3] + (S > 0), before[4])
+    _grads_within_rule(got, ref.ssm_scan_bwd_ref(*inputs, dy, dh_final), dtype)
+    y, h_final, ckpt = ssm_scan.ssm_scan_train(*inputs)
+    assert (ckpt is None) == (S == 0)
+    if ckpt is not None:
+        given = ssm_scan.ssm_scan_bwd.with_checkpoints
+        again = ssm_scan.ssm_scan_bwd(*inputs, dy, dh_final, ckpt=ckpt)
+        torch.cuda.synchronize()
+        assert ssm_scan.ssm_scan_bwd.with_checkpoints == given + 1
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want_y, want_h = ssm_scan.ssm_scan(*inputs)
+    assert torch.equal(y, want_y) and torch.equal(h_final, want_h)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("N", [4, 16])
+@pytest.mark.parametrize("Dm", SSM_BWD_D)
+@pytest.mark.parametrize("S", SSM_BWD_S)
+def test_ssm_scan_bwd_strided_route_matches_plain_version(S, Dm, N, dtype):
+    """dy with a last stride of 2 takes the strided kernel, ``ssm_scan_bwd_strided``:
+    within the rule of ``ssm_scan_bwd_ref``, one launch counted, none on the
+    hopper route; the forward's checkpoints are refused there."""
+    from repro_torch.kernels import ssm_scan
+
+    dev = _card()
+    inputs, dy, dh_final = _bwd_inputs(2, S, Dm, N, dtype, dev, S + Dm + N + 1, True)
+    strided = torch.stack([dy, dy], dim=-1)[..., 0]
+    assert ssm_scan.bwd_route(*inputs[:2], *inputs[3:5], strided) == "strided"
+    before = (ssm_scan.ssm_scan_bwd.launches, ssm_scan.hopper_bwd_launches)
+    got = ssm_scan.ssm_scan_bwd(*inputs, strided, dh_final)
+    torch.cuda.synchronize()
+    assert (ssm_scan.ssm_scan_bwd.launches, ssm_scan.hopper_bwd_launches) == (before[0] + 1,
                                                                               before[1])
     _grads_within_rule(got, ref.ssm_scan_bwd_ref(*inputs, dy, dh_final), dtype)
+    if S:
+        ckpt = ssm_scan.ssm_scan_train(*inputs)[2]
+        with pytest.raises(ValueError):
+            ssm_scan.ssm_scan_bwd(*inputs, strided, dh_final, ckpt=ckpt)
 
 
 @pytest.mark.cuda
@@ -1238,34 +1282,52 @@ def test_ssm_scan_bwd_kernel_matches_plain_version(S, Dm, N, seeded, dtype):
                          ids=["sweep", "falcon_mamba_training"])
 def test_ssm_scan_bwd_kernel_is_bitwise_repeatable(shape):
     """No atomics: two calls on the same inputs give the same bits, at the
-    sweep's longest case and at falcon-mamba-7b's training shape (bf16)."""
+    sweep's longest case and at falcon-mamba-7b's training shape (bf16), on
+    the hopper route making its own checkpoints and handed the training
+    forward's, and on the strided route."""
     from repro_torch.kernels import ssm_scan
 
     dev = _card()
     inputs, dy, dh_final = _bwd_inputs(*shape, torch.bfloat16, dev, 3, True)
+    ckpt = ssm_scan.ssm_scan_train(*inputs)[2]
     first = ssm_scan.ssm_scan_bwd(*inputs, dy, dh_final)
     second = ssm_scan.ssm_scan_bwd(*inputs, dy, dh_final)
+    third = ssm_scan.ssm_scan_bwd(*inputs, dy, dh_final, ckpt=ckpt)
     torch.cuda.synchronize()
-    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    assert all(torch.equal(a, b) and torch.equal(a, c) for a, b, c in zip(first, second, third))
     assert all(bool(torch.isfinite(g.float()).all()) for g in first)
+    del ckpt, second, third
+    strided = torch.stack([dy, dy], dim=-1)[..., 0]
+    one = ssm_scan.ssm_scan_bwd(*inputs, strided, dh_final)
+    two = ssm_scan.ssm_scan_bwd(*inputs, strided, dh_final)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(one, two))
 
 
 @pytest.mark.cuda
 def test_ssm_scan_bwd_kernel_takes_any_strides_and_copies_only_dh_final():
-    """x with a last stride of 2 and dt transposed in memory give what
-    contiguous copies give, bitwise, with no copy; a non-contiguous
-    dh_final is copied once, counted."""
+    """The strided route: x with a last stride of 2 and dt transposed in
+    memory give what contiguous x and dt with a dy of last stride 2 give,
+    bitwise, with no copy; contiguous copies take the hopper route, within
+    the rule of the plain version.  A non-contiguous dh_final is copied
+    once, counted."""
     from repro_torch.kernels import ssm_scan
 
     dev = _card()
     (x, dt, A, Bc, Cc, D, h0), dy, dh_final = _bwd_inputs(2, 40, 96, 16, torch.float32, dev, 7, True)
     xs = torch.stack([x, x], dim=-1)[..., 0]
     dts = dt.transpose(0, 1).contiguous().transpose(0, 1)
-    copies = ssm_scan.ssm_scan_bwd.copies
+    dys = torch.stack([dy, dy], dim=-1)[..., 0]
+    copies, hopper = ssm_scan.ssm_scan_bwd.copies, ssm_scan.hopper_bwd_launches
     got = ssm_scan.ssm_scan_bwd(xs, dts, A, Bc, Cc, D, h0, dy, dh_final)
-    assert ssm_scan.ssm_scan_bwd.copies == copies
-    want = ssm_scan.ssm_scan_bwd(*(t.contiguous() for t in (x, dt, A, Bc, Cc, D, h0, dy, dh_final)))
-    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    also = ssm_scan.ssm_scan_bwd(x.contiguous(), dt, A, Bc, Cc, D, h0, dys, dh_final)
+    assert (ssm_scan.ssm_scan_bwd.copies, ssm_scan.hopper_bwd_launches) == (copies, hopper)
+    assert all(torch.equal(g, w) for g, w in zip(got, also))
+    plain = (x, dt, A, Bc, Cc, D, h0, dy, dh_final)
+    want = ssm_scan.ssm_scan_bwd(*(t.contiguous() for t in plain))
+    assert ssm_scan.hopper_bwd_launches == hopper + 1
+    _grads_within_rule(want, ref.ssm_scan_bwd_ref(*plain), torch.float32)
+    _grads_within_rule(got, ref.ssm_scan_bwd_ref(*plain), torch.float32)
     strided = dh_final.transpose(1, 2).contiguous().transpose(1, 2)
     again = ssm_scan.ssm_scan_bwd(x, dt, A, Bc, Cc, D, h0, dy, strided)
     torch.cuda.synchronize()
@@ -1294,8 +1356,9 @@ def test_ssm_scan_bwd_kernel_launches_nothing_for_no_channel_or_no_row():
 
 @pytest.mark.cuda
 def test_ssm_scan_bwd_kernel_refuses_what_it_does_not_take():
-    """N 5, float16 x, a D on the CPU, a dy not of x's type: raised before
-    any launch, none counted."""
+    """N 5, float16 x, a D on the CPU, a dy not of x's type, checkpoints of
+    another shape or for the strided route, none where the hopper route
+    reads them (``launch_bwd``): raised before any launch, none counted."""
     from repro_torch.kernels import ssm_scan
 
     dev = _card()
@@ -1310,6 +1373,15 @@ def test_ssm_scan_bwd_kernel_refuses_what_it_does_not_take():
         ssm_scan.ssm_scan_bwd(x, dt, A, Bc, Cc, D.cpu(), h0, dy, dh_final)
     with pytest.raises(ValueError):
         ssm_scan.ssm_scan_bwd(x, dt, A, Bc, Cc, D, h0, dy.bfloat16(), dh_final)
+    ckpt = ssm_scan.ssm_scan_train(x, dt, A, Bc, Cc, D, h0)[2]
+    with pytest.raises(ValueError):
+        ssm_scan.ssm_scan_bwd(x, dt, A, Bc, Cc, D, h0, dy, dh_final,
+                              ckpt=torch.cat([ckpt, ckpt], dim=1))
+    with pytest.raises(ValueError):
+        ssm_scan.ssm_scan_bwd(x, dt, A, Bc, Cc, D, h0, torch.stack([dy, dy], -1)[..., 0],
+                              dh_final, ckpt=ckpt)
+    with pytest.raises(ValueError):
+        ssm_scan.launch_bwd(None, x, dt, A, Bc, Cc, D, h0, dy, dh_final)
     assert ssm_scan.ssm_scan_bwd.launches == before
 
 
@@ -1317,27 +1389,43 @@ def test_ssm_scan_bwd_kernel_refuses_what_it_does_not_take():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_ssm_scan_under_autograd_runs_both_kernels(dtype):
     """``ops.ssm_scan`` under a gradient on the card: the forward through
-    ``ssm_scan_hopper`` (the model's layouts) and, in the backward, one
-    launch of the backward kernel, whose gradients autograd hands back
-    bitwise; no plain scan runs."""
+    ``ssm_scan_train_hopper`` (the model's layouts), which writes the
+    checkpoints, and in the backward one launch of the hopper backward
+    that reads them, whose gradients autograd hands back bitwise as the
+    standalone kernel gives them; a dy of last stride 2 goes through the
+    strided kernel, which recomputes the states; no plain scan runs."""
     from repro_torch.kernels import ssm_scan
 
     dev = _card()
     (x, dt, A, Bc, Cc, D, h0), dy, _ = _bwd_inputs(2, 300, 200, 16, dtype, dev, 5, True)
     leaves = [t.detach().clone().requires_grad_() for t in (x, dt, A, Bc, Cc, D, h0)]
+
+    def counts():
+        return (ssm_scan.hopper_launches, ssm_scan.ssm_scan_train.checkpoints,
+                ssm_scan.ssm_scan_bwd.launches, ssm_scan.hopper_bwd_launches,
+                ssm_scan.ssm_scan_bwd.with_checkpoints)
+
     plain = (ref.ssm_scan_ref, ref.ssm_scan_bwd_ref)
     ref.ssm_scan_ref = ref.ssm_scan_bwd_ref = None  # a plain scan on this path would raise
     try:
-        before = (ssm_scan.hopper_launches, ssm_scan.ssm_scan_bwd.launches)
+        before = counts()
         y, h = ops.ssm_scan(*leaves)
         grads = torch.autograd.grad(y, leaves, dy)
         torch.cuda.synchronize()
+        middle = counts()
+        y, h = ops.ssm_scan(*leaves)
+        strided = torch.autograd.grad(y, leaves, torch.stack([dy, dy], dim=-1)[..., 0])
+        torch.cuda.synchronize()
+        after = counts()
     finally:
         ref.ssm_scan_ref, ref.ssm_scan_bwd_ref = plain
-    assert (ssm_scan.hopper_launches, ssm_scan.ssm_scan_bwd.launches) == (before[0] + 1,
-                                                                          before[1] + 1)
+    assert [m - b for m, b in zip(middle, before)] == [1, 1, 1, 1, 1]
+    assert [a - m for a, m in zip(after, middle)] == [1, 1, 1, 0, 0]
     want = ssm_scan.ssm_scan_bwd(*(t.detach() for t in leaves), dy, None)
     assert all(torch.equal(g, w) for g, w in zip(grads, want))
+    want = ssm_scan.ssm_scan_bwd(*(t.detach() for t in leaves),
+                                 torch.stack([dy, dy], dim=-1)[..., 0], None)
+    assert all(torch.equal(g, w) for g, w in zip(strided, want))
 
 
 # ------------------------------------------------ the staged (TMA) Hopper scan

@@ -186,8 +186,9 @@ def test_ptxas_report_reads_registers_and_spills(tmp_path, monkeypatch):
     _build._target("flash_attention").with_suffix(".log").write_text(log)
     assert _build.ptxas_report("flash_attention") == {
         "_ZN7fwd_hopper16flash_fwd_hopperILi64EEEv":
-            {"registers": 168, "spill_store_bytes": 8, "spill_load_bytes": 12},
-        "_Z14flash_fwd_bf16ILi32EEv": {"registers": 96, "spill_store_bytes": 0, "spill_load_bytes": 0},
+            {"registers": 168, "stack_frame_bytes": 8, "spill_store_bytes": 8, "spill_load_bytes": 12},
+        "_Z14flash_fwd_bf16ILi32EEv": {"registers": 96, "stack_frame_bytes": 0, "spill_store_bytes": 0,
+                                      "spill_load_bytes": 0},
     }
 
 
@@ -202,5 +203,6 @@ def test_ptxas_report_reads_static_shared_memory(tmp_path, monkeypatch):
     _build._target("ell_to_dense").with_suffix(".log").write_text(log)
     assert _build.ptxas_report("ell_to_dense") == {
         "_ZN12_GLOBAL__N_125ell_to_dense_tiled_kernelILb1EEEvPKfPKiPfllll":
-            {"registers": 40, "spill_store_bytes": 0, "spill_load_bytes": 0, "smem_bytes": 32784},
+            {"registers": 40, "stack_frame_bytes": 0, "spill_store_bytes": 0, "spill_load_bytes": 0,
+             "smem_bytes": 32784},
     }

@@ -238,3 +238,172 @@ def test_sass_exp_loop_reads_the_unrolled_block_and_the_chunk_loop():
     with pytest.raises(ValueError):  # two functions match
         chip_smoke.sass_exp_loop(_SASS, "ssm_scan")
 
+
+
+# ------------------------------------------------- the backward's two routes
+def _dy(x, *, last_stride=1, offset=0):
+    """A dy of x's shape and type: contiguous, or with a last-axis stride,
+    or starting ``offset`` elements into its buffer."""
+    Bsz, S, Dm = x.shape
+    if last_stride != 1:
+        return torch.empty((Bsz, S, Dm, last_stride), dtype=x.dtype, device=x.device)[..., 0]
+    flat = torch.empty((Bsz * S * Dm + offset,), dtype=x.dtype, device=x.device)
+    return flat[offset:].view(Bsz, S, Dm)
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+@pytest.mark.parametrize("x_half", [False, True], ids=["x", "xz-half"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,S,Dm,N,dt_rank", [
+    (4, 2048, 8192, 16, 256),  # falcon-mamba-7b's training scan
+    (4, 2048, 16384, 16, 512),  # jamba's Mamba layers at training length
+    (2, 37, 128, 4, 4),        # the falcon-mamba and jamba smoke configs (d_model 64)
+    (1, 1, 96, 16, 8),         # one step, D not a multiple of the block's 128 channels
+], ids=["falcon-mamba", "jamba", "smoke", "one-step"])
+def test_model_layouts_take_the_hopper_backward(B, S, Dm, N, dt_rank, dtype, x_half, device):
+    """x contiguous or a half of xz, dt contiguous, B and C column views of
+    x_proj's float32 output, dy contiguous (as ``y * silu(z)`` hands it back)
+    or a half of a wider tensor."""
+    x, dt, Bc, Cc = _model_layout(B, S, Dm, N, dt_rank, dtype, x_half=x_half, device=device)
+    assert ssm.bwd_route(x, dt, Bc, Cc, _dy(x)) == "hopper"
+    wide = torch.empty((B, S, 2 * Dm), dtype=dtype, device=device)
+    assert ssm.bwd_route(x, dt, Bc, Cc, wide[..., Dm:]) == "hopper"
+
+
+def test_chip_smoke_backward_inputs_take_the_hopper_route():
+    gen = torch.Generator().manual_seed(0)
+    for dtype in (torch.float32, torch.bfloat16):
+        for Dm in chip_smoke.SSM_BWD_D:
+            for N in (4, 16):
+                inputs, dy, _ = chip_smoke._bwd_inputs(2, 17, Dm, N, dtype, "cpu", gen, True)
+                assert ssm.bwd_route(*inputs[:2], *inputs[3:5], dy) == "hopper", (Dm, N, dtype)
+                strided = torch.stack([dy, dy], dim=-1)[..., 0]
+                assert ssm.bwd_route(*inputs[:2], *inputs[3:5], strided) == "strided"
+
+
+def _bwd_case(case):
+    """Model layouts (f32, D 96) with one input the hopper backward refuses."""
+    x, dt, Bc, Cc = _model_layout(2, 40, 96, 16, 256, torch.float32)
+    dy = _dy(x)
+    if case == "dy-last-stride-2":
+        dy = _dy(x, last_stride=2)
+    elif case == "dy-base-4B":
+        dy = _dy(x, offset=1)
+    elif case == "dy-transposed":
+        dy = torch.empty((2, 96, 40)).transpose(1, 2)
+    elif case == "x-transposed":
+        x = torch.empty((2, 96, 40)).transpose(1, 2)
+    elif case == "dt-last-stride-2":
+        dt = torch.empty((2, 40, 96, 2))[..., 0]
+    elif case == "bf16-row-stride-148B":  # x a half of xz with D 37
+        x, dt, Bc, Cc = _model_layout(2, 40, 37, 16, 256, torch.bfloat16, x_half=True)
+        dy = _dy(x)
+    elif case == "D-100":  # rows TMA could take, but not whole 8-channel vectors
+        x, dt, Bc, Cc = _model_layout(2, 40, 100, 16, 256, torch.float32)
+        dy = _dy(x)
+    return x, dt, Bc, Cc, dy
+
+
+@pytest.mark.parametrize("case", ["dy-last-stride-2", "dy-base-4B", "dy-transposed",
+                                  "x-transposed", "dt-last-stride-2", "bf16-row-stride-148B",
+                                  "D-100"])
+def test_other_layouts_take_the_strided_backward(case):
+    assert ssm.bwd_route(*_bwd_case(case)) == "strided"
+
+
+def test_b_and_c_strides_do_not_choose_the_backward():
+    """B and C strides do not choose the backward on their own, only
+    through the forward's route, whose checkpoints the hopper backward
+    reads: where the forward takes them (column views after dt_rank 8,
+    separate contiguous tensors) the backward takes the hopper kernel;
+    after a dt_rank of 3 (rows 12 and 28 bytes in) or transposed, the
+    forward takes its simt kernel and the backward the strided one."""
+    x, dt, Bc, Cc = _model_layout(2, 40, 96, 4, 8, torch.float32)
+    assert ssm.route(x, dt, Bc, Cc) == ssm.bwd_route(x, dt, Bc, Cc, _dy(x)) == "hopper"
+    b = torch.empty((2, 40, 16))
+    x, dt, _, _ = _model_layout(2, 40, 96, 16, 256, torch.float32)
+    assert ssm.route(x, dt, b, b.clone()) == ssm.bwd_route(x, dt, b, b.clone(), _dy(x)) == "hopper"
+    x, dt, Bc, Cc = _model_layout(2, 40, 96, 4, 3, torch.float32)
+    assert ssm.route(x, dt, Bc, Cc) == "simt"
+    assert ssm.bwd_route(x, dt, Bc, Cc, _dy(x)) == "strided"
+    b = torch.empty((2, 16, 40)).transpose(1, 2)
+    x, dt, _, _ = _model_layout(2, 40, 96, 16, 256, torch.float32)
+    assert ssm.route(x, dt, b, b) == "simt"
+    assert ssm.bwd_route(x, dt, b, b, _dy(x)) == "strided"
+
+
+def test_length_one_axes_do_not_count_their_strides_in_the_backward():
+    """One batch row: its batch strides (odd here) are never stepped along;
+    one step: neither are the step strides.  Over 40 steps, an odd step
+    stride of dy keeps it from the hopper route."""
+    x = torch.empty((1, 40, 96)).as_strided((1, 40, 96), (3, 96, 1))
+    dt = torch.empty((1, 40, 96)).as_strided((1, 40, 96), (7, 96, 1))
+    bc = torch.empty((1, 40, 16))
+    dy = torch.empty((1, 40, 96)).as_strided((1, 40, 96), (5, 96, 1))
+    assert ssm.bwd_route(x, dt, bc, bc, dy) == "hopper"
+    one = torch.empty((1, 1, 96)).as_strided((1, 1, 96), (5, 37, 1))
+    assert ssm.bwd_route(one, one.clone(), bc[:, :1], bc[:, :1], one) == "hopper"
+    odd = torch.empty((40 * 99,)).as_strided((1, 40, 96), (0, 99, 1))
+    assert ssm.bwd_route(x, dt, bc, bc, odd) == "strided"
+
+
+@pytest.mark.parametrize("case", ["dy_shape", "dy_type", "x_float16", "state_size_5"])
+def test_bwd_route_raises_where_the_kernels_do(case):
+    x, dt, A, Bc, Cc, D, h0 = _inputs()
+    dy = torch.zeros_like(x)
+    err = ValueError
+    if case == "dy_shape":
+        dy = dy[:, 1:]
+    elif case == "dy_type":
+        dy = dy.bfloat16()
+    elif case == "x_float16":
+        x, dy, err = x.half(), dy.half(), TypeError
+    elif case == "state_size_5":
+        x, dt, A, Bc, Cc, D, h0 = _inputs(N=5)
+    with pytest.raises(err):
+        ssm.bwd_route(x, dt, Bc, Cc, dy)
+
+
+@pytest.mark.parametrize("case", ["shape", "float64", "strided", "base-4B"])
+def test_checkpoints_of_another_layout_are_refused(case):
+    """What the backward accepts as the training forward's checkpoints:
+    (B, ceil(S / 8), D N) float32, contiguous, 16-byte-aligned."""
+    x = torch.empty((2, 17, 96))
+    ckpt = torch.empty((2, 3, 96 * 16))
+    ssm._check_ckpt(ckpt, x, 16, ssm.SEGMENT_STEPS)
+    if case == "shape":
+        ckpt = torch.empty((2, 2, 96 * 16))
+    elif case == "float64":
+        ckpt = ckpt.double()
+    elif case == "strided":
+        ckpt = torch.empty((2, 96 * 16, 3)).transpose(1, 2)
+    elif case == "base-4B":
+        ckpt = torch.empty((2 * 3 * 96 * 16 + 1,))[1:].view(2, 3, 96 * 16)
+    with pytest.raises(ValueError):
+        ssm._check_ckpt(ckpt, x, 16, ssm.SEGMENT_STEPS)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_cpu_backward_takes_the_plain_version_and_counts_nothing(dtype):
+    """``ops.ssm_scan`` under a gradient on the CPU: the plain forward, no
+    checkpoints, the plain reverse recurrence; no count of either route
+    moves, and the kernels' wrappers refuse CPU tensors."""
+    x, dt, A, Bc, Cc, D, h0 = _inputs(dtype=dtype, seed=4)
+    leaves = [t.detach().clone().requires_grad_() for t in (x, dt, A, Bc, Cc, D, h0)]
+    counts = (ssm.ssm_scan_bwd.launches, ssm.hopper_bwd_launches, ssm.ssm_scan_bwd.copies,
+              ssm.ssm_scan_bwd.with_checkpoints, ssm.ssm_scan_train.checkpoints,
+              ssm.hopper_launches, ssm.ssm_scan.launches)
+    y, h = ops.ssm_scan(*leaves)
+    dy = torch.randn(y.shape, generator=torch.Generator().manual_seed(5)).to(dtype)
+    got = torch.autograd.grad(y, leaves, dy)
+    want = ref.ssm_scan_bwd_ref(x, dt, A, Bc, Cc, D, h0, dy, None)
+    order = (0, 1, 2, 3, 4, 5, 6)  # ops' order x dt A B C D h0; ref's dx ddt dA dB dC dD dh0
+    assert all(torch.equal(got[i], want[i]) for i in order)
+    assert ops._scan_train(x, dt, A, Bc, Cc, D, h0)[2] is None
+    with pytest.raises(ValueError):
+        ssm.ssm_scan_train(x, dt, A, Bc, Cc, D, h0)
+    with pytest.raises(ValueError):
+        ssm.ssm_scan_bwd(x, dt, A, Bc, Cc, D, h0, dy)
+    assert (ssm.ssm_scan_bwd.launches, ssm.hopper_bwd_launches, ssm.ssm_scan_bwd.copies,
+            ssm.ssm_scan_bwd.with_checkpoints, ssm.ssm_scan_train.checkpoints,
+            ssm.hopper_launches, ssm.ssm_scan.launches) == counts
