@@ -542,6 +542,29 @@ Training in the ssm and hybrid families (slice 19), after phase 35:
    loss finite and falling; step ms, tokens/s, peak memory, kernel ms by
    kind.
 
+Parallelism (slice 21), after phase 36:
+
+37. sharded_train: a one-rank NCCL group (a ``FileStore`` under
+   ``build/``, no network) and a (1, 1) ("data", "model") device mesh;
+   smollm-360m at full width and depth (32 layers, bf16,
+   ``remat="full"``), drawn on the card from a seed, trained 3 steps
+   plainly and, from the same weights and phase 13's corpus batches, 3
+   steps rule-sharded (``shard_lm``: FSDP2's ``fully_shard`` of each
+   block and the model, each parameter on the dim ``RULES_TRAIN`` puts on
+   "data"), the attention kernels' counts set to 0 just before the
+   sharded run and read just after (64 forwards with lse, 32 dq and 32
+   dk/dv a step, all through the Hopper kernels); the two runs' metrics,
+   parameters and moments bitwise equal (else the largest differences,
+   and the gradient norm within CPU_GNORM_RTOL, the parameters within
+   CPU_PARAM_TOL / CPU_PARAM_SHARE as phase 12); the step-3 checkpoint of
+   the sharded state restored by ``reshard_for_mesh`` onto the mesh,
+   every tensor bitwise and the loader state as saved; the int8
+   error-feedback DDP hook (``ef_int8_hook``) on that group, two steps,
+   against ``quantize_ef`` / ``dequantize`` on the card bitwise; step ms
+   and peak memory of both runs (and the memory each found resident)
+   beside the card's name and power limit, and one more step of each
+   under ``torch.profiler``: wall ms, the device's kernel ms and launches.
+
 Then the kernels line (one entry per kernel), the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.  Any failure
 exits non-zero before it.
@@ -895,6 +918,9 @@ SSM_BWD_FLOPS = 18
 # period of 4: Mamba, Mamba with MoE, attention, Mamba with MoE) against the
 # CPU in float32
 SSM_TRAIN_LAYERS, SSM_TRAIN_CPU_LAYERS = 8, 2
+# the rule-sharded train step (phase 37): steps of each run, the DDP hook's
+# weight (rows, columns: 2,100 values, not a whole number of 256-blocks)
+SHARDED_STEPS, HOOK_SHAPE = 3, (7, 300)
 
 
 def fail(msg: str) -> None:
@@ -1571,6 +1597,13 @@ def main() -> None:
     ssm_train_kernels = ssm_train_phase(dev, float(max_sm_mhz) * 1e6)
     torch.cuda.empty_cache()
     seconds["ssm_train"] = time.perf_counter() - t0 - sum(seconds.values())
+
+    # 37. the rule-sharded train step (FSDP2) on a one-rank NCCL mesh
+    sharded = sharded_train_phase(dev, smi)
+    for entry, key in zip(train_kernels, ("fwd", "dq", "dkv")):
+        entry["sharded_launches"] = sharded[key]
+    torch.cuda.empty_cache()
+    seconds["sharded_train"] = time.perf_counter() - t0 - sum(seconds.values())
     emit({"phase": "other_configs_seconds", **seconds,
           "script_seconds_so_far": time.perf_counter() - script_t0})
 
@@ -1722,6 +1755,203 @@ def main() -> None:
     print(smi)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
+
+
+def _largest_differences(got: dict, want: dict, n: int = 5) -> list:
+    """The ``n`` tensors of ``got`` furthest from ``want``'s, with their
+    largest absolute differences."""
+    diffs = [(k, float((got[k].float() - want[k].float()).abs().max())) for k in want]
+    return sorted(diffs, key=lambda kv: -kv[1])[:n]
+
+
+def _traced_step(fn, state, batch) -> dict:
+    """One train step under ``torch.profiler``: its wall ms, the device's
+    kernel ms and launches, and the five kernels that took the most."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn(state, batch)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    on_card = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    top = sorted(on_card, key=lambda e: -e.self_device_time_total)[:5]
+    return {"wall_ms": wall * 1e3,
+            "device_kernel_ms": sum(e.self_device_time_total for e in on_card) / 1e3,
+            "kernel_launches": sum(e.count for e in on_card),
+            "top_kernels": [[e.key[:80], e.count, e.self_device_time_total / 1e3] for e in top]}
+
+
+def sharded_train_phase(dev, smi: str) -> dict:
+    """Phase 37: the rule-sharded train step on a one-rank NCCL mesh beside
+    the plain step; returns the attention kernels' launches in the sharded
+    run."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.nn.parallel import DistributedDataParallel as DDP
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import compression
+    from repro_torch.distributed.fault import reshard_for_mesh
+    from repro_torch.distributed.sharding import RULES_TRAIN
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fab
+    from repro_torch.launch.train import build_loader
+    from repro_torch.models import Model
+    from repro_torch.train.optimizer import AdamWConfig, constant_lr
+    from repro_torch.train.step import make_train_state, make_train_step, shard_lm, train_state_tree
+
+    root = os.path.join(HERE, "build", "chip_smoke_dist")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    t_phase = time.perf_counter()
+    dist.init_process_group("nccl", store=dist.FileStore(os.path.join(root, "store"), 1),
+                            rank=0, world_size=1, device_id=dev)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+        cfg = get_config(ARCH)
+        model = Model(cfg)
+        opt_cfg = AdamWConfig(lr=constant_lr(CPU_STEP_LR), weight_decay=0.01)
+        lm = model.init(generator=torch.Generator(device=dev).manual_seed(37), device=dev)
+        lm_sharded = shard_lm(model, copy.deepcopy(lm), mesh)
+        loader = build_loader(os.path.join(HERE, "build", "chip_smoke_corpus"), TRAIN_SEQ,
+                              TRAIN_BATCH, n_tokens=TRAIN_CORPUS_TOKENS,
+                              vocab_size=min(cfg.vocab_size, 1024))
+        it = iter(loader)
+        batches = []
+        for _ in range(SHARDED_STEPS):
+            b = next(it)
+            batches.append({k: torch.from_numpy(np.asarray(b[k])).to(dev)
+                            for k in ("tokens", "labels")})
+        loader_state = json.loads(json.dumps(loader.state().to_dict()))  # as a manifest holds it
+
+        def run(params, counted: bool) -> tuple:
+            state = make_train_state(model, opt_cfg, params=params)
+            fn = make_train_step(model, opt_cfg)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            resident = torch.cuda.memory_allocated(dev)  # both models' weights, the other's state
+            if counted:
+                for entry in (fa.flash_attention_fwd_lse, fab.flash_attention_bwd_dq,
+                              fab.flash_attention_bwd_dkv):
+                    entry.launches = 0
+                fab.flash_attention_bwd_dq.hopper_launches = 0
+                fab.flash_attention_bwd_dkv.hopper_launches = 0
+                fa.hopper_launches = 0
+            metrics, step_ms = [], []
+            for b in batches:
+                t0 = time.perf_counter()
+                state, m = fn(state, b)
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                metrics.append({k: float(v) for k, v in m.items()})
+            return state, fn, metrics, step_ms, (torch.cuda.max_memory_allocated(dev), resident)
+
+        plain_state, plain_fn, plain_m, plain_ms, plain_peak = run(lm, False)
+        state, fn, metrics, step_ms, peak = run(lm_sharded, True)
+        launches = {"fwd": fa.flash_attention_fwd_lse.launches,
+                    "dq": fab.flash_attention_bwd_dq.launches,
+                    "dkv": fab.flash_attention_bwd_dkv.launches}
+        hopper = {"fwd": fa.hopper_launches, "dq": fab.flash_attention_bwd_dq.hopper_launches,
+                  "dkv": fab.flash_attention_bwd_dkv.hopper_launches}
+        per_step = {"fwd": 2 * cfg.num_layers, "dq": cfg.num_layers, "dkv": cfg.num_layers}
+        if launches != {k: n * SHARDED_STEPS for k, n in per_step.items()} or hopper != launches:
+            fail(f"the sharded steps launched {launches} attention kernels, {hopper} through the "
+                 f"Hopper kernels, in {SHARDED_STEPS} steps; need {per_step} a step, all Hopper")
+        if not all(math.isfinite(m["loss"]) for m in metrics):
+            fail(f"non-finite sharded losses: {metrics}")
+
+        # the two runs: bitwise, else within phase 12's rule with the differences printed
+        plain_t = train_state_tree(plain_state)
+        tree = train_state_tree(state)
+        flat = {f"params/{k}": v for k, v in tree["params"].items()}
+        flat.update({f"m/{k}": v for k, v in tree["opt"]["m"].items()})
+        flat.update({f"v/{k}": v for k, v in tree["opt"]["v"].items()})
+        want = {f"params/{k}": v for k, v in plain_t["params"].items()}
+        want.update({f"m/{k}": v for k, v in plain_t["opt"]["m"].items()})
+        want.update({f"v/{k}": v for k, v in plain_t["opt"]["v"].items()})
+        bitwise = metrics == plain_m and all(torch.equal(flat[k], want[k]) for k in want)
+        result = {"bitwise_equal": bitwise, "tensors_compared": len(want)}
+        if not bitwise:
+            gnorm_rel = max(abs(m["grad_norm"] / p["grad_norm"] - 1) for m, p in zip(metrics, plain_m))
+            share, worst = 1.0, 0.0
+            for k in (k for k in want if k.startswith("params/")):
+                d = (flat[k].float() - want[k].float()).abs()
+                share = min(share, float((d <= CPU_PARAM_TOL).float().mean()))
+                worst = max(worst, float(d.max()))
+            result.update(largest_differences=_largest_differences(flat, want),
+                          grad_norm_rel_err=gnorm_rel, param_min_share_within_tol=share,
+                          param_max_abs_err=worst)
+            if not (gnorm_rel <= CPU_GNORM_RTOL and share >= CPU_PARAM_SHARE
+                    and worst <= 2 * SHARDED_STEPS * CPU_STEP_LR + CPU_PARAM_TOL):
+                fail(f"the sharded and plain steps disagree beyond phase 12's rule: {result}")
+        del plain_t, want
+
+        # one more step of each under the profiler (after the counts and the
+        # comparison): the device's kernel time against the wall
+        traced = {"plain": _traced_step(plain_fn, plain_state, batches[0]),
+                  "sharded": _traced_step(fn, state, batches[0])}
+        del plain_state
+
+        # the step-3 checkpoint restored onto the mesh
+        t0 = time.perf_counter()
+        mgr = CheckpointManager(os.path.join(root, "ckpt"))
+        mgr.save(state["step"], tree, loader_state=loader_state)
+        axes = model.param_axes()
+        restored, manifest = reshard_for_mesh(mgr, tree, {"params": axes,
+                                                          "opt": {"m": axes, "v": axes}},
+                                              mesh, RULES_TRAIN)
+        differ = [k for k, v in tree["params"].items()
+                  if not torch.equal(restored["params"][k].full_tensor(), v)]
+        differ += [f"{mv}/{k}" for mv in ("m", "v") for k, v in tree["opt"][mv].items()
+                   if not torch.equal(restored["opt"][mv][k].full_tensor(), v)]
+        if differ or manifest["loader_state"] != loader_state or int(restored["step"]) != 3:
+            fail(f"the re-meshed checkpoint differs in {differ[:8]} or its loader state "
+                 f"{manifest['loader_state']} is not {loader_state}")
+        remesh_s = time.perf_counter() - t0
+        del restored, tree, flat, state, lm, lm_sharded
+
+        # the int8 error-feedback hook under DDP on the group, two steps
+        gen = torch.Generator(device=dev).manual_seed(11)
+        lin = torch.nn.Linear(HOOK_SHAPE[1], HOOK_SHAPE[0], bias=False, device=dev)
+        ddp = DDP(lin, device_ids=[dev.index])
+        hook_state = compression.EFInt8State()
+        ddp.register_comm_hook(hook_state, compression.ef_int8_hook)
+        resid = None
+        for step in range(2):
+            g = torch.randn(HOOK_SHAPE, generator=gen, device=dev)
+            ddp.zero_grad(set_to_none=True)
+            (ddp(torch.eye(HOOK_SHAPE[1], device=dev)) * g.T).sum().backward()
+            q, sc, resid = compression.quantize_ef(g.reshape(-1), resid)
+            want_g = compression.dequantize(q, sc, (g.numel(),), torch.float32).reshape(HOOK_SHAPE)
+            if not torch.equal(ddp.module.weight.grad, want_g):
+                fail(f"the DDP hook's gradient at step {step} is not quantize_ef / dequantize's")
+        if not torch.equal(hook_state.residuals.get(0, torch.empty(0)), resid):
+            fail("the DDP hook's residual is not quantize_ef's")
+        del ddp, lin
+    finally:
+        dist.destroy_process_group()
+    shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "sharded_train", "arch": ARCH, "layers": cfg.num_layers,
+          "d_model": cfg.d_model, "dtype": cfg.compute_dtype, "remat": cfg.remat,
+          "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": SHARDED_STEPS,
+          "mesh": {"data": 1, "model": 1}, "backend": "nccl", "nvidia_smi": smi,
+          "sharded_step_ms": step_ms, "plain_step_ms": plain_ms,
+          "sharded_peak_device_mem_gb": peak[0] / 1e9, "plain_peak_device_mem_gb": plain_peak[0] / 1e9,
+          "sharded_resident_at_start_gb": peak[1] / 1e9,
+          "plain_resident_at_start_gb": plain_peak[1] / 1e9,
+          "traced_step": traced,
+          "losses": [m["loss"] for m in metrics], "plain_losses": [m["loss"] for m in plain_m],
+          "grad_norms": [m["grad_norm"] for m in metrics],
+          "launches": launches, "hopper_launches": hopper, **result,
+          "remesh_bitwise": True, "remesh_s": remesh_s, "ddp_hook_bitwise": True,
+          "seconds": time.perf_counter() - t_phase})
+    return launches
 
 
 KERNEL_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

@@ -1,5 +1,6 @@
-"""Restart supervision and liveness: JAX-free copies of
-``repro.distributed.fault.run_with_restarts`` and ``HeartbeatMonitor``.
+"""Restart supervision, the elastic re-mesh and liveness: the port of
+``repro.distributed.fault`` (``run_with_restarts``, ``reshard_for_mesh``
+and ``HeartbeatMonitor``).
 
 :func:`run_with_restarts` catches a worker failure and runs the work again
 with ``resume=True``; the training driver resumes from its latest
@@ -12,17 +13,35 @@ reference, which restarts on any ``BaseException``, it restarts on
 because ``tools/analyze`` resolves classes by bare name) flags members whose
 last beat is older than its timeout, on ``time.monotonic``; a
 :class:`~repro_torch.core.prefetch.FetchPool` takes it as ``heartbeat=``.
-The elastic re-mesh of the reference is not ported yet (ROADMAP.md queue A
-#13).
+:func:`reshard_for_mesh` restores a checkpoint onto a ``DeviceMesh``,
+possibly another than the one that saved it (the elastic path for lost or
+added devices): checkpoints hold unsharded arrays, so each leaf is read
+whole and placed as the sharding rules resolve it on the new mesh
+(``distribute_tensor``); the loader state in the manifest comes back as it
+was saved, and the loader re-partitions its fetches by the new world size
+over the same global order.
 """
 from __future__ import annotations
 
 import random
 import threading
 import time
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Mapping, Optional
 
-__all__ = ["run_with_restarts", "LivenessMonitor"]
+import torch
+from torch.distributed.tensor import distribute_tensor
+
+from ..checkpoint.manager import CheckpointManager
+from .sharding import (
+    ShardingRules,
+    _axis_size,
+    _present,
+    mesh_view,
+    placements_for_spec,
+    spec_for_axes,
+)
+
+__all__ = ["run_with_restarts", "reshard_for_mesh", "LivenessMonitor"]
 
 
 class LivenessMonitor:
@@ -95,3 +114,71 @@ def run_with_restarts(
                 if jitter:
                     delay *= 1.0 + jitter * rng.random()
                 sleep(delay)
+
+
+def _tensor_leaves(template: Any, axes_tree: Any, path: str = ""):
+    """(path, template tensor, its axes) for every tensor leaf of
+    ``template``; ``axes_tree`` holds the same dicts down to them."""
+    if isinstance(template, Mapping):
+        for k, v in template.items():
+            sub = axes_tree.get(k) if isinstance(axes_tree, Mapping) else None
+            yield from _tensor_leaves(v, sub, f"{path}/{k}" if path else str(k))
+    elif isinstance(template, torch.Tensor):
+        if axes_tree is None:
+            raise KeyError(f"no logical axes for the tensor leaf {path!r}")
+        yield path, template, axes_tree
+
+
+def _undivisible_dims(template: Any, axes_tree: Any, rules: ShardingRules, mesh) -> list[str]:
+    """Dims whose rule maps to mesh axes that do not divide the dim: the
+    strict resolution would quietly replicate them."""
+    bad = []
+    for _, t, axes in _tensor_leaves(template, axes_tree):
+        shape = tuple(t.shape)
+        for i, logical in enumerate(axes):
+            a = _present(mesh, rules.get(logical)) if logical else None
+            if a is None:
+                continue
+            n = _axis_size(mesh, a)
+            if n > 1 and shape[i] % n != 0:
+                bad.append(f"dim '{logical}' of shape {shape} (size {shape[i]}) is not "
+                           f"divisible by mesh axes {a!r} (={n} devices)")
+    return bad
+
+
+def reshard_for_mesh(mgr: CheckpointManager, template: Any, axes_tree: Any, device_mesh,
+                     rules: ShardingRules, step: Optional[int] = None, *, strict: bool = True):
+    """(tree, manifest): checkpoint ``step`` (the latest by default)
+    restored in ``template``'s structure, every tensor leaf a DTensor on
+    ``device_mesh`` placed as its spec resolves there (a dim its mesh axes
+    do not divide replicated), other leaves as the checkpoint manager
+    gives them.  Every rank of the mesh calls it and reads the whole
+    checkpoint.
+
+    ``strict=True`` (the default) refuses, with ``ValueError``, a mesh
+    whose axes do not divide the logical dims they shard: an elastic
+    restore that quietly changes the layout a job was sized for.
+    ``strict=False`` accepts the replication instead.
+    """
+    mesh = mesh_view(device_mesh)
+    if strict:
+        bad = _undivisible_dims(template, axes_tree, rules, mesh)
+        if bad:
+            raise ValueError(
+                "reshard_for_mesh: target mesh does not divide the logical dims it shards "
+                "(the sharding rules would silently fall back to replication):\n  - "
+                + "\n  - ".join(bad)
+                + "\nPick a mesh whose axes divide these dims, change the rules, or pass "
+                "strict=False to accept replication.")
+    tree, manifest = mgr.restore(template, step)
+
+    def place(node, axes):
+        if isinstance(node, Mapping):
+            return {k: place(v, axes.get(k) if isinstance(axes, Mapping) else None)
+                    for k, v in node.items()}
+        if not isinstance(node, torch.Tensor):
+            return node
+        spec = spec_for_axes(axes, rules, mesh, tuple(node.shape))
+        return distribute_tensor(node, device_mesh, placements_for_spec(spec, device_mesh))
+
+    return place(tree, axes_tree), manifest

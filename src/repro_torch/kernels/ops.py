@@ -5,12 +5,20 @@ through :func:`.flash_attention_bwd.flash_attention_vjp`, whose forward
 and backward dispatch the same way; the selective scan that needs a
 gradient through :class:`SsmScanFn`, whose forward is the scan's kernel
 and whose backward is the scan's backward kernel on the card (their
-plain versions on the CPU)."""
+plain versions on the CPU).
+
+No DTensor reaches a kernel: a DTensor reports its mesh's device while
+its ``data_ptr`` is its local shard's, not the whole tensor's, so a launch
+would read the wrong memory.  Every dispatcher here raises ``TypeError``
+naming the op for one, and never gathers it quietly.  Under FSDP2 (the
+rule-sharded train step) a layer's weights are gathered before its
+forward, so the kernels see plain activations."""
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from . import ref
 from .csr_to_dense import ell_to_dense as _ell_to_dense_kernel
@@ -24,10 +32,19 @@ from .ssm_scan import ssm_scan_train as _ssm_scan_train_kernel
 __all__ = ["ell_to_dense", "flash_attention", "ssm_scan", "ssm_scan_vjp", "SsmScanFn"]
 
 
+def _plain(op: str, *tensors) -> None:
+    """Raises ``TypeError`` if any of ``tensors`` is a DTensor."""
+    if any(isinstance(t, DTensor) for t in tensors):
+        raise TypeError(f"{op} takes plain tensors, got a DTensor: the kernel would read its "
+                        f"local shard as the whole tensor (gather it with full_tensor() or "
+                        f"pass its to_local() shard deliberately)")
+
+
 def ell_to_dense(vals: torch.Tensor, cols: torch.Tensor, *, n_cols: int,
                  log1p: bool = False) -> torch.Tensor:
     """ELL (R, K) -> dense (R, n_cols), or with ``log1p`` its ``log1p``
     (one fused pass on the card); see :func:`.ref.ell_to_dense_ref`."""
+    _plain("ell_to_dense", vals, cols)
     if not isinstance(log1p, bool):
         raise TypeError(f"log1p must be a bool, got {log1p!r}")
     if vals.device.type == "cuda":
@@ -44,6 +61,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
     :func:`.ref.flash_attention_ref`.  With grad enabled and any of q, k,
     v requiring it, the differentiable :func:`flash_attention_vjp`
     (training: ``q_offset`` must be 0)."""
+    _plain("flash_attention", q, k, v)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         if q_offset != 0:
             raise ValueError(f"the differentiable attention has no q_offset, got {q_offset}")
@@ -91,6 +109,7 @@ class SsmScanFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, dt, A, Bc, Cc, D, h0):
+        _plain("ssm_scan_vjp", x, dt, A, Bc, Cc, D, h0)
         ctx.set_materialize_grads(False)
         y, h_final, ckpt = _scan_train(x, dt, A, Bc, Cc, D, h0)
         ctx.save_for_backward(x, dt, A, Bc, Cc, D, h0, ckpt)
@@ -101,6 +120,7 @@ class SsmScanFn(torch.autograd.Function):
         x, dt, A, Bc, Cc, D, h0, ckpt = ctx.saved_tensors
         if dy is None and dh_final is None:
             return (None,) * 7
+        _plain("ssm_scan_vjp's backward", dy, dh_final)
         if dy is None:
             dy = torch.zeros_like(x)
         if ckpt is not None and _ssm_scan_bwd_route(x, dt, Bc, Cc, dy) != "hopper":
@@ -124,6 +144,7 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bc: torch.Tenso
     (training), whose forward launches the same kernel; else the kernel
     alone (serving)."""
     inputs = (x, dt, A, Bc, Cc, D, h0)
+    _plain("ssm_scan", *inputs)
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in inputs):
         return ssm_scan_vjp(*inputs)
     return _scan(*inputs)

@@ -5,6 +5,8 @@ and the server use, whatever the family:
 
   init(generator, device)               -> the params module: an LM, or
                                            an EncDec for encdec
+  param_axes()                          -> {parameter name: logical axes}
+  cache_axes()                          -> the cache's tree of logical axes
   forward(params, batch, return_aux)    -> logits (B, S, vocab), or
                                            (logits, {"lb_loss", "z_loss"})
   init_cache(batch, max_len, device)    -> cache
@@ -60,6 +62,19 @@ class Model:
         if self.cfg.family == "encdec":
             return _ed.init_encdec(self.cfg, generator=generator, device=device)
         return _tr.init_lm(self.cfg, generator=generator, device=device)
+
+    def param_axes(self) -> dict:
+        """The logical axes of every parameter, keyed like
+        ``named_parameters()``; nothing is allocated."""
+        if self.cfg.family == "encdec":
+            return _ed.encdec_param_axes(self.cfg)
+        return _tr.param_axes(self.cfg)
+
+    def cache_axes(self) -> dict:
+        """The logical axes of :meth:`init_cache`'s buffers, in its tree."""
+        if self.cfg.family == "encdec":
+            return _ed.decoder_cache_axes(self.cfg)
+        return _tr.cache_axes(self.cfg)
 
     def forward(self, params, batch: dict, return_aux: bool = False):
         cfg = self.cfg

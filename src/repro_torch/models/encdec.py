@@ -32,6 +32,12 @@ and cross-attention are plain tensor code (float32 scores and softmax),
 as they are plain jnp in the reference.  The caches are written in
 place.
 
+Each entry point runs through ``m(entry, ...)`` and each layer through
+``blk(layer, ...)``, as the LM's do (:mod:`.transformer`), so that hooks
+on the modules fire around what reads their weights.
+:func:`encdec_param_axes` and :func:`decoder_cache_axes` give the
+reference's logical axes of the parameters and the cache.
+
 One deliberate difference (ROADMAP.md queue C #20): the reference's
 ``dynamic_update_slice`` clamps a decode position at or past the self
 cache's length to its last slot and goes on; :func:`decode_encdec`
@@ -57,7 +63,18 @@ from .layers import (
     mlp_apply,
     remat_call,
 )
-from .transformer import Block, _Params, _dtype, _norm_init, _param
+from .transformer import (
+    _ATTN_AXES,
+    _MLP_AXES,
+    Block,
+    _ffn_axes,
+    _flat_axes,
+    _norm_axes,
+    _Params,
+    _dtype,
+    _norm_init,
+    _param,
+)
 
 __all__ = [
     "EncDec",
@@ -67,6 +84,8 @@ __all__ = [
     "init_decoder_cache",
     "prefill_encdec",
     "decode_encdec",
+    "encdec_param_axes",
+    "decoder_cache_axes",
 ]
 
 
@@ -105,6 +124,11 @@ class EncDec(nn.Module):
         self.dec_final_norm = _Params(**dec_final_norm)
         self.enc_blocks = nn.ModuleList(enc_blocks)
         self.dec_blocks = nn.ModuleList(dec_blocks)
+
+    def forward(self, entry, *args):
+        """``entry(self, *args)``: an entry point's body, run through the
+        module's call so that the model's hooks fire around it."""
+        return entry(self, *args)
 
 
 def init_encdec(cfg: ModelConfig, *, generator: Optional[torch.Generator] = None,
@@ -146,6 +170,32 @@ def init_encdec(cfg: ModelConfig, *, generator: Optional[torch.Generator] = None
     return EncDec(cfg, embed, norm(), norm(), enc, dec)
 
 
+def encdec_param_axes(cfg: ModelConfig) -> dict:
+    """The logical axes of every parameter of :func:`init_encdec`'s model,
+    keyed like ``EncDec.named_parameters()``: the reference's, each
+    layer's leaf without the leading ``"stack"``.  Pure Python."""
+    norm, mlp = _norm_axes(cfg), _ffn_axes(cfg, _MLP_AXES)
+    axes = {"embed": ("vocab", "embed")}
+    for name in ("enc_final_norm", "dec_final_norm"):
+        axes.update({f"{name}.{k}": ax for k, ax in norm.items()})
+    for i in range(cfg.num_layers):
+        axes.update(_flat_axes(f"enc_blocks.{i}", {"norm1": norm, "attn": _ATTN_AXES,
+                                                   "norm2": norm, "mlp": mlp}))
+    for i in range(cfg.decoder_layers):
+        axes.update(_flat_axes(f"dec_blocks.{i}", {
+            "norm1": norm, "self_attn": _ATTN_AXES, "norm_x": norm, "cross_attn": _ATTN_AXES,
+            "norm2": norm, "mlp": mlp}))
+    return axes
+
+
+def decoder_cache_axes(cfg: ModelConfig) -> dict:
+    """The logical axes of :func:`init_decoder_cache`'s buffers: the
+    reference's, ``"stack"`` (the decoder's layers) first."""
+    ax_self = ("stack", "batch", "cache_seq", "kv_heads", "head_dim")
+    ax_cross = ("stack", "batch", "cross_seq", "kv_heads", "head_dim")
+    return {"self_k": ax_self, "self_v": ax_self, "cross_k": ax_cross, "cross_v": ax_cross}
+
+
 def _proj_qkv(p: dict, x: torch.Tensor):
     return (einsum("bsd,dhk->bshk", x, p["wq"]), einsum("bsd,dhk->bshk", x, p["wk"]),
             einsum("bsd,dhk->bshk", x, p["wv"]))
@@ -159,7 +209,7 @@ def _layers(blocks: nn.ModuleList, cfg: ModelConfig, h: torch.Tensor, layer, *ar
     ``"dots"`` too."""
     remat = "none" if cfg.remat == "none" else "full"
     for blk in blocks:
-        h = remat_call(remat, layer, blk, cfg, h, *args)
+        h = remat_call(remat, blk, layer, cfg, h, *args)
     return h
 
 
@@ -196,7 +246,7 @@ def _encode(m: EncDec, frames: torch.Tensor) -> torch.Tensor:
 def encode(m: EncDec, frames: torch.Tensor) -> torch.Tensor:
     """frames: precomputed (B, S, d_model) embeddings (the frontend stub)
     -> the encoder's states (B, S, d_model) in the compute type."""
-    return _encode(m, frames)
+    return m(_encode, frames)
 
 
 def _logits(m: EncDec, h: torch.Tensor) -> torch.Tensor:
@@ -213,6 +263,10 @@ def forward_encdec(m: EncDec, frames: torch.Tensor, tokens: torch.Tensor, *,
     teacher-forced over ``tokens`` (B, S) -> logits (B, S, vocab) in
     ``logit_dtype``; with ``return_aux`` also the reference's aux losses,
     float32 zeros."""
+    return m(_forward, frames, tokens, return_aux)
+
+
+def _forward(m: EncDec, frames: torch.Tensor, tokens: torch.Tensor, return_aux: bool):
     cfg = m.cfg
     enc_out = _encode(m, frames)
     h = m.embed[tokens.long()].to(_dtype(cfg.compute_dtype))
@@ -247,14 +301,22 @@ def prefill_encdec(m: EncDec, frames: torch.Tensor, cache: dict) -> dict:
     cross-attention K and V into the cache, in place.  Encoder states past
     the cache's cross length are dropped; a shorter encoding is padded with
     zero states (whose K and V are then zero too)."""
+    m(_prefill, frames, cache)
+    return cache
+
+
+def _prefill(m: EncDec, frames: torch.Tensor, cache: dict) -> None:
     enc_out = _encode(m, frames)
     Sc = cache["cross_k"].shape[2]
     S = enc_out.shape[1]
     enc_c = enc_out[:, :Sc] if S >= Sc else F.pad(enc_out, (0, 0, 0, Sc - S))
     for i, blk in enumerate(m.dec_blocks):
-        cache["cross_k"][i].copy_(einsum("bsd,dhk->bshk", enc_c, blk.cross_attn.wk))
-        cache["cross_v"][i].copy_(einsum("bsd,dhk->bshk", enc_c, blk.cross_attn.wv))
-    return cache
+        blk(_project_cross, enc_c, cache["cross_k"][i], cache["cross_v"][i])
+
+
+def _project_cross(blk: Block, enc_c: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor) -> None:
+    ck.copy_(einsum("bsd,dhk->bshk", enc_c, blk.cross_attn.wk))
+    cv.copy_(einsum("bsd,dhk->bshk", enc_c, blk.cross_attn.wv))
 
 
 @torch.no_grad()
@@ -266,6 +328,10 @@ def decode_encdec(m: EncDec, token: torch.Tensor, cache: dict,
     logits (B, vocab); the self cache is written in place.  Raises
     ``ValueError`` for a position outside the self cache (the reference
     clamps it; ROADMAP.md queue C #20)."""
+    return m(_decode, token, cache, pos), cache
+
+
+def _decode(m: EncDec, token: torch.Tensor, cache: dict, pos: int) -> torch.Tensor:
     cfg = m.cfg
     sk, sv, ck, cv = (cache[k] for k in ("self_k", "self_v", "cross_k", "cross_v"))
     W = sk.shape[2]
@@ -275,11 +341,17 @@ def decode_encdec(m: EncDec, token: torch.Tensor, cache: dict,
     h = h + _sinusoid_at(torch.full((1,), pos, device=h.device), cfg.d_model, h.dtype)[None]
     valid = (torch.arange(W, device=h.device) <= pos)[None]
     for i, blk in enumerate(m.dec_blocks):
-        q, k, v = _proj_qkv(blk.self_attn.p, apply_norm(h, blk.norm1.p, cfg.norm))
-        sk[i][:, pos] = k[:, 0]
-        sv[i][:, pos] = v[:, 0]
-        h = h + einsum("bshk,hkd->bsd", cached_attention(q, sk[i], sv[i], valid), blk.self_attn.wo)
-        qx = einsum("bsd,dhk->bshk", apply_norm(h, blk.norm_x.p, cfg.norm), blk.cross_attn.wq)
-        h = h + einsum("bshk,hkd->bsd", cached_attention(qx, ck[i], cv[i], None), blk.cross_attn.wo)
-        h = h + mlp_apply(blk.mlp.p, apply_norm(h, blk.norm2.p, cfg.norm), cfg.act)
-    return _logits(m, h)[:, 0], cache
+        h = blk(_decode_layer, cfg, h, pos, valid, sk[i], sv[i], ck[i], cv[i])
+    return _logits(m, h)[:, 0]
+
+
+def _decode_layer(blk: Block, cfg: ModelConfig, h: torch.Tensor, pos: int, valid: torch.Tensor,
+                  sk: torch.Tensor, sv: torch.Tensor, ck: torch.Tensor,
+                  cv: torch.Tensor) -> torch.Tensor:
+    q, k, v = _proj_qkv(blk.self_attn.p, apply_norm(h, blk.norm1.p, cfg.norm))
+    sk[:, pos] = k[:, 0]
+    sv[:, pos] = v[:, 0]
+    h = h + einsum("bshk,hkd->bsd", cached_attention(q, sk, sv, valid), blk.self_attn.wo)
+    qx = einsum("bsd,dhk->bshk", apply_norm(h, blk.norm_x.p, cfg.norm), blk.cross_attn.wq)
+    h = h + einsum("bshk,hkd->bsd", cached_attention(qx, ck, cv, None), blk.cross_attn.wo)
+    return h + mlp_apply(blk.mlp.p, apply_norm(h, blk.norm2.p, cfg.norm), cfg.act)

@@ -5,8 +5,12 @@ softmax in float32, results cast back to the input type) and its weight
 layouts (``wq`` (d, heads, head_dim), ``w_in`` (d, d_ff), ...).
 Attention goes through :func:`repro_torch.kernels.ops.flash_attention`:
 on the card the Hopper kernel, on the CPU its plain version.  The logical
-sharding annotations of the reference (``constrain_act``, axes trees) have
-no counterpart here: the port runs on one device.
+axes trees of the reference are :func:`.transformer.param_axes` and
+``cache_axes``, resolved by :mod:`repro_torch.distributed.sharding`; the
+rule-sharded train step runs these layers under FSDP2 on the plain
+tensors it gathers.  The activation annotations (``constrain_act``,
+:mod:`repro_torch.distributed.context`) are not called here yet: they come
+with the tensor-parallel forward.
 
 Activation checkpointing (:func:`remat_call`) follows the reference's
 ``cfg.remat``: ``"none"`` keeps every activation, ``"full"`` recomputes a

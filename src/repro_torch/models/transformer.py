@@ -77,8 +77,19 @@ reference's ``forward_lm`` does (``Model.forward`` drops them).  The
 encoder-decoder family (whisper) is :mod:`.encdec`; :class:`LM` refuses
 it.
 
-Dropped from the reference: the sharding annotations (``constrain_act``)
-and the one-hot embedding under a sharding context (a gather always).
+Every entry point runs through the modules' calls: ``forward_lm``,
+``prefill_lm`` and ``decode_lm`` call ``lm(entry, ...)`` and each layer
+``blk(layer, ...)`` (:meth:`LM.forward`, :meth:`Block.forward`), so that
+hooks on the modules fire around what reads their weights: FSDP2's
+``fully_shard`` gathers a layer's weights in its pre-forward hook
+(:func:`repro_torch.train.step.shard_lm`).  :func:`param_axes` and
+:func:`cache_axes` give the reference's logical axes of every parameter
+and cache buffer (pure Python, nothing allocated), which the sharding
+rules (:mod:`repro_torch.distributed.sharding`) resolve.
+
+Dropped from the reference: the activation annotations (``constrain_act``
+calls, which the tensor-parallel forward will bring) and the one-hot
+embedding under a sharding context (a gather always).
 """
 from __future__ import annotations
 
@@ -115,6 +126,8 @@ __all__ = [
     "decode_lm",
     "check_family",
     "stack_period",
+    "param_axes",
+    "cache_axes",
 ]
 
 
@@ -174,6 +187,12 @@ class Block(nn.Module):
         for name, tensors in groups.items():
             setattr(self, name, _Params(**tensors))
 
+    def forward(self, layer, *args):
+        """``layer(self, *args)``: a layer function of this block, run
+        through the module's call so that the block's hooks fire around
+        it."""
+        return layer(self, *args)
+
 
 class LM(nn.Module):
     """``embed`` (vocab, d), ``lm_head`` (d, vocab) unless tied,
@@ -192,6 +211,11 @@ class LM(nn.Module):
         self.lm_head = None if lm_head is None else _param(lm_head)
         self.final_norm = _Params(**final_norm)
         self.blocks = nn.ModuleList(blocks)
+
+    def forward(self, entry, *args):
+        """``entry(self, *args)``: an entry point's body, run through the
+        module's call so that the model's hooks fire around it."""
+        return entry(self, *args)
 
 
 # ===================================================================== init
@@ -244,6 +268,78 @@ def init_lm(cfg: ModelConfig, *, generator: Optional[torch.Generator] = None,
         blocks.append(Block(norm1=_norm_init(d, cfg.norm, device), **mixer,
                             norm2=_norm_init(d, cfg.norm, device), **ffn))
     return LM(cfg, embed, _norm_init(d, cfg.norm, device), blocks, lm_head)
+
+
+# ===================================================================== axes
+# each weight's logical axes, as the reference's init functions name them
+_ATTN_AXES = {"wq": ("embed", "heads", "head_dim"), "wk": ("embed", "kv_heads", "head_dim"),
+              "wv": ("embed", "kv_heads", "head_dim"), "wo": ("heads", "head_dim", "embed")}
+_MLP_AXES = {"w_in": ("embed", "mlp"), "w_gate": ("embed", "mlp"), "w_out": ("mlp", "embed")}
+_MOE_AXES = {"router": ("embed", "experts_router"), "w_in": ("experts", "embed", "mlp"),
+             "w_gate": ("experts", "embed", "mlp"), "w_out": ("experts", "mlp", "embed")}
+_SSM_AXES = {"w_in": ("embed", "dinner"), "w_conv": ("conv_k", "dinner"),
+             "w_x": ("dinner", "ssm_proj"), "w_dt": ("ssm_proj", "dinner"),
+             "dt_bias": ("dinner",), "A_log": ("dinner", "ssm_state"), "D": ("dinner",),
+             "w_out": ("dinner", "embed")}
+
+
+def _norm_axes(cfg: ModelConfig) -> dict:
+    return {k: ("norm",) for k in (("scale",) if cfg.norm == "rmsnorm" else ("scale", "bias"))}
+
+
+def _ffn_axes(cfg: ModelConfig, table: dict) -> dict:
+    """``table`` without ``w_gate`` unless the activation is gated."""
+    gated = cfg.act in ("swiglu", "geglu")
+    return {k: ax for k, ax in table.items() if gated or k != "w_gate"}
+
+
+def _layer_axes(cfg: ModelConfig, i: int) -> dict:
+    """Layer ``i``'s groups -> leaf -> axes, the groups :func:`init_lm`
+    gives the layer."""
+    if cfg.family == "ssm":
+        return {"norm1": _norm_axes(cfg), "ssm": _SSM_AXES}
+    mixer = ("attn", _ATTN_AXES) if cfg.is_attn_layer(i) else ("ssm", _SSM_AXES)
+    ffn = ("moe", _MOE_AXES) if cfg.is_moe_layer(i) else ("mlp", _MLP_AXES)
+    return {"norm1": _norm_axes(cfg), mixer[0]: mixer[1], "norm2": _norm_axes(cfg),
+            ffn[0]: _ffn_axes(cfg, ffn[1])}
+
+
+def _flat_axes(prefix: str, groups: dict) -> dict:
+    """``{group: {leaf: axes}}`` keyed ``prefix.group.leaf``."""
+    return {f"{prefix}.{g}.{k}": ax for g, leaves in groups.items() for k, ax in leaves.items()}
+
+
+def param_axes(cfg: ModelConfig) -> dict:
+    """The logical axes of every parameter of :func:`init_lm`'s model,
+    keyed like ``LM.named_parameters()``: the reference's axes tree, each
+    layer's leaf without the leading ``"stack"`` of the reference's stacked
+    tree (layer s P + i is entry s of its ``sub_i``, as
+    :func:`repro_torch.convert.lm_from_jax` maps it).  Pure Python: nothing
+    is allocated."""
+    _check_decoder_only(cfg)
+    axes = {"embed": ("vocab", "embed")}
+    if not cfg.tie_embeddings:
+        axes["lm_head"] = ("embed", "vocab")
+    axes.update({f"final_norm.{k}": ax for k, ax in _norm_axes(cfg).items()})
+    for i in range(cfg.num_layers):
+        axes.update(_flat_axes(f"blocks.{i}", _layer_axes(cfg, i)))
+    return axes
+
+
+def cache_axes(cfg: ModelConfig) -> dict:
+    """The logical axes of :func:`init_cache`'s buffers, in its tree: the
+    reference's (each buffer stacked over a position's layers, ``"stack"``
+    first).  Pure Python: nothing is allocated."""
+    _check_decoder_only(cfg)
+    axes = {}
+    for i in range(min(stack_period(cfg), cfg.num_layers)):
+        if cfg.is_attn_layer(i):
+            ax = ("stack", "batch", "cache_seq", "kv_heads", "head_dim")
+            axes[f"sub_{i}"] = {"k": ax, "v": ax}
+        else:
+            axes[f"sub_{i}"] = {"conv": ("stack", "batch", "conv_k", "dinner"),
+                                "h": ("stack", "batch", "dinner", "ssm_state")}
+    return axes
 
 
 # ===================================================================== apply
@@ -339,6 +435,11 @@ def forward_lm(lm: LM, tokens: torch.Tensor, *, return_aux: bool = False,
     aux losses summed over the layers (float32 zeros without MoE layers),
     as the reference returns them, differentiable.  Under autograd each
     block is checkpointed as ``cfg.remat`` says."""
+    return lm(_forward, tokens, return_aux, patch_embeds)
+
+
+def _forward(lm: LM, tokens: torch.Tensor, return_aux: bool,
+             patch_embeds: Optional[torch.Tensor]):
     cfg = lm.cfg
     aux = None
     if return_aux:
@@ -347,7 +448,7 @@ def forward_lm(lm: LM, tokens: torch.Tensor, *, return_aux: bool = False,
     h = _embed_prompt(lm, tokens, patch_embeds)
     rope = _rope(cfg, torch.arange(h.shape[1], device=h.device))
     for blk in lm.blocks:
-        h, layer_aux = remat_call(cfg.remat, _block, blk, cfg, h, rope)
+        h, layer_aux = remat_call(cfg.remat, blk, _block, cfg, h, rope)
         if aux is not None and layer_aux is not None:
             for name, value in layer_aux.items():
                 aux[name] = aux[name] + value
@@ -451,6 +552,11 @@ def decode_lm(lm: LM, token: torch.Tensor, cache: dict, pos: int,
     ``start`` (B,): each batch slot's first owned position (see
     :func:`_decode_mask`).  Mamba layers have no positions: ``pos`` and
     ``start`` do not apply to them (to the ssm family at all)."""
+    return lm(_decode, token, cache, pos, start), cache
+
+
+def _decode(lm: LM, token: torch.Tensor, cache: dict, pos: int,
+            start: Optional[torch.Tensor]) -> torch.Tensor:
     cfg = lm.cfg
     h = _embed(lm, token[:, None])
     W, rope, valid = _attn_width(cache), None, None
@@ -458,14 +564,18 @@ def decode_lm(lm: LM, token: torch.Tensor, cache: dict, pos: int,
         rope = _rope(cfg, torch.full((1,), pos, device=h.device))  # a fill, not a host copy
         valid = _decode_mask(cfg, W, pos, start, h.device)
     for i, blk in enumerate(lm.blocks):
-        c = _layer_cache(cfg, cache, i)
-        x = apply_norm(h, blk.norm1.p, cfg.norm)
-        if hasattr(blk, "ssm"):
-            o = _ssm_step(ssm_decode_step, blk, cfg, x, c)
-        else:
-            o = _attn_decode(blk.attn.p, cfg, x, c["k"], c["v"], pos % W, rope, valid)
-        h, _ = _ffn(blk, cfg, h + o)
-    return _logits(lm, h)[:, 0], cache
+        h = blk(_decode_layer, cfg, h, _layer_cache(cfg, cache, i), pos, W, rope, valid)
+    return _logits(lm, h)[:, 0]
+
+
+def _decode_layer(blk: Block, cfg: ModelConfig, h: torch.Tensor, c: dict, pos: int,
+                  W: Optional[int], rope, valid) -> torch.Tensor:
+    x = apply_norm(h, blk.norm1.p, cfg.norm)
+    if hasattr(blk, "ssm"):
+        o = _ssm_step(ssm_decode_step, blk, cfg, x, c)
+    else:
+        o = _attn_decode(blk.attn.p, cfg, x, c["k"], c["v"], pos % W, rope, valid)
+    return _ffn(blk, cfg, h + o)[0]
 
 
 @torch.no_grad()
@@ -484,27 +594,36 @@ def prefill_lm(lm: LM, tokens: torch.Tensor, cache: dict, pos_offset: int = 0,
     window and scan state from the cache (zeros in a fresh one) and has no
     positions: ``pos_offset`` does not apply to it.
     """
+    return lm(_prefill, tokens, cache, pos_offset, patch_embeds), cache
+
+
+def _prefill(lm: LM, tokens: torch.Tensor, cache: dict, pos_offset: int,
+             patch_embeds: Optional[torch.Tensor]) -> torch.Tensor:
     cfg = lm.cfg
     h = _embed_prompt(lm, tokens, patch_embeds)
-    S = h.shape[1]
-    rope = _rope(cfg, pos_offset + torch.arange(S, device=h.device))
+    rope = _rope(cfg, pos_offset + torch.arange(h.shape[1], device=h.device))
     for i, blk in enumerate(lm.blocks):
-        c = _layer_cache(cfg, cache, i)
-        x = apply_norm(h, blk.norm1.p, cfg.norm)
-        if hasattr(blk, "ssm"):
-            o = _ssm_step(ssm_apply, blk, cfg, x, c)
+        h = blk(_prefill_layer, cfg, h, _layer_cache(cfg, cache, i), pos_offset, rope)
+    return _logits(lm, h[:, -1:, :])[:, 0]
+
+
+def _prefill_layer(blk: Block, cfg: ModelConfig, h: torch.Tensor, c: dict, pos_offset: int,
+                   rope) -> torch.Tensor:
+    S = h.shape[1]
+    x = apply_norm(h, blk.norm1.p, cfg.norm)
+    if hasattr(blk, "ssm"):
+        o = _ssm_step(ssm_apply, blk, cfg, x, c)
+    else:
+        o, (k, v) = _attn_apply(blk.attn.p, cfg, x, rope)
+        W = c["k"].shape[1]
+        if S >= W:
+            # last W tokens; ring slot of token t is (offset+t) % W
+            shift = (pos_offset + S - W) % W
+            kw, vw = k[:, -W:].roll(shift, dims=1), v[:, -W:].roll(shift, dims=1)
         else:
-            o, (k, v) = _attn_apply(blk.attn.p, cfg, x, rope)
-            W = c["k"].shape[1]
-            if S >= W:
-                # last W tokens; ring slot of token t is (offset+t) % W
-                shift = (pos_offset + S - W) % W
-                kw, vw = k[:, -W:].roll(shift, dims=1), v[:, -W:].roll(shift, dims=1)
-            else:
-                pad = (0, 0, 0, 0, 0, W - S)
-                kw = F.pad(k, pad).roll(pos_offset % W, dims=1)
-                vw = F.pad(v, pad).roll(pos_offset % W, dims=1)
-            c["k"].copy_(kw)
-            c["v"].copy_(vw)
-        h, _ = _ffn(blk, cfg, h + o)
-    return _logits(lm, h[:, -1:, :])[:, 0], cache
+            pad = (0, 0, 0, 0, 0, W - S)
+            kw = F.pad(k, pad).roll(pos_offset % W, dims=1)
+            vw = F.pad(v, pad).roll(pos_offset % W, dims=1)
+        c["k"].copy_(kw)
+        c["v"].copy_(vw)
+    return _ffn(blk, cfg, h + o)[0]

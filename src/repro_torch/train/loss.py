@@ -30,16 +30,20 @@ def lm_loss(
     labels: torch.Tensor,  # (B, S)
     mask: Optional[torch.Tensor] = None,  # (B, S) 1 = count
     z_loss_weight: float = 1e-4,
+    count: Optional[torch.Tensor] = None,
 ) -> tuple[torch.Tensor, dict]:
     """(total, metrics): the masked mean CE plus ``z_loss_weight`` times
     the masked mean of lse**2; metrics ``ce_loss``, ``z_loss``,
-    ``ppl_proxy`` (exp of the CE, capped at 20 nats) and ``tokens``."""
+    ``ppl_proxy`` (exp of the CE, capped at 20 nats) and ``tokens``.
+    ``count``: the tokens the sums are divided by, if not this batch's
+    (a data-parallel rank divides its sums by the global batch's count, so
+    that the ranks' losses add up to the global batch's mean)."""
     ce, lse = _ce_and_lse(logits, labels)
     if mask is None:
         mask = torch.ones_like(ce)
     mask = mask.float()
     tokens = mask.sum()
-    denom = torch.clamp(tokens, min=1.0)
+    denom = torch.clamp(tokens if count is None else count, min=1.0)
     loss = (ce * mask).sum() / denom
     zl = (lse * lse * mask).sum() / denom
     total = loss + z_loss_weight * zl

@@ -10,6 +10,13 @@ updated in place (one float32 temporary per tensor at a time), which
 keeps the optimizer's memory at the parameters plus two moments.  The
 schedules compute in float32 on the host with numpy, as the reference
 computes them in float32 on the device.
+
+Sharded parameters (the rule-sharded train step's DTensors, FSDP2 shards
+and replicated tensors) take the same update: :func:`global_norm` sums
+each shard's squares and reduces them once over the mesh, so it is the
+global norm; the moments live sharded like their parameters
+(:func:`adamw_init`), and clipping and the update run on each rank's local
+shards.  A mix of DTensors and plain tensors is refused.
 """
 from __future__ import annotations
 
@@ -19,6 +26,8 @@ from typing import Callable, Mapping, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Shard
 
 __all__ = [
     "AdamWConfig",
@@ -68,22 +77,63 @@ def constant_lr(v: float):
     return lambda step: np.float32(v)
 
 
+def _kind(tensors: Mapping[str, torch.Tensor]) -> bool:
+    """Whether the tensors are DTensors; raises ``TypeError`` on a mix."""
+    kinds = {isinstance(t, DTensor) for t in tensors.values()}
+    if len(kinds) > 1:
+        raise TypeError("a mix of DTensors and plain tensors: shard every parameter or none")
+    return kinds == {True}
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard (a view: writes land in the DTensor), else
+    ``t``."""
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _square_sum(t: torch.Tensor) -> torch.Tensor:
+    """The sum of ``t``'s squares in float32 (of a DTensor, its local
+    shard's), taken over them in row-major order whatever ``t``'s layout
+    (a tied embedding's gradient comes out of autograd transposed, FSDP2
+    keeps a shard row-major at an offset), so that a sharded tensor's
+    norm on one rank is the plain tensor's bit for bit."""
+    return torch.sum(torch.square(_local(t).float()).contiguous())
+
+
 def global_norm(tensors: Mapping[str, torch.Tensor]) -> torch.Tensor:
     """sqrt of the sum of squares of every tensor, in float32 (a 0-d tensor
-    on the tensors' device)."""
-    total = None
-    for t in tensors.values():
-        sq = torch.sum(torch.square(t.float()))
-        total = sq if total is None else total + sq
+    on the tensors' device).  DTensors, all on one 1-D mesh: each tensor's
+    local sum, those of replicated tensors kept on the mesh's first rank
+    only, summed over the ranks in one all-reduce, then added in the
+    tensors' order as for plain tensors (the same value on every rank)."""
+    if not _kind(tensors):
+        total = None
+        for t in tensors.values():
+            sq = _square_sum(t)
+            total = sq if total is None else total + sq
+        return torch.sqrt(total)
+    ts = list(tensors.values())
+    mesh = ts[0].device_mesh
+    if mesh.ndim != 1 or any(t.device_mesh != mesh for t in ts):
+        raise ValueError("global_norm takes DTensors on one 1-D mesh")
+    first = mesh.get_local_rank() == 0
+    sq = torch.stack([_square_sum(t) if first or any(isinstance(p, Shard) for p in t.placements)
+                      else torch.zeros((), dtype=torch.float32, device=_local(t).device)
+                      for t in ts])
+    dist.all_reduce(sq, group=mesh.get_group())
+    total = sq[0]
+    for x in sq[1:]:
+        total = total + x
     return torch.sqrt(total)
 
 
-def clip_by_global_norm(tensors: Mapping[str, torch.Tensor], max_norm: float):
+def clip_by_global_norm(tensors: Mapping[str, torch.Tensor], max_norm: float, norm=None):
     """(clipped, norm): each tensor times min(1, max_norm / norm), computed
-    in float32 and cast back to the tensor's type."""
-    g = global_norm(tensors)
+    in float32 and cast back to the tensor's type (a DTensor's local shard
+    for a DTensor).  ``norm``: the tensors' :func:`global_norm` if known."""
+    g = global_norm(tensors) if norm is None else norm
     scale = torch.clamp(max_norm / torch.clamp(g, min=1e-9), max=1.0)
-    return {k: (t.float() * scale).to(t.dtype) for k, t in tensors.items()}, g
+    return {k: (_local(t).float() * scale).to(t.dtype) for k, t in tensors.items()}, g
 
 
 @dataclasses.dataclass
@@ -97,10 +147,17 @@ class AdamWState:
 
 
 def adamw_init(params: Mapping[str, torch.Tensor], cfg: AdamWConfig) -> AdamWState:
+    """Zero moments in ``moment_dtype``; a DTensor parameter's sharded as
+    it is."""
     md = getattr(torch, cfg.moment_dtype)
-    return AdamWState(m={k: torch.zeros(p.shape, dtype=md, device=p.device) for k, p in params.items()},
-                      v={k: torch.zeros(p.shape, dtype=md, device=p.device) for k, p in params.items()},
-                      count=0)
+
+    def zeros(p):
+        if isinstance(p, DTensor):
+            return torch.zeros_like(p, dtype=md)
+        return torch.zeros(p.shape, dtype=md, device=p.device)
+
+    return AdamWState(m={k: zeros(p) for k, p in params.items()},
+                      v={k: zeros(p) for k, p in params.items()}, count=0)
 
 
 @torch.no_grad()
@@ -110,17 +167,19 @@ def adamw_update(grads: Mapping[str, torch.Tensor], state: AdamWState,
     metrics ``grad_norm`` (before clipping, float32 0-d tensor) and ``lr``."""
     if set(grads) != set(params) or set(state.m) != set(params):
         raise ValueError("grads, moments and params must have the same keys")
+    if _kind(grads) != _kind(params):
+        raise TypeError("grads and params must be both DTensors or both plain tensors")
     count = state.count + 1
     grad_norm = global_norm(grads)
     if cfg.clip_norm is not None:
-        grads, _ = clip_by_global_norm(grads, cfg.clip_norm)
+        grads, _ = clip_by_global_norm(grads, cfg.clip_norm, norm=grad_norm)
     b1, b2 = cfg.b1, cfg.b2
     c1 = float(np.float32(1.0) - np.float32(b1) ** np.float32(count))
     c2 = float(np.float32(1.0) - np.float32(b2) ** np.float32(count))
     lr = cfg.lr_at(count)
     for k, p in params.items():
-        m, v = state.m[k], state.v[k]
-        gf = grads[k].float()
+        p, m, v = _local(p), _local(state.m[k]), _local(state.v[k])
+        gf = _local(grads[k]).float()
         mf = m.float() * b1 + gf * (1 - b1)
         vf = v.float() * b2 + gf * gf * (1 - b2)
         step = (mf / c1) / (torch.sqrt(vf / c2) + cfg.eps)

@@ -19,8 +19,26 @@ family: dense, moe, ssm, hybrid, vlm and encdec.
   microbatches as the others are).
 
 The state is ``{"params": LM, "opt": AdamWState, "step": int}``; the
-reference's is the same tree of arrays.  The ZeRO-2 gradient shardings
-have no counterpart here (one device).
+reference's is the same tree of arrays.
+
+The rule-sharded step (the reference's ``grad_shardings`` path, ZeRO-2
+and FSDP over the "data" mesh axis): :func:`shard_lm` wraps each block and
+then the model in FSDP2's ``fully_shard`` on the mesh's "data" dim, each
+weight sharded on the dim that ``RULES_TRAIN`` puts on "data" (the
+d_model dim, "embed"; dim 0 where it has none), the float32 parameters of
+a model in another type whole on every rank, and the state built after
+it holds moments placed likewise.  The step sees DTensor parameters and
+takes the sharded route: each rank's batch is its share of the global
+batch (its own ``shard(rank, world)`` stream), the token count is summed
+over the ranks first and each rank divides its sums by it, so the ranks'
+losses add up to the global batch's mean as the reference's loss is; the
+backward fills the sharded ``.grad`` through FSDP2's reduce-scatter (a
+sum: the divide factor is set to 1), AdamW updates each rank's shards
+(:mod:`.optimizer`), and the metrics are the global batch's.  The MoE aux
+losses enter as the mean of the ranks' (each rank's router statistics are
+its own batch's).  FSDP2 gathers a layer's weights as plain tensors before
+its forward, so the attention and scan kernels see plain tensors, never a
+DTensor.  The sharded route takes one microbatch.
 """
 from __future__ import annotations
 
@@ -28,7 +46,10 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Replicate, distribute_tensor
 
+from ..distributed.sharding import RULES_TRAIN, ShardingRules, fsdp_placement_fn
 from ..models import Model
 from ..precision import full_float32_matmul
 from .loss import lm_loss
@@ -42,6 +63,7 @@ __all__ = [
     "make_serve_steps",
     "train_state_tree",
     "load_train_state_tree",
+    "shard_lm",
 ]
 
 TrainState = dict  # {"params": LM, "opt": AdamWState, "step": int}
@@ -61,23 +83,40 @@ def make_train_state(model: Model, opt_cfg: AdamWConfig, *,
 def train_state_tree(state: TrainState) -> dict:
     """The state as the checkpoint manager stores it: ``params`` and the
     moments ``opt/m``, ``opt/v`` keyed by parameter name, ``opt/count`` and
-    ``step`` as int32, as the reference keeps them."""
+    ``step`` as int32, as the reference keeps them.  A sharded state's
+    tensors are gathered whole (a collective: every rank of the mesh calls
+    it), so a checkpoint holds unsharded arrays whatever the mesh."""
     opt = state["opt"]
-    return {"params": dict(state["params"].named_parameters()),
-            "opt": {"m": dict(opt.m), "v": dict(opt.v), "count": np.int32(opt.count)},
+
+    def whole(tensors) -> dict:
+        return {k: t.full_tensor() if isinstance(t, DTensor) else t for k, t in tensors}
+
+    return {"params": whole(state["params"].named_parameters()),
+            "opt": {"m": whole(opt.m.items()), "v": whole(opt.v.items()),
+                    "count": np.int32(opt.count)},
             "step": np.int32(state["step"])}
+
+
+def _copy_into(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """``src`` (whole) into ``dst``; into a DTensor's local shard, the
+    same shard of ``src``."""
+    if isinstance(dst, DTensor):
+        src = distribute_tensor(src.to(dst.device), dst.device_mesh, dst.placements).to_local()
+        dst = dst.to_local()
+    dst.copy_(src)
 
 
 @torch.no_grad()
 def load_train_state_tree(state: TrainState, tree: dict) -> None:
-    """Copy a restored :func:`train_state_tree` into ``state`` in place."""
+    """Copy a restored :func:`train_state_tree` into ``state`` in place
+    (into each rank's shards where the state is sharded)."""
     params = dict(state["params"].named_parameters())
     for name, p in params.items():
-        p.copy_(tree["params"][name])
+        _copy_into(p, tree["params"][name])
     opt = state["opt"]
     for name in params:
-        opt.m[name].copy_(tree["opt"]["m"][name])
-        opt.v[name].copy_(tree["opt"]["v"][name])
+        _copy_into(opt.m[name], tree["opt"]["m"][name])
+        _copy_into(opt.v[name], tree["opt"]["v"][name])
     opt.count = int(np.asarray(tree["opt"]["count"]).item())
     state["step"] = int(np.asarray(tree["step"]).item())
 
@@ -89,15 +128,19 @@ def make_loss_fn(model: Model, *, moe_lb_weight: float = 0.01, moe_z_weight: flo
     ``cfg.moe`` is set (weighted into ``total``), else None."""
     cfg = model.cfg
 
-    def loss_fn(lm, batch: dict):
+    def loss_fn(lm, batch: dict, count: Optional[torch.Tensor] = None, ranks: int = 1):
+        """``count``: the global batch's tokens, on a rank of ``ranks``
+        (the aux losses then enter divided by ``ranks``)."""
         aux = None
         if cfg.moe is None:
             logits = model.forward(lm, batch)
         else:
             logits, aux = model.forward(lm, batch, return_aux=True)
         total, metrics = lm_loss(logits, batch["labels"], batch.get("mask"),
-                                 z_loss_weight=z_loss_weight)
+                                 z_loss_weight=z_loss_weight, count=count)
         if aux is not None:
+            if ranks > 1:
+                aux = {k: v / ranks for k, v in aux.items()}
             total = total + moe_lb_weight * aux["lb_loss"] + moe_z_weight * aux["z_loss"]
             metrics["moe_lb_loss"] = aux["lb_loss"]
         metrics["loss"] = total
@@ -146,9 +189,50 @@ def make_train_step(
                 m_acc[k] = m_acc.get(k, 0.0) + v.float()
         return ({k: v / n for k, v in g_acc.items()}, {k: v / n for k, v in m_acc.items()})
 
+    def sharded(lm, params: dict, batch: dict):
+        """(grads, params) as DTensors on the data mesh (the replicated
+        parameters as replicated DTensors over their own storage), and the
+        global batch's metrics."""
+        if num_microbatches > 1:
+            raise ValueError("the rule-sharded step takes one microbatch")
+        mesh = next(p for p in params.values() if isinstance(p, DTensor)).device_mesh
+        group = mesh.get_group()
+        mask = batch.get("mask")
+        count = (mask.float() if mask is not None else
+                 torch.ones(batch["labels"].shape, dtype=torch.float32,
+                            device=batch["labels"].device)).sum()
+        dist.all_reduce(count, group=group)
+        with torch.enable_grad(), full_float32_matmul():
+            total, metrics, _ = loss_fn(lm, batch, count, dist.get_world_size(group))
+            total.backward()
+        if dist.get_world_size(group) > 1:  # FSDP2 reduced the shards; sum the whole ones
+            for p in params.values():
+                if not isinstance(p, DTensor):
+                    dist.all_reduce(p.grad, group=group)
+        names = sorted(k for k in metrics if k != "ppl_proxy")
+        summed = torch.stack([metrics[k].detach().float() for k in names])
+        dist.all_reduce(summed, group=group)  # each rank's share of the global values
+        metrics = dict(zip(names, summed.unbind()))
+        metrics["ppl_proxy"] = torch.exp(torch.clamp(metrics["ce_loss"], max=20.0))
+
+        def on_mesh(t: torch.Tensor) -> torch.Tensor:
+            if isinstance(t, DTensor):
+                return t
+            return DTensor.from_local(t.detach(), mesh, (Replicate(),), run_check=False)
+
+        return ({k: on_mesh(p.grad) for k, p in params.items()},
+                {k: on_mesh(p) for k, p in params.items()}, metrics)
+
     def train_step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
         lm = state["params"]
         params = dict(lm.named_parameters())
+        if any(isinstance(p, DTensor) for p in params.values()):
+            grads, on_mesh, metrics = sharded(lm, params, batch)
+            metrics.update(adamw_update(grads, state["opt"], on_mesh, opt_cfg))
+            for p in params.values():
+                p.grad = None
+            state["step"] += 1
+            return state, metrics
         if num_microbatches > 1:
             grads, metrics = accumulated(lm, params, batch)
         else:
@@ -158,6 +242,45 @@ def make_train_step(
         return state, metrics
 
     return train_step
+
+
+def shard_lm(model: Model, params: torch.nn.Module, device_mesh,
+             rules: ShardingRules = RULES_TRAIN) -> torch.nn.Module:
+    """``params`` (the model's module) sharded in place over
+    ``device_mesh``'s "data" dim, and returned: each block of its block
+    lists, then the model itself, wrapped in FSDP2's ``fully_shard``, each
+    parameter in ``cfg.param_dtype`` sharded on the dim that ``rules``
+    put on "data" as its spec resolves on that dim (dim 0 where none;
+    :func:`~repro_torch.distributed.sharding.fsdp_placement_fn`).  FSDP2
+    gathers one dtype a unit, so the parameters the model keeps in float32
+    whatever ``param_dtype`` (the norms, the scan's ``dt_bias``, ``A_log``
+    and ``D``) stay whole on every rank, as ``RULES_TRAIN`` leaves the
+    norms, and the step sums their gradients over the ranks.  The shards'
+    reduce-scatter sums (divide factor 1): the step divides by the global
+    token count itself.  A "model" dim larger than 1 raises: the
+    tensor-parallel forward is not ported (ROADMAP.md queue A #19)."""
+    from torch.distributed.fsdp import fully_shard
+
+    names = device_mesh.mesh_dim_names or ()
+    if "data" not in names:
+        raise ValueError(f"the mesh needs a 'data' dim, has {names}")
+    for name in names:
+        if name != "data" and device_mesh[name].size() > 1:
+            raise ValueError(f"mesh dim {name!r} of size {device_mesh[name].size()}: only "
+                             f"'data' may shard the train step")
+    dp = device_mesh if names == ("data",) else device_mesh["data"]
+    dtype = getattr(torch, model.cfg.param_dtype)
+    named = dict(params.named_parameters())
+    kept = {p for p in named.values() if p.dtype != dtype}
+    place = fsdp_placement_fn(model.param_axes(), rules, dp,
+                              {n: p for n, p in named.items() if p not in kept})
+    wrapped = [blk for child in params.children() if isinstance(child, torch.nn.ModuleList)
+               for blk in child]
+    for module in (*wrapped, params):
+        fully_shard(module, mesh=dp, shard_placement_fn=place, ignored_params=kept)
+        module.set_gradient_divide_factor(1.0)
+        module.set_force_sum_reduction_for_comms(True)  # a plain sum: gloo has no PREMUL_SUM
+    return params
 
 
 def make_serve_steps(model: Model) -> tuple[Callable, Callable]:

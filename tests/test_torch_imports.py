@@ -61,6 +61,8 @@ def test_port_imports_with_jax_and_repro_blocked():
         "repro_torch.models.moe", "repro_torch.models.flags", "repro_torch.configs.gemma_7b",
         "repro_torch.configs.phi3_medium_14b", "repro_torch.configs.h2o_danube_3_4b",
         "repro_torch.configs.mixtral_8x7b", "repro_torch.configs.phi3_5_moe",
+        "repro_torch.distributed.sharding", "repro_torch.distributed.context",
+        "repro_torch.distributed.pipeline",
     } <= names
 
 
