@@ -565,6 +565,45 @@ Parallelism (slice 21), after phase 36:
    beside the card's name and power limit, and one more step of each
    under ``torch.profiler``: wall ms, the device's kernel ms and launches.
 
+Tensor and expert parallelism (slice 22): phase 35 goes on through the
+model axis, phase 37 takes FSDP2 x TP, and phase 38 runs after 37:
+
+35. (model axis) after the plain bf16 serve, jamba at HYBRID_LAYERS is
+   served again from the same weights through ``serve_batch``'s mesh
+   path: a one-rank NCCL group and a (1, 1) ("data", "model") mesh under
+   ``RULES_DECODE``, the weights placed on it over their own storage (the
+   shards' data pointers checked), the cache beside them, prefill and
+   WIDE_GEN - 1 decode steps inside the sharding context, the attention
+   and scan counts set to 0 just before and read just after (one
+   ``flash_fwd_hopper`` and 4 ``ssm_scan_hopper`` launches a prefill);
+   every step's logits and the greedy tokens bitwise the plain run's
+   (else the first layer whose prefill output differs is printed and the
+   logits held to the bf16 rule); first-token and decode ms a step beside
+   the plain run's: DTensor's host cost.
+37. (routes) the sharded steps run twice from the same weights, each
+   beside the plain run with the same checks: FSDP2 alone (``shard_lm``
+   on a ("data",) mesh, as before) and FSDP2 x TP (``shard_lm`` on a
+   (1, 1) ("data", "model") mesh: the parameters placed on its "model"
+   dim first, ``distribute_params`` on ``mesh["model"]``, then sharded
+   over "data" by FSDP2; the step runs the model as DTensors inside the
+   rules' sharding context).  Both routes' step ms and traced steps are
+   printed; the checkpoint is restored from the FSDP2 x TP state.
+38. model_axis_kernels: in one process, each rank's slice of the three
+   kernels' inputs at model sizes 2 and 4, picked by the helpers the
+   model uses (``tensor_parallel.chunk_range`` and ``attention_heads``),
+   through the Hopper kernels: jamba's prefill attention (4, 4,608, 64
+   heads over 8, 128), smollm-360m's training attention with lse, dq and
+   dk/dv at its uneven 15 / 5 split over 2, and falcon-mamba-7b's training
+   scan and its backward (4, 2,048, 8,192, N 16).  The slices' outputs put
+   together equal the whole call's bitwise (attention per head; the
+   scan's y, h, dx, ddt, dA and dD per channel); the dk/dv of kv heads
+   several ranks read, and the scan's dB and dC, summed over the slices,
+   are printed beside the whole with their worst error, dB and dC within
+   float32 rounding (MODEL_AXIS_SUM_RTOL), dk/dv (bf16 outputs: one
+   rounding a slice, where the whole call rounds its float32 sum once)
+   within a bf16 rounding of each; every slice's launch counted by the
+   Hopper counters.
+
 Then the kernels line (one entry per kernel), the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.  Any failure
 exits non-zero before it.
@@ -921,6 +960,15 @@ SSM_TRAIN_LAYERS, SSM_TRAIN_CPU_LAYERS = 8, 2
 # the rule-sharded train step (phase 37): steps of each run, the DDP hook's
 # weight (rows, columns: 2,100 values, not a whole number of 256-blocks)
 SHARDED_STEPS, HOOK_SHAPE = 3, (7, 300)
+# per-rank slices of the kernels (phase 38): jamba's prefill attention
+# (B, S, H, Hkv, D), smollm-360m's training attention, falcon-mamba-7b's
+# training scan (B, S, d_inner, N); the "model" sizes; the sums over slices
+# (dB, dC) within this share of the whole's largest magnitude
+MODEL_AXIS_ATTN = (4, 4608, 64, 8, 128)
+MODEL_AXIS_TRAIN_ATTN = (4, 2048, 15, 5, 64)
+MODEL_AXIS_SCAN = (4, 2048, 8192, 16)
+MODEL_AXIS_SIZES = (2, 4)
+MODEL_AXIS_SUM_RTOL = 1e-5
 
 
 def fail(msg: str) -> None:
@@ -1586,9 +1634,12 @@ def main() -> None:
         wide_train[key]["dots_launches"] = dots[key]
     seconds["remat_dots"] = time.perf_counter() - t0 - sum(seconds.values())
 
-    # 35. the hybrid family: jamba-1.5-large served at 5 of its 72 layers
-    hybrid, hybrid_scan = hybrid_serve_phase(dev, float(max_sm_mhz) * 1e6)
+    # 35. the hybrid family: jamba-1.5-large served at 5 of its 72 layers,
+    #     plainly and through the model axis
+    hybrid, hybrid_scan = hybrid_serve_phase(dev, float(max_sm_mhz) * 1e6, smi)
     family_kernels[2]["launches"] = hybrid["hopper"]
+    family_kernels[2]["model_axis_route_launches"] = hybrid["model_axis"]["hopper"]
+    hybrid_scan["model_axis_route_launches"] = hybrid["model_axis"]["ssm_scan_hopper"]
     hybrid_scan["launches"] = hybrid["ssm_scan_hopper"]
     torch.cuda.empty_cache()
     seconds["hybrid_serve"] = time.perf_counter() - t0 - sum(seconds.values())
@@ -1598,12 +1649,22 @@ def main() -> None:
     torch.cuda.empty_cache()
     seconds["ssm_train"] = time.perf_counter() - t0 - sum(seconds.values())
 
-    # 37. the rule-sharded train step (FSDP2) on a one-rank NCCL mesh
+    # 37. the rule-sharded train step (FSDP2 x TP) on a one-rank NCCL mesh
     sharded = sharded_train_phase(dev, smi)
     for entry, key in zip(train_kernels, ("fwd", "dq", "dkv")):
         entry["sharded_launches"] = sharded[key]
     torch.cuda.empty_cache()
     seconds["sharded_train"] = time.perf_counter() - t0 - sum(seconds.values())
+
+    # 38. each rank's slice of the kernels at model sizes 2 and 4
+    model_axis = model_axis_kernel_phase(dev, smi)
+    family_kernels[2]["model_axis_launches"] = model_axis["jamba_attention"]
+    for entry, key in zip(train_kernels, ("fwd", "dq", "dkv")):
+        entry["model_axis_launches"] = model_axis[key]
+    ssm_train_kernels[0]["model_axis_launches"] = model_axis["scan_bwd"]
+    ssm_train_kernels[1]["model_axis_launches"] = model_axis["scan"]
+    torch.cuda.empty_cache()
+    seconds["model_axis_kernels"] = time.perf_counter() - t0 - sum(seconds.values())
     emit({"phase": "other_configs_seconds", **seconds,
           "script_seconds_so_far": time.perf_counter() - script_t0})
 
@@ -1785,9 +1846,10 @@ def _traced_step(fn, state, batch) -> dict:
 
 
 def sharded_train_phase(dev, smi: str) -> dict:
-    """Phase 37: the rule-sharded train step on a one-rank NCCL mesh beside
-    the plain step; returns the attention kernels' launches in the sharded
-    run."""
+    """Phase 37: the rule-sharded train step on a one-rank NCCL group by its
+    two routes, FSDP2 alone on a ("data",) mesh and FSDP2 x TP on a
+    ("data", "model") mesh, each from the same weights beside the plain
+    step; returns the attention kernels' launches in the FSDP2 x TP run."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -1814,10 +1876,12 @@ def sharded_train_phase(dev, smi: str) -> dict:
                             rank=0, world_size=1, device_id=dev)
     try:
         mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+        mesh_dp = init_device_mesh("cuda", (1,), mesh_dim_names=("data",))
         cfg = get_config(ARCH)
         model = Model(cfg)
         opt_cfg = AdamWConfig(lr=constant_lr(CPU_STEP_LR), weight_decay=0.01)
         lm = model.init(generator=torch.Generator(device=dev).manual_seed(37), device=dev)
+        lm_fsdp = shard_lm(model, copy.deepcopy(lm), mesh_dp)
         lm_sharded = shard_lm(model, copy.deepcopy(lm), mesh)
         loader = build_loader(os.path.join(HERE, "build", "chip_smoke_corpus"), TRAIN_SEQ,
                               TRAIN_BATCH, n_tokens=TRAIN_CORPUS_TOKENS,
@@ -1835,7 +1899,7 @@ def sharded_train_phase(dev, smi: str) -> dict:
             fn = make_train_step(model, opt_cfg)
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats(dev)
-            resident = torch.cuda.memory_allocated(dev)  # both models' weights, the other's state
+            resident = torch.cuda.memory_allocated(dev)  # the copies' weights, earlier states
             if counted:
                 for entry in (fa.flash_attention_fwd_lse, fab.flash_attention_bwd_dq,
                               fab.flash_attention_bwd_dkv):
@@ -1853,50 +1917,61 @@ def sharded_train_phase(dev, smi: str) -> dict:
             return state, fn, metrics, step_ms, (torch.cuda.max_memory_allocated(dev), resident)
 
         plain_state, plain_fn, plain_m, plain_ms, plain_peak = run(lm, False)
-        state, fn, metrics, step_ms, peak = run(lm_sharded, True)
-        launches = {"fwd": fa.flash_attention_fwd_lse.launches,
-                    "dq": fab.flash_attention_bwd_dq.launches,
-                    "dkv": fab.flash_attention_bwd_dkv.launches}
-        hopper = {"fwd": fa.hopper_launches, "dq": fab.flash_attention_bwd_dq.hopper_launches,
-                  "dkv": fab.flash_attention_bwd_dkv.hopper_launches}
-        per_step = {"fwd": 2 * cfg.num_layers, "dq": cfg.num_layers, "dkv": cfg.num_layers}
-        if launches != {k: n * SHARDED_STEPS for k, n in per_step.items()} or hopper != launches:
-            fail(f"the sharded steps launched {launches} attention kernels, {hopper} through the "
-                 f"Hopper kernels, in {SHARDED_STEPS} steps; need {per_step} a step, all Hopper")
-        if not all(math.isfinite(m["loss"]) for m in metrics):
-            fail(f"non-finite sharded losses: {metrics}")
-
-        # the two runs: bitwise, else within phase 12's rule with the differences printed
         plain_t = train_state_tree(plain_state)
-        tree = train_state_tree(state)
-        flat = {f"params/{k}": v for k, v in tree["params"].items()}
-        flat.update({f"m/{k}": v for k, v in tree["opt"]["m"].items()})
-        flat.update({f"v/{k}": v for k, v in tree["opt"]["v"].items()})
         want = {f"params/{k}": v for k, v in plain_t["params"].items()}
         want.update({f"m/{k}": v for k, v in plain_t["opt"]["m"].items()})
         want.update({f"v/{k}": v for k, v in plain_t["opt"]["v"].items()})
-        bitwise = metrics == plain_m and all(torch.equal(flat[k], want[k]) for k in want)
-        result = {"bitwise_equal": bitwise, "tensors_compared": len(want)}
-        if not bitwise:
-            gnorm_rel = max(abs(m["grad_norm"] / p["grad_norm"] - 1) for m, p in zip(metrics, plain_m))
-            share, worst = 1.0, 0.0
-            for k in (k for k in want if k.startswith("params/")):
-                d = (flat[k].float() - want[k].float()).abs()
-                share = min(share, float((d <= CPU_PARAM_TOL).float().mean()))
-                worst = max(worst, float(d.max()))
-            result.update(largest_differences=_largest_differences(flat, want),
-                          grad_norm_rel_err=gnorm_rel, param_min_share_within_tol=share,
-                          param_max_abs_err=worst)
-            if not (gnorm_rel <= CPU_GNORM_RTOL and share >= CPU_PARAM_SHARE
-                    and worst <= 2 * SHARDED_STEPS * CPU_STEP_LR + CPU_PARAM_TOL):
-                fail(f"the sharded and plain steps disagree beyond phase 12's rule: {result}")
+        per_step = {"fwd": 2 * cfg.num_layers, "dq": cfg.num_layers, "dkv": cfg.num_layers}
+        routes = {}
+        for route, params in (("fsdp2", lm_fsdp), ("fsdp2_tp", lm_sharded)):
+            state, fn, metrics, step_ms, peak = run(params, True)
+            launches = {"fwd": fa.flash_attention_fwd_lse.launches,
+                        "dq": fab.flash_attention_bwd_dq.launches,
+                        "dkv": fab.flash_attention_bwd_dkv.launches}
+            hopper = {"fwd": fa.hopper_launches, "dq": fab.flash_attention_bwd_dq.hopper_launches,
+                      "dkv": fab.flash_attention_bwd_dkv.hopper_launches}
+            if launches != {k: n * SHARDED_STEPS for k, n in per_step.items()} or hopper != launches:
+                fail(f"the {route} steps launched {launches} attention kernels, {hopper} through "
+                     f"the Hopper kernels, in {SHARDED_STEPS} steps; need {per_step} a step, "
+                     f"all Hopper")
+            if not all(math.isfinite(m["loss"]) for m in metrics):
+                fail(f"non-finite {route} losses: {metrics}")
+
+            # against the plain run: bitwise, else within phase 12's rule with
+            # the differences printed
+            tree = train_state_tree(state)
+            flat = {f"params/{k}": v for k, v in tree["params"].items()}
+            flat.update({f"m/{k}": v for k, v in tree["opt"]["m"].items()})
+            flat.update({f"v/{k}": v for k, v in tree["opt"]["v"].items()})
+            bitwise = metrics == plain_m and all(torch.equal(flat[k], want[k]) for k in want)
+            result = {"bitwise_equal": bitwise, "tensors_compared": len(want)}
+            if not bitwise:
+                gnorm_rel = max(abs(m["grad_norm"] / p["grad_norm"] - 1)
+                                for m, p in zip(metrics, plain_m))
+                share, worst = 1.0, 0.0
+                for k in (k for k in want if k.startswith("params/")):
+                    d = (flat[k].float() - want[k].float()).abs()
+                    share = min(share, float((d <= CPU_PARAM_TOL).float().mean()))
+                    worst = max(worst, float(d.max()))
+                result.update(largest_differences=_largest_differences(flat, want),
+                              grad_norm_rel_err=gnorm_rel, param_min_share_within_tol=share,
+                              param_max_abs_err=worst)
+                if not (gnorm_rel <= CPU_GNORM_RTOL and share >= CPU_PARAM_SHARE
+                        and worst <= 2 * SHARDED_STEPS * CPU_STEP_LR + CPU_PARAM_TOL):
+                    fail(f"the {route} and plain steps disagree beyond phase 12's rule: {result}")
+            del flat
+            routes[route] = {"state": state, "fn": fn, "tree": tree, "metrics": metrics,
+                             "step_ms": step_ms, "peak": peak, "launches": launches,
+                             "hopper": hopper, "result": result}
         del plain_t, want
 
         # one more step of each under the profiler (after the counts and the
-        # comparison): the device's kernel time against the wall
-        traced = {"plain": _traced_step(plain_fn, plain_state, batches[0]),
-                  "sharded": _traced_step(fn, state, batches[0])}
+        # comparisons): the device's kernel time against the wall
+        traced = {"plain": _traced_step(plain_fn, plain_state, batches[0])}
+        for route, r in routes.items():
+            traced[route] = _traced_step(r["fn"], r["state"], batches[0])
         del plain_state
+        state, tree = routes["fsdp2_tp"]["state"], routes["fsdp2_tp"]["tree"]
 
         # the step-3 checkpoint restored onto the mesh
         t0 = time.perf_counter()
@@ -1914,7 +1989,9 @@ def sharded_train_phase(dev, smi: str) -> dict:
             fail(f"the re-meshed checkpoint differs in {differ[:8]} or its loader state "
                  f"{manifest['loader_state']} is not {loader_state}")
         remesh_s = time.perf_counter() - t0
-        del restored, tree, flat, state, lm, lm_sharded
+        del restored, tree, state, lm, lm_sharded, lm_fsdp
+        for r in routes.values():
+            del r["state"], r["fn"], r["tree"]
 
         # the int8 error-feedback hook under DDP on the group, two steps
         gen = torch.Generator(device=dev).manual_seed(11)
@@ -1937,21 +2014,35 @@ def sharded_train_phase(dev, smi: str) -> dict:
     finally:
         dist.destroy_process_group()
     shutil.rmtree(root, ignore_errors=True)
+    tp_run, dp_run = routes["fsdp2_tp"], routes["fsdp2"]
     emit({"phase": "sharded_train", "arch": ARCH, "layers": cfg.num_layers,
           "d_model": cfg.d_model, "dtype": cfg.compute_dtype, "remat": cfg.remat,
           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": SHARDED_STEPS,
-          "mesh": {"data": 1, "model": 1}, "backend": "nccl", "nvidia_smi": smi,
-          "sharded_step_ms": step_ms, "plain_step_ms": plain_ms,
-          "sharded_peak_device_mem_gb": peak[0] / 1e9, "plain_peak_device_mem_gb": plain_peak[0] / 1e9,
-          "sharded_resident_at_start_gb": peak[1] / 1e9,
+          "backend": "nccl", "nvidia_smi": smi,
+          "routes": {"fsdp2": {"mesh": {"data": 1}, "route": "FSDP2 over 'data' alone "
+                               "(shard_lm on a ('data',) mesh)"},
+                     "fsdp2_tp": {"mesh": {"data": 1, "model": 1},
+                                  "route": "FSDP2 over 'data' x TP placements on 'model' "
+                                           "(shard_lm on a 2-D mesh)"}},
+          "sharded_step_ms": tp_run["step_ms"], "fsdp2_step_ms": dp_run["step_ms"],
+          "plain_step_ms": plain_ms,
+          "sharded_peak_device_mem_gb": tp_run["peak"][0] / 1e9,
+          "fsdp2_peak_device_mem_gb": dp_run["peak"][0] / 1e9,
+          "plain_peak_device_mem_gb": plain_peak[0] / 1e9,
+          "sharded_resident_at_start_gb": tp_run["peak"][1] / 1e9,
+          "fsdp2_resident_at_start_gb": dp_run["peak"][1] / 1e9,
           "plain_resident_at_start_gb": plain_peak[1] / 1e9,
           "traced_step": traced,
-          "losses": [m["loss"] for m in metrics], "plain_losses": [m["loss"] for m in plain_m],
-          "grad_norms": [m["grad_norm"] for m in metrics],
-          "launches": launches, "hopper_launches": hopper, **result,
+          "losses": [m["loss"] for m in tp_run["metrics"]],
+          "fsdp2_losses": [m["loss"] for m in dp_run["metrics"]],
+          "plain_losses": [m["loss"] for m in plain_m],
+          "grad_norms": [m["grad_norm"] for m in tp_run["metrics"]],
+          "launches": tp_run["launches"], "hopper_launches": tp_run["hopper"],
+          "fsdp2_launches": dp_run["launches"], "fsdp2_hopper_launches": dp_run["hopper"],
+          **tp_run["result"], "fsdp2": dp_run["result"],
           "remesh_bitwise": True, "remesh_s": remesh_s, "ddp_hook_bitwise": True,
           "seconds": time.perf_counter() - t_phase})
-    return launches
+    return tp_run["launches"]
 
 
 KERNEL_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
@@ -4404,7 +4495,7 @@ def _prefill_len(cfg, prompt_len: int, inputs: dict) -> int:
 
 
 def _serve_arch(dev, cfg, prompts, phase: str, extra: dict, *, inputs=None,
-                gen: int = WIDE_GEN) -> dict:
+                gen: int = WIDE_GEN, after=None) -> dict:
     """Serve ``prompts`` (with ``inputs``, the vlm's ``patch_embeds`` or
     encdec's ``frames``, numpy) with ``cfg`` at full width on the card in
     bf16: weights drawn there from a seeded generator, a warm-up serve of
@@ -4413,7 +4504,10 @@ def _serve_arch(dev, cfg, prompts, phase: str, extra: dict, *, inputs=None,
     prefill attention layer (encdec: every encoder layer) through the
     Hopper kernel, also counted as wide past head_dim 128, and every
     Mamba layer's scan through ``ssm_scan_hopper`` (the hybrid family's).
-    Emits the phase line; returns the launch counts."""
+    Emits the phase line; returns the launch counts, with ``after(model,
+    params, tokens, logits, timings)``'s result under "model_axis" where
+    ``after`` is given (called with the weights before they are freed,
+    and the timed serve's tokens, every step's logits and its timings)."""
     import numpy as np
     import torch
 
@@ -4432,11 +4526,11 @@ def _serve_arch(dev, cfg, prompts, phase: str, extra: dict, *, inputs=None,
     serve_batch(model, prompts, 2, extra=inputs, params=params, device=dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    timings = {}
+    timings, logits = {}, []
     fa.flash_attention.launches = fa.hopper_launches = fa.wide_launches = 0
     ssm.ssm_scan.launches = ssm.hopper_launches = 0
     toks = serve_batch(model, prompts, gen, extra=inputs, params=params, device=dev,
-                       timings=timings)
+                       timings=timings, logits_out=logits if after is not None else None)
     counts = {"flash_attention": fa.flash_attention.launches, "hopper": fa.hopper_launches,
               "wide": fa.wide_launches, "ssm_scan": ssm.ssm_scan.launches,
               "ssm_scan_hopper": ssm.hopper_launches}
@@ -4466,6 +4560,8 @@ def _serve_arch(dev, cfg, prompts, phase: str, extra: dict, *, inputs=None,
             "route": fa.route(*views, cfg.sliding_window), "launches": counts,
             "first_tokens": np.asarray(toks[0, :8]).tolist(), "trace": trace, **extra}
     emit(line)
+    if after is not None:
+        counts = {**counts, "model_axis": after(model, params, toks, logits, timings)}
     del params
     torch.cuda.empty_cache()
     return counts
@@ -5560,7 +5656,7 @@ def _scan_at_shape(dev, sm_clock_hz: float, B: int, S: int, Dm: int, N: int,
             "exponentials": exps}
 
 
-def hybrid_serve_phase(dev, sm_clock_hz: float) -> tuple[dict, dict]:
+def hybrid_serve_phase(dev, sm_clock_hz: float, smi: str) -> tuple[dict, dict]:
     """Phase 35: jamba-1.5-large at full width (d_model 8,192, 64 heads of
     128 over 8, d_ff 24,576, 16 experts top 2, Mamba d_inner 16,384 with N
     16, no RoPE, vocabulary 65,536).  First at HYBRID_CPU_SCHEDULE (three
@@ -5573,8 +5669,10 @@ def hybrid_serve_phase(dev, sm_clock_hz: float) -> tuple[dict, dict]:
     ``ssm_scan_hopper`` and the attention layer's through
     ``flash_fwd_hopper<128>``; then the scan at the prefill's shape
     (HYBRID_SCAN) against its plain version.  (The forward at its prefill
-    shape is timed in phase 26, FAMILY_SHAPES.)  Returns the prefill's
-    launch counts and the scan's kernels-line entry."""
+    shape is timed in phase 26, FAMILY_SHAPES.)  After the plain serve,
+    the same weights through the model axis (:func:`model_axis_serve`).
+    Returns the prefill's launch counts and the scan's kernels-line
+    entry."""
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -5603,11 +5701,323 @@ def hybrid_serve_phase(dev, sm_clock_hz: float) -> tuple[dict, dict]:
                     "why": "memory: 5 layers hold 24.0 B weights (48.1 GB in bf16) and every "
                            "kind of layer jamba has; 8 would need 90 GB, the full depth 797 GB"},
         "kinds": cfg.layer_kinds(), "experts": [full.moe.num_experts, full.moe.top_k],
-        "vs_cpu": vs_cpu})
+        "vs_cpu": vs_cpu}, after=lambda *plain: model_axis_serve(dev, *plain, prompts, smi))
     B, S, Dm, N = HYBRID_SCAN
     scan = _scan_at_shape(dev, sm_clock_hz, B, S, Dm, N, full.ssm.resolved_dt_rank(full.d_model))
     emit({"phase": "hybrid_kernels", **scan})
     return launches, scan
+
+
+def _block_outputs(model, params, batch: dict, max_len: int, place=lambda c: c) -> list:
+    """Each block's output of one prefill of ``batch`` (whole tensors, on
+    the host), the cache passed through ``place`` first."""
+    import torch
+
+    outs = []
+
+    def keep(_module, _args, out):
+        outs.append((out.full_tensor() if hasattr(out, "full_tensor") else out).cpu())
+
+    hooks = [blk.register_forward_hook(keep) for blk in params.blocks]
+    try:
+        cache = place(model.init_cache(batch["tokens"].shape[0], max_len,
+                                       device=batch["tokens"].device))
+        model.prefill(params, batch, cache)
+        torch.cuda.synchronize()
+    finally:
+        for h in hooks:
+            h.remove()
+    return outs
+
+
+def model_axis_serve(dev, model, params, plain_toks, plain_logits, plain_t: dict, prompts,
+                     smi: str) -> dict:
+    """Phase 35 through the model axis: ``serve_batch`` of ``prompts`` on a
+    one-rank NCCL group's (1, 1) ("data", "model") mesh under
+    ``RULES_DECODE``, the weights of the plain serve (its tokens, logits
+    and timings given) placed on the mesh in place (each shard's storage
+    the weight's own); logits and tokens of every step bitwise, else the
+    first block whose prefill output differs and the logits within the
+    bf16 rule; the attention and scan kernels counted in the mesh run.
+    Returns its launch counts."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.distributed.context import sharding_context
+    from repro_torch.distributed.sharding import RULES_DECODE, distribute_cache, distribute_params
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssm_scan as ssm
+    from repro_torch.launch.serve import decode_span, serve_batch
+
+    t_phase = time.perf_counter()
+    cfg = model.cfg
+    B, P = prompts.shape
+    max_len, _ = decode_span(cfg, P, WIDE_GEN)
+    batch = {"tokens": torch.from_numpy(prompts.astype(np.int64)).to(dev)}
+    plain_blocks = _block_outputs(model, params, batch, max_len)
+    ptrs = {n: p.untyped_storage().data_ptr() for n, p in params.named_parameters()}
+    root = os.path.join(HERE, "build", "chip_smoke_tp")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    dist.init_process_group("nccl", store=dist.FileStore(os.path.join(root, "store"), 1),
+                            rank=0, world_size=1, device_id=dev)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+        distribute_params(model, params, RULES_DECODE, mesh)
+        moved = [n for n, p in params.named_parameters()
+                 if p.to_local().untyped_storage().data_ptr() != ptrs[n]]
+        if moved:
+            fail(f"placing the weights on the mesh copied {moved[:4]}")
+        serve_batch(model, prompts, 2, params=params, device=dev, mesh=mesh,
+                    rules=RULES_DECODE)  # warm-up, as the plain serve had
+        torch.cuda.synchronize()
+        fa.flash_attention.launches = fa.hopper_launches = 0
+        ssm.ssm_scan.launches = ssm.hopper_launches = 0
+        tp_logits, tp_t = [], {}
+        tp_toks = serve_batch(model, prompts, WIDE_GEN, params=params, device=dev, mesh=mesh,
+                              rules=RULES_DECODE, timings=tp_t, logits_out=tp_logits)
+        counts = {"flash_attention": fa.flash_attention.launches, "hopper": fa.hopper_launches,
+                  "ssm_scan": ssm.ssm_scan.launches, "ssm_scan_hopper": ssm.hopper_launches}
+        L = cfg.num_layers
+        A = sum(cfg.is_attn_layer(i) for i in range(L))
+        want = {"flash_attention": A, "hopper": A, "ssm_scan": L - A, "ssm_scan_hopper": L - A}
+        if counts != want:
+            fail(f"the model-axis prefill launched {counts}, not {want}")
+        bitwise = bool((tp_toks == plain_toks).all()) and all(
+            torch.equal(a, b) for a, b in zip(tp_logits, plain_logits))
+        line = {"bitwise_equal": bitwise, "steps_compared": len(plain_logits)}
+        if not bitwise:
+            with sharding_context(mesh, RULES_DECODE):
+                tp_blocks = _block_outputs(model, params, batch, max_len, lambda c: (
+                    distribute_cache(model, c, RULES_DECODE, mesh)))
+            first = next((i for i, (a, b) in enumerate(zip(tp_blocks, plain_blocks))
+                          if not torch.equal(a, b)), None)
+            errs = [_rule_err(a, b, "bfloat16") for a, b in zip(tp_logits, plain_logits)]
+            line.update(first_differing_block=first,
+                        first_differing_kind=None if first is None else cfg.layer_kinds()[first],
+                        logits_max_abs_err=max(e[0] for e in errs),
+                        logits_rule_err=max(e[1] for e in errs))
+            if not max(e[1] for e in errs) <= 1.0:
+                fail(f"the model-axis serve disagrees with the plain one beyond the bf16 rule: "
+                     f"{line}")
+            ties = _tie_diverged(tp_toks[0].tolist(), plain_toks[0].tolist(),
+                                 [lg[0].float().cpu() for lg in plain_logits], TIE_F32)
+            line["greedy_tie"] = ties
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "hybrid_serve_model_axis", "arch": cfg.name, "layers": cfg.num_layers,
+          "mesh": {"data": 1, "model": 1}, "rules": "decode", "backend": "nccl",
+          "nvidia_smi": smi, "batch": B, "prompt": P, "gen": WIDE_GEN, **line,
+          "time_to_first_token_ms": tp_t["prefill_s"] * 1e3,
+          "plain_time_to_first_token_ms": plain_t["prefill_s"] * 1e3,
+          "decode_ms_per_step": tp_t["decode_s"] / tp_t["decode_steps"] * 1e3,
+          "plain_decode_ms_per_step": plain_t["decode_s"] / plain_t["decode_steps"] * 1e3,
+          "launches": counts, "weights_copied": 0,
+          "seconds": time.perf_counter() - t_phase})
+    return counts
+
+
+def _slice_heads(t, h0: int, h1: int):
+    """Heads [h0, h1) of a (B, S, H, D) tensor as a region's local product
+    gives them: contiguous, then the kernel's (B, H, S, D) view."""
+    return t[:, :, h0:h1].contiguous().transpose(1, 2)
+
+
+def _slice_kv(t, plan):
+    """A rank's kv heads of a (B, T, Hkv, D) tensor for ``plan``
+    (``tensor_parallel.attention_heads``), as the model's region takes them,
+    in the kernel's view."""
+    import torch
+
+    if plan[0] == "range":
+        return _slice_heads(t, plan[1], plan[2])
+    idx = torch.tensor(plan[1], dtype=torch.long, device=t.device)
+    return t.index_select(2, idx).transpose(1, 2)
+
+
+def _kv_sum(parts, Hkv: int, H: int, m: int, fn=lambda t: t.float()):
+    """The slices' dk (or dv), each (B, Hl, T, D) for its plan, added into
+    (B, Hkv, T, D) float32 at the kv heads they stand for (each slice
+    through ``fn`` first)."""
+    import torch
+
+    from repro_torch.distributed.tensor_parallel import attention_heads, chunk_range
+
+    B, _, T, D = parts[0].shape
+    out = torch.zeros((B, Hkv, T, D), dtype=torch.float32, device=parts[0].device)
+    for r, part in enumerate(parts):
+        h0, h1 = chunk_range(H, m, r)
+        plan = attention_heads(h0, h1, H, Hkv)
+        if plan[0] == "range":
+            out[:, plan[1]:plan[2]] += fn(part)
+        else:
+            out.index_add_(1, torch.tensor(plan[1], device=out.device), fn(part))
+    return out
+
+
+def _sum_of_roundings_err(parts, want, Hkv: int, H: int, m: int) -> dict:
+    """The slices' bf16 dk (or dv) summed against the whole call's: each
+    slice's output is its float32 sum rounded once to bf16, the whole's
+    the float32 sum of all its query heads rounded once, so the two may
+    differ by a rounding of each (unit roundoff 2**-8 of its magnitude)
+    plus float32 noise: max |sum - whole|, and the same over that bound
+    (at most 1 within it)."""
+    got = _kv_sum(parts, Hkv, H, m)
+    mags = _kv_sum(parts, Hkv, H, m, lambda t: t.float().abs())
+    w = want.float()
+    bound = 2.0**-8 * (mags + w.abs()) + 1e-6 * float(w.square().mean().sqrt())
+    d = (got - w).abs()
+    return {"max_abs_err": float(d.max()), "rounding_err": float((d / bound).max()),
+            "rms": float(w.square().mean().sqrt())}
+
+
+def model_axis_kernel_phase(dev, smi: str) -> dict:
+    """Phase 38: each rank's slice of the Hopper kernels' inputs at the
+    model sizes of MODEL_AXIS_SIZES, in one process; returns the launches
+    of each kernel over the slices."""
+    import torch
+
+    from repro_torch.distributed.tensor_parallel import attention_heads, chunk_range
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fab
+    from repro_torch.kernels import ssm_scan as ssm
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(38)
+    out, line = {}, {}
+
+    def bshd(B, S, H, D):
+        return torch.randn((B, S, H, D), generator=gen, device=dev).to(torch.bfloat16)
+
+    # (a) jamba's prefill attention: each rank's query heads and their kv heads
+    B, S, H, Hkv, D = MODEL_AXIS_ATTN
+    q, k, v = bshd(B, S, H, D), bshd(B, S, Hkv, D), bshd(B, S, Hkv, D)
+    whole = fa.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                               causal=True)
+    before = fa.hopper_launches
+    for m in MODEL_AXIS_SIZES:
+        parts = []
+        for r in range(m):
+            h0, h1 = chunk_range(H, m, r)
+            plan = attention_heads(h0, h1, H, Hkv)
+            qs, ks, vs = _slice_heads(q, h0, h1), _slice_kv(k, plan), _slice_kv(v, plan)
+            if fa.route(qs, ks, vs) != "hopper":
+                fail(f"rank {r} of {m}'s attention slice routes to {fa.route(qs, ks, vs)}")
+            parts.append(fa.flash_attention(qs, ks, vs, causal=True))
+        if not torch.equal(torch.cat(parts, dim=1), whole):
+            fail(f"jamba's prefill attention over {m} ranks' heads differs from the whole call")
+    out["jamba_attention"] = fa.hopper_launches - before
+    if out["jamba_attention"] != sum(MODEL_AXIS_SIZES):
+        fail(f"{out['jamba_attention']} Hopper launches for {sum(MODEL_AXIS_SIZES)} slices")
+    line["jamba_attention"] = {"shape": list(MODEL_AXIS_ATTN), "model_sizes": MODEL_AXIS_SIZES,
+                               "bitwise": True, "hopper_launches": out["jamba_attention"]}
+    del q, k, v, whole, parts
+
+    # (b) smollm's training attention, uneven 15 / 5 over 2 ranks
+    B, S, H, Hkv, D = MODEL_AXIS_TRAIN_ATTN
+    q, k, v, dout = bshd(B, S, H, D), bshd(B, S, Hkv, D), bshd(B, S, Hkv, D), bshd(B, S, H, D)
+    qt, kt, vt, dt_ = (t.transpose(1, 2) for t in (q, k, v, dout))
+    o, lse = fa.flash_attention_fwd_lse(qt, kt, vt, causal=True)
+    delta = (dout.transpose(1, 2).float() * o.float()).sum(-1).contiguous()
+    dq = fab.flash_attention_bwd_dq(qt, kt, vt, dt_, lse, delta, causal=True)
+    dk, dv = fab.flash_attention_bwd_dkv(qt, kt, vt, dt_, lse, delta, causal=True)
+    counters = (fa.hopper_launches, fab.flash_attention_bwd_dq.hopper_launches,
+                fab.flash_attention_bwd_dkv.hopper_launches)
+    m = 2
+    os_, lses, dqs, dks, dvs, plans = [], [], [], [], [], []
+    for r in range(m):
+        h0, h1 = chunk_range(H, m, r)
+        plan = attention_heads(h0, h1, H, Hkv)
+        plans.append(plan)
+        qs, ks, vs, ds = (_slice_heads(q, h0, h1), _slice_kv(k, plan), _slice_kv(v, plan),
+                          _slice_heads(dout, h0, h1))
+        o_r, lse_r = fa.flash_attention_fwd_lse(qs, ks, vs, causal=True)
+        delta_r = (ds.float() * o_r.float()).sum(-1).contiguous()
+        os_.append(o_r)
+        lses.append(lse_r)
+        dqs.append(fab.flash_attention_bwd_dq(qs, ks, vs, ds, lse_r, delta_r, causal=True))
+        dk_r, dv_r = fab.flash_attention_bwd_dkv(qs, ks, vs, ds, lse_r, delta_r, causal=True)
+        dks.append(dk_r)
+        dvs.append(dv_r)
+    counted = (fa.hopper_launches - counters[0],
+               fab.flash_attention_bwd_dq.hopper_launches - counters[1],
+               fab.flash_attention_bwd_dkv.hopper_launches - counters[2])
+    if counted != (m, m, m):
+        fail(f"the training attention's slices counted {counted} Hopper launches, not {m} each")
+    out.update(fwd=m, dq=m, dkv=m)
+    for name, got, want in (("out", torch.cat(os_, 1), o), ("lse", torch.cat(lses, 1), lse),
+                            ("dq", torch.cat(dqs, 1), dq)):
+        if not torch.equal(got, want):
+            fail(f"smollm's training attention over 2 ranks: {name} differs from the whole call")
+    kv_err = {}
+    for name, parts, want in (("dk", dks, dk), ("dv", dvs, dv)):
+        kv_err[name] = _sum_of_roundings_err(parts, want, Hkv, H, m)
+        if not kv_err[name]["rounding_err"] <= 1.0:
+            fail(f"the slices' {name} summed over the ranks is off the whole beyond a bf16 "
+                 f"rounding of each: {kv_err[name]}")
+    line["smollm_training_attention"] = {
+        "shape": list(MODEL_AXIS_TRAIN_ATTN), "model_size": m, "plans": plans,
+        "bitwise": ["out", "lse", "dq"], "summed_over_slices": kv_err,
+        "hopper_launches": {"fwd": m, "dq": m, "dkv": m}}
+    del q, k, v, dout, o, lse, dq, dk, dv, os_, lses, dqs, dks, dvs
+
+    # (c) falcon-mamba's training scan and its backward, on each rank's channels
+    B, S, Dm, N = MODEL_AXIS_SCAN
+    xz, dt, A, Bc, Cc, Dd, _ = _ssm_inputs(B, S, Dm, N, torch.bfloat16, dev, gen)
+    x = xz.contiguous()
+    dy = torch.randn((B, S, Dm), generator=gen, device=dev).to(torch.bfloat16)
+    y, h, ckpt = ssm.ssm_scan_train(x, dt, A, Bc, Cc, Dd, None)
+    grads = ssm.ssm_scan_bwd(x, dt, A, Bc, Cc, Dd, None, dy, None, ckpt)
+    del ckpt
+    before = (ssm.hopper_launches, ssm.ssm_scan_train.checkpoints, ssm.hopper_bwd_launches)
+    sums = {}
+    for m in MODEL_AXIS_SIZES:
+        ys, hs, gs = [], [], []
+        for r in range(m):
+            c0, c1 = chunk_range(Dm, m, r)
+            xs, dts, dys = (t[..., c0:c1].contiguous() for t in (x, dt, dy))
+            y_r, h_r, ck_r = ssm.ssm_scan_train(xs, dts, A[c0:c1], Bc, Cc, Dd[c0:c1], None)
+            ys.append(y_r)
+            hs.append(h_r)
+            gs.append(ssm.ssm_scan_bwd(xs, dts, A[c0:c1], Bc, Cc, Dd[c0:c1], None, dys, None,
+                                       ck_r))
+            del ck_r
+        per_channel = {"y": (torch.cat(ys, -1), y), "h_final": (torch.cat(hs, 1), h),
+                       "dx": (torch.cat([g[0] for g in gs], -1), grads[0]),
+                       "ddt": (torch.cat([g[1] for g in gs], -1), grads[1]),
+                       "dA": (torch.cat([g[2] for g in gs], 0), grads[2]),
+                       "dD": (torch.cat([g[5] for g in gs], 0), grads[5])}
+        differ = [k for k, (a, b) in per_channel.items() if not torch.equal(a, b)]
+        if differ:
+            fail(f"the scan over {m} ranks' channels differs from the whole call in {differ}")
+        for name, i in (("dB", 3), ("dC", 4)):
+            total = sum(g[i] for g in gs)
+            err = float((total - grads[i]).abs().max())
+            scale = float(grads[i].abs().max())
+            sums[f"{name}_{m}"] = {"max_abs_err": err, "whole_max_abs": scale}
+            if not err <= MODEL_AXIS_SUM_RTOL * scale:
+                fail(f"the slices' {name} summed over {m} ranks is {err} off the whole "
+                     f"(largest {scale}), past float32 rounding")
+        del ys, hs, gs, per_channel
+    counted = (ssm.hopper_launches - before[0], ssm.ssm_scan_train.checkpoints - before[1],
+               ssm.hopper_bwd_launches - before[2])
+    n = sum(MODEL_AXIS_SIZES)
+    if counted != (n, n, n):
+        fail(f"the scan's slices counted {counted} Hopper launches (forward, its checkpoints, "
+             f"backward), not {n} each")
+    out.update(scan=n, scan_bwd=n)
+    line["falcon_mamba_training_scan"] = {
+        "shape": list(MODEL_AXIS_SCAN), "model_sizes": MODEL_AXIS_SIZES,
+        "bitwise": ["y", "h_final", "dx", "ddt", "dA", "dD"], "summed_over_slices": sums,
+        "rtol": MODEL_AXIS_SUM_RTOL, "hopper_launches": {"forward": n, "backward": n}}
+    del x, dt, A, Bc, Cc, Dd, dy, y, h, grads, xz
+    torch.cuda.empty_cache()
+    emit({"phase": "model_axis_kernels", "nvidia_smi": smi, **line,
+          "seconds": time.perf_counter() - t_phase})
+    return out
 
 
 def _bwd_inputs(B, S, Dm, N, dtype, dev, gen, seeded: bool):

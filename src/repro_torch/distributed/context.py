@@ -7,9 +7,12 @@ rules)`` a DTensor activation is redistributed to the placements that
 :func:`~.sharding.spec_for_axes` (``strict=False``) gives on that
 ``DeviceMesh``; with no context, or for a plain tensor, the call is the
 identity, so single-device runs and tests are unchanged.  The context is
-per thread, as the reference's.  The models' call sites come with the
-tensor-parallel forward (ROADMAP.md queue A #19); until then nothing in the
-port's models calls it.
+per thread, as the reference's.  The models call it at the reference's
+sites (q, k, v and o, each layer's input, the embedding, the FFN's hidden
+layer, the MoE's dispatch and combine, the Mamba mixer's inner channels,
+the logits); :func:`act_placements` gives the placements an activation of
+some shape takes under the context, for the tensor-parallel regions of
+:mod:`.tensor_parallel` that build their outputs on them.
 """
 from __future__ import annotations
 
@@ -22,7 +25,7 @@ from torch.distributed.tensor import DTensor
 
 from .sharding import ShardingRules, placements_for_spec, spec_for_axes
 
-__all__ = ["sharding_context", "constrain_act", "current_context"]
+__all__ = ["sharding_context", "constrain_act", "current_context", "act_placements"]
 
 _TLS = threading.local()
 
@@ -56,3 +59,14 @@ def constrain_act(x: torch.Tensor, axes: Sequence[Optional[str]]) -> torch.Tenso
         return x
     spec = spec_for_axes(axes, rules, mesh, tuple(x.shape), strict=False)
     return x.redistribute(mesh, placements_for_spec(spec, mesh))
+
+
+def act_placements(axes: Sequence[Optional[str]], shape: Sequence[int]) -> tuple:
+    """The placements :func:`constrain_act` gives an activation of
+    ``shape`` named ``axes`` under the current context (``strict=False``);
+    raises without a context."""
+    ctx = current_context()
+    if ctx is None:
+        raise RuntimeError("act_placements needs a sharding_context")
+    mesh, rules = ctx
+    return placements_for_spec(spec_for_axes(axes, rules, mesh, tuple(shape), strict=False), mesh)

@@ -27,7 +27,11 @@ Rule sets (the reference's, unchanged):
 
 On a ``DeviceMesh``, :func:`placements_for_spec` gives one placement per
 mesh dim: ``Shard(i)`` where entry i names that dim, else ``Replicate()``;
-:func:`distribute_tree` places a tree of tensors so.  A mesh dim that
+:func:`distribute_tree` places a tree of tensors so;
+:func:`distribute_params` places a model's parameters by their
+``param_axes()`` and :func:`distribute_cache` its caches by
+``cache_axes()``, each over the storage each rank already holds (views,
+no copy).  A mesh dim that
 shards two tensor dims at once cannot be expressed by placements (one
 per mesh dim) and raises; no rule set produces one, a spec using each mesh
 axis once.  :func:`fsdp_placement_fn` is the rule-sharded train step's
@@ -55,7 +59,10 @@ __all__ = [
     "placements_for_spec",
     "tree_placements",
     "distribute_tree",
+    "distribute_params",
+    "distribute_cache",
     "fsdp_placement_fn",
+    "tp_sharded_dims",
 ]
 
 AxisAssignment = Union[None, str, tuple]  # mesh axis / tuple of axes / replicate
@@ -295,23 +302,88 @@ def distribute_tree(params, axes_tree, rules: ShardingRules, device_mesh, *, str
     return _tree_map(place, axes_tree, params)
 
 
+def tp_sharded_dims(p: torch.Tensor) -> set:
+    """The dims a DTensor parameter's placements shard over mesh dims of
+    more than one rank (the tensor-parallel dims FSDP2 must not shard
+    again); empty for a plain tensor."""
+    mesh = getattr(p, "device_mesh", None)
+    if mesh is None:
+        return set()
+    return {pl.dim for m, pl in enumerate(p.placements)
+            if isinstance(pl, Shard) and mesh.size(m) > 1}
+
+
 def fsdp_placement_fn(axes: Mapping[str, tuple], rules: ShardingRules, device_mesh,
                       named: Mapping[str, torch.nn.Parameter]) -> Callable:
     """``shard_placement_fn`` for ``fully_shard`` on ``device_mesh`` (one
     dim): each parameter of ``named`` is sharded on the dim that ``rules``
     put on that mesh dim (under ``RULES_TRAIN`` and a "data" mesh, the
     FSDP dim "embed"), as its spec resolves strictly on the mesh; a
-    parameter with no such dim on ``Shard(0)``.  ``axes`` is keyed like
-    ``named`` (parameter name -> logical axes)."""
+    parameter with no such dim on its first dim that tensor parallelism
+    does not shard (:func:`tp_sharded_dims`; ``Shard(0)`` for a plain
+    tensor).  ``axes`` is keyed like ``named`` (parameter name -> logical
+    axes)."""
     (dim_name,) = device_mesh.mesh_dim_names
     by_id = {}
     for name, p in named.items():
         spec = spec_for_axes(axes[name], rules, device_mesh, tuple(p.shape))
         dims = [i for i, e in enumerate(spec)
                 if e == dim_name or (isinstance(e, tuple) and dim_name in e)]
-        by_id[id(p)] = Shard(dims[0] if dims else 0)
+        taken = tp_sharded_dims(p)
+        free = [i for i in range(p.ndim) if i not in taken]
+        by_id[id(p)] = Shard(dims[0] if dims else free[0])
 
     def placement(p: torch.nn.Parameter):
         return by_id[id(p)]
 
     return placement
+
+
+def _local_view(t: torch.Tensor, device_mesh, placements: tuple, contiguous: bool = False):
+    """``t`` (whole on every rank) as a DTensor placed as ``placements``
+    whose local shard is a view of ``t``'s storage (narrowed, not
+    copied), or with ``contiguous`` a contiguous copy where the view is
+    not."""
+    from .tensor_parallel import local_range, wrap
+
+    local = t
+    for dim in sorted({p.dim for p in placements if isinstance(p, Shard)}):
+        s, e = local_range(t.shape[dim], device_mesh, placements, dim)
+        local = local.narrow(dim, s, e - s)
+    if contiguous:
+        local = local.contiguous()
+    return wrap(local, device_mesh, placements, tuple(t.shape))
+
+
+def distribute_params(model, params: torch.nn.Module, rules: ShardingRules,
+                      device_mesh, *, contiguous: bool = False) -> torch.nn.Module:
+    """``params`` (the model's module, whole on every rank) with every
+    parameter replaced, in place, by a DTensor on ``device_mesh`` placed by
+    its ``model.param_axes()`` under ``rules`` (strict: a dim the mesh
+    axes do not divide stays whole).  Each rank's shard is a view of the
+    parameter it held: nothing is copied, so a model that fills the
+    device's memory once can be placed (its shard's
+    ``untyped_storage().data_ptr()`` is the old parameter's).  With
+    ``contiguous`` a shard that is not contiguous is copied (FSDP2 takes
+    contiguous shards only)."""
+    axes = model.param_axes()
+    for name, p in list(params.named_parameters()):
+        spec = spec_for_axes(axes[name], rules, device_mesh, tuple(p.shape))
+        dt = _local_view(p.detach(), device_mesh, placements_for_spec(spec, device_mesh),
+                         contiguous)
+        owner_name, _, leaf = name.rpartition(".")
+        owner = params.get_submodule(owner_name) if owner_name else params
+        setattr(owner, leaf, torch.nn.Parameter(dt, requires_grad=p.requires_grad))
+    return params
+
+
+def distribute_cache(model, cache: dict, rules: ShardingRules, device_mesh) -> dict:
+    """``cache`` (``model.init_cache``'s tree, whole on every rank) as
+    DTensors on ``device_mesh`` placed by ``model.cache_axes()`` under
+    ``rules`` (strict), each rank's shard a view of its buffer; the
+    model's serving entry points write the shards in place."""
+    def place(axes, t):
+        spec = spec_for_axes(axes, rules, device_mesh, tuple(t.shape))
+        return _local_view(t, device_mesh, placements_for_spec(spec, device_mesh))
+
+    return _tree_map(place, model.cache_axes(), cache)

@@ -30,10 +30,18 @@ reference's ``main`` draws them.  The positions are the model's own
 at ``num_patches + P + i``; encdec decodes after its BOS token, at ``1 +
 i``, with a self cache of ``gen_len`` and the prompt's tokens unused.
 The reference's launcher decodes every family at ``P + i``.
+
+On a ("data", "model") device mesh (``mesh`` and ``rules``, one of the
+rule sets of :mod:`repro_torch.distributed.sharding`) the weights are
+placed on the mesh over their own storage and the cache beside them, and
+the prefill and the decode steps run inside the rules' sharding context:
+every kernel on its rank's heads or channels, the tokens the same on every
+rank.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import time
 from typing import Optional
 
@@ -73,6 +81,9 @@ def serve_batch(
     generator: Optional[torch.Generator] = None,
     device="cuda",
     timings: Optional[dict] = None,
+    mesh=None,
+    rules=None,
+    logits_out: Optional[list] = None,
 ) -> np.ndarray:
     """Greedy continuations (B, gen_len) of ``prompts``.
 
@@ -83,7 +94,12 @@ def serve_batch(
     drawn by ``model.init(generator)``.  ``timings``, when given,
     receives ``prefill_s`` (to the first token on the host), ``decode_s``
     and ``decode_steps``: host clocks around work that ends in a
-    synchronise.
+    synchronise.  ``mesh`` (a ``DeviceMesh`` with "data" and "model"
+    dims) and ``rules``: the tensor- and expert-parallel serving path
+    (``params`` placed by :func:`~repro_torch.distributed.sharding.distribute_params`
+    in place where they are not DTensors yet).  ``logits_out``, when
+    given, receives each step's whole logits (B, vocab), the prefill's
+    first.
     """
     device = torch.device(device)
     B, P = prompts.shape
@@ -92,24 +108,38 @@ def serve_batch(
     prefill_step, decode_step = make_serve_steps(model)
     max_len, start = decode_span(model.cfg, P, gen_len)
     cache = model.init_cache(B, max_len=max_len, device=device)
+    context = contextlib.nullcontext()
+    if mesh is not None:
+        from ..distributed.context import sharding_context
+        from ..distributed.sharding import distribute_cache, distribute_params
+
+        if not any(hasattr(p, "device_mesh") for p in params.parameters()):
+            distribute_params(model, params, rules, mesh)
+        cache = distribute_cache(model, cache, rules, mesh)
+        context = sharding_context(mesh, rules)
     batch = {"tokens": torch.from_numpy(np.asarray(prompts, np.int64)).to(device)}
     cd = getattr(torch, model.cfg.compute_dtype)
     for name, value in (extra or {}).items():
         batch[name] = torch.from_numpy(np.asarray(value, np.float32)).to(device=device, dtype=cd)
     _sync(device)
-    t0 = time.perf_counter()
-    logits, cache = prefill_step(params, batch, cache)
-    tok = logits.argmax(dim=-1).to(torch.int32)
-    _sync(device)
-    prefill_s = time.perf_counter() - t0
+    with context:
+        t0 = time.perf_counter()
+        logits, cache = prefill_step(params, batch, cache)
+        tok = logits.argmax(dim=-1).to(torch.int32)
+        _sync(device)
+        prefill_s = time.perf_counter() - t0
+        if logits_out is not None:
+            logits_out.append(logits)
 
-    out = [tok]
-    t0 = time.perf_counter()
-    for i in range(gen_len - 1):
-        tok, logits, cache = decode_step(params, tok, cache, start + i)
-        out.append(tok)
-    toks = torch.stack(out, dim=1).cpu().numpy()  # synchronises
-    decode_s = time.perf_counter() - t0
+        out = [tok]
+        t0 = time.perf_counter()
+        for i in range(gen_len - 1):
+            tok, logits, cache = decode_step(params, tok, cache, start + i)
+            out.append(tok)
+            if logits_out is not None:
+                logits_out.append(logits)
+        toks = torch.stack(out, dim=1).cpu().numpy()  # synchronises
+        decode_s = time.perf_counter() - t0
     if timings is not None:
         timings.update(prefill_s=prefill_s, decode_s=decode_s, decode_steps=gen_len - 1)
     print(f"[serve] B={B} prefill({P} tok): {prefill_s*1e3:.1f}ms, "

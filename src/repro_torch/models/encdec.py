@@ -38,6 +38,14 @@ on the modules fire around what reads their weights.
 :func:`encdec_param_axes` and :func:`decoder_cache_axes` give the
 reference's logical axes of the parameters and the cache.
 
+Tensor parallelism: the reference's annotations (q, k and v of every
+attention, cross-attention's included, each layer's input, the logits)
+are called; on DTensors in a ``sharding_context`` every product, norm and
+attention kernel runs on each rank's shards as in :mod:`.transformer`.
+The cross cache (``cross_seq`` whole) is written by each rank for its
+batch rows; the self cache (``cache_seq`` on "model" under
+``RULES_DECODE``) by the rank that holds the position.
+
 One deliberate difference (ROADMAP.md queue C #20): the reference's
 ``dynamic_update_slice`` clamps a decode position at or past the self
 cache's length to its last slot and goes on; :func:`decode_encdec`
@@ -52,6 +60,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..distributed import tensor_parallel as tp
+from ..distributed.context import act_placements, constrain_act
 from ..precision import full_float32_matmul
 from .config import ModelConfig
 from .layers import (
@@ -64,7 +74,9 @@ from .layers import (
     remat_call,
 )
 from .transformer import (
+    _ACT_AXES,
     _ATTN_AXES,
+    _QKV_AXES,
     _MLP_AXES,
     Block,
     _ffn_axes,
@@ -197,8 +209,22 @@ def decoder_cache_axes(cfg: ModelConfig) -> dict:
 
 
 def _proj_qkv(p: dict, x: torch.Tensor):
-    return (einsum("bsd,dhk->bshk", x, p["wq"]), einsum("bsd,dhk->bshk", x, p["wk"]),
-            einsum("bsd,dhk->bshk", x, p["wv"]))
+    return tuple(constrain_act(einsum("bsd,dhk->bshk", x, p[w]), _QKV_AXES)
+                 for w in ("wq", "wk", "wv"))
+
+
+def _plus(h: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """``h`` + ``table`` (a plain tensor every rank holds whole)."""
+    return h + (tp.replicate(table) if tp.is_dtensor(h) else table)
+
+
+def _attn_out(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    return constrain_act(einsum("bshk,hkd->bsd", constrain_act(o, _QKV_AXES), wo), _ACT_AXES)
+
+
+def _mlp(blk: Block, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
+    return constrain_act(mlp_apply(blk.mlp.p, apply_norm(h, blk.norm2.p, cfg.norm), cfg.act),
+                         _ACT_AXES)
 
 
 def _layers(blocks: nn.ModuleList, cfg: ModelConfig, h: torch.Tensor, layer, *args):
@@ -214,30 +240,33 @@ def _layers(blocks: nn.ModuleList, cfg: ModelConfig, h: torch.Tensor, layer, *ar
 
 
 def _enc_layer(blk: Block, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
+    h = constrain_act(h, _ACT_AXES)
     q, k, v = _proj_qkv(blk.attn.p, apply_norm(h, blk.norm1.p, cfg.norm))
-    o = attention(q, k, v, causal=False)
-    h = h + einsum("bshk,hkd->bsd", o, blk.attn.wo)
-    return h + mlp_apply(blk.mlp.p, apply_norm(h, blk.norm2.p, cfg.norm), cfg.act)
+    h = h + _attn_out(attention(q, k, v, causal=False), blk.attn.wo)
+    return h + _mlp(blk, cfg, h)
 
 
 def _dec_layer(blk: Block, cfg: ModelConfig, h: torch.Tensor,
                enc_out: torch.Tensor) -> torch.Tensor:
+    h = constrain_act(h, _ACT_AXES)
     q, k, v = _proj_qkv(blk.self_attn.p, apply_norm(h, blk.norm1.p, cfg.norm))
-    o = attention(q, k, v, causal=True)
-    h = h + einsum("bshk,hkd->bsd", o, blk.self_attn.wo)
+    h = h + _attn_out(attention(q, k, v, causal=True), blk.self_attn.wo)
+    h = constrain_act(h, _ACT_AXES)
     cross = blk.cross_attn.p
-    qx = einsum("bsd,dhk->bshk", apply_norm(h, blk.norm_x.p, cfg.norm), cross["wq"])
-    kx = einsum("bsd,dhk->bshk", enc_out, cross["wk"])
-    vx = einsum("bsd,dhk->bshk", enc_out, cross["wv"])
-    ox = attention(qx, kx, vx, causal=False)
-    h = h + einsum("bshk,hkd->bsd", ox, cross["wo"])
-    return h + mlp_apply(blk.mlp.p, apply_norm(h, blk.norm2.p, cfg.norm), cfg.act)
+    qx = constrain_act(einsum("bsd,dhk->bshk", apply_norm(h, blk.norm_x.p, cfg.norm),
+                              cross["wq"]), _QKV_AXES)
+    kx = constrain_act(einsum("bsd,dhk->bshk", enc_out, cross["wk"]), _QKV_AXES)
+    vx = constrain_act(einsum("bsd,dhk->bshk", enc_out, cross["wv"]), _QKV_AXES)
+    h = h + _attn_out(attention(qx, kx, vx, causal=False), cross["wo"])
+    return h + _mlp(blk, cfg, h)
 
 
 def _encode(m: EncDec, frames: torch.Tensor) -> torch.Tensor:
     cfg = m.cfg
     h = frames.to(device=m.embed.device, dtype=_dtype(cfg.compute_dtype))
-    h = h + _sinusoid(h.shape[1], cfg.d_model, h.dtype, h.device)[None]
+    if tp.is_dtensor(m.embed):
+        h = constrain_act(tp.replicate(h), _ACT_AXES)
+    h = _plus(h, _sinusoid(h.shape[1], cfg.d_model, h.dtype, h.device)[None])
     h = _layers(m.enc_blocks, cfg, h, _enc_layer)
     return apply_norm(h, m.enc_final_norm.p, cfg.norm)
 
@@ -253,7 +282,19 @@ def _logits(m: EncDec, h: torch.Tensor) -> torch.Tensor:
     cfg = m.cfg
     h = apply_norm(h, m.dec_final_norm.p, cfg.norm)
     logits = einsum("bsd,vd->bsv", h, m.embed.to(_dtype(cfg.compute_dtype)))
+    logits = constrain_act(logits, ("batch", "seq", "act_vocab"))
     return logits.to(_dtype(cfg.logit_dtype))
+
+
+def _embed(m: EncDec, tokens: torch.Tensor) -> torch.Tensor:
+    """The decoder's token embeddings (B, S, d) in the compute type; a
+    vocab-sharded table as :func:`.transformer._embed` reads one."""
+    cd = _dtype(m.cfg.compute_dtype)
+    if tp.is_dtensor(m.embed):
+        shape = (*tokens.shape, m.cfg.d_model)
+        return constrain_act(tp.embed_tp(m.embed, tokens, act_placements(_ACT_AXES, shape),
+                                         post=lambda r: r.to(cd)), _ACT_AXES)
+    return m.embed[tokens.long()].to(cd)
 
 
 @full_float32_matmul()
@@ -269,8 +310,8 @@ def forward_encdec(m: EncDec, frames: torch.Tensor, tokens: torch.Tensor, *,
 def _forward(m: EncDec, frames: torch.Tensor, tokens: torch.Tensor, return_aux: bool):
     cfg = m.cfg
     enc_out = _encode(m, frames)
-    h = m.embed[tokens.long()].to(_dtype(cfg.compute_dtype))
-    h = h + _sinusoid(h.shape[1], cfg.d_model, h.dtype, h.device)[None]
+    h = _embed(m, tokens)
+    h = _plus(h, _sinusoid(h.shape[1], cfg.d_model, h.dtype, h.device)[None])
     h = _layers(m.dec_blocks, cfg, h, _dec_layer, enc_out)
     logits = _logits(m, h)
     if not return_aux:
@@ -309,14 +350,21 @@ def _prefill(m: EncDec, frames: torch.Tensor, cache: dict) -> None:
     enc_out = _encode(m, frames)
     Sc = cache["cross_k"].shape[2]
     S = enc_out.shape[1]
+    if tp.is_dtensor(enc_out) and S < Sc:  # zero states past the frames: padded whole
+        enc_out = tp.replicate(F.pad(enc_out.full_tensor(), (0, 0, 0, Sc - S)))
+        S = Sc
     enc_c = enc_out[:, :Sc] if S >= Sc else F.pad(enc_out, (0, 0, 0, Sc - S))
     for i, blk in enumerate(m.dec_blocks):
         blk(_project_cross, enc_c, cache["cross_k"][i], cache["cross_v"][i])
 
 
 def _project_cross(blk: Block, enc_c: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor) -> None:
-    ck.copy_(einsum("bsd,dhk->bshk", enc_c, blk.cross_attn.wk))
-    cv.copy_(einsum("bsd,dhk->bshk", enc_c, blk.cross_attn.wv))
+    for buf, w in ((ck, blk.cross_attn.wk), (cv, blk.cross_attn.wv)):
+        kv = einsum("bsd,dhk->bshk", enc_c, w)
+        if tp.is_dtensor(buf):
+            tp.assign(buf, kv)
+        else:
+            buf.copy_(kv)
 
 
 @torch.no_grad()
@@ -337,8 +385,8 @@ def _decode(m: EncDec, token: torch.Tensor, cache: dict, pos: int) -> torch.Tens
     W = sk.shape[2]
     if not 0 <= pos < W:
         raise ValueError(f"{cfg.name}: decode position {pos} outside the self cache of {W}")
-    h = m.embed[token.long()[:, None]].to(_dtype(cfg.compute_dtype))
-    h = h + _sinusoid_at(torch.full((1,), pos, device=h.device), cfg.d_model, h.dtype)[None]
+    h = _embed(m, token[:, None])
+    h = _plus(h, _sinusoid_at(torch.full((1,), pos, device=h.device), cfg.d_model, h.dtype)[None])
     valid = (torch.arange(W, device=h.device) <= pos)[None]
     for i, blk in enumerate(m.dec_blocks):
         h = blk(_decode_layer, cfg, h, pos, valid, sk[i], sv[i], ck[i], cv[i])
@@ -348,10 +396,16 @@ def _decode(m: EncDec, token: torch.Tensor, cache: dict, pos: int) -> torch.Tens
 def _decode_layer(blk: Block, cfg: ModelConfig, h: torch.Tensor, pos: int, valid: torch.Tensor,
                   sk: torch.Tensor, sv: torch.Tensor, ck: torch.Tensor,
                   cv: torch.Tensor) -> torch.Tensor:
+    h = constrain_act(h, _ACT_AXES)
     q, k, v = _proj_qkv(blk.self_attn.p, apply_norm(h, blk.norm1.p, cfg.norm))
-    sk[:, pos] = k[:, 0]
-    sv[:, pos] = v[:, 0]
-    h = h + einsum("bshk,hkd->bsd", cached_attention(q, sk, sv, valid), blk.self_attn.wo)
-    qx = einsum("bsd,dhk->bshk", apply_norm(h, blk.norm_x.p, cfg.norm), blk.cross_attn.wq)
-    h = h + einsum("bshk,hkd->bsd", cached_attention(qx, ck, cv, None), blk.cross_attn.wo)
-    return h + mlp_apply(blk.mlp.p, apply_norm(h, blk.norm2.p, cfg.norm), cfg.act)
+    if tp.is_dtensor(sk):  # the rank holding position pos writes it
+        tp.assign_row(sk, 1, pos, k[:, 0])
+        tp.assign_row(sv, 1, pos, v[:, 0])
+    else:
+        sk[:, pos] = k[:, 0]
+        sv[:, pos] = v[:, 0]
+    h = h + _attn_out(cached_attention(q, sk, sv, valid), blk.self_attn.wo)
+    qx = constrain_act(einsum("bsd,dhk->bshk", apply_norm(h, blk.norm_x.p, cfg.norm),
+                              blk.cross_attn.wq), _QKV_AXES)
+    h = h + _attn_out(cached_attention(qx, ck, cv, None), blk.cross_attn.wo)
+    return h + _mlp(blk, cfg, h)

@@ -6,11 +6,14 @@ layouts (``wq`` (d, heads, head_dim), ``w_in`` (d, d_ff), ...).
 Attention goes through :func:`repro_torch.kernels.ops.flash_attention`:
 on the card the Hopper kernel, on the CPU its plain version.  The logical
 axes trees of the reference are :func:`.transformer.param_axes` and
-``cache_axes``, resolved by :mod:`repro_torch.distributed.sharding`; the
-rule-sharded train step runs these layers under FSDP2 on the plain
-tensors it gathers.  The activation annotations (``constrain_act``,
-:mod:`repro_torch.distributed.context`) are not called here yet: they come
-with the tensor-parallel forward.
+``cache_axes``, resolved by :mod:`repro_torch.distributed.sharding`.  The
+FFN's activation annotation (``constrain_act`` on ``act_mlp``, the
+reference's) is called here.  Given DTensors on a ("data", "model") mesh
+(inside a ``sharding_context``), :func:`einsum`, the norms, RoPE,
+:func:`attention` and :func:`cached_attention` run as the
+tensor-parallel regions of :mod:`repro_torch.distributed.tensor_parallel`:
+each rank's products on its shards, each attention kernel on the rank's
+query heads; given plain tensors they are the plain code, unchanged.
 
 Activation checkpointing (:func:`remat_call`) follows the reference's
 ``cfg.remat``: ``"none"`` keeps every activation, ``"full"`` recomputes a
@@ -36,6 +39,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
+from ..distributed import tensor_parallel as tp
+from ..distributed.context import constrain_act, current_context, sharding_context
 from ..kernels import ops
 
 __all__ = [
@@ -78,6 +83,8 @@ def einsum(eq: str, *xs: torch.Tensor, saveable: bool = True) -> torch.Tensor:
     it unmarked where the backward never reads its output (a block's last
     product, added into the residual stream), which the reference's partial
     evaluation does not keep either."""
+    if len(xs) == 2 and tp.is_dtensor(*xs):
+        return tp.einsum_tp(eq, *xs, saveable=saveable)
     dt = xs[0].dtype
     for x in xs[1:]:
         dt = torch.promote_types(dt, x.dtype)
@@ -105,9 +112,19 @@ def remat_call(remat: str, fn, *args):
     reference's ``_remat``): ``"none"`` keeps every activation, ``"dots"``
     keeps the products without a batch dimension and recomputes the rest in
     the backward, anything else (``"full"``) recomputes everything.  ``fn``
-    must be pure: it draws nothing, so no RNG state is stashed."""
+    must be pure: it draws nothing, so no RNG state is stashed.  The
+    sharding context ``fn`` runs under is taken along into the backward's
+    recomputation (which runs after the caller's context has closed, or on
+    autograd's device thread)."""
     if remat == "none" or not torch.is_grad_enabled():
         return fn(*args)
+    ctx = current_context()
+    if ctx is not None:
+        inner = fn
+
+        def fn(*a):
+            with sharding_context(*ctx):
+                return inner(*a)
     kw = {}
     if remat == "dots":  # _dots_policy read at each call, so a test may stand in for it
         kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _dots_policy)
@@ -115,15 +132,24 @@ def remat_call(remat: str, fn, *args):
 
 
 # ----------------------------------------------------------------- norms
+def _own(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in float32 as a node of its own: the gradient of a norm's
+    several reads of it adds up there before it meets the gradients of
+    ``x``'s other readers (the residual stream), in float32 as in bf16
+    (where ``.float()`` alone is ``x`` itself), and as it does where a
+    tensor-parallel region takes ``x``'s shard."""
+    return x.float() if x.dtype != torch.float32 else x.view_as(x)
+
+
 def rmsnorm(x: torch.Tensor, p: dict, eps: float = 1e-6) -> torch.Tensor:
-    xf = x.float()
+    xf = _own(x)
     var = (xf * xf).mean(dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * p["scale"].float()).to(x.dtype)
 
 
 def layernorm(x: torch.Tensor, p: dict, eps: float = 1e-5) -> torch.Tensor:
-    xf = x.float()
+    xf = _own(x)
     mu = xf.mean(dim=-1, keepdim=True)
     var = xf.var(dim=-1, keepdim=True, unbiased=False)
     y = (xf - mu) * torch.rsqrt(var + eps)
@@ -132,7 +158,10 @@ def layernorm(x: torch.Tensor, p: dict, eps: float = 1e-5) -> torch.Tensor:
 
 
 def apply_norm(x: torch.Tensor, p: dict, kind: str) -> torch.Tensor:
-    return rmsnorm(x, p) if kind == "rmsnorm" else layernorm(x, p)
+    norm = rmsnorm if kind == "rmsnorm" else layernorm
+    if tp.is_dtensor(x):
+        return tp.norm_tp(norm, x, p)
+    return norm(x, p)
 
 
 # ----------------------------------------------------------------- activations
@@ -162,6 +191,8 @@ def rope_tables(positions: torch.Tensor, head_dim: int, theta: float):
 
 
 def apply_rope_tables(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor) -> torch.Tensor:
+    if tp.is_dtensor(x):  # per head and position: on each rank's heads
+        return tp.pointwise(apply_rope_tables, x, sin, cos)
     x1, x2 = x.float().chunk(2, dim=-1)
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
@@ -197,7 +228,12 @@ def attention(
     ``chunked_attention`` past 4,096 tokens), which compute one function:
     the kernel skips the tiles a window leaves empty and streams long S
     itself.  The (B, H, S, D) views it passes are strided, not copies.
+    DTensors: the kernel on each rank's query heads and the kv heads they
+    read (:func:`~repro_torch.distributed.tensor_parallel.attention_tp`).
     """
+    if tp.is_dtensor(q, k, v):
+        return tp.attention_tp(q, k, v, lambda a, b, c: attention(
+            a, b, c, causal=causal, window=window, q_offset=q_offset))
     o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                             causal=causal, window=window, q_offset=q_offset)
     return o.transpose(1, 2)
@@ -208,21 +244,33 @@ def cached_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Decode's attention, plain tensor code as the reference's: one query
     row (B, 1, Hq, D) over cached (B, T, Hkv, D) keys and values, float32
     scores and softmax, P cast to q's type; ``valid`` (1 or B, T) bool
-    masks keys out (None: every key)."""
+    masks keys out (None: every key).  A DTensor cache:
+    :func:`~repro_torch.distributed.tensor_parallel.cached_attention_tp`."""
+    if tp.is_dtensor(q, k, v):
+        return tp.cached_attention_tp(q, k, v, valid, cached_attention)
     ke, ve = _expand_kv(k, q.shape[2]), _expand_kv(v, q.shape[2])
-    s = torch.einsum("bshd,bthd->bhst", q.float(), ke.float()) * (1.0 / math.sqrt(q.shape[-1]))
+    s = _scores(q, ke, valid)
+    return einsum("bhst,bthd->bshd", torch.softmax(s, dim=-1).to(q.dtype), ve)
+
+
+def _scores(q: torch.Tensor, k: torch.Tensor, valid: Optional[torch.Tensor]) -> torch.Tensor:
+    """Decode's float32 scores (B, H, 1, T) of the query row q (B, 1, H, D)
+    against keys k (B, T, H, D) with a key head per query head, -1e30
+    where ``valid`` (1 or B, T) is False."""
+    s = torch.einsum("bshd,bthd->bhst", q.float(), k.float()) * (1.0 / math.sqrt(q.shape[-1]))
     if valid is not None:
         s = s.masked_fill(~valid[:, None, None, :], -1e30)
-    return einsum("bhst,bthd->bshd", torch.softmax(s, dim=-1).to(q.dtype), ve)
+    return s
 
 
 # ----------------------------------------------------------------- MLP
 def mlp_apply(p: dict, x: torch.Tensor, act: str) -> torch.Tensor:
+    ff_axes = ("batch", "seq", "act_mlp") if x.ndim == 3 else ("batch", "act_mlp")
     if "w_gate" in p:
-        h = einsum("...d,df->...f", x, p["w_in"])
+        h = constrain_act(einsum("...d,df->...f", x, p["w_in"]), ff_axes)
         g = _ACTS[act](einsum("...d,df->...f", x, p["w_gate"]))
         return einsum("...f,fd->...d", h * g, p["w_out"], saveable=False)
-    h = gelu(einsum("...d,df->...f", x, p["w_in"]))
+    h = constrain_act(gelu(einsum("...d,df->...f", x, p["w_in"])), ff_axes)
     return einsum("...f,fd->...d", h, p["w_out"], saveable=False)
 
 

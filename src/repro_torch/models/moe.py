@@ -28,6 +28,21 @@ each expert's weights read for each token, the reference's cost as well.
 Router aux losses (switch transformer's load balance and the z-loss) are
 returned beside the output, differentiable, for the training step
 (:mod:`..train.step`) to weight into its loss as the reference's does.
+
+Expert parallelism (DTensors in a ``sharding_context``): the groups are
+the single-process groups (:func:`group_count` of the whole batch), each
+"data" rank routing the groups of its batch rows (the whole batch where
+its rows do not hold whole groups); the routing runs whole on every
+"model" rank.  The reference's annotations place the grouped tokens
+(``groups``), the tokens at their experts and the experts' outputs
+(``act_experts``, or ``act_mlp`` where the experts do not divide the axis:
+the experts' hidden units are then sharded instead); each rank runs its
+experts (or its hidden units) on every group's slots, and the combine sums
+the ranks' shares.  Where the reference moves the tokens to their experts
+with an all-to-all, here every "model" rank holds every token of its rows
+and picks its experts' slots locally.  The aux losses are the whole batch's:
+where the groups are split over "data", each rank's router statistics
+are summed over the ranks first (the same value on every rank).
 """
 from __future__ import annotations
 
@@ -37,6 +52,8 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from ..distributed import tensor_parallel as tp
+from ..distributed.context import constrain_act
 from .config import ModelConfig, MoEConfig
 from .flags import paper_baseline
 from .layers import _ACTS, dense_init, einsum, gelu
@@ -132,6 +149,8 @@ def moe_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
     moe = cfg.moe
     B, S, d = x.shape
     G = group_count(moe, B, S, groups)
+    if tp.is_dtensor(x):
+        return _moe_apply_tp(p, cfg, x, G)
     xg = x.reshape(G, (B * S) // G, d)
     r = moe_dispatch(p, cfg, xg)
 
@@ -144,9 +163,82 @@ def moe_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
     ye = einsum("gecf,efd->gecd", he, p["w_out"])
     y = einsum("gsec,gecd->gsd", r.comb, ye)  # back to the tokens, weighted by their gates
 
-    E, k = moe.num_experts, moe.top_k
-    me = r.probs.mean(dim=(0, 1))  # mean router probability per expert
-    ce = r.onehot.sum(dim=2).mean(dim=(0, 1)) / k  # share of pairs sent to each expert
-    lb_loss = E * (me * ce).sum()
-    z_loss = torch.logsumexp(r.logits, dim=-1).square().mean()
-    return y.reshape(B, S, d), {"lb_loss": lb_loss, "z_loss": z_loss}
+    return y.reshape(B, S, d), _aux_losses(r, moe.top_k)
+
+
+def _aux_losses(r: Dispatch, k: int, reduce=None) -> dict:
+    """Switch transformer's load-balance loss and the router z-loss from
+    the routing ``r`` of (G, Sg) tokens.  ``reduce`` (the expert-parallel
+    path's, where the groups are split over ranks): sums each statistic's
+    per-rank sums over the ranks, whose means then are the whole batch's."""
+    E = r.probs.shape[-1]
+    z = torch.logsumexp(r.logits, dim=-1).square()
+    if reduce is None:
+        me = r.probs.mean(dim=(0, 1))  # mean router probability per expert
+        ce = r.onehot.sum(dim=2).mean(dim=(0, 1)) / k  # share of pairs sent to each expert
+        z_loss = z.mean()
+    else:
+        stats = reduce(torch.cat([r.probs.sum(dim=(0, 1)), r.onehot.sum(dim=2).sum(dim=(0, 1)),
+                                  z.sum()[None]]))
+        me, ce, z_loss = stats[:E], stats[E:2 * E] / k, stats[2 * E]
+    return {"lb_loss": E * (me * ce).sum(), "z_loss": z_loss}
+
+
+# ------------------------------------------------------------ expert parallel
+_EXP_AXES = ("groups", "act_experts", None, "act_embed")
+_EXP_FF = ("groups", "act_experts", None, "act_mlp")
+_GROUP_AXES = ("groups", None, "act_embed")
+
+
+def _moe_apply_tp(p: dict, cfg: ModelConfig, x, G: int):
+    """:func:`moe_apply` of a DTensor ``x`` (B, S, d) in ``G`` groups."""
+    moe = cfg.moe
+    B, S, d = x.shape
+    mesh = x.device_mesh
+    names = mesh.mesh_dim_names
+    rows = [q if isinstance(q, tp.Shard) and q.dim == 0 else tp.Replicate()
+            for q in tp.settled(x.placements)]
+    if B and G % B == 0:  # a data rank's rows must hold whole groups, in chunk order
+        b0, b1 = tp.local_range(B, mesh, rows, 0)
+        gpl = [tp.Shard(0) if isinstance(q, tp.Shard) else q for q in rows]
+        if tp.local_range(G, mesh, gpl, 0) != (b0 * (G // B), b1 * (G // B)):
+            rows = gpl = [tp.Replicate()] * len(names)
+    else:
+        rows = gpl = [tp.Replicate()] * len(names)
+    split = {n: isinstance(q, tp.Shard) for n, q in zip(names, rows)}
+    Sg = (B * S) // G
+    xl = tp.take(x, rows, split)
+    xg = tp.wrap(xl.reshape(-1, Sg, d), mesh, gpl, (G, Sg, d))
+    xg = constrain_act(xg, _GROUP_AXES)
+    # the groups as placed (d_model whole: the weight-stationary rules shard it)
+    gpl = [q if isinstance(q, tp.Shard) and q.dim == 0 else tp.Replicate()
+           for q in tp.settled(xg.placements)]
+    gsplit = {n: isinstance(q, tp.Shard) for n, q in zip(names, gpl)}
+    # the routing, whole on every "model" rank: its gradient is the same on each
+    r = moe_dispatch({"router": tp.take_weight(p["router"], {}, gsplit)}, cfg,
+                     tp.take(xg, gpl, gsplit))
+    E, C = moe.num_experts, r.disp.shape[-1]
+    disp = tp.wrap(r.disp, mesh, gpl, (G, Sg, E, C))
+    comb = tp.wrap(r.comb, mesh, gpl, (G, Sg, E, C))
+
+    xe = constrain_act(einsum("gsec,gsd->gecd", disp, xg), _EXP_AXES)  # the reference's all-to-all
+    if "w_gate" in p:
+        h = constrain_act(einsum("gecd,edf->gecf", xe, p["w_in"]), _EXP_FF)
+        he = h * _ACTS[cfg.act](einsum("gecd,edf->gecf", xe, p["w_gate"]))
+    else:
+        he = constrain_act(gelu(einsum("gecd,edf->gecf", xe, p["w_in"])), _EXP_FF)
+    ye = constrain_act(einsum("gecf,efd->gecd", he, p["w_out"]), _EXP_AXES)
+    y = constrain_act(einsum("gsec,gecd->gsd", comb, ye), _GROUP_AXES)
+    yl = tp.take(y, [tp.Shard(0) if isinstance(q, tp.Shard) else tp.Replicate() for q in rows],
+                 split)
+    out = tp.wrap(yl.reshape(-1, S, d), mesh, rows, (B, S, d))
+
+    data = [n for m, n in enumerate(names) if gsplit[n] and mesh.size(m) > 1]
+    reduce = None
+    if data:  # the whole batch's means: each rank's sums, summed over the ranks
+
+        def reduce(stats: torch.Tensor) -> torch.Tensor:
+            pl = [tp.Partial() if n in data else tp.Replicate() for n in names]
+            return tp.take(tp.wrap(stats, mesh, pl, stats.shape), [tp.Replicate()] * len(names),
+                           {}) / (G * Sg)
+    return out, _aux_losses(r, moe.top_k, reduce)

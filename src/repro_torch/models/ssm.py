@@ -30,7 +30,16 @@ Where the port and the reference compute differently:
   it (:mod:`repro_torch.precision`).  The causal convolution is K
   unrolled multiply-adds, as in the reference, not ``F.conv1d``, whose
   float32 path goes through cuDNN in TF32 by default.
-- The sharding annotations (``constrain_act``) are dropped: one device.
+- Tensor parallelism: ``w_in``'s output is annotated ``act_dinner``, the
+  reference's site.  On DTensors (a ``sharding_context`` on a ("data",
+  "model") mesh) each rank runs the convolution, the scan (the kernel on
+  its channels) and the gating on its inner channels; the products of
+  ``w_x`` contract over the sharded channels, so dt's rank, B and C are
+  partial sums, reduced before the scan reads them whole; ``w_out`` is
+  row-parallel.  The scan's B and C (and dt's rank) come back to each rank
+  whole, so their gradient is a partial sum over the ranks' channels
+  (``grad_placements`` ``Partial()``).  The decode state (B, d_in, N) and
+  window are sharded on the channels too.
 
 Types: the decode state keeps ``h`` in float32 and the convolution window
 in the compute type, as the reference does.
@@ -43,6 +52,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..distributed import tensor_parallel as tp
+from ..distributed.context import constrain_act
 from ..kernels import ops
 from .config import ModelConfig
 from .layers import dense_init, einsum, silu
@@ -103,16 +114,69 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _dt_b_c(p: dict, cfg: ModelConfig, x: torch.Tensor):
-    """The input-dependent step sizes and projections from the convolved
-    x: dt (..., d_in) float32 after softplus, and B, C (..., N) float32
-    (column slices of one float32 projection: views, not copies)."""
+def _conv_from(x: torch.Tensor, w: torch.Tensor, conv: Optional[torch.Tensor]):
+    """The causal convolution of x (B, S, d_in) by w (K, d_in), continued
+    from the window ``conv`` (B, K-1, d_in) where given (else from zeros),
+    and the new window (None without ``conv``)."""
+    if conv is None:
+        return _causal_conv(x, w), None
+    full = torch.cat([conv.to(x.dtype), x], dim=1)
+    return _causal_conv(full, w)[:, conv.shape[1]:, :], full[:, -(w.shape[0] - 1):, :]
+
+
+def _dt_b_c(cfg: ModelConfig, xdb: torch.Tensor, w_dt: torch.Tensor, dt_bias: torch.Tensor):
+    """The input-dependent step sizes and projections from ``x_proj``'s
+    float32 output xdb (..., dt_rank + 2N): dt (..., d_in) float32 after
+    softplus, and B, C (..., N) float32 (column slices of xdb: views, not
+    copies)."""
     s = cfg.ssm
     dtr = s.resolved_dt_rank(cfg.d_model)
-    xdb = einsum("bse,ef->bsf", x, p["w_x"]).float()
     dt_r, Bc, Cc = torch.split(xdb, [dtr, s.d_state, s.d_state], dim=-1)
-    dt = F.softplus(einsum("bsr,re->bse", dt_r, p["w_dt"].float()) + p["dt_bias"])
+    dt = F.softplus(einsum("bsr,re->bse", dt_r, w_dt.float()) + dt_bias)
     return dt, Bc, Cc
+
+
+def _mix(p: dict, cfg: ModelConfig, x: torch.Tensor, z: torch.Tensor,
+         state: Optional[dict], project):
+    """The mixer between ``w_in`` and ``w_out`` over a sequence: x, z
+    (B, S, d_in) the halves of ``w_in``'s output, ``p``'s ``w_conv``,
+    ``w_dt``, ``dt_bias``, ``A_log`` and ``D`` on the same channels,
+    ``project(xc)`` the float32 ``x_proj`` output of the convolved x,
+    ``state`` one layer's ``{"conv", "h"}`` or None -> (y (B, S, d_in)
+    gated, the new window, the scan's final h)."""
+    xc, new_conv = _conv_from(x, p["w_conv"], None if state is None else state["conv"])
+    xc = silu(xc)
+    dt, Bc, Cc = _dt_b_c(cfg, project(xc), p["w_dt"], p["dt_bias"])
+    A = -torch.exp(p["A_log"])
+    y, h_final = ops.ssm_scan(xc, dt, A, Bc, Cc, p["D"],
+                              state["h"] if state is not None else None)
+    return y * silu(z), new_conv, h_final
+
+
+def _mix_step(p: dict, cfg: ModelConfig, x: torch.Tensor, z: torch.Tensor, state: dict,
+              project):
+    """:func:`_mix` for one token x, z (B, 1, d_in) against ``state``
+    ``{"conv" (B, K-1, d_in), "h" (B, d_in, N)}``: the recurrence's one
+    step -> (y (B, 1, d_in) gated, the new window, the new h)."""
+    window = torch.cat([state["conv"].to(x.dtype), x], dim=1)  # (B, K, d_in)
+    xc = einsum("bkd,kd->bd", window, p["w_conv"])[:, None, :]
+    xc = silu(xc)
+    dt, Bc, Cc = _dt_b_c(cfg, project(xc), p["w_dt"], p["dt_bias"])  # (B, 1, d_in), (B, 1, N)
+    A = -torch.exp(p["A_log"])
+    dA = torch.exp(dt[:, 0, :, None] * A[None])  # (B, d_in, N)
+    dBx = (dt * xc.float())[:, 0, :, None] * Bc[:, 0][:, None, :]
+    h_new = dA * state["h"] + dBx
+    y = torch.einsum("bdn,bn->bd", h_new, Cc[:, 0])[:, None, :]
+    y = y.to(x.dtype) + xc * p["D"][None, None].to(x.dtype)
+    return y * silu(z), window[:, 1:, :], h_new
+
+
+def _projection(p: dict):
+    """``x_proj`` on whole channels: the plain path's ``project``."""
+    return lambda xc: einsum("bse,ef->bsf", xc, p["w_x"]).float()
+
+
+_DIN_AXES = ("batch", "seq", "act_dinner")
 
 
 def ssm_apply(p: dict, cfg: ModelConfig, h: torch.Tensor,
@@ -121,27 +185,17 @@ def ssm_apply(p: dict, cfg: ModelConfig, h: torch.Tensor,
     (``{"conv", "h"}``, one layer's), the convolution continues from its
     window and the scan from its h, and the new state is returned
     (prefill); without, both start from zeros and None is returned."""
-    s = cfg.ssm
-    xz = einsum("bsd,de->bse", h, p["w_in"])
-    x, z = xz.chunk(2, dim=-1)
-    if state is not None:
-        full = torch.cat([state["conv"].to(x.dtype), x], dim=1)
-        new_conv = full[:, -(s.d_conv - 1):, :]
-        x = _causal_conv(full, p["w_conv"])[:, state["conv"].shape[1]:, :]
-    else:
-        new_conv = None
-        x = _causal_conv(x, p["w_conv"])
-    x = silu(x)
-    dt, Bc, Cc = _dt_b_c(p, cfg, x)
-    A = -torch.exp(p["A_log"])
-    y, h_final = ops.ssm_scan(x, dt, A, Bc, Cc, p["D"],
-                              state["h"] if state is not None else None)
-    y = y * silu(z)
     # the output projection is read by a backward only where a norm follows
     # it inside the layer (the hybrid family's norm2): under remat="dots"
     # the reference keeps it there, and drops it in the ssm family, whose
     # layer ends in the residual add
-    out = einsum("bse,ed->bsd", y, p["w_out"], saveable=cfg.family == "hybrid")
+    saveable = cfg.family == "hybrid"
+    xz = constrain_act(einsum("bsd,de->bse", h, p["w_in"]), _DIN_AXES)
+    if tp.is_dtensor(xz):
+        return _ssm_tp(p, cfg, xz, state, _mix, saveable)
+    x, z = xz.chunk(2, dim=-1)
+    y, new_conv, h_final = _mix(p, cfg, x, z, state, _projection(p))
+    out = einsum("bse,ed->bsd", y, p["w_out"], saveable=saveable)
     return out, ({"conv": new_conv, "h": h_final} if state is not None else None)
 
 
@@ -150,18 +204,70 @@ def ssm_decode_step(p: dict, cfg: ModelConfig, h: torch.Tensor,
     """One token h (B, 1, d_model) against one layer's state ``{"conv"
     (B, K-1, d_in), "h" (B, d_in, N)}``: (out (B, 1, d_model), new state)."""
     xz = einsum("bsd,de->bse", h, p["w_in"])
+    if tp.is_dtensor(xz):
+        return _ssm_tp(p, cfg, constrain_act(xz, _DIN_AXES), state, _mix_step, True)
     x, z = xz.chunk(2, dim=-1)  # (B, 1, d_in)
-    window = torch.cat([state["conv"].to(x.dtype), x], dim=1)  # (B, K, d_in)
-    xc = einsum("bkd,kd->bd", window, p["w_conv"])[:, None, :]
-    new_conv = window[:, 1:, :]
-    xc = silu(xc)
-    dt, Bc, Cc = _dt_b_c(p, cfg, xc)  # (B, 1, d_in), (B, 1, N)
-    A = -torch.exp(p["A_log"])
-    dA = torch.exp(dt[:, 0, :, None] * A[None])  # (B, d_in, N)
-    dBx = (dt * xc.float())[:, 0, :, None] * Bc[:, 0][:, None, :]
-    h_new = dA * state["h"] + dBx
-    y = torch.einsum("bdn,bn->bd", h_new, Cc[:, 0])[:, None, :]
-    y = y.to(x.dtype) + xc * p["D"][None, None].to(x.dtype)
-    y = y * silu(z)
+    y, new_conv, h_new = _mix_step(p, cfg, x, z, state, _projection(p))
     out = einsum("bse,ed->bsd", y, p["w_out"])
     return out, {"conv": new_conv, "h": h_new}
+
+
+# ------------------------------------------------------------ tensor parallel
+def _halves(xz):
+    """x and z, each (B, S, d_in) on its own channels: ``xz``'s inner dim
+    gathered, cut in two, each half placed by ``act_dinner``."""
+    mesh = xz.device_mesh
+    whole = [tp.Replicate() if isinstance(q, tp.Shard) and q.dim == 2 else q
+             for q in tp.settled(xz.placements)]
+    x, z = xz.redistribute(mesh, whole).chunk(2, dim=-1)
+    return constrain_act(x, _DIN_AXES), constrain_act(z, _DIN_AXES)
+
+
+def _state_local(t, pls: list, dims: tuple) -> tuple:
+    """A state buffer's shard for a region placed as ``pls`` (x's): the
+    buffer's batch dim 0 and channel dim ``dims[1]`` sharded as x's batch
+    and channels -> (the shard, its placements)."""
+    tgt = []
+    for q in pls:
+        if isinstance(q, tp.Shard) and q.dim == 0:
+            tgt.append(tp.Shard(dims[0]))
+        elif isinstance(q, tp.Shard) and q.dim == 2:
+            tgt.append(tp.Shard(dims[1]))
+        else:
+            tgt.append(tp.Replicate())
+    return tp.take(t, tgt, {}), tgt
+
+
+def _ssm_tp(p: dict, cfg: ModelConfig, xz, state: Optional[dict], mix, saveable: bool):
+    """``mix`` (:func:`_mix` or :func:`_mix_step`) on each rank's inner
+    channels, ``xz`` a DTensor: the halves, the channel weights and the
+    state taken on the rank's channels; ``x_proj`` contracts over them, so
+    its output is a partial sum, reduced and read whole (its gradient a
+    partial sum over the ranks' channels); ``w_out`` row-parallel."""
+    x, z = _halves(xz)
+    mesh = x.device_mesh
+    pls = tp.settled(x.placements)
+    split = {n: isinstance(q, tp.Shard) for n, q in zip(mesh.mesh_dim_names, pls)}
+    ch = tp.local_range(x.shape[2], mesh, pls, 2)
+    rows = [q if isinstance(q, tp.Shard) and q.dim == 0 else tp.Replicate() for q in pls]
+    local = {"w_conv": tp.take_weight(p["w_conv"], {1: ch}, split),
+             "w_dt": tp.take_weight(p["w_dt"], {1: ch}, split),
+             **{k: tp.take_weight(p[k], {0: ch}, split) for k in ("dt_bias", "A_log", "D")}}
+    st = placed = None
+    if state is not None:
+        (conv, conv_pl), (h, h_pl) = (_state_local(state["conv"], pls, (0, 2)),
+                                      _state_local(state["h"], pls, (0, 1)))
+        st, placed = {"conv": conv, "h": h}, {"conv": conv_pl, "h": h_pl}
+
+    def project(xc: torch.Tensor) -> torch.Tensor:
+        xdb = einsum("bse,ef->bsf", tp.wrap(xc, mesh, pls, x.shape), p["w_x"])
+        xdb = constrain_act(xdb, ("batch", "seq", "ssm_proj"))
+        return tp.take(xdb.float(), rows, split)
+
+    y, new_conv, h_new = mix(local, cfg, tp.take(x, pls, split), tp.take(z, pls, split), st,
+                             project)
+    out = einsum("bse,ed->bsd", tp.wrap(y, mesh, pls, x.shape), p["w_out"], saveable=saveable)
+    if state is None:
+        return out, None
+    return out, {"conv": tp.wrap(new_conv, mesh, placed["conv"], state["conv"].shape),
+                 "h": tp.wrap(h_new, mesh, placed["h"], state["h"].shape)}

@@ -87,9 +87,21 @@ hooks on the modules fire around what reads their weights: FSDP2's
 and cache buffer (pure Python, nothing allocated), which the sharding
 rules (:mod:`repro_torch.distributed.sharding`) resolve.
 
-Dropped from the reference: the activation annotations (``constrain_act``
-calls, which the tensor-parallel forward will bring) and the one-hot
-embedding under a sharding context (a gather always).
+The activation annotations are the reference's: ``constrain_act`` at
+q, k, v and o, at each layer's input, after the embedding, at the logits
+(``act_vocab``) and in decode.  They are the identity on plain tensors.
+On DTensors, inside a ``sharding_context`` on a ("data", "model") mesh
+(the parameters placed by :func:`repro_torch.distributed.sharding.distribute_params`,
+the caches by ``distribute_cache``), they place the activations, and every
+product, norm and kernel runs on each rank's shards
+(:mod:`repro_torch.distributed.tensor_parallel`): heads, the mlp and the
+vocabulary over "model", the batch over "data".  The embedding under a
+sharding context looks each token up in the vocab-sharded table, zeros on
+the ranks that do not hold its row, summed over the ranks (the reference's
+one-hot product gives the same bits).  A cache sharded over its positions
+(``cache_seq`` on "model" under ``RULES_DECODE``) is written by the rank
+that holds the position; decode's attention gathers q and the scores,
+never the cache (:func:`repro_torch.distributed.tensor_parallel.cached_attention_tp`).
 """
 from __future__ import annotations
 
@@ -100,6 +112,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..distributed import tensor_parallel as tp
+from ..distributed.context import act_placements, constrain_act
 from ..precision import full_float32_matmul
 from .config import ModelConfig
 from .layers import (
@@ -343,6 +357,10 @@ def cache_axes(cfg: ModelConfig) -> dict:
 
 
 # ===================================================================== apply
+_QKV_AXES = ("batch", "seq", "act_heads", "head_dim")
+_ACT_AXES = ("batch", "seq", "act_embed")
+
+
 def _rope(cfg: ModelConfig, positions: torch.Tensor):
     """RoPE's (sin, cos) at ``positions``, shared by every layer; None
     without RoPE."""
@@ -356,23 +374,31 @@ def _attn_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, rope):
     the rows at their absolute positions (``q_offset + arange(S)``); the
     mask is relative (the kernel is called with ``q_offset`` 0), as in the
     reference."""
-    q = einsum("bsd,dhk->bshk", x, p["wq"])
-    k = einsum("bsd,dhk->bshk", x, p["wk"])
-    v = einsum("bsd,dhk->bshk", x, p["wv"])
+    q = constrain_act(einsum("bsd,dhk->bshk", x, p["wq"]), _QKV_AXES)
+    k = constrain_act(einsum("bsd,dhk->bshk", x, p["wk"]), _QKV_AXES)
+    v = constrain_act(einsum("bsd,dhk->bshk", x, p["wv"]), _QKV_AXES)
     if rope is not None:
         q = apply_rope_tables(q, *rope)
         k = apply_rope_tables(k, *rope)
-    o = attention(q, k, v, causal=True, window=cfg.sliding_window)
+    o = constrain_act(attention(q, k, v, causal=True, window=cfg.sliding_window), _QKV_AXES)
     return einsum("bshk,hkd->bsd", o, p["wo"]), (k, v)
 
 
 def _embed(lm: LM, tokens: torch.Tensor) -> torch.Tensor:
     cfg = lm.cfg
     cd = _dtype(cfg.compute_dtype)
-    h = lm.embed[tokens.long()].to(cd)
-    if cfg.embed_scale:
-        h = h * torch.full((), math.sqrt(cfg.d_model), dtype=cd, device=h.device)
-    return h
+
+    def cast(h):
+        h = h.to(cd)
+        if cfg.embed_scale:
+            h = h * torch.full((), math.sqrt(cfg.d_model), dtype=cd, device=h.device)
+        return h
+
+    if tp.is_dtensor(lm.embed):
+        shape = (*tokens.shape, cfg.d_model)
+        return constrain_act(tp.embed_tp(lm.embed, tokens, act_placements(_ACT_AXES, shape),
+                                         post=cast), _ACT_AXES)
+    return cast(lm.embed[tokens.long()])
 
 
 def _embed_prompt(lm: LM, tokens: torch.Tensor,
@@ -386,8 +412,11 @@ def _embed_prompt(lm: LM, tokens: torch.Tensor,
         if patch_embeds is None:
             raise ValueError(f"{cfg.name}: vlm family requires patch_embeds")
         # image prefix: [patches || text]  (the frontend is a stub, as in the reference)
-        h = torch.cat([patch_embeds.to(device=h.device, dtype=h.dtype), h], dim=1)
-    return h
+        pe = patch_embeds.to(device=h.device, dtype=h.dtype)
+        if tp.is_dtensor(h):
+            pe = constrain_act(tp.replicate(pe), _ACT_AXES)
+        h = torch.cat([pe, h], dim=1)
+    return constrain_act(h, _ACT_AXES)
 
 
 def _logits(lm: LM, h: torch.Tensor) -> torch.Tensor:
@@ -397,6 +426,7 @@ def _logits(lm: LM, h: torch.Tensor) -> torch.Tensor:
         logits = einsum("bsd,vd->bsv", h, lm.embed.to(_dtype(cfg.compute_dtype)))
     else:
         logits = einsum("bsd,dv->bsv", h, lm.lm_head)
+    logits = constrain_act(logits, ("batch", "seq", "act_vocab"))
     return logits.to(_dtype(cfg.logit_dtype))
 
 
@@ -408,9 +438,9 @@ def _ffn(blk: Block, cfg: ModelConfig, h: torch.Tensor) -> tuple[torch.Tensor, O
         return h, None
     x = apply_norm(h, blk.norm2.p, cfg.norm)
     if not hasattr(blk, "moe"):
-        return h + mlp_apply(blk.mlp.p, x, cfg.act), None
+        return h + constrain_act(mlp_apply(blk.mlp.p, x, cfg.act), _ACT_AXES), None
     f, layer_aux = moe_apply(blk.moe.p, cfg, x)
-    return h + f, layer_aux
+    return h + constrain_act(f, _ACT_AXES), layer_aux
 
 
 def _block(blk: Block, cfg: ModelConfig, h: torch.Tensor,
@@ -418,12 +448,13 @@ def _block(blk: Block, cfg: ModelConfig, h: torch.Tensor,
     """One layer over a full sequence, its attention or Mamba mixer then
     its FFN: ``(h, layer_aux)`` as :func:`_ffn` returns them.  Pure, so a
     checkpoint may run it again."""
+    h = constrain_act(h, _ACT_AXES)
     x = apply_norm(h, blk.norm1.p, cfg.norm)
     if hasattr(blk, "ssm"):
         o, _ = ssm_apply(blk.ssm.p, cfg, x)
     else:
         o, _ = _attn_apply(blk.attn.p, cfg, x, rope)
-    return _ffn(blk, cfg, h + o)
+    return _ffn(blk, cfg, h + constrain_act(o, _ACT_AXES))
 
 
 @full_float32_matmul()
@@ -517,15 +548,20 @@ def _attn_decode(p: dict, cfg: ModelConfig, x: torch.Tensor, k_cache: torch.Tens
     """x (B,1,d); k_cache, v_cache (B,W,hkv,hd), written in place at ring
     slot ``slot``; ``rope`` and ``valid`` (:func:`_decode_mask`) are the
     new token's, shared by every layer."""
-    q = einsum("bsd,dhk->bshk", x, p["wq"])
+    q = constrain_act(einsum("bsd,dhk->bshk", x, p["wq"]), _QKV_AXES)
     k = einsum("bsd,dhk->bshk", x, p["wk"])
     v = einsum("bsd,dhk->bshk", x, p["wv"])
     if rope is not None:
         q = apply_rope_tables(q, *rope)
         k = apply_rope_tables(k, *rope)
-    k_cache[:, slot] = k[:, 0]
-    v_cache[:, slot] = v[:, 0]
-    return einsum("bshk,hkd->bsd", cached_attention(q, k_cache, v_cache, valid), p["wo"])
+    if tp.is_dtensor(k_cache):  # the rank holding the slot writes it
+        tp.assign_row(k_cache, 1, slot, k[:, 0])
+        tp.assign_row(v_cache, 1, slot, v[:, 0])
+    else:
+        k_cache[:, slot] = k[:, 0]
+        v_cache[:, slot] = v[:, 0]
+    o = constrain_act(cached_attention(q, k_cache, v_cache, valid), _QKV_AXES)
+    return einsum("bshk,hkd->bsd", o, p["wo"])
 
 
 def _ssm_step(mixer, blk: Block, cfg: ModelConfig, x: torch.Tensor, state: dict) -> torch.Tensor:
@@ -533,8 +569,11 @@ def _ssm_step(mixer, blk: Block, cfg: ModelConfig, x: torch.Tensor, state: dict)
     of ``x`` from one layer's ``state`` (views of the cache), the new
     state copied into it in place."""
     o, new = mixer(blk.ssm.p, cfg, x, state)
-    state["conv"].copy_(new["conv"])
-    state["h"].copy_(new["h"])
+    for key in ("conv", "h"):
+        if tp.is_dtensor(state[key]):
+            tp.assign(state[key], new[key])
+        else:
+            state[key].copy_(new[key])
     return o
 
 
@@ -570,12 +609,13 @@ def _decode(lm: LM, token: torch.Tensor, cache: dict, pos: int,
 
 def _decode_layer(blk: Block, cfg: ModelConfig, h: torch.Tensor, c: dict, pos: int,
                   W: Optional[int], rope, valid) -> torch.Tensor:
+    h = constrain_act(h, _ACT_AXES)
     x = apply_norm(h, blk.norm1.p, cfg.norm)
     if hasattr(blk, "ssm"):
         o = _ssm_step(ssm_decode_step, blk, cfg, x, c)
     else:
         o = _attn_decode(blk.attn.p, cfg, x, c["k"], c["v"], pos % W, rope, valid)
-    return _ffn(blk, cfg, h + o)[0]
+    return _ffn(blk, cfg, h + constrain_act(o, _ACT_AXES))[0]
 
 
 @torch.no_grad()
@@ -607,23 +647,39 @@ def _prefill(lm: LM, tokens: torch.Tensor, cache: dict, pos_offset: int,
     return _logits(lm, h[:, -1:, :])[:, 0]
 
 
+def _ring(k: torch.Tensor, W: int, pos_offset: int) -> torch.Tensor:
+    """A prompt's keys (B, S, ...) as a ring of W slots: the last W tokens,
+    token t at slot (pos_offset + t) % W, zeros in slots not reached."""
+    S = k.shape[1]
+    if S >= W:
+        return k[:, -W:].roll((pos_offset + S - W) % W, dims=1)
+    pad = (0,) * (2 * (k.ndim - 2)) + (0, W - S)
+    return F.pad(k, pad).roll(pos_offset % W, dims=1)
+
+
+def _fill_ring(buf: torch.Tensor, k: torch.Tensor, pos_offset: int) -> None:
+    """``buf`` (B, W, Hkv, D) := :func:`_ring` of ``k``, in place.  A
+    DTensor cache takes each rank's batch rows of ``k`` with every kv head,
+    and each rank keeps the ring slots it holds."""
+    W = buf.shape[1]
+    if not tp.is_dtensor(buf):
+        buf.copy_(_ring(k, W, pos_offset))
+        return
+    mesh = buf.device_mesh
+    rows = [tp.Shard(0) if isinstance(p, tp.Shard) and p.dim == 0 else tp.Replicate()
+            for p in buf.placements]
+    ring = _ring(tp.take(tp.replicate(k), rows, {}), W, pos_offset)
+    tp.assign(buf, tp.wrap(ring, mesh, rows, (k.shape[0], W, *k.shape[2:])))
+
+
 def _prefill_layer(blk: Block, cfg: ModelConfig, h: torch.Tensor, c: dict, pos_offset: int,
                    rope) -> torch.Tensor:
-    S = h.shape[1]
+    h = constrain_act(h, _ACT_AXES)
     x = apply_norm(h, blk.norm1.p, cfg.norm)
     if hasattr(blk, "ssm"):
         o = _ssm_step(ssm_apply, blk, cfg, x, c)
     else:
         o, (k, v) = _attn_apply(blk.attn.p, cfg, x, rope)
-        W = c["k"].shape[1]
-        if S >= W:
-            # last W tokens; ring slot of token t is (offset+t) % W
-            shift = (pos_offset + S - W) % W
-            kw, vw = k[:, -W:].roll(shift, dims=1), v[:, -W:].roll(shift, dims=1)
-        else:
-            pad = (0, 0, 0, 0, 0, W - S)
-            kw = F.pad(k, pad).roll(pos_offset % W, dims=1)
-            vw = F.pad(v, pad).roll(pos_offset % W, dims=1)
-        c["k"].copy_(kw)
-        c["v"].copy_(vw)
-    return _ffn(blk, cfg, h + o)[0]
+        _fill_ring(c["k"], k, pos_offset)
+        _fill_ring(c["v"], v, pos_offset)
+    return _ffn(blk, cfg, h + constrain_act(o, _ACT_AXES))[0]

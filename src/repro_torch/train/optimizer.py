@@ -12,9 +12,9 @@ schedules compute in float32 on the host with numpy, as the reference
 computes them in float32 on the device.
 
 Sharded parameters (the rule-sharded train step's DTensors, FSDP2 shards
-and replicated tensors) take the same update: :func:`global_norm` sums
-each shard's squares and reduces them once over the mesh, so it is the
-global norm; the moments live sharded like their parameters
+and replicated tensors, on the ("data", "model") mesh or its "model"
+submesh) take the same update: :func:`global_norm` sums each shard's
+squares and reduces them once over the mesh, so it is the global norm; the moments live sharded like their parameters
 (:func:`adamw_init`), and clipping and the update run on each rank's local
 shards.  A mix of DTensors and plain tensors is refused.
 """
@@ -100,12 +100,27 @@ def _square_sum(t: torch.Tensor) -> torch.Tensor:
     return torch.sum(torch.square(_local(t).float()).contiguous())
 
 
+def _counted_once(t: DTensor, root) -> bool:
+    """Whether this rank's shard of ``t`` enters the norm: on every dim of
+    ``root`` (the largest mesh) where ``t`` is not sharded (replicated, or
+    a dim its submesh lacks), only the dim's first coordinate counts."""
+    names = t.device_mesh.mesh_dim_names
+    coord = root.get_coordinate()
+    for m, name in enumerate(root.mesh_dim_names):
+        p = t.placements[names.index(name)] if name in names else None
+        if (p is None or p.is_replicate() or p.is_partial()) and coord[m] != 0:
+            return False
+    return True
+
+
 def global_norm(tensors: Mapping[str, torch.Tensor]) -> torch.Tensor:
     """sqrt of the sum of squares of every tensor, in float32 (a 0-d tensor
-    on the tensors' device).  DTensors, all on one 1-D mesh: each tensor's
-    local sum, those of replicated tensors kept on the mesh's first rank
-    only, summed over the ranks in one all-reduce, then added in the
-    tensors' order as for plain tensors (the same value on every rank)."""
+    on the tensors' device).  DTensors, on one mesh or on it and its
+    submeshes (the ("data", "model") mesh and its "model" dim): each
+    tensor's local sum, kept on the ranks that hold a distinct shard of it
+    (:func:`_counted_once`), summed over the mesh, then added in the
+    tensors' order as for plain tensors (the same value on every rank; on
+    one rank the plain sum bit for bit)."""
     if not _kind(tensors):
         total = None
         for t in tensors.values():
@@ -113,14 +128,15 @@ def global_norm(tensors: Mapping[str, torch.Tensor]) -> torch.Tensor:
             total = sq if total is None else total + sq
         return torch.sqrt(total)
     ts = list(tensors.values())
-    mesh = ts[0].device_mesh
-    if mesh.ndim != 1 or any(t.device_mesh != mesh for t in ts):
-        raise ValueError("global_norm takes DTensors on one 1-D mesh")
-    first = mesh.get_local_rank() == 0
-    sq = torch.stack([_square_sum(t) if first or any(isinstance(p, Shard) for p in t.placements)
+    root = max((t.device_mesh for t in ts), key=lambda m: m.ndim)
+    names = set(root.mesh_dim_names or ())
+    if any(not set(t.device_mesh.mesh_dim_names or ()) <= names for t in ts):
+        raise ValueError("global_norm takes DTensors on one mesh and its submeshes")
+    sq = torch.stack([_square_sum(t) if _counted_once(t, root)
                       else torch.zeros((), dtype=torch.float32, device=_local(t).device)
                       for t in ts])
-    dist.all_reduce(sq, group=mesh.get_group())
+    for m in range(root.ndim):
+        dist.all_reduce(sq, group=root.get_group(m))
     total = sq[0]
     for x in sq[1:]:
         total = total + x

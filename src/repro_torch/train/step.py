@@ -39,6 +39,22 @@ losses enter as the mean of the ranks' (each rank's router statistics are
 its own batch's).  FSDP2 gathers a layer's weights as plain tensors before
 its forward, so the attention and scan kernels see plain tensors, never a
 DTensor.  The sharded route takes one microbatch.
+
+On a ("data", "model") mesh :func:`shard_lm` first places every parameter
+on the "model" dim by the rules (tensor and expert parallelism: heads,
+mlp, vocabulary, inner channels and experts; a dim the axis does not
+divide stays whole), then FSDP2 shards them over "data": torch's FSDP2 x
+TP composition.  The step then runs the model inside a
+``sharding_context`` on the whole mesh under the step's ``rules``, its
+batch tensors DTensors of the global batch (each rank's rows its "data"
+shard): the layers' products,
+norms and kernels run on each rank's shards
+(:mod:`repro_torch.distributed.tensor_parallel`), the loss takes the
+vocab-sharded logits without gathering them (:mod:`.loss`), and the
+gradients come back placed as the parameters: sharded on "model" where
+they are, summed over "model" where a rank read a replicated weight for
+its own heads or channels, reduced over "data" by FSDP2, as the
+reference's ``grad_shardings`` place them.
 """
 from __future__ import annotations
 
@@ -49,7 +65,15 @@ import torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Replicate, distribute_tensor
 
-from ..distributed.sharding import RULES_TRAIN, ShardingRules, fsdp_placement_fn
+from ..distributed import tensor_parallel as tp
+from ..distributed.context import current_context, sharding_context
+from ..distributed.sharding import (
+    RULES_TRAIN,
+    ShardingRules,
+    distribute_params,
+    fsdp_placement_fn,
+    tp_sharded_dims,
+)
 from ..models import Model
 from ..precision import full_float32_matmul
 from .loss import lm_loss
@@ -130,7 +154,12 @@ def make_loss_fn(model: Model, *, moe_lb_weight: float = 0.01, moe_z_weight: flo
 
     def loss_fn(lm, batch: dict, count: Optional[torch.Tensor] = None, ranks: int = 1):
         """``count``: the global batch's tokens, on a rank of ``ranks``
-        (the aux losses then enter divided by ``ranks``)."""
+        (the aux losses then enter divided by ``ranks``).  Inside a
+        ``sharding_context`` (the tensor-parallel forward) the aux losses
+        are the global batch's, the same on every rank: each rank's share
+        of their value is 1 / ``ranks`` and their whole gradient (it
+        reaches each rank's router only through that rank's own
+        statistics)."""
         aux = None
         if cfg.moe is None:
             logits = model.forward(lm, batch)
@@ -139,7 +168,9 @@ def make_loss_fn(model: Model, *, moe_lb_weight: float = 0.01, moe_z_weight: flo
         total, metrics = lm_loss(logits, batch["labels"], batch.get("mask"),
                                  z_loss_weight=z_loss_weight, count=count)
         if aux is not None:
-            if ranks > 1:
+            if ranks > 1 and current_context() is not None:
+                aux = {k: v / ranks + (v - v.detach()) * (1 - 1 / ranks) for k, v in aux.items()}
+            elif ranks > 1:
                 aux = {k: v / ranks for k, v in aux.items()}
             total = total + moe_lb_weight * aux["lb_loss"] + moe_z_weight * aux["z_loss"]
             metrics["moe_lb_loss"] = aux["lb_loss"]
@@ -157,11 +188,15 @@ def make_train_step(
     moe_lb_weight: float = 0.01,
     moe_z_weight: float = 1e-3,
     z_loss_weight: float = 1e-4,
+    rules: ShardingRules = RULES_TRAIN,
 ) -> Callable[[TrainState, dict], tuple[TrainState, dict]]:
     """``batch`` holds ``tokens`` and ``labels`` (B, S) and optionally
     ``mask`` (B, S), with ``patch_embeds`` (vlm) or ``frames`` (encdec)
     as :class:`~repro_torch.models.Model` takes them, on the params'
-    device; B divisible by ``num_microbatches``."""
+    device; B divisible by ``num_microbatches``.  ``rules``: the rule set
+    the parameters were placed by on a ("data", "model") mesh
+    (:func:`shard_lm`'s), under which the model's activations are placed;
+    the mesh is read from the parameters."""
     loss_fn = make_loss_fn(model, moe_lb_weight=moe_lb_weight, moe_z_weight=moe_z_weight,
                            z_loss_weight=z_loss_weight)
 
@@ -195,20 +230,40 @@ def make_train_step(
         global batch's metrics."""
         if num_microbatches > 1:
             raise ValueError("the rule-sharded step takes one microbatch")
-        mesh = next(p for p in params.values() if isinstance(p, DTensor)).device_mesh
-        group = mesh.get_group()
+        # the widest parameter mesh: FSDP2's (the kept parameters of the
+        # FSDP2 x TP route lie on its "model" submesh)
+        mesh = max((p.device_mesh for p in params.values() if isinstance(p, DTensor)),
+                   key=lambda m: m.ndim)
+        ctx = (mesh, rules) if "model" in mesh.mesh_dim_names else None
+        group = mesh.get_group("data") if mesh.ndim > 1 else mesh.get_group()
+        ranks = dist.get_world_size(group)
         mask = batch.get("mask")
         count = (mask.float() if mask is not None else
                  torch.ones(batch["labels"].shape, dtype=torch.float32,
                             device=batch["labels"].device)).sum()
         dist.all_reduce(count, group=group)
         with torch.enable_grad(), full_float32_matmul():
-            total, metrics, _ = loss_fn(lm, batch, count, dist.get_world_size(group))
+            if ctx is None:
+                total, metrics, _ = loss_fn(lm, batch, count, ranks)
+            else:  # each rank's rows as its "data" shard of the global batch
+                rows = [tp.Shard(0) if n == "data" else tp.Replicate()
+                        for n in mesh.mesh_dim_names]
+                glob = {k: v if k == "mask" else tp.wrap(v, mesh, rows, (v.shape[0] * ranks,
+                                                                         *v.shape[1:]))
+                        for k, v in batch.items()}
+                with sharding_context(*ctx):
+                    total, metrics, _ = loss_fn(lm, glob, count, ranks)
             total.backward()
-        if dist.get_world_size(group) > 1:  # FSDP2 reduced the shards; sum the whole ones
-            for p in params.values():
-                if not isinstance(p, DTensor):
-                    dist.all_reduce(p.grad, group=group)
+        for p in params.values():
+            if ctx is not None and p.grad is not None and not _fsdp_managed(p, mesh):
+                # outside FSDP2 (on the "model" dim): settle "model", sum over "data"
+                g = p.grad.redistribute(p.device_mesh, p.placements)
+                if ranks > 1:
+                    dist.all_reduce(g.to_local(), group=group)
+                p.grad = g
+            elif ranks > 1 and not isinstance(p, DTensor):
+                # FSDP2 reduced the shards; sum the whole ones
+                dist.all_reduce(p.grad, group=group)
         names = sorted(k for k in metrics if k != "ppl_proxy")
         summed = torch.stack([metrics[k].detach().float() for k in names])
         dist.all_reduce(summed, group=group)  # each rank's share of the global values
@@ -244,6 +299,11 @@ def make_train_step(
     return train_step
 
 
+def _fsdp_managed(p: torch.Tensor, mesh) -> bool:
+    """Whether FSDP2 holds ``p`` (a DTensor on the whole 2-D mesh)."""
+    return isinstance(p, DTensor) and p.device_mesh.ndim == mesh.ndim
+
+
 def shard_lm(model: Model, params: torch.nn.Module, device_mesh,
              rules: ShardingRules = RULES_TRAIN) -> torch.nn.Module:
     """``params`` (the model's module) sharded in place over
@@ -257,21 +317,39 @@ def shard_lm(model: Model, params: torch.nn.Module, device_mesh,
     and ``D``) stay whole on every rank, as ``RULES_TRAIN`` leaves the
     norms, and the step sums their gradients over the ranks.  The shards'
     reduce-scatter sums (divide factor 1): the step divides by the global
-    token count itself.  A "model" dim larger than 1 raises: the
-    tensor-parallel forward is not ported (ROADMAP.md queue A #19)."""
+    token count itself.
+
+    On a ("data",) mesh that is the whole route, FSDP2 alone: the model
+    runs on the plain tensors FSDP2 gathers.  On a ("data", "model") mesh
+    (any "model" size, 1 included: one rank's TP costs DTensor's host
+    dispatch, so a mesh that shards nothing on "model" is better left
+    without that dim) the
+    parameters are first placed on the "model" dim as ``rules`` resolve
+    their axes there (:func:`~repro_torch.distributed.sharding.distribute_params`
+    on ``device_mesh["model"]``), then sharded over "data" as above: FSDP2
+    x TP.  The float32 parameters of a model in another type stay outside
+    FSDP2, on the "model" dim (the scan's ``A_log``, ``D`` and
+    ``dt_bias`` sharded on its inner channels, the norms whole).  The step
+    (:func:`make_train_step`) finds the route by the parameters' mesh and
+    takes the same ``rules``."""
     from torch.distributed.fsdp import fully_shard
 
     names = device_mesh.mesh_dim_names or ()
     if "data" not in names:
         raise ValueError(f"the mesh needs a 'data' dim, has {names}")
     for name in names:
-        if name != "data" and device_mesh[name].size() > 1:
-            raise ValueError(f"mesh dim {name!r} of size {device_mesh[name].size()}: only "
-                             f"'data' may shard the train step")
+        if name not in ("data", "model") and device_mesh[name].size() > 1:
+            raise ValueError(f"mesh dim {name!r} of size {device_mesh[name].size()}: the train "
+                             f"step shards over 'data' and 'model'")
     dp = device_mesh if names == ("data",) else device_mesh["data"]
+    if "model" in names:
+        distribute_params(model, params, rules, device_mesh["model"], contiguous=True)
     dtype = getattr(torch, model.cfg.param_dtype)
     named = dict(params.named_parameters())
-    kept = {p for p in named.values() if p.dtype != dtype}
+    # outside FSDP2: the float32 parameters of a model in another type, and a
+    # parameter tensor parallelism shards on every dim (the scan's D and dt_bias)
+    kept = {p for p in named.values()
+            if p.dtype != dtype or len(tp_sharded_dims(p)) == p.ndim}
     place = fsdp_placement_fn(model.param_axes(), rules, dp,
                               {n: p for n, p in named.items() if p not in kept})
     wrapped = [blk for child in params.children() if isinstance(child, torch.nn.ModuleList)
@@ -287,13 +365,20 @@ def make_serve_steps(model: Model) -> tuple[Callable, Callable]:
     """Returns (prefill_step, decode_step) for any family: dense, moe,
     ssm, hybrid, vlm or encdec.  ``prefill_step`` passes the batch through
     whole (``tokens``, and ``patch_embeds`` or ``frames``); ``decode_step``
-    gives the greedy next token (int32), the logits and the cache."""
+    gives the greedy next token (int32), the logits and the cache.  Both
+    give whole logits: vocab-sharded ones (the tensor-parallel path) are
+    gathered."""
 
     def prefill_step(params, batch: dict, cache):
-        return model.prefill(params, batch, cache)
+        logits, cache = model.prefill(params, batch, cache)
+        if isinstance(logits, DTensor):  # vocab-sharded: every rank takes the whole row
+            logits = logits.full_tensor()
+        return logits, cache
 
     def decode_step(params, token: torch.Tensor, cache, pos: int):
         logits, new_cache = model.decode(params, token, cache, pos)
+        if isinstance(logits, DTensor):  # vocab-sharded: every rank takes the whole row
+            logits = logits.full_tensor()
         return logits.argmax(dim=-1).to(torch.int32), logits, new_cache
 
     return prefill_step, decode_step

@@ -73,7 +73,7 @@ def run_ranks(worker: str, world: int, tmp_path, *args, timeout: float = JOIN_TI
 def fsdp_train(rank: int, world: int, cfg, params: dict, batches: list, remats: tuple,
                ckpt_dir=None):
     """Three (len(batches)) rule-sharded steps of ``cfg`` from ``params``
-    on a (world, 1) ("data", "model") mesh, once per ``remat``, each rank
+    on a (world,) ("data",) mesh (FSDP2 alone), once per ``remat``, each rank
     fed its slice of every global batch; -> {remat: (metrics per step,
     the full parameters after the steps)}.  With ``ckpt_dir``, the last
     run's state is saved there after its last step."""
@@ -85,7 +85,7 @@ def fsdp_train(rank: int, world: int, cfg, params: dict, batches: list, remats: 
     from repro_torch.models import Model
     from repro_torch.train import optimizer, step
 
-    mesh = init_device_mesh("cpu", (world, 1), mesh_dim_names=("data", "model"))
+    mesh = init_device_mesh("cpu", (world,), mesh_dim_names=("data",))
     tcfg = optimizer.AdamWConfig(lr=optimizer.warmup_cosine(1e-3, warmup=1, total=3),
                                  weight_decay=0.01, clip_norm=1.0)
     out = {}
@@ -115,10 +115,10 @@ def fsdp_train(rank: int, world: int, cfg, params: dict, batches: list, remats: 
                                              loader_state={"seed": 0, "epoch": 0, "fetch_cursor": 3})
         dist.barrier()
         out["restored"] = _restore_into(model, tcfg, mesh, ckpt_dir)
-    if world > 1:  # the tensor-parallel forward is not ported: a "model" dim is refused
+    if world > 1:  # a mesh without a "data" dim is refused
         try:
             step.shard_lm(model, model.init(device="cpu"),
-                          init_device_mesh("cpu", (1, world), mesh_dim_names=("data", "model")))
+                          init_device_mesh("cpu", (world,), mesh_dim_names=("model",)))
         except ValueError as e:
             out["model_dim_refused"] = str(e)
     return out
@@ -292,3 +292,207 @@ def ef_hook(rank: int, world: int, grads: list) -> dict:
         (ddp(torch.eye(shape[1])) * g[rank].T).sum().backward()
         seen.append(ddp.module.weight.grad.detach().clone())
     return {"grads": seen, "residuals": {k: v.clone() for k, v in state.residuals.items()}}
+
+
+# ------------------------------------------------------- tensor parallelism
+def _mesh(shape: tuple):
+    from torch.distributed.device_mesh import init_device_mesh
+
+    return init_device_mesh("cpu", tuple(shape), mesh_dim_names=("data", "model"))
+
+
+def _kernel_spy():
+    """Wrap the attention and scan dispatchers of ``repro_torch.kernels.ops``
+    (which the models call) to record the (query heads, kv heads) and the
+    channels each call of this rank sees; -> (log, undo)."""
+    from repro_torch.kernels import ops
+
+    log = []
+    fa, scan = ops.flash_attention, ops.ssm_scan
+
+    def flash_attention(q, k, v, **kw):
+        log.append(("attention", q.shape[1], k.shape[1]))
+        return fa(q, k, v, **kw)
+
+    def ssm_scan(x, *args):
+        log.append(("scan", x.shape[-1]))
+        return scan(x, *args)
+
+    ops.flash_attention, ops.ssm_scan = flash_attention, ssm_scan
+
+    def undo():
+        ops.flash_attention, ops.ssm_scan = fa, scan
+
+    return log, undo
+
+
+def tp_serve(rank: int, world: int, shape: tuple, cases: list) -> list:
+    """Each case ``{cfg, params, batch, rules, max_len, pos0, tokens}`` on
+    a ``shape`` ("data", "model") mesh: the parameters placed by
+    ``distribute_params`` under ``rules`` (each shard a view of the
+    parameter's storage), the cache by ``distribute_cache``; the forward,
+    the prefill and a decode step at ``pos0 + i`` for each of ``tokens``
+    run inside ``sharding_context`` -> their whole logits, the kernels'
+    local shapes, and whether every shard shares its parameter's storage."""
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed.context import sharding_context
+    from repro_torch.models import Model
+
+    mesh = _mesh(shape)
+    out = []
+    for case in cases:
+        cfg = case["cfg"]
+        model = Model(cfg)
+        rules = getattr(sharding, case["rules"])
+        lm = model.init(device="cpu")
+        with torch.no_grad():
+            for name, p in lm.named_parameters():
+                p.copy_(case["params"][name])
+        ptrs = {n: p.untyped_storage().data_ptr() for n, p in lm.named_parameters()}
+        sharding.distribute_params(model, lm, rules, mesh)
+        shared = all(p.to_local().untyped_storage().data_ptr() == ptrs[n]
+                     for n, p in lm.named_parameters())
+        cache = sharding.distribute_cache(
+            model, model.init_cache(case["batch"]["tokens"].shape[0], case["max_len"],
+                                    device="cpu"), rules, mesh)
+        log, undo = _kernel_spy()
+        try:
+            with torch.no_grad(), sharding_context(mesh, rules):
+                fwd = model.forward(lm, case["batch"]).full_tensor()
+                logits, cache = model.prefill(lm, case["batch"], cache)
+                steps = [logits.full_tensor()]
+                for i, tok in enumerate(case["tokens"]):
+                    logits, cache = model.decode(lm, tok, cache, case["pos0"] + i)
+                    steps.append(logits.full_tensor())
+        finally:
+            undo()
+        out.append({"forward": fwd, "steps": steps, "kernels": sorted(set(log)),
+                    "shared": shared,
+                    "cache": {k: tuple(t.placements) for k, t in _leaves(cache).items()}})
+    return out
+
+
+def _leaves(tree, prefix="") -> dict:
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_leaves(v, f"{prefix}{k}/"))
+        return out
+    return {prefix.rstrip("/"): tree}
+
+
+def tp_train(rank: int, world: int, shape: tuple, cases: list, mutant: bool = False) -> list:
+    """Each case ``(cfg, params, batches)``: three rule-sharded steps
+    (``shard_lm`` on a ``shape`` ("data", "model") mesh: FSDP2 x TP), each
+    "data" rank fed its rows of every global batch -> (metrics per step,
+    the whole parameters after).  ``mutant``: every region's replicated
+    inputs take their gradient as replicated, not as the partial sums they
+    are (``grad_placements`` left out)."""
+    from repro_torch.distributed import tensor_parallel
+    from repro_torch.models import Model
+    from repro_torch.train import optimizer, step
+
+    if mutant:
+        tensor_parallel._grad_placements = lambda placements, names, split: tuple(placements)
+    mesh = _mesh(shape)
+    data = mesh.get_coordinate()[0]
+    tcfg = optimizer.AdamWConfig(lr=optimizer.warmup_cosine(1e-3, warmup=1, total=3),
+                                 weight_decay=0.01, clip_norm=1.0)
+    out = []
+    for cfg, params, batches in cases:
+        model = Model(cfg)
+        lm = model.init(device="cpu")
+        with torch.no_grad():
+            for name, p in lm.named_parameters():
+                p.copy_(params[name])
+        step.shard_lm(model, lm, mesh)
+        state = step.make_train_state(model, tcfg, params=lm)
+        fn = step.make_train_step(model, tcfg)
+        metrics = []
+        for batch in batches:
+            n = batch["tokens"].shape[0] // shape[0]
+            local = {k: v[data * n:(data + 1) * n] for k, v in batch.items()}
+            state, m = fn(state, local)
+            metrics.append({k: float(v) for k, v in m.items()})
+        out.append((metrics, {n: _whole(p) for n, p in lm.named_parameters()},
+                    {n: _placements(p) for n, p in lm.named_parameters()}))
+    return out
+
+
+def vocab_parallel_loss(rank: int, world: int, shape: tuple, logits: torch.Tensor,
+                        labels: torch.Tensor, mask: torch.Tensor) -> dict:
+    """``lm_loss`` of ``logits`` (B, S, V) placed on a ``shape`` ("data",
+    "model") mesh as the logits of the train step are (batch over "data",
+    vocabulary over "model"), its gradient; and ``global_norm`` of tensors
+    placed on the mesh, on its "model" dim and replicated."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.train.loss import lm_loss
+    from repro_torch.train.optimizer import global_norm
+
+    mesh = _mesh(shape)
+    x = distribute_tensor(logits.clone(), mesh, (Shard(0), Shard(2))).detach().requires_grad_()
+    data = mesh.get_coordinate()[0]
+    n = labels.shape[0] // shape[0]
+    total, metrics = lm_loss(x, labels, mask[data * n:(data + 1) * n], z_loss_weight=1e-4,
+                             count=mask.sum())
+    total.backward()
+    local = x.to_local()
+    ce, lse = metrics["ce_loss"].detach().clone(), metrics["z_loss"].detach().clone()
+    sums = torch.stack([total.detach(), ce, lse])
+    dist.all_reduce(sums)  # each "data" rank's share; every "model" rank holds it
+    sums /= shape[1]
+    tensors = {
+        "both": distribute_tensor(logits.clone(), mesh, (Shard(0), Shard(2))),
+        "model": distribute_tensor(logits[0].clone(), mesh["model"], (Shard(1),)),
+        "replicated": distribute_tensor(labels.float(), mesh, (Replicate(), Replicate())),
+    }
+    return {"sums": sums, "grad": x.grad.full_tensor(), "local_vocab": local.shape[-1],
+            "norm": global_norm(tensors)}
+
+
+def remesh_model(rank: int, world: int, cfg, params: dict, ckpt_dir: str) -> dict:
+    """The reference's elastic re-mesh at gloo size, on a model's whole
+    parameter tree: placed by ``RULES_TRAIN`` on a (1 data, 2 model) mesh,
+    saved whole with a loader state, restored onto the transposed (2, 1)
+    mesh by ``reshard_for_mesh``."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.distributed.fault import reshard_for_mesh
+    from repro_torch.distributed.sharding import RULES_TRAIN, distribute_tree
+    from repro_torch.models import Model
+
+    axes = Model(cfg).param_axes()
+    state = distribute_tree(params, axes, RULES_TRAIN, _mesh((1, 2)))
+    tree = {k: v.full_tensor() for k, v in state.items()}  # a gather: every rank
+    mgr = CheckpointManager(ckpt_dir)
+    if rank == 0:
+        mgr.save(1, tree, loader_state={"seed": 0, "epoch": 0, "fetch_cursor": 3})
+    dist.barrier()
+    template = {k: torch.zeros_like(v) for k, v in params.items()}
+    restored, manifest = reshard_for_mesh(mgr, template, axes, _mesh((2, 1)), RULES_TRAIN)
+    return {"saved": {k: tuple(v.placements) for k, v in state.items()},
+            "placements": {k: tuple(v.placements) for k, v in restored.items()},
+            "full": {k: v.full_tensor() for k, v in restored.items()},
+            "loader_state": manifest["loader_state"]}
+
+
+def uneven_wrap(rank: int, world: int) -> dict:
+    """A region's output on 15 heads sharded over ``world`` "model" ranks
+    (8 / 7 at two), wrapped back by ``tensor_parallel.wrap`` and by torch's
+    ``local_map`` -> each one's global shape on this rank, and the whole
+    of ``wrap``'s (``local_map``'s is not gathered: its shards disagree
+    with its shape, and gloo aborts the rank)."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Shard, distribute_tensor
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.distributed import tensor_parallel
+
+    mesh = init_device_mesh("cpu", (world,), mesh_dim_names=("model",))
+    q = distribute_tensor(torch.arange(2 * 15 * 3, dtype=torch.float32).reshape(2, 15, 3),
+                          mesh, [Shard(1)])
+    ours = tensor_parallel.wrap(q.to_local() * 2, mesh, [Shard(1)], q.shape)
+    theirs = local_map(lambda t: t * 2, out_placements=[Shard(1)], in_placements=([Shard(1)],),
+                       device_mesh=mesh)(q)
+    return {"local": tuple(q.to_local().shape), "wrap": tuple(ours.shape),
+            "local_map": tuple(theirs.shape), "whole": ours.full_tensor()}

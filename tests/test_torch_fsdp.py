@@ -221,7 +221,10 @@ def test_sharded_checkpoint_restores_into_shards_bitwise(two_ranks):
 
 
 def test_a_model_dim_is_refused(two_ranks):
-    assert "only 'data' may shard" in two_ranks[0][0]["model_dim_refused"]
+    """A mesh of a "model" dim alone is refused (the step shards its batch
+    over "data"); a "model" dim beside "data" is the tensor-parallel
+    route (``tests/test_torch_tp_train.py``)."""
+    assert "needs a 'data' dim" in two_ranks[0][0]["model_dim_refused"]
 
 
 def test_bf16_keeps_the_float32_parameters_whole_and_matches(bf16_cases, bf16_plain, two_ranks):
